@@ -1,0 +1,32 @@
+// Helpers shared by the paged-attention kernels (bf16 <-> fp32 in 16-byte
+// vectors). Included by every csrc/*.cu; compiled for sm_90a.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro_torch {
+
+// Masked score / empty-partial max: the kernels' finite -inf, so that an
+// empty partial (m = NEG_INF, l = 0) merges as the identity and exp() of a
+// difference of two sentinels is exp(0) = 1, never NaN.
+constexpr float NEG_INF = -1e30f;
+
+// 8 bf16 values packed in one 16-byte word -> 8 floats.
+__device__ __forceinline__ void bf16x8_to_float(const uint4& raw, float* out) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(p[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// 16-byte read-only global load.
+__device__ __forceinline__ uint4 ldg16(const __nv_bfloat16* ptr) {
+  return __ldg(reinterpret_cast<const uint4*>(ptr));
+}
+
+}  // namespace repro_torch

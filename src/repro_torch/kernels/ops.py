@@ -1,0 +1,55 @@
+"""Model-layer conventions around the paged decode kernel.
+Port of ``repro/kernels/ops.py``: the serving window mapping, the triple ->
+Partial conversion and the paged partial backend. The reference chose the
+kernel with a ``backend`` string; here the device of the operands decides
+(a CPU tensor runs the plain twin, a CUDA tensor the kernel) inside the
+kernel wrappers themselves, so the reference's chunk dispatch (``:37``) is
+``kernels/paged_prefill_attention.paged_prefill_chunk_attention`` itself.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.combine import Partial
+from repro_torch.kernels import paged_decode_attention as _pda
+
+
+def _serving_window(sliding_window: int, attention_sinks: int, cache_len):
+    """Map the model-layer window contract (anchored to total length
+    cache_len + 1 — the incoming token counts) onto the kernels' (anchored
+    to cache_len): the kernel window shrinks by one. sliding_window == 1
+    covers ONLY the incoming token, which the kernels cannot express as a
+    window (0 means "no window"), so the stored prefix is clamped to the
+    always-attendable sinks instead. Returns (kernel_sw, kernel_sinks,
+    kernel_cache_len)."""
+    if sliding_window == 1:
+        return 0, 0, torch.clamp(cache_len, max=attention_sinks)
+    sw = max(sliding_window - 1, 0) if sliding_window > 0 else 0
+    return sw, attention_sinks, cache_len
+
+
+def _triple_to_partial(o, l, m, B, H, hd) -> Partial:
+    """Kernel (o, l, m) -> combine.Partial with a = o·l."""
+    return Partial(a=o.float().reshape(B, H, hd) * l.reshape(B, H)[..., None],
+                   s=l.reshape(B, H), m=m.reshape(B, H))
+
+
+def paged_decode_partial(q, k_pool, v_pool, block_tables, cache_len, *,
+                         sliding_window: int = 0, attention_sinks: int = 0,
+                         logit_softcap: float = 0.0) -> Partial:
+    """Paged partial triple over the block pool (model-layer contract:
+    cache_len = stored tokens, window w.r.t. total length cache_len + 1).
+
+    q: (B, H, hd); pools HEAD-MAJOR (Hkv, num_blocks, bs, hd); block_tables
+    (B, nb) int32."""
+    B, H, hd = q.shape
+    Hkv = k_pool.shape[0]
+    qg = q.reshape(B, Hkv, H // Hkv, hd).contiguous()
+    sw, sinks, clen = _serving_window(sliding_window, attention_sinks,
+                                      cache_len)
+    o, l, m = _pda.paged_decode_attention(
+        qg, k_pool, v_pool, block_tables, clen, sliding_window=sw,
+        attention_sinks=sinks, logit_softcap=logit_softcap,
+        return_partials=True)
+    return _triple_to_partial(o, l, m, B, H, hd)
+

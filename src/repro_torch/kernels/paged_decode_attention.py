@@ -1,0 +1,182 @@
+"""Paged flash-decode GQA attention: CUDA kernel wrapper + plain twin.
+
+Port of ``repro/kernels/paged_decode_attention.py``. The TPU kernel
+``_paged_decode_kernel`` is replaced by the hand-written Hopper kernel in
+``csrc/paged_decode_attention.cu``; :func:`paged_decode_attention_plain` is
+its plain PyTorch twin (gather through the block table, then dense fp32
+math) with the same signature and the same (o, l, m) conventions.
+
+:func:`paged_decode_attention` dispatches on the device of ``q``: a CPU
+tensor runs the plain twin, a CUDA tensor launches the kernel or raises.
+There is no other switch and no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _cuda
+
+NEG_INF = -1e30
+# Base-position sentinel for table slots a shard does not own (or pure pad):
+# far beyond any real cache_len, so every mask kills the whole block while
+# staying comfortably inside int32.
+POS_PAD = 1 << 30
+
+_LIB_NAME = "paged_decode_attention"
+
+
+def default_block_positions(B: int, nb: int, block_size: int,
+                            device=None) -> torch.Tensor:
+    """Contiguous-table base positions: slot j starts at j·block_size."""
+    return (torch.arange(nb, dtype=torch.int32, device=device)[None, :]
+            * block_size).expand(B, nb)
+
+
+def paged_gather_dense(k_pool, v_pool, block_tables):
+    """Block-table gather into head-major dense (B, Hkv, nb·bs, hd) views —
+    the plain data path (and the bytes the kernel avoids)."""
+    Hkv, _, bs, hd = k_pool.shape
+    B, nb = block_tables.shape
+    idx = block_tables.long()
+    kc = k_pool[:, idx].transpose(0, 1)    # (B, Hkv, nb, bs, hd)
+    vc = v_pool[:, idx].transpose(0, 1)
+    return (kc.reshape(B, Hkv, nb * bs, hd), vc.reshape(B, Hkv, nb * bs, hd))
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, cache_len,
+                                 *, block_positions=None,
+                                 sliding_window: int = 0,
+                                 attention_sinks: int = 0,
+                                 logit_softcap: float = 0.0,
+                                 return_partials: bool = False):
+    """Plain twin of the kernel: same arguments, same results. fp32 math;
+    masked rows are selected away (their p and v are 0), an all-masked
+    sequence yields the empty partial (l = 0, m = NEG_INF, o = 0)."""
+    B, Hkv, G, hd = q.shape
+    bs = k_pool.shape[2]
+    nb = block_tables.shape[1]
+    if block_positions is None:
+        block_positions = default_block_positions(B, nb, bs, q.device)
+    kc, vc = paged_gather_dense(k_pool, v_pool, block_tables)
+    pos = (block_positions[:, :, None].long() +
+           torch.arange(bs, device=q.device)).reshape(B, nb * bs)
+    clen = cache_len.long()[:, None]
+    valid = pos < clen
+    if sliding_window > 0:
+        in_window = pos >= clen - sliding_window
+        if attention_sinks > 0:
+            in_window |= pos < attention_sinks
+        valid &= in_window
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bhgk,bhsk->bhgs", q.float() * scale, kc.float())
+    if logit_softcap > 0.0:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    vmask = valid[:, None, None, :]
+    s = torch.where(vmask, s, NEG_INF)
+    m = s.amax(dim=-1)                                   # NEG_INF if empty
+    p = torch.where(vmask, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    v = torch.where(valid[:, None, :, None], vc.float(), 0.0)
+    acc = torch.einsum("bhgs,bhsk->bhgk", p, v)
+    o = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+    if return_partials:
+        return o, l, m
+    return o
+
+
+def _check_cuda_operands(q, k_pool, v_pool, block_tables, cache_len,
+                         block_positions):
+    B, Hkv, G, hd = q.shape
+    dev = q.device
+    for name, t, dtype in (("q", q, torch.bfloat16),
+                           ("k_pool", k_pool, torch.bfloat16),
+                           ("v_pool", v_pool, torch.bfloat16),
+                           ("block_tables", block_tables, torch.int32),
+                           ("cache_len", cache_len, torch.int32),
+                           ("block_positions", block_positions, torch.int32)):
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype} on the GPU; got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if k_pool.shape != v_pool.shape or k_pool.dim() != 4 or \
+            k_pool.shape[0] != Hkv or k_pool.shape[3] != hd:
+        raise ValueError(f"pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B or \
+            cache_len.shape != (B,):
+        raise ValueError("block_tables must be (B, nb) and cache_len (B,)")
+    if block_positions is not None and \
+            block_positions.shape != block_tables.shape:
+        raise ValueError("block_positions must match block_tables' shape")
+    if hd not in (64, 128) or G not in (1, 2, 4, 8):
+        raise ValueError(f"kernel instantiated for head_dim in (64, 128) and "
+                         f"group size in (1, 2, 4, 8); got hd={hd}, G={G}")
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
+                           block_positions=None,
+                           k_scale=None, v_scale=None,
+                           sliding_window: int = 0, attention_sinks: int = 0,
+                           logit_softcap: float = 0.0,
+                           return_partials: bool = False):
+    """q: (B, Hkv, G, hd); k_pool/v_pool: HEAD-MAJOR (Hkv, num_blocks,
+    block_size, hd); block_tables: (B, nb) int32 pool-block ids per sequence
+    (pad slots with any valid id — masked); cache_len: (B,) live tokens.
+    block_positions: optional (B, nb) int32 global base position per table
+    slot (default slot·block_size; POS_PAD on slots to ignore).
+    Returns (B, Hkv, G, hd), or the (o, l, m) §4.2.2 triple with l, m fp32
+    (B, Hkv, G) when ``return_partials``.
+
+    CPU tensors run :func:`paged_decode_attention_plain`; CUDA tensors
+    launch ``csrc/paged_decode_attention.cu`` (bf16 only) or raise."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "int8 KV pools (k_scale/v_scale) are not ported yet")
+    kw = dict(block_positions=block_positions, sliding_window=sliding_window,
+              attention_sinks=attention_sinks, logit_softcap=logit_softcap,
+              return_partials=return_partials)
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
+                                            cache_len, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged decode kernel for device {q.device}")
+    _check_cuda_operands(q, k_pool, v_pool, block_tables, cache_len,
+                         block_positions)
+    B, Hkv, G, hd = q.shape
+    _, num_blocks, bs, _ = k_pool.shape
+    nb = block_tables.shape[1]
+    o = torch.empty_like(q)
+    l = torch.empty((B, Hkv, G), dtype=torch.float32, device=q.device)
+    m = torch.empty_like(l)
+    fn = _kernel_fn()
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             block_tables.data_ptr(),
+             None if block_positions is None else block_positions.data_ptr(),
+             cache_len.data_ptr(), o.data_ptr(), l.data_ptr(), m.data_ptr(),
+             B, Hkv, G, hd, num_blocks, bs, nb, int(sliding_window),
+             int(attention_sinks), float(logit_softcap),
+             _cuda.stream_ptr(q.device))
+    _cuda.check(err, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    if return_partials:
+        return o, l, m
+    return o
+
+
+paged_decode_attention.launches = 0   # kernel launches since the last reset
+
+
+def _kernel_fn():
+    fn = _cuda.load(_LIB_NAME).paged_decode_attention_bf16
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + \
+            [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn

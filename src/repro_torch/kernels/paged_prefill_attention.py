@@ -1,0 +1,156 @@
+"""Paged-context chunk-prefill GQA attention: CUDA kernel wrapper + plain
+twin.
+
+Port of ``repro/kernels/paged_prefill_attention.py``. One prefill chunk's
+queries (positions [P, P+C), P = tokens already in the pool) attend over
+the sequence's first ``nb`` pool blocks, read in place through the block
+table, and over the chunk's own freshly projected K/V under the in-chunk
+causal mask; per-row sliding-window / sink masks and the optional logit
+softcap apply as in a one-shot prefill.
+
+The TPU kernel ``_paged_prefill_chunk_kernel`` is replaced by
+``csrc/paged_prefill_attention.cu``; :func:`paged_prefill_chunk_attention_plain`
+is its plain twin (gather the prefix dense, dense fp32 math).
+:func:`paged_prefill_chunk_attention` runs the twin for CPU tensors and
+launches the kernel, or raises, for CUDA tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _cuda
+
+NEG_INF = -1e30
+
+_LIB_NAME = "paged_prefill_attention"
+
+
+def gather_prefix_dense(k_pool, v_pool, block_table):
+    """Block-table gather of a contiguous prefix into seq-major dense
+    (P, Hkv, hd) views — the plain data path (and exactly the bytes the
+    kernel streams in place instead)."""
+    Hkv, _, bs, hd = k_pool.shape
+    nb = block_table.shape[0]
+    idx = block_table.long()
+    kp = k_pool[:, idx].permute(1, 2, 0, 3).reshape(nb * bs, Hkv, hd)
+    vp = v_pool[:, idx].permute(1, 2, 0, 3).reshape(nb * bs, Hkv, hd)
+    return kp, vp
+
+
+def paged_prefill_chunk_attention_plain(q, k_pool, v_pool, block_table,
+                                        k_chunk, v_chunk, *,
+                                        sliding_window: int = 0,
+                                        attention_sinks: int = 0,
+                                        logit_softcap: float = 0.0):
+    """Plain twin of the kernel: same arguments, same result (C, H, hd)."""
+    C, H, hd = q.shape
+    Hkv, _, bs, _ = k_pool.shape
+    G = H // Hkv
+    P = block_table.shape[0] * bs
+    kp, vp = gather_prefix_dense(k_pool, v_pool, block_table)
+    k_all = torch.cat([kp, k_chunk], dim=0).float()      # (P+C, Hkv, hd)
+    v_all = torch.cat([vp, v_chunk], dim=0).float()
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.float().reshape(C, Hkv, G, hd) * scale
+    s = torch.einsum("chgd,khd->hgck", qg, k_all)        # (Hkv, G, C, P+C)
+    if logit_softcap > 0.0:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    pos_q = P + torch.arange(C, device=q.device)[:, None]
+    pos_k = torch.arange(P + C, device=q.device)[None, :]
+    valid = pos_k <= pos_q
+    if sliding_window > 0:
+        in_window = pos_k > pos_q - sliding_window
+        if attention_sinks > 0:
+            in_window |= pos_k < attention_sinks
+        valid &= in_window
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("hgck,khd->chgd", p / l.clamp_min(1e-30), v_all)
+    return out.reshape(C, H, hd).to(q.dtype)
+
+
+def _check_cuda_operands(q, k_pool, v_pool, block_table, k_chunk, v_chunk):
+    C, H, hd = q.shape
+    dev = q.device
+    for name, t, dtype in (("q", q, torch.bfloat16),
+                           ("k_pool", k_pool, torch.bfloat16),
+                           ("v_pool", v_pool, torch.bfloat16),
+                           ("block_table", block_table, torch.int32),
+                           ("k_chunk", k_chunk, torch.bfloat16),
+                           ("v_chunk", v_chunk, torch.bfloat16)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype} on the GPU; got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    Hkv = k_pool.shape[0]
+    if k_pool.shape != v_pool.shape or k_pool.dim() != 4 or \
+            k_pool.shape[3] != hd or H % Hkv:
+        raise ValueError(f"pools {tuple(k_pool.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if k_chunk.shape != (C, Hkv, hd) or v_chunk.shape != (C, Hkv, hd):
+        raise ValueError(f"k_chunk/v_chunk must be {(C, Hkv, hd)}")
+    if block_table.dim() != 1:
+        raise ValueError("block_table must be (nb,)")
+    if hd not in (64, 128) or 64 % (H // Hkv):
+        raise ValueError(f"kernel instantiated for head_dim in (64, 128) and "
+                         f"group sizes dividing 64; got hd={hd}, "
+                         f"G={H // Hkv}")
+
+
+def paged_prefill_chunk_attention(q, k_pool, v_pool, block_table,
+                                  k_chunk, v_chunk, *,
+                                  k_scale=None, v_scale=None,
+                                  sliding_window: int = 0,
+                                  attention_sinks: int = 0,
+                                  logit_softcap: float = 0.0):
+    """q: (C, H, hd) — one chunk's RoPE'd queries at global positions
+    [P, P+C) where P = len(block_table)·block_size; k_pool/v_pool:
+    HEAD-MAJOR (Hkv, num_blocks, block_size, hd); block_table: (nb,) int32
+    pool ids of the sequence's already-written first nb blocks;
+    k_chunk/v_chunk: (C, Hkv, hd) — this chunk's K/V (not yet in the pool).
+    Returns (C, H, hd).
+
+    CPU tensors run :func:`paged_prefill_chunk_attention_plain`; CUDA
+    tensors launch ``csrc/paged_prefill_attention.cu`` (bf16) or raise."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "int8 KV pools (k_scale/v_scale) are not ported yet")
+    kw = dict(sliding_window=sliding_window, attention_sinks=attention_sinks,
+              logit_softcap=logit_softcap)
+    if q.device.type == "cpu":
+        return paged_prefill_chunk_attention_plain(
+            q, k_pool, v_pool, block_table, k_chunk, v_chunk, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged prefill kernel for device {q.device}")
+    _check_cuda_operands(q, k_pool, v_pool, block_table, k_chunk, v_chunk)
+    C, H, hd = q.shape
+    Hkv, num_blocks, bs, _ = k_pool.shape
+    out = torch.empty_like(q)
+    fn = _kernel_fn()
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             block_table.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
+             out.data_ptr(), C, H, Hkv, hd, num_blocks, bs,
+             block_table.shape[0], int(sliding_window), int(attention_sinks),
+             float(logit_softcap), _cuda.stream_ptr(q.device))
+    _cuda.check(err, "paged_prefill_chunk_attention")
+    paged_prefill_chunk_attention.launches += 1
+    return out
+
+
+paged_prefill_chunk_attention.launches = 0   # launches since the last reset
+
+
+def _kernel_fn():
+    fn = _cuda.load(_LIB_NAME).paged_prefill_chunk_attention_bf16
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + \
+            [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn

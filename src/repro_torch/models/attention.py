@@ -1,0 +1,216 @@
+"""GQA attention: blockwise (flash-style) prefill path, the paged chunk
+prefill path and the paged single-token decode path.
+Port of ``repro/models/attention.py`` (dense paths over the paged pool).
+
+The blockwise path carries running ``(max, denom, acc)`` statistics across
+KV blocks — the partial-softmax combine identity of paper §4.2.2
+(``core/combine.py``) that the paged kernels use on the card. Supports
+causal masking, sliding windows, attention sinks and logit soft-capping.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import combine as C
+from repro_torch.kernels import ops
+from repro_torch.kernels.paged_prefill_attention import \
+    paged_prefill_chunk_attention
+from repro_torch.models.common import (ModelConfig, apply_rope, dense_init,
+                                       rms_norm)
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+def init_attention(gen: torch.Generator, cfg: ModelConfig, device,
+                   dtype=None) -> Dict[str, torch.Tensor]:
+    dtype = dtype or cfg.dtype
+    hd = cfg.resolved_head_dim
+    params = {
+        "wq": dense_init(gen, (cfg.d_model, cfg.num_heads, hd), dtype, device),
+        "wk": dense_init(gen, (cfg.d_model, cfg.num_kv_heads, hd), dtype,
+                         device),
+        "wv": dense_init(gen, (cfg.d_model, cfg.num_kv_heads, hd), dtype,
+                         device),
+        "wo": dense_init(gen, (cfg.num_heads, hd, cfg.d_model), dtype, device),
+    }
+    if cfg.qk_norm:
+        params["q_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
+        params["k_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
+    return params
+
+
+def qkv_project(params, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,Hkv,hd) with RoPE applied."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if "q_norm" in params:
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def out_project(params, attn_out: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bshk,hkd->bsd", attn_out, params["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Blockwise (flash-style) attention over a full sequence
+# ---------------------------------------------------------------------------
+def blockwise_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    sliding_window: int = 0,
+    attention_sinks: int = 0,
+    logit_softcap: float = 0.0,
+    q_positions: Optional[torch.Tensor] = None,
+    kv_positions: Optional[torch.Tensor] = None,
+    block_size: int = 512,
+) -> torch.Tensor:
+    """Memory-O(S·block) attention, a loop over KV blocks.
+
+    q: (B, Sq, H, hd); k, v: (B, Skv, Hkv, hd). Returns (B, Sq, H, hd).
+    The one-shot prefill path (the reference has no Pallas kernel here
+    either); each block's partial merges by the running-softmax rule."""
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
+    group = H // k.shape[2]
+    if q_positions is None:
+        q_positions = torch.arange(Sq, device=q.device)[None].expand(B, Sq)
+    if kv_positions is None:
+        kv_positions = torch.arange(Skv, device=q.device)[None].expand(B, Skv)
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float().transpose(1, 2) * scale                # (B, H, Sq, hd)
+    qpos = q_positions[:, None, :, None]
+    m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Sq, hd), dtype=torch.float32, device=q.device)
+    for j0 in range(0, Skv, block_size):
+        kb = k[:, j0:j0 + block_size].float().repeat_interleave(group, dim=2)
+        vb = v[:, j0:j0 + block_size].float().repeat_interleave(group, dim=2)
+        posb = kv_positions[:, None, None, j0:j0 + block_size]
+        s = torch.einsum("bhqk,bjhk->bhqj", qf, kb)
+        if logit_softcap > 0.0:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        valid = posb >= 0
+        if causal:
+            valid = valid & (posb <= qpos)
+        if sliding_window > 0:
+            in_window = posb > qpos - sliding_window
+            if attention_sinks > 0:
+                in_window = in_window | (posb < attention_sinks)
+            valid = valid & in_window
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqj,bjhk->bhqk", p, vb)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)                 # (B, Sq, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# Single-token decode over the paged pool
+# ---------------------------------------------------------------------------
+def _new_token_partial(q, k_new, v_new, *,
+                       logit_softcap: float = 0.0) -> C.Partial:
+    """The freshly projected token's 1-token §4.2.2 partial (B, H, ·)."""
+    B, H, hd = q.shape
+    Hkv = k_new.shape[1]
+    qg = q.reshape(B, Hkv, H // Hkv, hd)
+    p_new = C.partial_attention(qg, k_new[:, :, None, None],
+                                v_new[:, :, None, None],
+                                logit_softcap=logit_softcap)
+    return C.Partial(a=p_new.a.reshape(B, H, hd),
+                     s=p_new.s.reshape(B, H), m=p_new.m.reshape(B, H))
+
+
+def paged_decode_attention_combine(q, k_pool, v_pool, block_tables,
+                                   cache_len, k_new, v_new, *,
+                                   sliding_window: int = 0,
+                                   attention_sinks: int = 0,
+                                   logit_softcap: float = 0.0
+                                   ) -> torch.Tensor:
+    """Full paged decode attention = combine(pool partial, new-token
+    partial). The pool is read in place through the block table (the paged
+    decode kernel on the card) — one pass over the live KV plus the new
+    token's k_new/v_new (B, Hkv, hd)."""
+    p_prev = ops.paged_decode_partial(
+        q, k_pool, v_pool, block_tables, cache_len,
+        sliding_window=sliding_window, attention_sinks=attention_sinks,
+        logit_softcap=logit_softcap)
+    p_new = _new_token_partial(q, k_new, v_new, logit_softcap=logit_softcap)
+    return C.finalize(C.combine(p_prev, p_new)).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full layer entry points
+# ---------------------------------------------------------------------------
+def attention_forward(params, cfg: ModelConfig, x: torch.Tensor,
+                      positions: torch.Tensor, *, is_local: bool = False,
+                      block_size: int = 512,
+                      paged_prefix: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                                   torch.Tensor]] = None):
+    """Full-sequence attention (prefill). x: (B, S, d). Returns
+    (y, k, v) with k/v (B, S, Hkv, hd) for the tokens of ``x``.
+
+    ``paged_prefix``: this layer's ``(k_pool, v_pool, block_table)`` —
+    head-major pool slices plus the sequence's first ``nb`` block ids
+    (P = nb·bs tokens already in the pool); ``x`` then holds one prefill
+    chunk at global ``positions`` P + i and its queries attend over the
+    prefix read in place plus the chunk itself (the chunk-prefill kernel on
+    the card). Requires B == 1, the serving prefill shape."""
+    q, k, v = qkv_project(params, cfg, x, positions)
+    window = cfg.sliding_window if (is_local or not cfg.local_global) else 0
+    sinks = cfg.attention_sinks if window else 0
+    if paged_prefix is not None:
+        if x.shape[0] != 1:
+            raise ValueError("paged_prefix serves the per-request prefill "
+                             f"shape (B == 1); got B={x.shape[0]}")
+        kp_pool, vp_pool, table = paged_prefix
+        out = paged_prefill_chunk_attention(
+            q[0].contiguous(), kp_pool, vp_pool, table, k[0].contiguous(),
+            v[0].contiguous(), sliding_window=int(window),
+            attention_sinks=sinks, logit_softcap=cfg.attn_logit_softcap)[None]
+        return out_project(params, out), k, v
+    out = blockwise_attention(
+        q, k, v, causal=True, sliding_window=int(window),
+        attention_sinks=sinks, logit_softcap=cfg.attn_logit_softcap,
+        q_positions=positions, block_size=block_size)
+    return out_project(params, out), k, v
+
+
+def attention_decode_step_paged(params, cfg: ModelConfig, x: torch.Tensor,
+                                k_pool: torch.Tensor, v_pool: torch.Tensor,
+                                block_tables: torch.Tensor,
+                                cache_len: torch.Tensor, *,
+                                is_local: bool = False):
+    """One-token decode straight over the paged block pool. x: (B, 1, d);
+    pools HEAD-MAJOR (Hkv, num_blocks, block_size, hd); block_tables
+    (B, nb); cache_len = tokens ALREADY stored. Returns (y, k_new, v_new) —
+    KV placement stays the memory pool's job (serving/kvcache.py)."""
+    positions = cache_len[:, None]  # new token position, 0-based
+    q, k, v = qkv_project(params, cfg, x, positions)
+    window = cfg.sliding_window if (is_local or not cfg.local_global) else 0
+    out = paged_decode_attention_combine(
+        q[:, 0], k_pool, v_pool, block_tables, cache_len, k[:, 0], v[:, 0],
+        sliding_window=int(window),
+        attention_sinks=cfg.attention_sinks if window else 0,
+        logit_softcap=cfg.attn_logit_softcap)
+    y = out_project(params, out[:, None])
+    return y, k[:, 0], v[:, 0]

@@ -1,0 +1,175 @@
+"""Common building blocks shared by every architecture family.
+
+Port of ``repro/models/common.py``. Parameters are plain dicts of tensors;
+per-layer parameters are stacked along a leading L axis, exactly like the
+reference pytree, so weights cross over value for value
+(``transformer.params_from_jax``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict
+
+import torch
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Config
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """One config describes every supported family; unused fields stay 0.
+
+    Field for field the reference ``ModelConfig``; ``dtype`` is a torch
+    dtype."""
+
+    name: str = "model"
+    family: str = "dense"  # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int = 2
+    d_model: int = 256
+    num_heads: int = 4
+    num_kv_heads: int = 4
+    head_dim: int = 0  # 0 -> d_model // num_heads
+    d_ff: int = 1024
+    vocab_size: int = 1024
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    # --- attention variants ---
+    sliding_window: int = 0  # 0 = full attention
+    # StreamingLLM-style sinks kept attendable beside the sliding window
+    attention_sinks: int = 0
+    kv_cache_bits: int = 16
+    local_global: bool = False  # gemma2-style alternating local/global
+    attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    rope_theta: float = 10000.0
+    qk_norm: bool = False
+    post_norms: bool = False  # gemma2 pre+post sandwich norms
+    # --- SSM / RWKV ---
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    rwkv_head_dim: int = 64
+    # --- hybrid (zamba2): one shared attention block every `period` layers ---
+    shared_attn_period: int = 0
+    # --- encoder/decoder (seamless) ---
+    encoder_layers: int = 0
+    is_encoder_decoder: bool = False
+    # --- modality frontend stubs ---
+    modality: str = "text"  # text | vision | audio
+    frontend_tokens: int = 0
+    # --- kernels / lowering (kept for field parity with the reference) ---
+    use_pallas_kernels: bool = False
+    remat: bool = True
+    lower_unrolled: bool = False
+    # --- numerics ---
+    dtype: Any = torch.bfloat16
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    source: str = ""  # citation
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.resolved_head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.resolved_head_dim
+
+    @property
+    def gqa_group(self) -> int:
+        return self.num_heads // max(self.num_kv_heads, 1)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Device
+# ---------------------------------------------------------------------------
+def resolve_device(device) -> torch.device:
+    """``torch.device`` for an entry point's ``device`` argument. A CUDA
+    device on a machine without one raises — nothing falls back to the
+    CPU unless the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} requested but torch.cuda.is_available() is "
+            f"False; pass device='cpu' to run the plain PyTorch path")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# Initialisation helpers
+# ---------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, shape, dtype, device,
+               scale: float = 1.0) -> torch.Tensor:
+    """Truncated normal at ±3σ with σ = scale/sqrt(fan_in), fan_in =
+    ``shape[0]`` (so ``wo (H, hd, d)`` has fan-in H) — the reference rule.
+    Drawn in fp32 from ``gen`` (which must live on ``device``), then cast."""
+    fan_in = shape[0] if len(shape) >= 2 else max(shape[-1], 1)
+    std = scale / math.sqrt(fan_in)
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
+    return (w * std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Primitive ops
+# ---------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with the ``(1 + weight)`` scale, computed in fp32."""
+    dt = x.dtype
+    xf = x.float()
+    xf = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (xf * (1.0 + weight.float())).to(dt)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 logit soft-capping: cap * tanh(x / cap)."""
+    if cap <= 0.0:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)  # (head_dim/2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions broadcastable to (..., seq).
+    Split-half convention: the first and second halves of head_dim rotate
+    as pairs (not interleaved even/odd lanes)."""
+    head_dim = x.shape[-1]
+    freqs = rope_frequencies(head_dim, theta, device=x.device)
+    angles = positions[..., :, None].float() * freqs  # (..., s, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]          # (..., s, 1, hd/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    gate = torch.matmul(x, w_gate)
+    up = torch.matmul(x, w_up)
+    hidden = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
+    return torch.matmul(hidden, w_down)

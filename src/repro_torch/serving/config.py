@@ -1,0 +1,120 @@
+"""Declarative serving configuration for
+:class:`repro_torch.serving.llm_engine.LLMEngine`.
+Port of ``repro/serving/config.py`` (``EngineConfig``).
+
+The fields and validation are the reference's, minus ``decode_backend``:
+the port has no backend knob — the device of the KV pool decides whether
+the paged attention runs the CUDA kernels (a GPU pool) or their plain
+PyTorch twins (a CPU pool). Placements and pool dtypes that later slices
+port are refused with a clear error: ``placement`` accepts
+``"homogeneous"`` and ``kv_dtype`` accepts ``"bf16"`` (the model's dtype).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+PLACEMENTS = ("homogeneous", "attention_pool", "moe_offload")
+PARTITIONS = ("head", "request", "block")
+SCHEDULERS = ("fcfs", "preempt")
+KV_DTYPES = ("bf16", "int8")
+PORTED_PLACEMENTS = ("homogeneous",)
+PORTED_KV_DTYPES = ("bf16",)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Validated, declarative serving-engine configuration (frozen; derive
+    variants with :meth:`replace`)."""
+
+    # ---- placement (the paper's core decision) ----
+    placement: str = "homogeneous"
+    partition: str = "head"            # attention-pool work split
+    attention_workers: int = 2         # pool DOP `b` (paper §5)
+    expert_workers: int = 2            # moe_offload only
+
+    # ---- KV pool ----
+    num_blocks: int = 256
+    block_size: int = 16
+    kv_shards: Optional[int] = None    # None => derived
+    # Pool element dtype: "bf16" stores the pool in the model's dtype.
+    kv_dtype: str = "bf16"
+
+    # ---- batching / scheduling ----
+    max_batch: int = 8
+    scheduler: str = "fcfs"
+    decode_headroom: int = 8           # tokens reserved per admitted request
+    # Refcounted prompt-prefix sharing: full prompt blocks matching a live
+    # request's prefix map onto the donor's physical blocks at admission
+    # (copy-on-write on divergence). Served through chunked prefill here;
+    # the one-shot suffix prefill is not ported yet.
+    prefix_sharing: bool = False
+    # Chunked paged prefill: block-aligned chunks of at most this many
+    # tokens, at most one chunk per engine iteration beside the decode
+    # batch; None = one-shot prefill.
+    prefill_chunk_tokens: Optional[int] = None
+
+    # ---- fault tolerance (carried for parity; serving/faults.py is not
+    # ported yet) ----
+    fault_retry_limit: int = 3
+    fault_retry_backoff_s: float = 0.0
+
+    # ---- RNG ----
+    # fallback sampling seed for requests whose SamplingParams.seed is None
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.placement not in PLACEMENTS:
+            raise ValueError(f"placement must be one of {PLACEMENTS}; "
+                             f"got {self.placement!r}")
+        if self.placement not in PORTED_PLACEMENTS:
+            raise NotImplementedError(
+                f"placement {self.placement!r} is not ported yet; the port "
+                f"serves {PORTED_PLACEMENTS}")
+        if self.partition not in PARTITIONS:
+            raise ValueError(f"partition must be one of {PARTITIONS}; "
+                             f"got {self.partition!r}")
+        if self.scheduler not in SCHEDULERS:
+            raise ValueError(f"scheduler must be one of {SCHEDULERS}; "
+                             f"got {self.scheduler!r}")
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(
+                f"kv_dtype must be one of {KV_DTYPES}; got "
+                f"{self.kv_dtype!r} (placement={self.placement!r}, "
+                f"partition={self.partition!r})")
+        if self.kv_dtype not in PORTED_KV_DTYPES:
+            raise NotImplementedError(
+                f"kv_dtype {self.kv_dtype!r} is not ported yet (int8 pools "
+                f"and their kernels come in a later slice); use 'bf16'")
+        for field in ("attention_workers", "expert_workers", "num_blocks",
+                      "block_size", "max_batch"):
+            if getattr(self, field) < 1:
+                raise ValueError(f"{field} must be >= 1; "
+                                 f"got {getattr(self, field)}")
+        if self.decode_headroom < 0:
+            raise ValueError("decode_headroom must be >= 0")
+        if self.fault_retry_limit < 1:
+            raise ValueError(f"fault_retry_limit must be >= 1; "
+                             f"got {self.fault_retry_limit}")
+        if self.fault_retry_backoff_s < 0:
+            raise ValueError(f"fault_retry_backoff_s must be >= 0; "
+                             f"got {self.fault_retry_backoff_s}")
+        if self.prefill_chunk_tokens is not None:
+            if self.prefill_chunk_tokens < 1:
+                raise ValueError(
+                    f"prefill_chunk_tokens must be >= 1 (or None for "
+                    f"one-shot prefill); got {self.prefill_chunk_tokens}")
+            if self.prefill_chunk_tokens % self.block_size:
+                raise ValueError(
+                    f"prefill_chunk_tokens ({self.prefill_chunk_tokens}) "
+                    f"must be a multiple of block_size ({self.block_size}) "
+                    f"— every chunk boundary except the prompt's final "
+                    f"partial block must be block-aligned so chunk KV "
+                    f"scatters into whole pool blocks")
+        if self.kv_shards is not None and self.kv_shards != 1:
+            raise NotImplementedError(
+                f"kv_shards={self.kv_shards}: the port serves one pool "
+                f"shard so far")
+
+    def replace(self, **kw) -> "EngineConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,290 @@
+"""The port's serving stack against the JAX reference on the CPU.
+
+* ``LLMEngine`` greedy tokens equal the reference engine's on the same
+  weights (``params_from_jax``) and prompts, under fcfs and preempt, with
+  chunked prefill on and off — token for token, with the same preemption
+  and chunk counts. Greedy argmax over fp32 smoke logits that agree to
+  ~1e-5 is exact unless two logits tie that closely (none do here).
+* One allocator op sequence replayed on both ``PagedKVCache``s gives equal
+  block tables, refcounts, free lists and pool contents.
+* The sampler's contract: a request's draw depends only on (seed, token
+  index).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as jreg
+from repro.models import transformer as jtf
+from repro.serving import EngineConfig as JEngineConfig
+from repro.serving import LLMEngine as JLLMEngine
+from repro.serving import Request as JRequest
+from repro.serving import SamplingParams as JSamplingParams
+from repro.serving.kvcache import PagedKVCache as JPagedKVCache
+from repro_torch.configs import registry as treg
+from repro_torch.models import transformer as ttf
+from repro_torch.serving import (EngineConfig, LLMEngine, PagedKVCache,
+                                 PoolExhausted, Request, SamplingParams,
+                                 State, request_generator,
+                                 sample_per_request)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg = jreg.get_smoke_config("llama3-8b", num_kv_heads=2)   # GQA G=2
+    tcfg = treg.get_smoke_config("llama3-8b", num_kv_heads=2)
+    p = jtf.init_params(jax.random.PRNGKey(0), cfg)
+    tp = ttf.params_from_jax(jax.tree.map(np.asarray, p), tcfg, "cpu")
+    return cfg, tcfg, p, tp
+
+
+LENS = (21, 12, 9)
+ENGINE_CASES = {
+    "fcfs-oneshot": dict(scheduler="fcfs", num_blocks=64),
+    "fcfs-chunked": dict(scheduler="fcfs", num_blocks=64,
+                         prefill_chunk_tokens=8),
+    "preempt-oneshot": dict(scheduler="preempt", num_blocks=6,
+                            decode_headroom=2),
+    "preempt-chunked": dict(scheduler="preempt", num_blocks=6,
+                            decode_headroom=2, prefill_chunk_tokens=8),
+}
+
+
+def _prompts(cfg, lens=LENS, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in lens]
+
+
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_engine_greedy_tokens_match_reference(setup, case):
+    cfg, tcfg, p, tp = setup
+    kw = dict(max_batch=4, block_size=8, **ENGINE_CASES[case])
+    prompts = _prompts(cfg)
+    jreqs = [JRequest(prompt=list(x), params=JSamplingParams(
+        max_new_tokens=6)) for x in prompts]
+    jeng = JLLMEngine(cfg, p, JEngineConfig(**kw))
+    jeng.submit(jreqs)
+    jeng.run(max_steps=500)
+    treqs = [Request(prompt=list(x), params=SamplingParams(
+        max_new_tokens=6)) for x in prompts]
+    teng = LLMEngine(tcfg, tp, EngineConfig(**kw), device="cpu")
+    teng.submit(treqs)
+    teng.run(max_steps=500)
+    assert all(r.state == State.FINISHED for r in treqs)
+    assert [r.output for r in treqs] == [r.output for r in jreqs]
+    assert teng.stats.preemptions == jeng.stats.preemptions
+    assert teng.stats.prefill_chunks_run == jeng.stats.prefill_chunks_run
+    assert teng.stats.steps == jeng.stats.steps
+    if case.startswith("preempt"):
+        assert teng.stats.preemptions > 0
+    if case.endswith("chunked"):
+        assert teng.stats.prefill_chunks_run >= 3 + 2 + 2
+    assert teng.kv.used_blocks == 0
+
+
+def test_engine_gemma2_window_softcap_matches_reference():
+    """gemma2 smoke through chunked prefill: local/global layers (window
+    64), attention and final logit softcaps, post-norms, tied embeddings,
+    and a prompt longer than the window."""
+    cfg = jreg.get_smoke_config("gemma2-27b")
+    tcfg = treg.get_smoke_config("gemma2-27b")
+    p = jtf.init_params(jax.random.PRNGKey(1), cfg)
+    tp = ttf.params_from_jax(jax.tree.map(np.asarray, p), tcfg, "cpu")
+    kw = dict(max_batch=2, block_size=8, num_blocks=64,
+              prefill_chunk_tokens=16)
+    prompts = _prompts(cfg, (81, 40), seed=3)
+    jreqs = [JRequest(prompt=list(x), params=JSamplingParams(
+        max_new_tokens=6)) for x in prompts]
+    jeng = JLLMEngine(cfg, p, JEngineConfig(**kw))
+    jeng.submit(jreqs)
+    jeng.run()
+    treqs = [Request(prompt=list(x), params=SamplingParams(
+        max_new_tokens=6)) for x in prompts]
+    teng = LLMEngine(tcfg, tp, EngineConfig(**kw), device="cpu")
+    teng.submit(treqs)
+    teng.run()
+    assert [r.output for r in treqs] == [r.output for r in jreqs]
+    assert teng.stats.prefill_chunks_run == jeng.stats.prefill_chunks_run
+
+
+def test_engine_fcfs_pool_exhaustion_raises_like_reference(setup):
+    cfg, tcfg, p, tp = setup
+    kw = dict(max_batch=4, block_size=8, num_blocks=9, decode_headroom=0)
+    jeng = JLLMEngine(cfg, p, JEngineConfig(**kw))
+    jeng.submit([JRequest(prompt=x, params=JSamplingParams(max_new_tokens=16))
+                 for x in _prompts(cfg)])
+    teng = LLMEngine(tcfg, tp, EngineConfig(**kw), device="cpu")
+    teng.submit([Request(prompt=x, params=SamplingParams(max_new_tokens=16))
+                 for x in _prompts(cfg)])
+    with pytest.raises(Exception) as jerr:
+        jeng.run(max_steps=500)
+    with pytest.raises(PoolExhausted) as terr:
+        teng.run(max_steps=500)
+    assert type(jerr.value).__name__ == "PoolExhausted"
+    assert terr.value.rid == jerr.value.rid
+    assert terr.value.free_blocks == jerr.value.free_blocks
+    assert "preempt" in str(terr.value)
+
+
+def test_engine_prefix_sharing_through_chunked_prefill(setup):
+    """Shared prompt prefixes map onto the donor's blocks (chunked prefill
+    skips them) and the greedy streams equal the unshared run; the one-shot
+    suffix prefill is not ported and says so."""
+    _, tcfg, _, tp = setup
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(0, tcfg.vocab_size, size=16).tolist()
+    prompts = [prefix + rng.integers(0, tcfg.vocab_size, size=n).tolist()
+               for n in (5, 9)]
+    outs = {}
+    for sharing in (False, True):
+        eng = LLMEngine(tcfg, tp, device="cpu", max_batch=4, block_size=8,
+                        num_blocks=64, prefill_chunk_tokens=8,
+                        prefix_sharing=sharing)
+        reqs = [Request(prompt=list(x), params=SamplingParams(
+            max_new_tokens=6)) for x in prompts]
+        eng.submit(reqs)
+        eng.run()
+        outs[sharing] = [r.output for r in reqs]
+        if sharing:   # capped at what the chunked donor had allocated
+            assert eng.stats.prefill_tokens_skipped == 8
+            assert eng.stats.blocks_shared == 1
+    assert outs[True] == outs[False]
+    eng = LLMEngine(tcfg, tp, device="cpu", max_batch=4, block_size=8,
+                    num_blocks=64, prefix_sharing=True)
+    eng.submit([Request(prompt=list(x)) for x in prompts])
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        eng.run()
+
+
+def test_engine_streams_tokens_and_events(setup):
+    _, tcfg, _, tp = setup
+    eng = LLMEngine(tcfg, tp, device="cpu", max_batch=2, block_size=8,
+                    num_blocks=32, prefill_chunk_tokens=8)
+    h = eng.generate(_prompts(tcfg, (13,))[0],
+                     SamplingParams(max_new_tokens=4))
+    other = eng.generate(_prompts(tcfg, (6,), seed=1)[0],
+                         SamplingParams(max_new_tokens=9))
+    first = next(iter(h))
+    assert not other.finished and isinstance(first, int)
+    assert h.result()[0] == first and len(h.output) == 4
+    kinds = [e.kind for e in eng.events()]
+    assert kinds[:2] == ["submit", "submit"]
+    assert kinds.count("finish") == 2 and "chunk" in kinds
+    assert other.finished and len(other.output) == 9
+
+
+@pytest.mark.parametrize("bad,exc", [
+    (dict(placement="attention_pool"), NotImplementedError),
+    (dict(kv_dtype="int8"), NotImplementedError),
+    (dict(kv_shards=2), NotImplementedError),
+    (dict(placement="nope"), ValueError),
+    (dict(prefill_chunk_tokens=12, block_size=8), ValueError),
+])
+def test_engine_config_refuses_what_is_not_ported(bad, exc):
+    with pytest.raises(exc):
+        EngineConfig(**bad)
+
+
+def test_engine_config_has_no_backend_knob():
+    with pytest.raises(TypeError):
+        EngineConfig(decode_backend="pallas")
+
+
+# ----------------------------------------------------------------------
+# allocator replay
+# ----------------------------------------------------------------------
+def test_allocator_op_sequence_replays_identically(setup):
+    cfg, tcfg, _, _ = setup
+    jkv = JPagedKVCache(cfg, 12, 4)
+    tkv = PagedKVCache(tcfg, 12, 4, device="cpu")
+    rng = np.random.default_rng(0)
+    L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def kv(n):
+        a = rng.standard_normal((L, Hkv, n, hd)).astype(np.float32)
+        return a, jnp.asarray(a), torch.from_numpy(a)
+
+    def both(fn):
+        fn(jkv, jnp.asarray)
+        fn(tkv, torch.from_numpy)
+
+    for kvc in (jkv, tkv):
+        kvc.allocate(0, 10)
+    _, jk, tk = kv(10)
+    jkv.write_prefill(0, jk, jk)
+    tkv.write_prefill(0, tk, tk)
+    both(lambda c, _: c.share_blocks(0, 1, 10))     # shares a partial tail
+    both(lambda c, _: c.allocate(1, 14))            # extends past the prefix
+    assert tkv.blocks_to_append(0) == jkv.blocks_to_append(0) == 1
+    both(lambda c, _: c.append_token(0))            # CoW of the shared tail
+    a, _, _ = kv(1)
+    tok = a[:, :, 0][:, None]                       # (L, 1, Hkv, hd)
+    both(lambda c, conv: c.write_tokens([0], conv(tok), conv(tok), [10]))
+    both(lambda c, _: c.allocate(2, 7))
+    _, jk, tk = kv(8)
+    jkv.write_prefill_chunk(2, jk, jk, 0)
+    tkv.write_prefill_chunk(2, tk, tk, 0)
+    both(lambda c, _: c.free_seq(1))
+    both(lambda c, _: c.allocate(3, 5))
+    with pytest.raises(PoolExhausted):
+        tkv.allocate(4, 40)
+    assert tkv.tables == jkv.tables
+    assert tkv.refcounts == jkv.refcounts
+    assert tkv.lengths == jkv.lengths
+    assert tkv.free == jkv.free
+    assert tkv.cow_forks == jkv.cow_forks == 1
+    assert tkv.unique_live_tokens() == jkv.unique_live_tokens()
+    np.testing.assert_array_equal(tkv.k_pool.numpy(), np.asarray(jkv.k_pool))
+    jt, jl = jkv.block_table_batch([0, 2, 3])
+    tt, tl = tkv.block_table_batch([0, 2, 3])
+    np.testing.assert_array_equal(tt, jt)
+    np.testing.assert_array_equal(tl, jl)
+    assert tkv.pool_bytes_resident == jkv.pool_bytes_resident
+    assert tkv.bytes_per_live_token() == jkv.bytes_per_live_token()
+
+
+# ----------------------------------------------------------------------
+# sampler contract
+# ----------------------------------------------------------------------
+def test_sampler_greedy_rows_are_argmax_and_streams_are_per_request():
+    rng = np.random.default_rng(3)
+    logits = torch.from_numpy(rng.standard_normal((4, 50)).astype(np.float32))
+    gens = [request_generator(7, 2) for _ in range(4)]
+    out = sample_per_request(logits, gens, [0.0, 1.0, 0.0, 1.0], [0, 5, 0, 0])
+    assert out[0] == logits[0].argmax() and out[2] == logits[2].argmax()
+    top5 = set(torch.topk(logits[1], 5).indices.tolist())
+    assert int(out[1]) in top5
+    # a row's draw is a function of (seed, token index) only: same row
+    # alone, in another batch position, beside other requests
+    alone = sample_per_request(logits[3:4], [request_generator(7, 2)],
+                               [1.0], [0])
+    moved = sample_per_request(logits[[0, 3]], [request_generator(1, 0),
+                                                request_generator(7, 2)],
+                               [1.0, 1.0], [0, 0])
+    assert int(alone[0]) == int(out[3]) == int(moved[1])
+    draws = {int(sample_per_request(logits[3:4], [request_generator(7, i)],
+                                    [2.0], [0])[0]) for i in range(40)}
+    assert len(draws) > 5                   # token index moves the stream
+    assert int(sample_per_request(logits[1:2], [request_generator(9, 0)],
+                                  [5.0], [1])[0]) == int(logits[1].argmax())
+
+
+def test_seeded_sampling_reproduces_across_batch_compositions(setup):
+    _, tcfg, _, tp = setup
+    prompt = _prompts(tcfg, (11,), seed=4)[0]
+
+    def run(batch_prompts):
+        eng = LLMEngine(tcfg, tp, device="cpu", max_batch=4, block_size=8,
+                        num_blocks=64)
+        reqs = [Request(prompt=list(x), params=SamplingParams(
+            max_new_tokens=8, temperature=1.0, top_k=20, seed=123))
+            for x in batch_prompts]
+        eng.submit(reqs)
+        eng.run()
+        return reqs
+
+    alone = run([prompt])[0].output
+    crowded = run(_prompts(tcfg, (7, 15), seed=8) + [prompt])[2].output
+    assert alone == crowded

@@ -1,0 +1,113 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+Marked ``gpu``: without a CUDA device every test skips (the kernels are
+CUDA C++ for sm_90a and have no interpret mode). The file imports neither
+JAX nor the JAX package, so it also runs on a GPU host without JAX:
+
+    PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py
+
+Tolerances: bf16 outputs within 2 ulp relative (8e-3) plus a 1e-3 floor —
+the kernel and its twin both accumulate in fp32 and differ by summation
+order and exp approximation before the final bf16 rounding; l and m are
+fp32 (1e-3).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import paged_decode_attention as pda
+from repro_torch.kernels import paged_prefill_attention as ppa
+
+
+def _rand_paged(seed, B, Hkv, G, hd, bs, nb, spare=3):
+    """Random pool, per-sequence tables of distinct blocks padded with
+    block 0 past each sequence's live blocks, ragged lengths."""
+    rng = np.random.default_rng(seed)
+    NB = B * nb + spare
+    q = rng.standard_normal((B, Hkv, G, hd)).astype(np.float32)
+    kp = rng.standard_normal((Hkv, NB, bs, hd)).astype(np.float32)
+    vp = rng.standard_normal((Hkv, NB, bs, hd)).astype(np.float32)
+    lens = rng.integers(1, nb * bs + 1, size=B).astype(np.int32)
+    lens[0] = nb * bs
+    perm = rng.permutation(np.arange(1, NB))[:B * nb].reshape(B, nb)
+    bt = np.zeros((B, nb), np.int32)
+    for b in range(B):
+        live = -(-int(lens[b]) // bs)
+        bt[b, :live] = perm[b, :live]
+    return q, kp, vp, bt, lens
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ for "
+                    "sm_90a and have no interpret mode")
+    return torch.device("cuda")
+
+
+def _bf16(x, dev):
+    return torch.from_numpy(np.asarray(x)).to(dev).bfloat16()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,sw,sinks,cap", [(4, 0, 0, 0.0), (2, 40, 4, 50.0),
+                                            (8, 0, 0, 0.0), (1, 9, 0, 0.0)])
+def test_cuda_decode_kernel_matches_plain(cuda, G, sw, sinks, cap):
+    q, kp, vp, bt, lens = _rand_paged(G, 5, 2, G, 128, 16, 6)
+    kp[:, 0] = np.nan                        # padded slots point here
+    args = (_bf16(q, cuda), _bf16(kp, cuda), _bf16(vp, cuda),
+            torch.from_numpy(bt).to(cuda), torch.from_numpy(lens).to(cuda))
+    kw = dict(sliding_window=sw, attention_sinks=sinks, logit_softcap=cap,
+              return_partials=True)
+    got = pda.paged_decode_attention(*args, **kw)
+    want = pda.paged_decode_attention_plain(*args, **kw)
+    for a, b, tol in zip(got, want, (8e-3, 1e-3, 1e-3)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,C,nb,sw,sinks,cap", [(4, 100, 5, 0, 0, 0.0),
+                                                 (2, 64, 0, 0, 0, 0.0),
+                                                 (4, 77, 7, 50, 4, 50.0)])
+def test_cuda_prefill_kernel_matches_plain(cuda, G, C, nb, sw, sinks, cap):
+    rng = np.random.default_rng(C)
+    Hkv, hd, bs = 2, 128, 16
+    kp = rng.standard_normal((Hkv, 12, bs, hd))
+    vp = rng.standard_normal((Hkv, 12, bs, hd))
+    table = torch.from_numpy(rng.permutation(12)[:nb].astype(np.int32))
+    args = (_bf16(rng.standard_normal((C, Hkv * G, hd)), cuda),
+            _bf16(kp, cuda), _bf16(vp, cuda), table.to(cuda),
+            _bf16(rng.standard_normal((C, Hkv, hd)), cuda),
+            _bf16(rng.standard_normal((C, Hkv, hd)), cuda))
+    kw = dict(sliding_window=sw, attention_sinks=sinks, logit_softcap=cap)
+    got = ppa.paged_prefill_chunk_attention(*args, **kw)
+    want = ppa.paged_prefill_chunk_attention_plain(*args, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                               atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_count_launches_and_refuse_what_they_do_not_take(cuda):
+    q, kp, vp, bt, lens = _rand_paged(0, 2, 2, 4, 64, 16, 3)   # hd = 64
+    args = [_bf16(q, cuda), _bf16(kp, cuda), _bf16(vp, cuda),
+            torch.from_numpy(bt).to(cuda), torch.from_numpy(lens).to(cuda)]
+    n = pda.paged_decode_attention.launches
+    got = pda.paged_decode_attention(*args)
+    assert pda.paged_decode_attention.launches == n + 1
+    torch.testing.assert_close(
+        got.float(), pda.paged_decode_attention_plain(*args).float(),
+        rtol=8e-3, atol=1e-3)
+    assert pda.paged_decode_attention.launches == n + 1   # plain: no count
+    with pytest.raises(TypeError):                        # fp32 on the card
+        pda.paged_decode_attention(args[0].float(), *args[1:])
+    with pytest.raises(ValueError):                       # G = 3
+        pda.paged_decode_attention(
+            torch.zeros((2, 2, 3, 64), dtype=torch.bfloat16, device=cuda),
+            *args[1:])
+    n = ppa.paged_prefill_chunk_attention.launches
+    ppa.paged_prefill_chunk_attention(
+        torch.zeros((5, 8, 64), dtype=torch.bfloat16, device=cuda), args[1],
+        args[2], args[3][0].contiguous(),
+        torch.zeros((5, 2, 64), dtype=torch.bfloat16, device=cuda),
+        torch.zeros((5, 2, 64), dtype=torch.bfloat16, device=cuda))
+    assert ppa.paged_prefill_chunk_attention.launches == n + 1

@@ -1,0 +1,105 @@
+"""The port stands alone: no module of ``src/repro_torch`` and not
+``chip_smoke.py`` imports ``jax`` or anything of the JAX package ``repro``,
+and the port's entry points refuse to run on a missing GPU unless the
+caller asks for the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=[str(f.relative_to(ROOT)) for f in FILES])
+def test_port_imports_no_jax_and_nothing_of_repro(path):
+    bad = sorted({m for m in _imported_roots(path) if m in FORBIDDEN})
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_port_module_names_its_reference():
+    for path in PORT.rglob("*.py"):
+        if path.name == "__init__.py" and path.parent != PORT and \
+                not path.read_text().strip():
+            continue
+        if path.name == "_cuda.py":
+            continue                       # build helper, no reference
+        doc = ast.get_docstring(ast.parse(path.read_text())) or ""
+        assert "repro/" in doc or "src/repro" in doc, path
+
+
+def test_cuda_sources_name_the_tpu_kernel_they_replace():
+    for cu in (PORT / "csrc").glob("*.cu"):
+        text = cu.read_text()
+        assert "Replaces the TPU kernel repro/kernels/" in text, cu
+        assert "What bounds it" in text and "design" in text, cu
+
+
+def test_default_device_entry_points_raise_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer
+    from repro_torch.serving import LLMEngine, PagedKVCache
+
+    cfg = registry.get_smoke_config("llama3-8b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_params(0, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedKVCache(cfg, 8, 4)
+    params = transformer.init_params(0, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLMEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.prefill(params, cfg, {"tokens": [[1, 2, 3]]}, max_seq=3)
+
+
+def test_init_params_on_cpu_is_seeded_and_follows_the_init_rules():
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer
+
+    cfg = registry.get_smoke_config("gemma2-27b")
+    a = transformer.init_params(0, cfg, device="cpu")
+    b = transformer.init_params(0, cfg, device="cpu")
+    c = transformer.init_params(1, cfg, device="cpu")
+    assert torch.equal(a["layers"]["attn"]["wq"], b["layers"]["attn"]["wq"])
+    assert not torch.equal(a["layers"]["attn"]["wq"],
+                           c["layers"]["attn"]["wq"])
+    assert "lm_head" not in a                 # tied embeddings
+    assert a["layers"]["attn"]["wo"].shape == (cfg.num_layers, 4, 64, 256)
+    assert not torch.equal(a["layers"]["ffn"]["w_up"][0],
+                           a["layers"]["ffn"]["w_up"][1])
+    assert float(a["layers"]["norm1"].abs().max()) == 0.0
+
+
+def test_chip_smoke_exits_nonzero_without_a_gpu_and_prints_no_result():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=120,
+                          env=env, cwd=ROOT)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
