@@ -5,16 +5,27 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. device: card name and power limit, torch/CUDA versions, kernel build;
-  2. paged decode kernel vs its plain PyTorch twin on the card, at
-     llama3-8b's decode shapes, with POS_PAD slots, and a gemma2-shaped
-     window + sinks + softcap case;
-  3. paged chunk-prefill kernel vs its plain twin (C=512 at P=0 and
-     P=1536, a final partial chunk C=300, a gemma2-shaped masked case);
-  4. end to end: llama3-8b at full width and depth (random bf16 weights
-     from seed 0) serving 8 requests through LLMEngine with chunked
-     prefill; checks kernel launch counts, finishes, and the chunked vs
-     one-shot logit cosine;
-  5. one JSON line describing every ported kernel (and the TPU kernels
+  2. paged decode kernels vs their plain PyTorch twin on the card, bf16
+     and int8 pools, at llama3-8b's decode shapes, with POS_PAD slots, and
+     a gemma2-shaped window + sinks + softcap case; stale blocks hold NaN
+     values (bf16) or NaN scales (int8); the int8 kernel is also held
+     against the bf16 twin on the unquantized pool (cosine);
+  3. paged chunk-prefill kernels vs their plain twin, bf16 and int8 (C=512
+     at P=0 and P=1536, C=300 at P=1024, a gemma2-shaped masked case);
+  4. end to end, homogeneous bf16: llama3-8b at full width and depth
+     (random bf16 weights from seed 0) serving 8 requests through
+     LLMEngine with chunked prefill; checks kernel launch counts,
+     finishes, and the chunked vs one-shot logit cosine;
+  5. end to end, Lamina: the same requests through the attention-pool
+     placement (head partition, 2 workers) over an int8 pool; checks the
+     int8 kernels' launch counts (and no bf16 launch), the pool's resident
+     bytes against phase 4's, and the TransferLog against the §3.1
+     formulas; profiles decode steps;
+  6. every partition (head, request, block) and homogeneous placement over
+     an int8 and a bf16 pool on 2 requests: next-step logits at one shared
+     state (cosine), per-partition launch counts, token agreement, and
+     decode peak memory (the block partition copies no pool slice);
+  7. one JSON line describing every ported kernel (and the TPU kernels
      still to port), then the result line.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero
@@ -32,15 +43,27 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 ERR_RTOL, ERR_ATOL = 8e-3, 1e-3   # bf16 outputs: 2 ulp relative + floor
+MIN_COSINE = 0.999             # int8 vs full precision; placements
 
+KERNELS = {   # name -> (source, TPU kernel it replaces)
+    "paged_decode_attention": (
+        "src/repro_torch/csrc/paged_decode_attention.cu",
+        "src/repro/kernels/paged_decode_attention.py:55"),
+    "paged_prefill_chunk_attention": (
+        "src/repro_torch/csrc/paged_prefill_attention.cu",
+        "src/repro/kernels/paged_prefill_attention.py:54"),
+    "paged_decode_attention_int8": (
+        "src/repro_torch/csrc/paged_decode_attention.cu",
+        "src/repro/kernels/paged_decode_attention.py:119"),
+    "paged_prefill_chunk_attention_int8": (
+        "src/repro_torch/csrc/paged_prefill_attention.cu",
+        "src/repro/kernels/paged_prefill_attention.py:128"),
+}
 TODO_KERNELS = [
-    ("paged_decode_attention_int8",
-     "src/repro/kernels/paged_decode_attention.py:119"),
-    ("paged_prefill_chunk_attention_int8",
-     "src/repro/kernels/paged_prefill_attention.py:128"),
     ("decode_attention", "src/repro/kernels/decode_attention.py:31"),
     ("ssm_scan", "src/repro/kernels/ssm_scan.py:20"),
     ("rwkv6_scan", "src/repro/kernels/rwkv6_scan.py:22"),
@@ -51,16 +74,41 @@ def log(*a):
     print(*a, flush=True)
 
 
+def sync(torch):
+    torch.cuda.synchronize()
+
+
 # ---------------------------------------------------------------------------
-# timing helpers
+# launch counters, timing, checks
 # ---------------------------------------------------------------------------
+class Launches:
+    """The four kernel wrappers' launch counters: zeroed just before a path
+    is driven, read just after it."""
+
+    def __init__(self, pda, ppa):
+        self.fns = {"paged_decode_attention": pda.paged_decode_attention,
+                    "paged_prefill_chunk_attention":
+                        ppa.paged_prefill_chunk_attention,
+                    "paged_decode_attention_int8":
+                        pda.paged_decode_attention_int8,
+                    "paged_prefill_chunk_attention_int8":
+                        ppa.paged_prefill_chunk_attention_int8}
+
+    def reset(self):
+        for fn in self.fns.values():
+            fn.launches = 0
+
+    def read(self):
+        return {k: fn.launches for k, fn in self.fns.items()}
+
+
 class Timer:
     """Median per-call device time with a cold L2 before every call (the
     main path reads a different layer's pool slice each call)."""
 
     def __init__(self, torch):
         self.torch = torch
-        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
 
     def ms(self, fn, iters=15, warmup=2):
         torch = self.torch
@@ -100,53 +148,83 @@ def check_close(name, got, want, rtol=ERR_RTOL, atol=ERR_ATOL):
     return float(err.max())
 
 
+def cosine(a, b):
+    a, b = a.float().flatten(), b.float().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def quantize_pool(torch, pool):
+    """A float pool (Hkv, NB, bs, hd) as int8 values + fp32 scales (Hkv,
+    NB, bs) — what PagedKVCache stores for it."""
+    from repro_torch.models.kv_quant import quantize_kv
+    return quantize_kv(pool)
+
+
 # ---------------------------------------------------------------------------
 # phase 2: paged decode
 # ---------------------------------------------------------------------------
 def decode_case(torch, pda, timer, *, B, Hkv, G, hd, bs, lens, seed,
-                sliding_window=0, sinks=0, softcap=0.0, pos_pad=False,
-                library=True):
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+                int8=False, sliding_window=0, sinks=0, softcap=0.0,
+                pos_pad=False, library=True):
+    gen = torch.Generator(device=DEV).manual_seed(seed)
     nbs = [-(-n // bs) for n in lens]
     nb = max(nbs)
     NB = sum(nbs) + 9
     shape = (Hkv, NB, bs, hd)
-    k_pool = torch.randn(shape, generator=gen, device="cuda").bfloat16()
-    v_pool = torch.randn(shape, generator=gen, device="cuda").bfloat16()
-    k_pool[:, 0] = float("nan")            # a free block full of NaN ...
-    v_pool[:, 0] = float("nan")
-    perm = torch.randperm(NB - 1, generator=gen, device="cuda") + 1
-    tables = torch.zeros((B, nb), dtype=torch.int32, device="cuda")  # ... pad
+    k_pool = torch.randn(shape, generator=gen, device=DEV).bfloat16()
+    v_pool = torch.randn(shape, generator=gen, device=DEV).bfloat16()
+    stale = torch.zeros((NB, bs), dtype=torch.bool, device=DEV)
+    stale[0] = True                        # a free block full of NaN ...
+    perm = torch.randperm(NB - 1, generator=gen, device=DEV) + 1
+    tables = torch.zeros((B, nb), dtype=torch.int32, device=DEV)  # ... pad
     used = 0
     for i, n in enumerate(nbs):
         tables[i, :n] = perm[used:used + n].int()
         used += n
-        last = int(tables[i, n - 1])
-        tail = lens[i] - (n - 1) * bs      # stale NaN past cache_len
-        k_pool[:, last, tail:] = float("nan")
-        v_pool[:, last, tail:] = float("nan")
-    q = torch.randn((B, Hkv, G, hd), generator=gen, device="cuda").bfloat16()
-    cache_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        stale[int(tables[i, n - 1]), lens[i] - (n - 1) * bs:] = True
+    k_pool[:, stale] = float("nan")        # stale NaN past cache_len
+    v_pool[:, stale] = float("nan")
+    q = torch.randn((B, Hkv, G, hd), generator=gen, device=DEV).bfloat16()
+    cache_len = torch.tensor(lens, dtype=torch.int32, device=DEV)
     positions = None
     if pos_pad:     # a block-sharded table: foreign slots carry POS_PAD
-        base = torch.arange(nb, dtype=torch.int32, device="cuda") * bs
+        base = torch.arange(nb, dtype=torch.int32, device=DEV) * bs
         positions = base[None].repeat(B, 1).contiguous()
         positions[:, 1::2] = pda.POS_PAD
         tables[:, 1::2] = 0                # ... and point at the NaN block
     kw = dict(block_positions=positions, sliding_window=sliding_window,
               attention_sinks=sinks, logit_softcap=softcap,
               return_partials=True)
-    o, l, m = pda.paged_decode_attention(q, k_pool, v_pool, tables,
-                                         cache_len, **kw)
-    torch.cuda.synchronize()
-    po, pl, pm = pda.paged_decode_attention_plain(q, k_pool, v_pool, tables,
+    pools = (k_pool, v_pool)
+    if int8:
+        # stale rows' NaN values quantize to NaN scales; every stale scale
+        # is NaN: the kernel must never load them
+        kq, ks = quantize_pool(torch, k_pool)
+        vq, vs = quantize_pool(torch, v_pool)
+        ks[:, stale] = float("nan")
+        vs[:, stale] = float("nan")
+        pools = (kq, vq)
+        kw.update(k_scale=ks, v_scale=vs)
+    o, l, m = pda.paged_decode_attention(q, *pools, tables, cache_len, **kw)
+    sync(torch)
+    po, pl, pm = pda.paged_decode_attention_plain(q, *pools, tables,
                                                   cache_len, **kw)
     err = check_close("decode o", o, po)
     check_close("decode l", l, pl, rtol=1e-3, atol=1e-6)
     check_close("decode m", m, pm, rtol=0.0, atol=1e-3)
+    out = {}
+    if int8:   # the int8 kernel against the bf16 twin on the unquantized pool
+        full = {k: v for k, v in kw.items() if k not in ("k_scale",
+                                                         "v_scale")}
+        fo = pda.paged_decode_attention_plain(q, k_pool, v_pool, tables,
+                                              cache_len, **full)[0]
+        out["cosine_vs_bf16"] = cosine(o, fo)
+        if not out["cosine_vs_bf16"] >= MIN_COSINE:
+            raise AssertionError(f"int8 decode vs bf16 cosine "
+                                 f"{out['cosine_vs_bf16']} < {MIN_COSINE}")
     # rows the masks keep (the data-dependent work of this run)
-    pos = (torch.arange(nb, device="cuda")[:, None] * bs +
-           torch.arange(bs, device="cuda")).reshape(-1)
+    pos = (torch.arange(nb, device=DEV)[:, None] * bs +
+           torch.arange(bs, device=DEV)).reshape(-1)
     valid = pos[None] < cache_len[:, None]
     if positions is not None:
         valid &= (positions[:, :, None] < pda.POS_PAD).expand(
@@ -156,18 +234,26 @@ def decode_case(torch, pda, timer, *, B, Hkv, G, hd, bs, lens, seed,
             (pos[None] < sinks)
     rows = int(valid.sum())
     H = Hkv * G
-    nbytes = (rows * Hkv * hd * 2 * 2 + q.numel() * 2 + tables.numel() * 4 +
+    row_bytes = (hd + 4) * 2 if int8 else hd * 2 * 2   # K + V (+ scales)
+    nbytes = (rows * Hkv * row_bytes + q.numel() * 2 + tables.numel() * 4 +
+              (0 if positions is None else positions.numel() * 4) +
               B * 4 + o.numel() * 2 + 2 * l.numel() * 4)
     flops = 4 * rows * H * hd          # QK + PV, per kept (row, query head)
     bound_ms, bound_by = bound(nbytes, flops)
     kernel_ms = timer.ms(lambda: pda.paged_decode_attention(
-        q, k_pool, v_pool, tables, cache_len, **kw))
+        q, *pools, tables, cache_len, **kw))
     plain_ms = timer.ms(lambda: pda.paged_decode_attention_plain(
-        q, k_pool, v_pool, tables, cache_len, **kw), iters=5)
+        q, *pools, tables, cache_len, **kw), iters=5)
     library_ms = None
     if library and softcap == 0.0:
-        # yardstick only: SDPA over pre-gathered dense K/V (not timed)
-        kc, vc = pda.paged_gather_dense(k_pool, v_pool, tables)
+        # yardstick only: SDPA over pre-gathered (and, for int8,
+        # pre-dequantized) dense K/V; the gather and dequant are not timed
+        kc, vc = pda.paged_gather_dense(*pools, tables)
+        if int8:
+            kc = (kc.float() * pda.paged_gather_scales(
+                ks, tables)[..., None]).bfloat16()
+            vc = (vc.float() * pda.paged_gather_scales(
+                vs, tables)[..., None]).bfloat16()
         kc = torch.where(valid[:, None, :, None], kc, 0).repeat_interleave(
             G, dim=1)
         vc = torch.where(valid[:, None, :, None], vc, 0).repeat_interleave(
@@ -177,51 +263,63 @@ def decode_case(torch, pda, timer, *, B, Hkv, G, hd, bs, lens, seed,
         library_ms = timer.ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qd, kc, vc, attn_mask=mask))
-    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                rows=rows)
+    out.update(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+               rows=rows)
+    return out
 
 
 # ---------------------------------------------------------------------------
 # phase 3: paged chunk prefill
 # ---------------------------------------------------------------------------
 def prefill_case(torch, ppa, timer, *, H, Hkv, hd, bs, P, C, seed,
-                 sliding_window=0, sinks=0, softcap=0.0):
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+                 int8=False, sliding_window=0, sinks=0, softcap=0.0):
+    gen = torch.Generator(device=DEV).manual_seed(seed)
     nb = P // bs
     NB = nb + 5
     shape = (Hkv, NB, bs, hd)
-    k_pool = torch.randn(shape, generator=gen, device="cuda").bfloat16()
-    v_pool = torch.randn(shape, generator=gen, device="cuda").bfloat16()
-    table = (torch.randperm(NB, generator=gen, device="cuda")[:nb]).int()
-    q = torch.randn((C, H, hd), generator=gen, device="cuda").bfloat16()
-    kc = torch.randn((C, Hkv, hd), generator=gen, device="cuda").bfloat16()
-    vc = torch.randn((C, Hkv, hd), generator=gen, device="cuda").bfloat16()
+    k_pool = torch.randn(shape, generator=gen, device=DEV).bfloat16()
+    v_pool = torch.randn(shape, generator=gen, device=DEV).bfloat16()
+    table = (torch.randperm(NB, generator=gen, device=DEV)[:nb]).int()
+    q = torch.randn((C, H, hd), generator=gen, device=DEV).bfloat16()
+    kc = torch.randn((C, Hkv, hd), generator=gen, device=DEV).bfloat16()
+    vc = torch.randn((C, Hkv, hd), generator=gen, device=DEV).bfloat16()
     kw = dict(sliding_window=sliding_window, attention_sinks=sinks,
               logit_softcap=softcap)
-    out = ppa.paged_prefill_chunk_attention(q, k_pool, v_pool, table, kc, vc,
-                                            **kw)
-    torch.cuda.synchronize()
-    ref = ppa.paged_prefill_chunk_attention_plain(q, k_pool, v_pool, table,
-                                                  kc, vc, **kw)
+    pools = (k_pool, v_pool)
+    if int8:
+        kq, ks = quantize_pool(torch, k_pool)
+        vq, vs = quantize_pool(torch, v_pool)
+        pools = (kq, vq)
+        kw.update(k_scale=ks, v_scale=vs)
+    out = ppa.paged_prefill_chunk_attention(q, *pools, table, kc, vc, **kw)
+    sync(torch)
+    ref = ppa.paged_prefill_chunk_attention_plain(q, *pools, table, kc, vc,
+                                                  **kw)
     err = check_close("prefill out", out, ref)
-    pos_q = P + torch.arange(C, device="cuda")[:, None]
-    pos_k = torch.arange(P + C, device="cuda")[None, :]
+    pos_q = P + torch.arange(C, device=DEV)[:, None]
+    pos_k = torch.arange(P + C, device=DEV)[None, :]
     valid = pos_k <= pos_q
     if sliding_window:
         valid &= (pos_k > pos_q - sliding_window) | (pos_k < sinks)
     pairs = int(valid.sum())                  # per query head
+    row_bytes = (hd + 4) * 2 if int8 else hd * 2 * 2
     nbytes = (2 * (q.numel() + kc.numel() + vc.numel() + out.numel()) +
-              P * Hkv * hd * 2 * 2 + nb * 4)
+              P * Hkv * row_bytes + nb * 4)
     flops = 4 * pairs * H * hd
     bound_ms, bound_by = bound(nbytes, flops)
     kernel_ms = timer.ms(lambda: ppa.paged_prefill_chunk_attention(
-        q, k_pool, v_pool, table, kc, vc, **kw), iters=9)
+        q, *pools, table, kc, vc, **kw), iters=9)
     plain_ms = timer.ms(lambda: ppa.paged_prefill_chunk_attention_plain(
-        q, k_pool, v_pool, table, kc, vc, **kw), iters=5)
+        q, *pools, table, kc, vc, **kw), iters=5)
     library_ms = None
     if softcap == 0.0:
-        kp, vp = ppa.gather_prefix_dense(k_pool, v_pool, table)
+        kp, vp = ppa.gather_prefix_dense(*pools, table)
+        if int8:   # pre-dequantized; the dequant is not timed
+            kp = (kp.float() * ppa.gather_prefix_scales(
+                ks, table)[..., None]).bfloat16()
+            vp = (vp.float() * ppa.gather_prefix_scales(
+                vs, table)[..., None]).bfloat16()
         G = H // Hkv
         kd = torch.cat([kp, kc]).permute(1, 0, 2).repeat_interleave(
             G, dim=0)[None]
@@ -236,90 +334,93 @@ def prefill_case(torch, ppa, timer, *, H, Hkv, hd, bs, P, C, seed,
 
 
 # ---------------------------------------------------------------------------
-# phase 4: end to end
+# phases 4-6: end to end
 # ---------------------------------------------------------------------------
-def end_to_end(torch, np, pda, ppa):
-    from repro_torch.configs import registry
-    from repro_torch.models import transformer
-    from repro_torch.serving import (EngineConfig, LLMEngine, PagedKVCache,
-                                     Request, SamplingParams, State)
+def make_requests(prompts, new_tokens):
+    from repro_torch.serving import Request, SamplingParams
+    return [Request(prompt=list(p), params=SamplingParams(
+        max_new_tokens=new_tokens)) for p in prompts]
 
-    cfg = registry.get_config("llama3-8b")
-    t0 = time.perf_counter()
-    params = transformer.init_params(0, cfg, device="cuda")
-    torch.cuda.synchronize()
-    log(f"e2e: llama3-8b L={cfg.num_layers} d={cfg.d_model} "
-        f"H={cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.resolved_head_dim} "
-        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} weights "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-        f"init {time.perf_counter() - t0:.1f} s")
-    econf = EngineConfig(placement="homogeneous", scheduler="fcfs",
-                         block_size=16, num_blocks=2048, max_batch=8,
-                         prefill_chunk_tokens=512)
 
-    # warm-up (library handles, allocator) on a small pool, not counted
-    warm = LLMEngine(cfg, params, econf.replace(num_blocks=64),
-                     device="cuda")
-    warm.submit([Request(prompt=list(range(1, 41)),
-                         params=SamplingParams(max_new_tokens=2))])
-    warm.run()
-    del warm
-
-    rng = np.random.default_rng(0)
-    lens = rng.integers(300, 2001, size=8)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
-               for n in lens]
-    reqs = [Request(prompt=p, params=SamplingParams(max_new_tokens=32))
-            for p in prompts]
-    log(f"e2e: prompt lengths {lens.tolist()} "
-        f"({sum(int(n) % 16 != 0 for n in lens)} not multiples of 16)")
-    eng = LLMEngine(cfg, params, econf, device="cuda")
-    torch.cuda.synchronize()
+def serve(torch, eng, reqs, counters):
+    """Drive one engine over ``reqs`` with the launch counters zeroed just
+    before and read just after. Returns (launches, wall s, peak bytes)."""
+    sync(torch)
     torch.cuda.reset_peak_memory_stats()
-
-    pda.paged_decode_attention.launches = 0
-    ppa.paged_prefill_chunk_attention.launches = 0
+    counters.reset()
     t0 = time.perf_counter()
     eng.submit(reqs)
     eng.run()
-    torch.cuda.synchronize()
+    sync(torch)
     wall = time.perf_counter() - t0
-    launches = {"paged_decode_attention": pda.paged_decode_attention.launches,
-                "paged_prefill_chunk_attention":
-                    ppa.paged_prefill_chunk_attention.launches}
-    st = eng.stats
-    peak = torch.cuda.max_memory_allocated()
+    return counters.read(), wall, torch.cuda.max_memory_allocated()
 
-    if not all(r.state == State.FINISHED and len(r.output) == 32
+
+def check_finished(cfg, reqs, n):
+    from repro_torch.serving import State
+    if not all(r.state == State.FINISHED and len(r.output) == n
                for r in reqs):
-        raise AssertionError("not every request finished with 32 tokens: "
+        raise AssertionError(f"not every request finished with {n} tokens: "
                              f"{[len(r.output) for r in reqs]}")
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
         raise AssertionError("sampled token outside the vocabulary")
-    L = cfg.num_layers
-    if launches["paged_decode_attention"] != L * st.steps or st.steps == 0:
-        raise AssertionError(f"decode launches {launches} != {L} x "
-                             f"{st.steps} decode steps")
-    if launches["paged_prefill_chunk_attention"] != \
-            L * st.prefill_chunks_run or st.prefill_chunks_run == 0:
-        raise AssertionError(f"chunk launches {launches} != {L} x "
-                             f"{st.prefill_chunks_run} chunks")
+
+
+def expect_launches(launches, want, what):
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches} != {want}")
+    log(f"{what}: launches {launches} as expected")
+
+
+def serving_summary(st, reqs, wall, peak):
     n_out = sum(len(r.output) for r in reqs)
-    ttft = st.ttft_percentiles()["p50"]
-    tbt = st.tbt_percentiles()["p50"]
-    decode_ms = float(np.mean(st.step_times)) * 1e3
-    log(f"e2e: {len(reqs)} requests finished, {n_out} tokens in "
-        f"{wall:.3f} s -> {n_out / wall:.1f} tok/s; decode steps {st.steps} "
-        f"(mean {decode_ms:.1f} ms each, host clock to synchronised "
-        f"logits) chunks {st.prefill_chunks_run}; TTFT p50 "
-        f"{ttft * 1e3:.1f} ms; TBT p50 {tbt * 1e3:.1f} ms; peak memory "
-        f"{peak / 2**30:.2f} GiB")
-    log(f"e2e: launches {launches} (= {L} layers x steps / chunks)")
+    return dict(tok_s=n_out / wall, wall_s=wall,
+                ttft_p50_s=st.ttft_percentiles()["p50"],
+                tbt_p50_s=st.tbt_percentiles()["p50"],
+                peak_gib=peak / 2**30, decode_steps=st.steps,
+                decode_step_ms_mean=sum(st.step_times) / len(st.step_times)
+                * 1e3, chunks=st.prefill_chunks_run,
+                kv_pool_bytes_resident=st.kv_pool_bytes_resident,
+                kv_bytes_read_per_step=st.kv_bytes_read_per_step)
+
+
+def homogeneous_e2e(torch, np, cfg, params, prompts, counters):
+    """Phase 4: the bf16 homogeneous engine on the 8 requests."""
+    from repro_torch.models import transformer
+    from repro_torch.serving import EngineConfig, LLMEngine, PagedKVCache
+
+    econf = EngineConfig(placement="homogeneous", scheduler="fcfs",
+                         block_size=16, num_blocks=2048, max_batch=8,
+                         prefill_chunk_tokens=512)
+    # warm-up (library handles, allocator) on a small pool, not counted
+    warm = LLMEngine(cfg, params, econf.replace(num_blocks=64), device=DEV)
+    warm.submit(make_requests([list(range(1, 41))], 2))
+    warm.run()
+    del warm
+
+    reqs = make_requests(prompts, 32)
+    eng = LLMEngine(cfg, params, econf, device=DEV)
+    launches, wall, peak = serve(torch, eng, reqs, counters)
+    st = eng.stats
+    check_finished(cfg, reqs, 32)
+    L = cfg.num_layers
+    if st.steps == 0 or st.prefill_chunks_run == 0:
+        raise AssertionError("no decode step or no chunk ran")
+    expect_launches(launches, {
+        "paged_decode_attention": L * st.steps,
+        "paged_prefill_chunk_attention": L * st.prefill_chunks_run,
+        "paged_decode_attention_int8": 0,
+        "paged_prefill_chunk_attention_int8": 0},
+        f"e2e homogeneous bf16 ({L} layers x {st.steps} steps / "
+        f"{st.prefill_chunks_run} chunks)")
+    result = serving_summary(st, reqs, wall, peak)
+    log(f"e2e homogeneous bf16: {len(reqs)} requests, "
+        f"{json.dumps(result)}")
 
     # chunked kernel path vs one-shot plain blockwise prefill, one prompt
-    prompt = prompts[int(np.argmax(lens))]
+    prompt = max(prompts, key=len)
     n = len(prompt)
-    kv = PagedKVCache(cfg, -(-n // 16) + 1, 16, device="cuda")
+    kv = PagedKVCache(cfg, -(-n // 16) + 1, 16, device=DEV)
     chunk_ms = []
     for c0 in range(0, n, 512):
         c1 = min(c0 + 512, n)
@@ -327,39 +428,236 @@ def end_to_end(torch, np, pda, ppa):
         logits_c, cache = transformer.prefill_chunk(
             params, cfg, {"tokens": [prompt[c0:c1]]}, kv.k_pool, kv.v_pool,
             kv.gather_prefix_indices(0, c0) if c0 else
-            torch.zeros((0,), dtype=torch.int32, device="cuda"),
-            device="cuda")
+            torch.zeros((0,), dtype=torch.int32, device=DEV), device=DEV)
         kv.write_prefill_chunk(0, cache["k"][:, 0], cache["v"][:, 0], c0)
-        torch.cuda.synchronize()
+        sync(torch)
         chunk_ms.append((time.perf_counter() - t0) * 1e3)
     t0 = time.perf_counter()
     logits_o, _ = transformer.prefill(params, cfg, {"tokens": [prompt]},
-                                      max_seq=n, device="cuda")
-    torch.cuda.synchronize()
+                                      max_seq=n, device=DEV)
+    sync(torch)
     oneshot_ms = (time.perf_counter() - t0) * 1e3
-    log(f"e2e: prompt of {n} tokens: {cfg.num_layers}-layer prefill chunks "
-        f"of 512 "
-        f"(P = 0, 512, 1024, ...) took {[round(x, 1) for x in chunk_ms]} ms; "
-        f"one-shot plain prefill {oneshot_ms:.1f} ms")
-    a, b = logits_c.float().flatten(), logits_o.float().flatten()
-    cos = float(a @ b / (a.norm() * b.norm()))
-    log(f"e2e: chunked (kernel) vs one-shot (plain blockwise) last logits, "
-        f"prompt {n} tokens: cosine {cos:.6f} (need >= 0.99); argmax "
-        f"{int(a.argmax())} vs {int(b.argmax())}")
+    cos = cosine(logits_c, logits_o)
+    log(f"e2e: prompt of {n} tokens: {L}-layer prefill chunks of 512 took "
+        f"{[round(x, 1) for x in chunk_ms]} ms; one-shot plain prefill "
+        f"{oneshot_ms:.1f} ms; chunked (kernel) vs one-shot (plain) last "
+        f"logits cosine {cos:.6f} (need >= 0.99), argmax "
+        f"{int(logits_c.argmax())} vs {int(logits_o.argmax())}")
     if not cos >= 0.99:
         raise AssertionError(f"chunked vs one-shot cosine {cos} < 0.99")
-    result = dict(tok_s=n_out / wall, wall_s=wall, ttft_p50_s=ttft,
-                  tbt_p50_s=tbt, peak_gib=peak / 2**30, cosine=cos,
-                  decode_steps=st.steps, decode_step_ms_mean=decode_ms,
-                  chunks=st.prefill_chunks_run, chunk_ms=chunk_ms,
-                  oneshot_prefill_ms=oneshot_ms)
-    prof = profile_decode(torch, eng, prompts, Request, SamplingParams, State)
-    log(f"e2e: profiled decode-only steps: {json.dumps(prof)}")
+    result.update(cosine=cos, chunk_ms=chunk_ms, oneshot_prefill_ms=oneshot_ms)
+    prof = profile_decode(torch, eng, prompts)
+    log(f"e2e homogeneous bf16: profiled decode-only steps: "
+        f"{json.dumps(prof)}")
+    result["profile"] = prof
+    del eng
     return launches, result
 
 
-def profile_decode(torch, eng, prompts, Request, SamplingParams, State,
-                   n_steps=3):
+def lamina_e2e(torch, np, cfg, params, prompts, counters, bf16_resident):
+    """Phase 5: Lamina's deployment — attention on 2 workers (head
+    partition) reading an int8 pool in place."""
+    from repro_torch.serving import (EngineConfig, LLMEngine,
+                                     expected_transfer_bytes)
+
+    econf = EngineConfig(placement="attention_pool", partition="head",
+                         attention_workers=2, kv_dtype="int8",
+                         block_size=16, num_blocks=2048, max_batch=8,
+                         prefill_chunk_tokens=512)
+    warm = LLMEngine(cfg, params, econf.replace(num_blocks=64), device=DEV)
+    warm.submit(make_requests([list(range(1, 41))], 2))
+    warm.run()
+    del warm
+
+    reqs = make_requests(prompts, 32)
+    eng = LLMEngine(cfg, params, econf, device=DEV)
+    launches, wall, peak = serve(torch, eng, reqs, counters)
+    st = eng.stats
+    check_finished(cfg, reqs, 32)
+    L, n = cfg.num_layers, econf.attention_workers
+    expect_launches(launches, {
+        "paged_decode_attention": 0,
+        "paged_prefill_chunk_attention": 0,
+        "paged_decode_attention_int8": L * st.steps * n,
+        "paged_prefill_chunk_attention_int8": L * st.prefill_chunks_run},
+        f"e2e Lamina head int8 ({L} layers x {st.steps} steps x {n} "
+        f"workers / {st.prefill_chunks_run} chunks)")
+    hd, Hkv = cfg.resolved_head_dim, cfg.num_kv_heads
+    ratio = st.kv_pool_bytes_resident / bf16_resident
+    e = torch.finfo(cfg.dtype).bits // 8       # 2: the model's bf16
+    want = (hd + 4) / (e * hd)
+    log(f"e2e Lamina: pool resident {st.kv_pool_bytes_resident} B vs bf16 "
+        f"{bf16_resident} B: ratio {ratio:.6f} (expect (hd+4)/({e}·hd) = "
+        f"{want:.6f} within 1%)")
+    if abs(ratio / want - 1) > 0.01:
+        raise AssertionError(f"int8 / bf16 resident ratio {ratio} != {want}")
+    # TransferLog against the §3.1 formulas: log_iteration per decode step
+    # (linear in the batch) and log_prefill_chunk per chunk
+    tlog = eng.transfer_log
+    tokens = st.tokens_generated
+    chunk_tokens = sum(len(p) for p in prompts)
+    chunk_kv = 2 * chunk_tokens * Hkv * (hd + 4) * L
+    want_log = dict(
+        q_bytes=tokens * cfg.num_heads * hd * 2 * L,
+        kv_bytes=2 * tokens * Hkv * hd * 2 * L + chunk_kv,
+        out_bytes=tokens * cfg.num_heads * hd * 2 * L,
+        transfers=2 * L * st.steps + L * st.prefill_chunks_run)
+    got_log = dict(q_bytes=tlog.q_bytes, kv_bytes=tlog.kv_bytes,
+                   out_bytes=tlog.out_bytes, transfers=tlog.transfers)
+    if got_log != want_log or \
+            tlog.total != expected_transfer_bytes(cfg, tokens) + chunk_kv:
+        raise AssertionError(f"TransferLog {got_log} != {want_log}")
+    log(f"e2e Lamina: TransferLog {got_log} = the §3.1 formulas "
+        f"({tokens} decode tokens, {chunk_tokens} chunk tokens); "
+        f"per-worker KV bytes read {eng.pool.per_worker_kv_bytes}")
+    result = serving_summary(st, reqs, wall, peak)
+    log(f"e2e Lamina head int8: {len(reqs)} requests, {json.dumps(result)}")
+    prof = profile_decode(torch, eng, prompts)
+    log(f"e2e Lamina head int8: profiled decode-only steps: "
+        f"{json.dumps(prof)}")
+    result.update(resident_ratio=ratio, transfer_log=got_log, profile=prof)
+    del eng
+    return launches, result
+
+
+def partitions_e2e(torch, np, cfg, params, prompts, counters, kv_dtype):
+    """Phase 6: every placement over a ``kv_dtype`` pool, 2 requests."""
+    from repro_torch.serving import (EngineConfig, LLMEngine, State,
+                                     make_placement)
+
+    L, workers, new = cfg.num_layers, 2, 8
+    base = EngineConfig(kv_dtype=kv_dtype, block_size=16, num_blocks=2048,
+                        max_batch=2, prefill_chunk_tokens=512,
+                        attention_workers=workers)
+    kernel, other = ("paged_decode_attention_int8", "paged_decode_attention")
+    if kv_dtype != "int8":
+        kernel, other = other, kernel
+    confs = {"homogeneous": base.replace(kv_shards=workers),
+             "head": base.replace(placement="attention_pool",
+                                  partition="head"),
+             "request": base.replace(placement="attention_pool",
+                                     partition="request"),
+             "block": base.replace(placement="attention_pool",
+                                   partition="block")}
+
+    # (a) one shared state: a homogeneous int8 engine on a 2-shard pool
+    # paused where both requests decode; every placement's decode step
+    # computes the next logits from that same pool, tables and tokens
+    eng = LLMEngine(cfg, params, confs["homogeneous"], device=DEV)
+    reqs = make_requests(prompts, new)
+    eng.submit(reqs)
+    while not all(r.state == State.RUNNING and eng.sched.prefill_done(r.rid)
+                  for r in reqs):
+        eng.step()
+    ids = [r.rid for r in reqs]
+    tables, lens = eng.kv.block_table_batch(ids)
+    tokens = [r.output[-1] for r in reqs]
+    per_layer = {"homogeneous": 1, "head": workers, "request": workers,
+                 "block": workers}
+    shared = {}
+    logits = {}
+    steps = {}
+    for name, econf in confs.items():
+        pl = make_placement(cfg, econf, torch.device(DEV))
+        steps[name] = (pl.decode_fn(), pl.decode_extra_args(eng.kv, ids))
+    times = {name: [] for name in confs}
+    order = list(confs)
+    for rnd in range(5):        # alternate the order: host time drifts
+        for name in (order if rnd % 2 == 0 else order[::-1]):
+            step, extra = steps[name]
+            counters.reset()
+            sync(torch)
+            t0 = time.perf_counter()
+            out, _ = step(params, tokens, eng.kv.k_pool, eng.kv.v_pool,
+                          tables, lens, *extra, k_scale_pool=eng.kv.k_scale,
+                          v_scale_pool=eng.kv.v_scale)
+            sync(torch)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            got = counters.read()[kernel]
+            if got != L * per_layer[name]:
+                raise AssertionError(f"shared-state step {name} {kv_dtype}: "
+                                     f"{got} launches != {L} x "
+                                     f"{per_layer[name]}")
+            logits[name] = out.float()
+    for name in confs:
+        out = logits[name]
+        cos = min(cosine(out[i], logits["homogeneous"][i])
+                  for i in range(len(ids)))
+        shared[name] = dict(min_row_cosine=cos,
+                            step_ms=sorted(times[name])[2],
+                            argmax=[int(t) for t in out.argmax(-1)])
+        if not cos >= MIN_COSINE:
+            raise AssertionError(f"{name} logits vs homogeneous {kv_dtype} at "
+                                 f"the same state: cosine {cos} < "
+                                 f"{MIN_COSINE}")
+    log(f"partitions {kv_dtype}, shared state: {kernel} launches per step "
+        f"{ {n: L * k for n, k in per_layer.items()} } as expected")
+    log(f"partitions {kv_dtype}, shared state (B={len(ids)}, lens "
+        f"{lens.tolist()}): "
+        f"{json.dumps(shared)}")
+    eng.cancel_all()
+    del eng
+
+    # (b) each placement serves the 2 requests itself: tokens, launches,
+    # and peak memory over the decode-only steps
+    runs = {}
+    for name, econf in confs.items():
+        eng = LLMEngine(cfg, params, econf, device=DEV)
+        reqs = make_requests(prompts, new)
+        eng.submit(reqs)
+        while not all(r.state == State.RUNNING and
+                      eng.sched.prefill_done(r.rid) for r in reqs):
+            eng.step()
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        counters.reset()
+        steps0 = eng.stats.steps
+        eng.run()
+        sync(torch)
+        launches = counters.read()
+        check_finished(cfg, reqs, new)
+        batches = eng.stats.batch_sizes[steps0:]
+        if name == "request":   # one launch per worker that has requests
+            want = L * sum(min(workers, b) for b in batches)
+        else:
+            want = L * len(batches) * per_layer[name]
+        expect_launches(launches[kernel], want,
+                        f"partition run {name} {kv_dtype} ({len(batches)} "
+                        f"decode-only steps)")
+        if launches[other]:
+            raise AssertionError(f"{name} {kv_dtype}: {other} launched")
+        runs[name] = dict(
+            tokens=[r.output for r in reqs],
+            decode_peak_over_resident_mib=(torch.cuda.max_memory_allocated()
+                                           - before) / 2**20)
+        del eng
+        torch.cuda.empty_cache()
+    ref_tokens = runs["homogeneous"]["tokens"]
+    for name, r in runs.items():
+        r["tokens_agree_with_homogeneous"] = r["tokens"] == ref_tokens
+    log(f"partitions {kv_dtype}, own runs: "
+        f"{json.dumps({k: {kk: vv for kk, vv in v.items() if kk != 'tokens'} for k, v in runs.items()})}")
+    # the block partition reads the whole layer pool in place: no copy of
+    # a shard's slice (one layer's K slice alone is Hkv·NB/n·bs·hd bytes)
+    hd, Hkv = cfg.resolved_head_dim, cfg.num_kv_heads
+    e = 1 if kv_dtype == "int8" else torch.finfo(cfg.dtype).bits // 8
+    slice_mib = (Hkv * base.num_blocks // workers * base.block_size * hd *
+                 e / 2**20)
+    grow = (runs["block"]["decode_peak_over_resident_mib"] -
+            runs["head"]["decode_peak_over_resident_mib"])
+    log(f"partitions {kv_dtype}: block decode peak exceeds head's by "
+        f"{grow:.2f} MiB "
+        f"(one layer's K pool slice is {slice_mib:.1f} MiB)")
+    if grow >= slice_mib:
+        raise AssertionError(f"block partition's decode peak grew by "
+                             f"{grow} MiB >= a pool slice ({slice_mib} MiB)")
+    return dict(shared_state=shared, runs={
+        k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+        for k, v in runs.items()})
+
+
+def profile_decode(torch, eng, prompts, n_steps=3):
     """Where a decode step's time goes: a second wave of the same prompts
     is driven until every request decodes, then ``n_steps`` decode-only
     steps (B=8) run under torch.profiler. Reports host wall per step,
@@ -368,19 +666,20 @@ def profile_decode(torch, eng, prompts, Request, SamplingParams, State,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    wave = [Request(prompt=p, params=SamplingParams(max_new_tokens=64))
-            for p in prompts]
+    from repro_torch.serving import State
+
+    wave = make_requests(prompts, 64)
     eng.submit(wave)
     while not all(r.state == State.RUNNING and eng.sched.prefill_done(r.rid)
                   for r in wave):
         eng.step()
-    torch.cuda.synchronize()
+    sync(torch)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
             eng.step()
-        torch.cuda.synchronize()
+        sync(torch)
         wall = time.perf_counter() - t0
     eng.cancel_all()
     # device-side events only (kernels, copies): CPU ops' device totals
@@ -405,10 +704,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    from repro_torch.configs import registry
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.models import transformer
 
+    t_start = time.perf_counter()
     # phase 1: device + build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -425,65 +727,102 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    counters = Launches(pda, ppa)
 
     timer = Timer(torch)
     rng = np.random.default_rng(0)
     log(f"tolerance, kernel vs plain twin: |err| <= {ERR_ATOL} + {ERR_RTOL}"
-        f" * |plain| elementwise on o (2 bf16 ulp); l rtol 1e-3; m atol 1e-3")
+        f" * |plain| elementwise on o (2 bf16 ulp); l rtol 1e-3; m atol "
+        f"1e-3; int8 vs the bf16 twin on the unquantized pool: cosine >= "
+        f"{MIN_COSINE}")
 
-    # phase 2: decode kernel vs plain twin
+    # phase 2: decode kernels vs plain twin, bf16 then int8 at the same
+    # shapes and seeds
     lens = rng.integers(1, 2049, size=8).tolist()
     lens[0] = 2048
-    dec_main = decode_case(torch, pda, timer, B=8, Hkv=8, G=4, hd=128,
-                           bs=16, lens=lens, seed=1)
-    log(f"decode llama3-8b B=8 lens={lens}: {json.dumps(dec_main)}")
-    r = decode_case(torch, pda, timer, B=8, Hkv=8, G=4, hd=128, bs=16,
-                    lens=lens, seed=2, pos_pad=True, library=False)
-    log(f"decode POS_PAD slots: {json.dumps(r)}")
     glens = rng.integers(1, 8193, size=4).tolist()
     glens[0] = 8192
-    r = decode_case(torch, pda, timer, B=4, Hkv=16, G=2, hd=128, bs=16,
-                    lens=glens, seed=3, sliding_window=4095, sinks=4,
-                    softcap=50.0)
-    log(f"decode gemma2-shaped window=4095 sinks=4 softcap=50 "
-        f"lens={glens}: {json.dumps(r)}")
+    dec = {}
+    for int8 in (False, True):
+        tag = "int8" if int8 else "bf16"
+        dec[tag] = decode_case(torch, pda, timer, B=8, Hkv=8, G=4, hd=128,
+                               bs=16, lens=lens, seed=1, int8=int8)
+        log(f"decode {tag} llama3-8b B=8 lens={lens}: "
+            f"{json.dumps(dec[tag])}")
+        r = decode_case(torch, pda, timer, B=8, Hkv=8, G=4, hd=128, bs=16,
+                        lens=lens, seed=2, int8=int8, pos_pad=True,
+                        library=False)
+        log(f"decode {tag} POS_PAD slots: {json.dumps(r)}")
+        r = decode_case(torch, pda, timer, B=4, Hkv=16, G=2, hd=128, bs=16,
+                        lens=glens, seed=3, int8=int8, sliding_window=4095,
+                        sinks=4, softcap=50.0)
+        log(f"decode {tag} gemma2-shaped window=4095 sinks=4 softcap=50 "
+            f"lens={glens}: {json.dumps(r)}")
 
-    # phase 3: chunk-prefill kernel vs plain twin
+    # phase 3: chunk-prefill kernels vs plain twin
     pre = {}
-    for P, C in ((0, 512), (1536, 512), (1024, 300)):
-        pre[(P, C)] = prefill_case(torch, ppa, timer, H=32, Hkv=8, hd=128,
-                                   bs=16, P=P, C=C, seed=10 + P + C)
-        log(f"prefill llama3-8b P={P} C={C}: {json.dumps(pre[(P, C)])}")
-    r = prefill_case(torch, ppa, timer, H=32, Hkv=16, hd=128, bs=16,
-                     P=4096, C=512, seed=20, sliding_window=4096, sinks=4,
-                     softcap=50.0)
-    log(f"prefill gemma2-shaped P=4096 C=512 window=4096 sinks=4 "
-        f"softcap=50: {json.dumps(r)}")
-
+    for int8 in (False, True):
+        tag = "int8" if int8 else "bf16"
+        for P, C in ((0, 512), (1536, 512), (1024, 300)):
+            pre[(tag, P, C)] = prefill_case(torch, ppa, timer, H=32, Hkv=8,
+                                            hd=128, bs=16, P=P, C=C,
+                                            seed=10 + P + C, int8=int8)
+            log(f"prefill {tag} llama3-8b P={P} C={C}: "
+                f"{json.dumps(pre[(tag, P, C)])}")
+        r = prefill_case(torch, ppa, timer, H=32, Hkv=16, hd=128, bs=16,
+                         P=4096, C=512, seed=20, int8=int8,
+                         sliding_window=4096, sinks=4, softcap=50.0)
+        log(f"prefill {tag} gemma2-shaped P=4096 C=512 window=4096 sinks=4 "
+            f"softcap=50: {json.dumps(r)}")
     del timer
     torch.cuda.empty_cache()
-    launches, e2e = end_to_end(torch, np, pda, ppa)
-    log(f"e2e: {json.dumps(e2e)}")
+    log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
-    main_pre = pre[(1536, 512)]
-    kernels = [
-        dict(name="paged_decode_attention", route="cuda", status="ported",
-             source="src/repro_torch/csrc/paged_decode_attention.cu",
-             replaces="src/repro/kernels/paged_decode_attention.py:55",
-             launches=launches["paged_decode_attention"],
-             **{k: dec_main[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by",
-                                         "library_ms")}),
-        dict(name="paged_prefill_chunk_attention", route="cuda",
-             status="ported",
-             source="src/repro_torch/csrc/paged_prefill_attention.cu",
-             replaces="src/repro/kernels/paged_prefill_attention.py:54",
-             launches=launches["paged_prefill_chunk_attention"],
-             **{k: main_pre[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by",
-                                         "library_ms")}),
-    ]
+    # phases 4-6: end to end at full width and depth
+    cfg = registry.get_config("llama3-8b")
+    t0 = time.perf_counter()
+    params = transformer.init_params(0, cfg, device=DEV)
+    sync(torch)
+    log(f"e2e: llama3-8b L={cfg.num_layers} d={cfg.d_model} "
+        f"H={cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.resolved_head_dim} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} weights "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"init {time.perf_counter() - t0:.1f} s")
+    prng = np.random.default_rng(0)        # the requests of every e2e run
+    plens = prng.integers(300, 2001, size=8)
+    prompts = [prng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in plens]
+    log(f"e2e: prompt lengths {plens.tolist()} "
+        f"({sum(int(n) % 16 != 0 for n in plens)} not multiples of 16)")
+    l_bf16, e2e = homogeneous_e2e(torch, np, cfg, params, prompts, counters)
+    torch.cuda.empty_cache()
+    l_int8, lam = lamina_e2e(torch, np, cfg, params, prompts, counters,
+                             e2e["kv_pool_bytes_resident"])
+    torch.cuda.empty_cache()
+    parts = {d: partitions_e2e(torch, np, cfg, params, prompts[:2], counters,
+                               d) for d in ("int8", "bf16")}
+    log(f"end-to-end phases done at {time.perf_counter() - t_start:.1f} s")
+
+    stats = {"paged_decode_attention": dec["bf16"],
+             "paged_prefill_chunk_attention": pre[("bf16", 1536, 512)],
+             "paged_decode_attention_int8": dec["int8"],
+             "paged_prefill_chunk_attention_int8": pre[("int8", 1536, 512)]}
+    launches = {**{k: l_bf16[k] for k in ("paged_decode_attention",
+                                          "paged_prefill_chunk_attention")},
+                **{k: l_int8[k] for k in ("paged_decode_attention_int8",
+                                          "paged_prefill_chunk_attention_int8")}}
+    for name, n in launches.items():
+        if not n:
+            raise AssertionError(f"{name} was not launched on its path")
+    kernels = [dict(name=name, route="cuda", status="ported", source=src,
+                    replaces=rep, launches=launches[name],
+                    **{k: stats[name][k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")})
+               for name, (src, rep) in KERNELS.items()]
     todo = [dict(name=n, replaces=r, status="todo") for n, r in TODO_KERNELS]
+    log(json.dumps({"summary": {"homogeneous_bf16": e2e, "lamina_int8": lam,
+                                "partitions": parts}}))
     log(json.dumps({"kernels": kernels, "todo": todo}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-// Helpers shared by the paged-attention kernels (bf16 <-> fp32 in 16-byte
-// vectors). Included by every csrc/*.cu; compiled for sm_90a.
+// Helpers shared by the paged-attention kernels (bf16 / int8 -> fp32 in 8-
+// and 16-byte vectors). Included by every csrc/*.cu; compiled for sm_90a.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,9 +24,37 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& raw, float* out) {
   }
 }
 
+// One 32-bit word of 4 int8 values -> 4 floats (sign-extended bytes).
+__device__ __forceinline__ void int8x4_to_float(uint32_t w, float* out) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    out[i] = static_cast<float>(static_cast<int8_t>(w >> (8 * i)));
+}
+
+// 16 int8 values packed in one 16-byte word -> 16 floats.
+__device__ __forceinline__ void int8x16_to_float(const uint4& raw,
+                                                 float* out) {
+  int8x4_to_float(raw.x, out);
+  int8x4_to_float(raw.y, out + 4);
+  int8x4_to_float(raw.z, out + 8);
+  int8x4_to_float(raw.w, out + 12);
+}
+
+// 8 int8 values packed in one 8-byte word -> 8 floats.
+__device__ __forceinline__ void int8x8_to_float(const uint2& raw,
+                                                float* out) {
+  int8x4_to_float(raw.x, out);
+  int8x4_to_float(raw.y, out + 4);
+}
+
 // 16-byte read-only global load.
-__device__ __forceinline__ uint4 ldg16(const __nv_bfloat16* ptr) {
+__device__ __forceinline__ uint4 ldg16(const void* ptr) {
   return __ldg(reinterpret_cast<const uint4*>(ptr));
+}
+
+// 8-byte read-only global load.
+__device__ __forceinline__ uint2 ldg8(const void* ptr) {
+  return __ldg(reinterpret_cast<const uint2*>(ptr));
 }
 
 }  // namespace repro_torch

@@ -1,8 +1,17 @@
-// Paged-context chunk-prefill GQA attention.
+// Paged-context chunk-prefill GQA attention, over a bf16 pool or an int8
+// pool with fp32 per-token scales.
 //
 // Replaces the TPU kernel repro/kernels/paged_prefill_attention.py
-// `_paged_prefill_chunk_kernel` (wrapper `paged_prefill_chunk_attention`,
-// pallas_call at :294). Same contract: one chunk's queries q (C, H, hd) sit
+// `_paged_prefill_chunk_kernel` (:54, bf16 pools; wrapper
+// `paged_prefill_chunk_attention`, pallas_call at :294) with the entry
+// point `paged_prefill_chunk_attention_bf16`, and its int8-pool variant
+// `_paged_prefill_chunk_kernel_int8` (:128) with
+// `paged_prefill_chunk_attention_int8`: the prefix streams in as int8 with
+// its scale pools (Hkv, num_blocks, bs) on the same table walk; the chunk's
+// own K/V stay bf16 with scale 1.0. The k scale multiplies the scores
+// before the softcap, the v scale multiplies p before the PV product (l
+// sums the unscaled p), as the TPU kernel does.
+// Same contract: one chunk's queries q (C, H, hd) sit
 // at global positions [P, P+C), P = nb·bs; they attend over the sequence's
 // first nb pool blocks (block_table (nb,) into the head-major pools
 // (Hkv, num_blocks, bs, hd)) and then over the chunk's own k/v (C, Hkv, hd),
@@ -29,8 +38,14 @@
 //    8 lanes that share the rows.
 //  * masks select, never multiply: p = 0 where (row, key) is masked, and k,
 //    v are zero-filled (never loaded) for keys past P + C.
+//  * int8 prefix rows are converted to fp32 as they are staged into shared
+//    memory (8-byte loads, half the bytes of bf16), with the tile's k and v
+//    scale vectors staged beside them; nothing dequantized reaches device
+//    memory.
 
 #include <cmath>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -44,14 +59,24 @@ constexpr int PS = BR + 4;   // padded row stride of the P tile
 
 template <int HD>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (HD * BR + HD * BK + BK * HD + BK * PS);
+  return sizeof(float) * (HD * BR + HD * BK + BK * HD + BK * PS + 2 * BK);
 }
 
-template <int HD>
+// 8 pool elements -> 8 floats (16-byte bf16 load, 8-byte int8 load).
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
+  bf16x8_to_float(ldg16(p), f);
+}
+__device__ __forceinline__ void load8(const int8_t* p, float* f) {
+  int8x8_to_float(ldg8(p), f);
+}
+
+template <int HD, typename T>
 __global__ void __launch_bounds__(kThreads)
 paged_prefill_chunk_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k_pool,
-                           const __nv_bfloat16* __restrict__ v_pool,
+                           const T* __restrict__ k_pool,
+                           const T* __restrict__ v_pool,
+                           const float* __restrict__ k_scale,
+                           const float* __restrict__ v_scale,
                            const int32_t* __restrict__ block_table,
                            const __nv_bfloat16* __restrict__ k_chunk,
                            const __nv_bfloat16* __restrict__ v_chunk,
@@ -59,12 +84,15 @@ paged_prefill_chunk_kernel(const __nv_bfloat16* __restrict__ q,
                            int C, int H, int Hkv, int G, int num_blocks,
                            int bs, int nb, int sliding_window, int sinks,
                            float softcap, float scale) {
+  constexpr bool kQuant = std::is_same<T, int8_t>::value;
   constexpr int NJ = HD / 32;            // output float4 columns per row
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;                      // [HD][BR]  q·scale, transposed
   float* Kt = Qt + HD * BR;              // [HD][BK]  k, transposed
   float* Vs = Kt + HD * BK;              // [BK][HD]
   float* Ps = Vs + BK * HD;              // [BK][PS]  probabilities
+  float* Ksc = Ps + BK * PS;             // [BK]      k scales (int8 pools)
+  float* Vsc = Ksc + BK;                 // [BK]      v scales (int8 pools)
 
   const int BT = BR / G;                 // positions per tile
   const int t0 = blockIdx.x * BT;
@@ -118,7 +146,7 @@ paged_prefill_chunk_kernel(const __nv_bfloat16* __restrict__ q,
       if (kp < P) {
         const size_t row = (static_cast<size_t>(kvh) * num_blocks +
                             block_table[kp / bs]) * bs + kp % bs;
-        bf16x8_to_float(ldg16(k_pool + row * HD + ch * 8), f);
+        load8(k_pool + row * HD + ch * 8, f);
       } else if (kp < total) {
         bf16x8_to_float(ldg16(k_chunk + (static_cast<size_t>(kp - P) * Hkv +
                                          kvh) * HD + ch * 8), f);
@@ -135,7 +163,7 @@ paged_prefill_chunk_kernel(const __nv_bfloat16* __restrict__ q,
       if (kp < P) {
         const size_t row = (static_cast<size_t>(kvh) * num_blocks +
                             block_table[kp / bs]) * bs + kp % bs;
-        bf16x8_to_float(ldg16(v_pool + row * HD + ch * 8), f);
+        load8(v_pool + row * HD + ch * 8, f);
       } else if (kp < total) {
         bf16x8_to_float(ldg16(v_chunk + (static_cast<size_t>(kp - P) * Hkv +
                                          kvh) * HD + ch * 8), f);
@@ -143,6 +171,21 @@ paged_prefill_chunk_kernel(const __nv_bfloat16* __restrict__ q,
       float4* dst = reinterpret_cast<float4*>(Vs + key * HD + ch * 8);
       dst[0] = make_float4(f[0], f[1], f[2], f[3]);
       dst[1] = make_float4(f[4], f[5], f[6], f[7]);
+    }
+    // the tile's scale vectors: the prefix's own, 1.0 for chunk keys
+    if constexpr (kQuant) {
+      for (int key = tid; key < BK; key += kThreads) {
+        const int kp = k0 + key;
+        float ks = 1.f, vs = 1.f;
+        if (kp < P) {
+          const size_t row = (static_cast<size_t>(kvh) * num_blocks +
+                              block_table[kp / bs]) * bs + kp % bs;
+          ks = __ldg(k_scale + row);
+          vs = __ldg(v_scale + row);
+        }
+        Ksc[key] = ks;
+        Vsc[key] = vs;
+      }
     }
     __syncthreads();
 
@@ -163,6 +206,12 @@ paged_prefill_chunk_kernel(const __nv_bfloat16* __restrict__ q,
         for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
     }
 
+    float ksj[4], vsj[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      ksj[j] = kQuant ? Ksc[cg * 4 + j] : 1.f;
+      vsj[j] = kQuant ? Vsc[cg * 4 + j] : 1.f;
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       bool ok[4];
@@ -174,7 +223,7 @@ paged_prefill_chunk_kernel(const __nv_bfloat16* __restrict__ q,
         if (sliding_window > 0)
           v = v && (kp > pos_q[i] - sliding_window || (sinks > 0 && kp < sinks));
         ok[j] = v;
-        float x = s[i][j];
+        float x = kQuant ? s[i][j] * ksj[j] : s[i][j];   // fused k dequant
         if (softcap > 0.f) x = softcap * tanhf(x / softcap);
         s[i][j] = v ? x : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
@@ -189,7 +238,8 @@ paged_prefill_chunk_kernel(const __nv_bfloat16* __restrict__ q,
       for (int j = 0; j < 4; ++j) {
         const float p = ok[j] ? __expf(s[i][j] - m_new) : 0.f;
         psum += p;
-        Ps[(cg * 4 + j) * PS + rg * 4 + i] = p;
+        Ps[(cg * 4 + j) * PS + rg * 4 + i] =
+            kQuant ? (ok[j] ? p * vsj[j] : 0.f) : p;       // fused v dequant
       }
 #pragma unroll
       for (int off = 1; off < 8; off <<= 1)
@@ -242,8 +292,9 @@ paged_prefill_chunk_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int HD>
+template <int HD, typename T>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
+                   const void* k_scale, const void* v_scale,
                    const void* block_table, const void* k_chunk,
                    const void* v_chunk, void* out, int C, int H, int Hkv,
                    int num_blocks, int bs, int nb, int sliding_window,
@@ -252,14 +303,14 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   const int BT = BR / G;
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      paged_prefill_chunk_kernel<HD>,
+      paged_prefill_chunk_kernel<HD, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((C + BT - 1) / BT, Hkv);
-  paged_prefill_chunk_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_pool),
-      static_cast<const __nv_bfloat16*>(v_pool),
+  paged_prefill_chunk_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k_pool),
+      static_cast<const T*>(v_pool), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale),
       static_cast<const int32_t*>(block_table),
       static_cast<const __nv_bfloat16*>(k_chunk),
       static_cast<const __nv_bfloat16*>(v_chunk),
@@ -269,32 +320,65 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   return cudaGetLastError();
 }
 
+template <typename T>
+int dispatch(const void* q, const void* k_pool, const void* v_pool,
+             const void* k_scale, const void* v_scale,
+             const void* block_table, const void* k_chunk,
+             const void* v_chunk, void* out, int C, int H, int Hkv,
+             int head_dim, int num_blocks, int block_size, int nb,
+             int sliding_window, int attention_sinks, float logit_softcap,
+             void* stream) {
+  if (Hkv < 1 || H % Hkv || BR % (H / Hkv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64:
+      return launch<64, T>(q, k_pool, v_pool, k_scale, v_scale, block_table,
+                           k_chunk, v_chunk, out, C, H, Hkv, num_blocks,
+                           block_size, nb, sliding_window, attention_sinks,
+                           logit_softcap, s);
+    case 128:
+      return launch<128, T>(q, k_pool, v_pool, k_scale, v_scale,
+                            block_table, k_chunk, v_chunk, out, C, H, Hkv,
+                            num_blocks, block_size, nb, sliding_window,
+                            attention_sinks, logit_softcap, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 }  // namespace repro_torch
 
-// Plain C entry point (bound with ctypes). q, k_chunk, v_chunk, out are
-// contiguous (C, H|Hkv, hd); launches on `stream` and returns
+// Plain C entry points (bound with ctypes). q, k_chunk, v_chunk, out are
+// contiguous bf16 (C, H|Hkv, hd); both launch on `stream` and return
 // cudaGetLastError() as an int (0 = launched); cudaErrorInvalidValue for a
 // head_dim or group size (H / Hkv must divide 64) the kernel does not take.
+// The bf16 entry ignores k_scale / v_scale; the int8 entry needs both.
 extern "C" int paged_prefill_chunk_attention_bf16(
     const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale,
     const void* block_table, const void* k_chunk, const void* v_chunk,
     void* out, int C, int H, int Hkv, int head_dim, int num_blocks,
     int block_size, int nb, int sliding_window, int attention_sinks,
     float logit_softcap, void* stream) {
-  using namespace repro_torch;
-  if (Hkv < 1 || H % Hkv || BR % (H / Hkv)) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64:
-      return launch<64>(q, k_pool, v_pool, block_table, k_chunk, v_chunk, out,
-                        C, H, Hkv, num_blocks, block_size, nb, sliding_window,
-                        attention_sinks, logit_softcap, s);
-    case 128:
-      return launch<128>(q, k_pool, v_pool, block_table, k_chunk, v_chunk,
-                         out, C, H, Hkv, num_blocks, block_size, nb,
-                         sliding_window, attention_sinks, logit_softcap, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return repro_torch::dispatch<__nv_bfloat16>(
+      q, k_pool, v_pool, nullptr, nullptr, block_table, k_chunk, v_chunk,
+      out, C, H, Hkv, head_dim, num_blocks, block_size, nb, sliding_window,
+      attention_sinks, logit_softcap, stream);
+}
+
+extern "C" int paged_prefill_chunk_attention_int8(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale,
+    const void* block_table, const void* k_chunk, const void* v_chunk,
+    void* out, int C, int H, int Hkv, int head_dim, int num_blocks,
+    int block_size, int nb, int sliding_window, int attention_sinks,
+    float logit_softcap, void* stream) {
+  if (k_scale == nullptr || v_scale == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return repro_torch::dispatch<int8_t>(
+      q, k_pool, v_pool, k_scale, v_scale, block_table, k_chunk, v_chunk,
+      out, C, H, Hkv, head_dim, num_blocks, block_size, nb, sliding_window,
+      attention_sinks, logit_softcap, stream);
 }

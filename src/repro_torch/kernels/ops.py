@@ -35,21 +35,43 @@ def _triple_to_partial(o, l, m, B, H, hd) -> Partial:
 
 
 def paged_decode_partial(q, k_pool, v_pool, block_tables, cache_len, *,
+                         k_scale=None, v_scale=None,
                          sliding_window: int = 0, attention_sinks: int = 0,
                          logit_softcap: float = 0.0) -> Partial:
     """Paged partial triple over the block pool (model-layer contract:
     cache_len = stored tokens, window w.r.t. total length cache_len + 1).
 
     q: (B, H, hd); pools HEAD-MAJOR (Hkv, num_blocks, bs, hd); block_tables
-    (B, nb) int32."""
+    (B, nb) int32; k_scale/v_scale: the (Hkv, num_blocks, bs) scale pools
+    of int8 pools (the int8 kernel then runs)."""
+    return paged_decode_partial_pos(
+        q, k_pool, v_pool, block_tables, None, cache_len, k_scale=k_scale,
+        v_scale=v_scale, sliding_window=sliding_window,
+        attention_sinks=attention_sinks, logit_softcap=logit_softcap)
+
+
+def paged_decode_partial_pos(q, k_pool, v_pool, block_tables,
+                             block_positions, cache_len, *,
+                             k_scale=None, v_scale=None,
+                             sliding_window: int = 0,
+                             attention_sinks: int = 0,
+                             logit_softcap: float = 0.0) -> Partial:
+    """Positions-aware paged partial (port of the reference's
+    ``pallas_paged_decode_partial_pos``, ``ops.py:139``): one worker's
+    table of a block-sharded sequence holds a non-contiguous subset of its
+    blocks, so ``block_positions`` (B, nb) gives each slot's global base
+    position and POS_PAD slots mask out entirely; a worker with no live
+    block yields the empty partial (the §4.2.2 identity). The pool is read
+    in place through the table. ``block_positions=None`` is the
+    contiguous-table case (slot·block_size)."""
     B, H, hd = q.shape
     Hkv = k_pool.shape[0]
     qg = q.reshape(B, Hkv, H // Hkv, hd).contiguous()
     sw, sinks, clen = _serving_window(sliding_window, attention_sinks,
                                       cache_len)
     o, l, m = _pda.paged_decode_attention(
-        qg, k_pool, v_pool, block_tables, clen, sliding_window=sw,
-        attention_sinks=sinks, logit_softcap=logit_softcap,
-        return_partials=True)
+        qg, k_pool, v_pool, block_tables, clen,
+        block_positions=block_positions, k_scale=k_scale, v_scale=v_scale,
+        sliding_window=sw, attention_sinks=sinks,
+        logit_softcap=logit_softcap, return_partials=True)
     return _triple_to_partial(o, l, m, B, H, hd)
-

@@ -4,11 +4,15 @@ Port of ``repro/kernels/paged_decode_attention.py``. The TPU kernel
 ``_paged_decode_kernel`` is replaced by the hand-written Hopper kernel in
 ``csrc/paged_decode_attention.cu``; :func:`paged_decode_attention_plain` is
 its plain PyTorch twin (gather through the block table, then dense fp32
-math) with the same signature and the same (o, l, m) conventions.
+math) with the same signature and the same (o, l, m) conventions. The
+int8-pool kernel ``_paged_decode_kernel_int8`` is the second entry point of
+the same source (:func:`paged_decode_attention_int8`), with the same twin
+given the scale pools.
 
 :func:`paged_decode_attention` dispatches on the device of ``q``: a CPU
 tensor runs the plain twin, a CUDA tensor launches the kernel or raises.
-There is no other switch and no fallback.
+There is no other switch and no fallback. Each wrapper counts its own
+kernel's launches (``.launches``).
 """
 from __future__ import annotations
 
@@ -46,15 +50,33 @@ def paged_gather_dense(k_pool, v_pool, block_tables):
     return (kc.reshape(B, Hkv, nb * bs, hd), vc.reshape(B, Hkv, nb * bs, hd))
 
 
+def paged_gather_scales(scale_pool, block_tables):
+    """Block-table gather of a (Hkv, num_blocks, bs) scale pool into the
+    dense per-token (B, Hkv, nb·bs) view the int8 plain twin folds into its
+    einsums — plain data path only."""
+    Hkv, _, bs = scale_pool.shape
+    B, nb = block_tables.shape
+    s = scale_pool[:, block_tables.long()].transpose(0, 1)  # (B,Hkv,nb,bs)
+    return s.reshape(B, Hkv, nb * bs)
+
+
 def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, cache_len,
                                  *, block_positions=None,
+                                 k_scale=None, v_scale=None,
                                  sliding_window: int = 0,
                                  attention_sinks: int = 0,
                                  logit_softcap: float = 0.0,
                                  return_partials: bool = False):
-    """Plain twin of the kernel: same arguments, same results. fp32 math;
+    """Plain twin of both kernels: same arguments, same results. fp32 math;
     masked rows are selected away (their p and v are 0), an all-masked
-    sequence yields the empty partial (l = 0, m = NEG_INF, o = 0)."""
+    sequence yields the empty partial (l = 0, m = NEG_INF, o = 0).
+
+    int8 pools pass their fp32 scale pools ``k_scale/v_scale`` (Hkv,
+    num_blocks, bs): the k scale multiplies the scores after q·k and before
+    the softcap, the v scale multiplies p before the PV product — where the
+    reference's ``_paged_decode_kernel_int8`` puts them. Scales of masked
+    rows are selected away too, so stale (even NaN) scale tiles of free
+    blocks cannot reach the result."""
     B, Hkv, G, hd = q.shape
     bs = k_pool.shape[2]
     nb = block_tables.shape[1]
@@ -72,15 +94,22 @@ def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, cache_len,
         valid &= in_window
     scale = 1.0 / math.sqrt(hd)
     s = torch.einsum("bhgk,bhsk->bhgs", q.float() * scale, kc.float())
+    vmask = valid[:, None, None, :]
+    if k_scale is not None:
+        ks = paged_gather_scales(k_scale, block_tables)
+        vs = paged_gather_scales(v_scale, block_tables)
+        s = s * torch.where(valid[:, None], ks, 0.0)[:, :, None, :]
     if logit_softcap > 0.0:
         s = logit_softcap * torch.tanh(s / logit_softcap)
-    vmask = valid[:, None, None, :]
     s = torch.where(vmask, s, NEG_INF)
     m = s.amax(dim=-1)                                   # NEG_INF if empty
     p = torch.where(vmask, torch.exp(s - m[..., None]), 0.0)
     l = p.sum(dim=-1)
+    pv = p
+    if v_scale is not None:
+        pv = p * torch.where(valid[:, None], vs, 0.0)[:, :, None, :]
     v = torch.where(valid[:, None, :, None], vc.float(), 0.0)
-    acc = torch.einsum("bhgs,bhsk->bhgk", p, v)
+    acc = torch.einsum("bhgs,bhsk->bhgk", pv, v)
     o = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
     if return_partials:
         return o, l, m
@@ -88,15 +117,18 @@ def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, cache_len,
 
 
 def _check_cuda_operands(q, k_pool, v_pool, block_tables, cache_len,
-                         block_positions):
+                         block_positions, k_scale=None, v_scale=None):
     B, Hkv, G, hd = q.shape
     dev = q.device
+    pool_dtype = torch.bfloat16 if k_scale is None else torch.int8
     for name, t, dtype in (("q", q, torch.bfloat16),
-                           ("k_pool", k_pool, torch.bfloat16),
-                           ("v_pool", v_pool, torch.bfloat16),
+                           ("k_pool", k_pool, pool_dtype),
+                           ("v_pool", v_pool, pool_dtype),
                            ("block_tables", block_tables, torch.int32),
                            ("cache_len", cache_len, torch.int32),
-                           ("block_positions", block_positions, torch.int32)):
+                           ("block_positions", block_positions, torch.int32),
+                           ("k_scale", k_scale, torch.float32),
+                           ("v_scale", v_scale, torch.float32)):
         if t is None:
             continue
         if t.device != dev:
@@ -109,6 +141,10 @@ def _check_cuda_operands(q, k_pool, v_pool, block_tables, cache_len,
             k_pool.shape[0] != Hkv or k_pool.shape[3] != hd:
         raise ValueError(f"pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)} "
                          f"do not match q {tuple(q.shape)}")
+    if k_scale is not None and (k_scale.shape != k_pool.shape[:3] or
+                                v_scale.shape != k_pool.shape[:3]):
+        raise ValueError(f"scale pools must be {tuple(k_pool.shape[:3])}; "
+                         f"got {tuple(k_scale.shape)}/{tuple(v_scale.shape)}")
     if block_tables.dim() != 2 or block_tables.shape[0] != B or \
             cache_len.shape != (B,):
         raise ValueError("block_tables must be (B, nb) and cache_len (B,)")
@@ -131,52 +167,95 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
     (pad slots with any valid id — masked); cache_len: (B,) live tokens.
     block_positions: optional (B, nb) int32 global base position per table
     slot (default slot·block_size; POS_PAD on slots to ignore).
+    k_scale/v_scale: the fp32 scale pools (Hkv, num_blocks, block_size) of
+    int8 pools; given, the call is :func:`paged_decode_attention_int8`'s.
     Returns (B, Hkv, G, hd), or the (o, l, m) §4.2.2 triple with l, m fp32
     (B, Hkv, G) when ``return_partials``.
 
     CPU tensors run :func:`paged_decode_attention_plain`; CUDA tensors
-    launch ``csrc/paged_decode_attention.cu`` (bf16 only) or raise."""
+    launch ``csrc/paged_decode_attention.cu`` or raise."""
+    kw = dict(block_positions=block_positions, sliding_window=sliding_window,
+              attention_sinks=attention_sinks, logit_softcap=logit_softcap,
+              return_partials=return_partials)
     if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 KV pools (k_scale/v_scale) are not ported yet")
+        return paged_decode_attention_int8(q, k_pool, v_pool, k_scale,
+                                           v_scale, block_tables, cache_len,
+                                           **kw)
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
+                                            cache_len, **kw)
+    out = _launch("paged_decode_attention_bf16", q, k_pool, v_pool, None,
+                  None, block_tables, cache_len, **kw)
+    paged_decode_attention.launches += 1
+    return out
+
+
+def paged_decode_attention_int8(q, k_pool, v_pool, k_scale, v_scale,
+                                block_tables, cache_len, *,
+                                block_positions=None,
+                                sliding_window: int = 0,
+                                attention_sinks: int = 0,
+                                logit_softcap: float = 0.0,
+                                return_partials: bool = False):
+    """The int8-pool decode kernel: k_pool/v_pool int8 (Hkv, num_blocks,
+    block_size, hd) with fp32 per-token scale pools k_scale/v_scale (Hkv,
+    num_blocks, block_size), walked through the same table; q bf16. Other
+    arguments and results as :func:`paged_decode_attention`.
+
+    CPU tensors run the plain twin; CUDA tensors launch the int8 entry of
+    ``csrc/paged_decode_attention.cu`` or raise."""
+    if k_scale is None or v_scale is None:
+        raise ValueError("an int8 pool needs both k_scale and v_scale")
     kw = dict(block_positions=block_positions, sliding_window=sliding_window,
               attention_sinks=attention_sinks, logit_softcap=logit_softcap,
               return_partials=return_partials)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
-                                            cache_len, **kw)
+                                            cache_len, k_scale=k_scale,
+                                            v_scale=v_scale, **kw)
+    out = _launch("paged_decode_attention_int8", q, k_pool, v_pool, k_scale,
+                  v_scale, block_tables, cache_len, **kw)
+    paged_decode_attention_int8.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0        # bf16 kernel launches
+paged_decode_attention_int8.launches = 0   # int8 kernel launches
+
+
+def _launch(entry, q, k_pool, v_pool, k_scale, v_scale, block_tables,
+            cache_len, *, block_positions, sliding_window, attention_sinks,
+            logit_softcap, return_partials):
     if q.device.type != "cuda":
         raise ValueError(f"no paged decode kernel for device {q.device}")
     _check_cuda_operands(q, k_pool, v_pool, block_tables, cache_len,
-                         block_positions)
+                         block_positions, k_scale, v_scale)
     B, Hkv, G, hd = q.shape
     _, num_blocks, bs, _ = k_pool.shape
     nb = block_tables.shape[1]
     o = torch.empty_like(q)
     l = torch.empty((B, Hkv, G), dtype=torch.float32, device=q.device)
     m = torch.empty_like(l)
-    fn = _kernel_fn()
+    fn = _kernel_fn(entry)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             None if k_scale is None else k_scale.data_ptr(),
+             None if v_scale is None else v_scale.data_ptr(),
              block_tables.data_ptr(),
              None if block_positions is None else block_positions.data_ptr(),
              cache_len.data_ptr(), o.data_ptr(), l.data_ptr(), m.data_ptr(),
              B, Hkv, G, hd, num_blocks, bs, nb, int(sliding_window),
              int(attention_sinks), float(logit_softcap),
              _cuda.stream_ptr(q.device))
-    _cuda.check(err, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    _cuda.check(err, entry)
     if return_partials:
         return o, l, m
     return o
 
 
-paged_decode_attention.launches = 0   # kernel launches since the last reset
-
-
-def _kernel_fn():
-    fn = _cuda.load(_LIB_NAME).paged_decode_attention_bf16
+def _kernel_fn(entry: str):
+    fn = getattr(_cuda.load(_LIB_NAME), entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + \
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn

@@ -8,11 +8,16 @@ table, and over the chunk's own freshly projected K/V under the in-chunk
 causal mask; per-row sliding-window / sink masks and the optional logit
 softcap apply as in a one-shot prefill.
 
-The TPU kernel ``_paged_prefill_chunk_kernel`` is replaced by
-``csrc/paged_prefill_attention.cu``; :func:`paged_prefill_chunk_attention_plain`
-is its plain twin (gather the prefix dense, dense fp32 math).
-:func:`paged_prefill_chunk_attention` runs the twin for CPU tensors and
-launches the kernel, or raises, for CUDA tensors.
+The TPU kernels ``_paged_prefill_chunk_kernel`` and
+``_paged_prefill_chunk_kernel_int8`` (an int8 prefix with fp32 per-token
+scales; the chunk's own K/V stay full precision) are replaced by the two
+entry points of ``csrc/paged_prefill_attention.cu``;
+:func:`paged_prefill_chunk_attention_plain` is their plain twin (gather —
+and, for int8, dequantize — the prefix dense, dense fp32 math).
+:func:`paged_prefill_chunk_attention` and
+:func:`paged_prefill_chunk_attention_int8` run the twin for CPU tensors and
+launch their kernel, or raise, for CUDA tensors; each counts its own
+launches.
 """
 from __future__ import annotations
 
@@ -40,19 +45,34 @@ def gather_prefix_dense(k_pool, v_pool, block_table):
     return kp, vp
 
 
+def gather_prefix_scales(scale_pool, block_table):
+    """Block-table gather of a (Hkv, num_blocks, bs) scale pool into the
+    seq-major (P, Hkv) per-token view — plain data path only."""
+    Hkv, _, bs = scale_pool.shape
+    nb = block_table.shape[0]
+    return scale_pool[:, block_table.long()].reshape(Hkv, nb * bs).T
+
+
 def paged_prefill_chunk_attention_plain(q, k_pool, v_pool, block_table,
                                         k_chunk, v_chunk, *,
+                                        k_scale=None, v_scale=None,
                                         sliding_window: int = 0,
                                         attention_sinks: int = 0,
                                         logit_softcap: float = 0.0):
-    """Plain twin of the kernel: same arguments, same result (C, H, hd)."""
+    """Plain twin of both kernels: same arguments, same result (C, H, hd).
+    An int8 pool's gathered prefix is dequantized here with its scale pools
+    (the plain path may densify; the kernels never do)."""
     C, H, hd = q.shape
     Hkv, _, bs, _ = k_pool.shape
     G = H // Hkv
     P = block_table.shape[0] * bs
     kp, vp = gather_prefix_dense(k_pool, v_pool, block_table)
-    k_all = torch.cat([kp, k_chunk], dim=0).float()      # (P+C, Hkv, hd)
-    v_all = torch.cat([vp, v_chunk], dim=0).float()
+    kp, vp = kp.float(), vp.float()
+    if k_scale is not None:
+        kp = kp * gather_prefix_scales(k_scale, block_table)[:, :, None]
+        vp = vp * gather_prefix_scales(v_scale, block_table)[:, :, None]
+    k_all = torch.cat([kp, k_chunk.float()], dim=0)      # (P+C, Hkv, hd)
+    v_all = torch.cat([vp, v_chunk.float()], dim=0)
     scale = 1.0 / math.sqrt(hd)
     qg = q.float().reshape(C, Hkv, G, hd) * scale
     s = torch.einsum("chgd,khd->hgck", qg, k_all)        # (Hkv, G, C, P+C)
@@ -74,15 +94,21 @@ def paged_prefill_chunk_attention_plain(q, k_pool, v_pool, block_table,
     return out.reshape(C, H, hd).to(q.dtype)
 
 
-def _check_cuda_operands(q, k_pool, v_pool, block_table, k_chunk, v_chunk):
+def _check_cuda_operands(q, k_pool, v_pool, block_table, k_chunk, v_chunk,
+                         k_scale=None, v_scale=None):
     C, H, hd = q.shape
     dev = q.device
+    pool_dtype = torch.bfloat16 if k_scale is None else torch.int8
     for name, t, dtype in (("q", q, torch.bfloat16),
-                           ("k_pool", k_pool, torch.bfloat16),
-                           ("v_pool", v_pool, torch.bfloat16),
+                           ("k_pool", k_pool, pool_dtype),
+                           ("v_pool", v_pool, pool_dtype),
                            ("block_table", block_table, torch.int32),
                            ("k_chunk", k_chunk, torch.bfloat16),
-                           ("v_chunk", v_chunk, torch.bfloat16)):
+                           ("v_chunk", v_chunk, torch.bfloat16),
+                           ("k_scale", k_scale, torch.float32),
+                           ("v_scale", v_scale, torch.float32)):
+        if t is None:
+            continue
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
         if t.dtype != dtype:
@@ -94,6 +120,10 @@ def _check_cuda_operands(q, k_pool, v_pool, block_table, k_chunk, v_chunk):
             k_pool.shape[3] != hd or H % Hkv:
         raise ValueError(f"pools {tuple(k_pool.shape)} do not match q "
                          f"{tuple(q.shape)}")
+    if k_scale is not None and (k_scale.shape != k_pool.shape[:3] or
+                                v_scale.shape != k_pool.shape[:3]):
+        raise ValueError(f"scale pools must be {tuple(k_pool.shape[:3])}; "
+                         f"got {tuple(k_scale.shape)}/{tuple(v_scale.shape)}")
     if k_chunk.shape != (C, Hkv, hd) or v_chunk.shape != (C, Hkv, hd):
         raise ValueError(f"k_chunk/v_chunk must be {(C, Hkv, hd)}")
     if block_table.dim() != 1:
@@ -115,42 +145,83 @@ def paged_prefill_chunk_attention(q, k_pool, v_pool, block_table,
     HEAD-MAJOR (Hkv, num_blocks, block_size, hd); block_table: (nb,) int32
     pool ids of the sequence's already-written first nb blocks;
     k_chunk/v_chunk: (C, Hkv, hd) — this chunk's K/V (not yet in the pool).
-    Returns (C, H, hd).
+    k_scale/v_scale: the fp32 scale pools (Hkv, num_blocks, block_size) of
+    int8 pools; given, the call is
+    :func:`paged_prefill_chunk_attention_int8`'s. Returns (C, H, hd).
 
     CPU tensors run :func:`paged_prefill_chunk_attention_plain`; CUDA
-    tensors launch ``csrc/paged_prefill_attention.cu`` (bf16) or raise."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 KV pools (k_scale/v_scale) are not ported yet")
+    tensors launch ``csrc/paged_prefill_attention.cu`` or raise."""
     kw = dict(sliding_window=sliding_window, attention_sinks=attention_sinks,
               logit_softcap=logit_softcap)
+    if k_scale is not None or v_scale is not None:
+        return paged_prefill_chunk_attention_int8(
+            q, k_pool, v_pool, k_scale, v_scale, block_table, k_chunk,
+            v_chunk, **kw)
     if q.device.type == "cpu":
         return paged_prefill_chunk_attention_plain(
             q, k_pool, v_pool, block_table, k_chunk, v_chunk, **kw)
-    if q.device.type != "cuda":
-        raise ValueError(f"no paged prefill kernel for device {q.device}")
-    _check_cuda_operands(q, k_pool, v_pool, block_table, k_chunk, v_chunk)
-    C, H, hd = q.shape
-    Hkv, num_blocks, bs, _ = k_pool.shape
-    out = torch.empty_like(q)
-    fn = _kernel_fn()
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             block_table.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
-             out.data_ptr(), C, H, Hkv, hd, num_blocks, bs,
-             block_table.shape[0], int(sliding_window), int(attention_sinks),
-             float(logit_softcap), _cuda.stream_ptr(q.device))
-    _cuda.check(err, "paged_prefill_chunk_attention")
+    out = _launch("paged_prefill_chunk_attention_bf16", q, k_pool, v_pool,
+                  None, None, block_table, k_chunk, v_chunk, **kw)
     paged_prefill_chunk_attention.launches += 1
     return out
 
 
-paged_prefill_chunk_attention.launches = 0   # launches since the last reset
+def paged_prefill_chunk_attention_int8(q, k_pool, v_pool, k_scale, v_scale,
+                                       block_table, k_chunk, v_chunk, *,
+                                       sliding_window: int = 0,
+                                       attention_sinks: int = 0,
+                                       logit_softcap: float = 0.0):
+    """The int8-pool chunk kernel: k_pool/v_pool int8 (Hkv, num_blocks,
+    block_size, hd) with fp32 scale pools k_scale/v_scale (Hkv, num_blocks,
+    block_size); q and the chunk's own K/V bf16 (scale 1.0). Other
+    arguments and the result as :func:`paged_prefill_chunk_attention`.
+
+    CPU tensors run the plain twin; CUDA tensors launch the int8 entry of
+    ``csrc/paged_prefill_attention.cu`` or raise."""
+    if k_scale is None or v_scale is None:
+        raise ValueError("an int8 pool needs both k_scale and v_scale")
+    kw = dict(sliding_window=sliding_window, attention_sinks=attention_sinks,
+              logit_softcap=logit_softcap)
+    if q.device.type == "cpu":
+        return paged_prefill_chunk_attention_plain(
+            q, k_pool, v_pool, block_table, k_chunk, v_chunk,
+            k_scale=k_scale, v_scale=v_scale, **kw)
+    out = _launch("paged_prefill_chunk_attention_int8", q, k_pool, v_pool,
+                  k_scale, v_scale, block_table, k_chunk, v_chunk, **kw)
+    paged_prefill_chunk_attention_int8.launches += 1
+    return out
 
 
-def _kernel_fn():
-    fn = _cuda.load(_LIB_NAME).paged_prefill_chunk_attention_bf16
+paged_prefill_chunk_attention.launches = 0        # bf16 kernel launches
+paged_prefill_chunk_attention_int8.launches = 0   # int8 kernel launches
+
+
+def _launch(entry, q, k_pool, v_pool, k_scale, v_scale, block_table,
+            k_chunk, v_chunk, *, sliding_window, attention_sinks,
+            logit_softcap):
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged prefill kernel for device {q.device}")
+    _check_cuda_operands(q, k_pool, v_pool, block_table, k_chunk, v_chunk,
+                         k_scale, v_scale)
+    C, H, hd = q.shape
+    Hkv, num_blocks, bs, _ = k_pool.shape
+    out = torch.empty_like(q)
+    fn = _kernel_fn(entry)
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             None if k_scale is None else k_scale.data_ptr(),
+             None if v_scale is None else v_scale.data_ptr(),
+             block_table.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
+             out.data_ptr(), C, H, Hkv, hd, num_blocks, bs,
+             block_table.shape[0], int(sliding_window), int(attention_sinks),
+             float(logit_softcap), _cuda.stream_ptr(q.device))
+    _cuda.check(err, entry)
+    return out
+
+
+def _kernel_fn(entry: str):
+    fn = getattr(_cuda.load(_LIB_NAME), entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn

@@ -140,8 +140,28 @@ def _new_token_partial(q, k_new, v_new, *,
                      s=p_new.s.reshape(B, H), m=p_new.m.reshape(B, H))
 
 
+def paged_decode_attention_partial_pos(q, k_pool, v_pool, block_tables,
+                                       block_positions, cache_len, *,
+                                       k_scale=None, v_scale=None,
+                                       sliding_window: int = 0,
+                                       attention_sinks: int = 0,
+                                       logit_softcap: float = 0.0
+                                       ) -> C.Partial:
+    """Positions-aware paged partial for BLOCK-SHARDED tables (serving
+    contract: window anchored to cache_len + 1): one worker's table holds
+    a non-contiguous subset of a sequence's blocks, ``block_positions``
+    (B, nb) each slot's global base position (POS_PAD on slots it does not
+    own). The pool is read in place (the paged decode kernel on the card);
+    int8 pools pass their scale pools."""
+    return ops.paged_decode_partial_pos(
+        q, k_pool, v_pool, block_tables, block_positions, cache_len,
+        k_scale=k_scale, v_scale=v_scale, sliding_window=sliding_window,
+        attention_sinks=attention_sinks, logit_softcap=logit_softcap)
+
+
 def paged_decode_attention_combine(q, k_pool, v_pool, block_tables,
                                    cache_len, k_new, v_new, *,
+                                   k_scale=None, v_scale=None,
                                    sliding_window: int = 0,
                                    attention_sinks: int = 0,
                                    logit_softcap: float = 0.0
@@ -149,11 +169,13 @@ def paged_decode_attention_combine(q, k_pool, v_pool, block_tables,
     """Full paged decode attention = combine(pool partial, new-token
     partial). The pool is read in place through the block table (the paged
     decode kernel on the card) — one pass over the live KV plus the new
-    token's k_new/v_new (B, Hkv, hd)."""
+    token's k_new/v_new (B, Hkv, hd). int8 pools pass their scale pools
+    (Hkv, num_blocks, bs); the new token's partial stays full precision
+    (it is quantized only when the pool stores it)."""
     p_prev = ops.paged_decode_partial(
-        q, k_pool, v_pool, block_tables, cache_len,
-        sliding_window=sliding_window, attention_sinks=attention_sinks,
-        logit_softcap=logit_softcap)
+        q, k_pool, v_pool, block_tables, cache_len, k_scale=k_scale,
+        v_scale=v_scale, sliding_window=sliding_window,
+        attention_sinks=attention_sinks, logit_softcap=logit_softcap)
     p_new = _new_token_partial(q, k_new, v_new, logit_softcap=logit_softcap)
     return C.finalize(C.combine(p_prev, p_new)).to(q.dtype)
 
@@ -165,7 +187,9 @@ def attention_forward(params, cfg: ModelConfig, x: torch.Tensor,
                       positions: torch.Tensor, *, is_local: bool = False,
                       block_size: int = 512,
                       paged_prefix: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                                   torch.Tensor]] = None):
+                                                   torch.Tensor]] = None,
+                      paged_prefix_scales: Optional[Tuple[torch.Tensor,
+                                                          torch.Tensor]] = None):
     """Full-sequence attention (prefill). x: (B, S, d). Returns
     (y, k, v) with k/v (B, S, Hkv, hd) for the tokens of ``x``.
 
@@ -174,7 +198,9 @@ def attention_forward(params, cfg: ModelConfig, x: torch.Tensor,
     (P = nb·bs tokens already in the pool); ``x`` then holds one prefill
     chunk at global ``positions`` P + i and its queries attend over the
     prefix read in place plus the chunk itself (the chunk-prefill kernel on
-    the card). Requires B == 1, the serving prefill shape."""
+    the card). Requires B == 1, the serving prefill shape.
+    ``paged_prefix_scales``: the layer's ``(k_scale, v_scale)`` pools when
+    the pool is int8 (the int8 chunk kernel on the card)."""
     q, k, v = qkv_project(params, cfg, x, positions)
     window = cfg.sliding_window if (is_local or not cfg.local_global) else 0
     sinks = cfg.attention_sinks if window else 0
@@ -183,9 +209,11 @@ def attention_forward(params, cfg: ModelConfig, x: torch.Tensor,
             raise ValueError("paged_prefix serves the per-request prefill "
                              f"shape (B == 1); got B={x.shape[0]}")
         kp_pool, vp_pool, table = paged_prefix
+        ks_pool, vs_pool = paged_prefix_scales or (None, None)
         out = paged_prefill_chunk_attention(
             q[0].contiguous(), kp_pool, vp_pool, table, k[0].contiguous(),
-            v[0].contiguous(), sliding_window=int(window),
+            v[0].contiguous(), k_scale=ks_pool, v_scale=vs_pool,
+            sliding_window=int(window),
             attention_sinks=sinks, logit_softcap=cfg.attn_logit_softcap)[None]
         return out_project(params, out), k, v
     out = blockwise_attention(
@@ -199,17 +227,19 @@ def attention_decode_step_paged(params, cfg: ModelConfig, x: torch.Tensor,
                                 k_pool: torch.Tensor, v_pool: torch.Tensor,
                                 block_tables: torch.Tensor,
                                 cache_len: torch.Tensor, *,
-                                is_local: bool = False):
+                                is_local: bool = False,
+                                k_scale=None, v_scale=None):
     """One-token decode straight over the paged block pool. x: (B, 1, d);
     pools HEAD-MAJOR (Hkv, num_blocks, block_size, hd); block_tables
-    (B, nb); cache_len = tokens ALREADY stored. Returns (y, k_new, v_new) —
+    (B, nb); cache_len = tokens ALREADY stored; k_scale/v_scale: the
+    layer's scale pools when the pool is int8. Returns (y, k_new, v_new) —
     KV placement stays the memory pool's job (serving/kvcache.py)."""
     positions = cache_len[:, None]  # new token position, 0-based
     q, k, v = qkv_project(params, cfg, x, positions)
     window = cfg.sliding_window if (is_local or not cfg.local_global) else 0
     out = paged_decode_attention_combine(
         q[:, 0], k_pool, v_pool, block_tables, cache_len, k[:, 0], v[:, 0],
-        sliding_window=int(window),
+        k_scale=k_scale, v_scale=v_scale, sliding_window=int(window),
         attention_sinks=cfg.attention_sinks if window else 0,
         logit_softcap=cfg.attn_logit_softcap)
     y = out_project(params, out[:, None])

@@ -31,23 +31,28 @@ def dense_block(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
                 mode: str, positions: Optional[torch.Tensor] = None,
                 cache: Optional[Dict] = None, is_local: bool = False,
                 paged_prefix: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                             torch.Tensor]] = None
+                                             torch.Tensor]] = None,
+                paged_prefix_scales: Optional[Tuple[torch.Tensor,
+                                                    torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Dict]:
     """Returns (x, new_cache_entries). ``mode="decode"`` reads the paged
-    pool in ``cache`` ({"k_pool", "v_pool", "block_tables", "len"}) and
-    returns {"k_new", "v_new"}; ``mode="prefill"`` returns this layer's
-    {"k", "v"} (B, S, Hkv, hd), attending over ``paged_prefix`` when given
-    (chunked prefill, see ``attention_forward``)."""
+    pool in ``cache`` ({"k_pool", "v_pool", "block_tables", "len"}, plus
+    "k_scale"/"v_scale" for an int8 pool) and returns {"k_new", "v_new"};
+    ``mode="prefill"`` returns this layer's {"k", "v"} (B, S, Hkv, hd),
+    attending over ``paged_prefix`` (and its ``paged_prefix_scales``) when
+    given (chunked prefill, see ``attention_forward``)."""
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
     if mode == "decode":
         attn, k_new, v_new = attention_decode_step_paged(
             params["attn"], cfg, h, cache["k_pool"], cache["v_pool"],
-            cache["block_tables"], cache["len"], is_local=is_local)
+            cache["block_tables"], cache["len"], is_local=is_local,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
         new_cache = {"k_new": k_new, "v_new": v_new}
     elif mode == "prefill":
         attn, k, v = attention_forward(params["attn"], cfg, h, positions,
                                        is_local=is_local,
-                                       paged_prefix=paged_prefix)
+                                       paged_prefix=paged_prefix,
+                                       paged_prefix_scales=paged_prefix_scales)
         new_cache = {"k": k, "v": v}
     else:
         raise ValueError(f"mode must be 'prefill' or 'decode'; got {mode!r}")

@@ -4,9 +4,11 @@ Port of ``repro/models/transformer.py`` (dense/vlm stacks):
     init_params(seed, cfg, device=...)                      -> params
     params_from_jax(np_tree, cfg, device)                   -> params
     prefill(params, cfg, batch, max_seq, device=...)        -> (logits, cache)
-    prefill_chunk(params, cfg, batch, k_pool, v_pool, prefix_blocks, ...)
+    prefill_chunk(params, cfg, batch, k_pool, v_pool, prefix_blocks, ...,
+                  k_scale_pool=None, v_scale_pool=None)
     decode_step_paged(params, cfg, tokens, k_pool, v_pool, block_tables,
-                      cache_len, ...)                       -> (logits, updates)
+                      cache_len, ..., k_scale_pool=None,
+                      v_scale_pool=None)                    -> (logits, updates)
 
 Per-layer parameters are stacked on axis 0 exactly as in the reference
 pytree; a Python loop over layers replaces ``lax.scan``. Each function takes
@@ -185,7 +187,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict, max_seq: int, *,
 
 def prefill_chunk(params: Params, cfg: ModelConfig, batch: Dict,
                   k_pool: torch.Tensor, v_pool: torch.Tensor,
-                  prefix_blocks, *, device="cuda") -> Tuple[torch.Tensor, Dict]:
+                  prefix_blocks, *, k_scale_pool=None, v_scale_pool=None,
+                  device="cuda") -> Tuple[torch.Tensor, Dict]:
     """Chunked paged prefill: run ONE block-aligned chunk of a prompt, its
     queries attending over the already-written pool blocks plus the in-chunk
     causal mask (the chunk-prefill kernel on the card).
@@ -193,7 +196,9 @@ def prefill_chunk(params: Params, cfg: ModelConfig, batch: Dict,
     batch["tokens"]: (1, C); k_pool/v_pool: HEAD-MAJOR (L, Hkv, num_blocks,
     bs, hd) — the PagedKVCache pools by reference; prefix_blocks: (nb,)
     pool ids of the sequence's first nb blocks, all fully written
-    (P = nb·bs; nb = 0 is the first chunk of a fresh prompt). Returns
+    (P = nb·bs; nb = 0 is the first chunk of a fresh prompt);
+    k_scale_pool/v_scale_pool: (L, Hkv, num_blocks, bs) fp32 scale pools of
+    an int8 pool (the int8 chunk kernel on the card). Returns
     (last-position logits, {"k", "v", "len"}) with CHUNK-ONLY head-major
     K/V (L, 1, Hkv, C, hd) and len = P + C."""
     _check_family(cfg, "chunked paged prefill")
@@ -211,7 +216,10 @@ def prefill_chunk(params: Params, cfg: ModelConfig, batch: Dict,
         x, c = blocks.dense_block(_layer(params["layers"], i), cfg, x,
                                   mode="prefill", positions=positions,
                                   is_local=_is_local(cfg, i),
-                                  paged_prefix=(k_pool[i], v_pool[i], table))
+                                  paged_prefix=(k_pool[i], v_pool[i], table),
+                                  paged_prefix_scales=None
+                                  if k_scale_pool is None else
+                                  (k_scale_pool[i], v_scale_pool[i]))
         ks.append(c["k"])
         vs.append(c["v"])
     cache = {"k": _hm(torch.stack(ks)), "v": _hm(torch.stack(vs)),
@@ -225,15 +233,18 @@ def prefill_chunk(params: Params, cfg: ModelConfig, batch: Dict,
 # ===========================================================================
 def decode_step_paged(params: Params, cfg: ModelConfig, tokens,
                       k_pool: torch.Tensor, v_pool: torch.Tensor,
-                      block_tables, cache_len, *,
+                      block_tables, cache_len, *, k_scale_pool=None,
+                      v_scale_pool=None,
                       device="cuda") -> Tuple[torch.Tensor, Dict]:
     """One decoding iteration straight over the paged KV block pool (the
     paged decode kernel on the card, no per-step dense gather).
 
     tokens: (B,) int; k_pool/v_pool: HEAD-MAJOR (L, Hkv, num_blocks,
     block_size, hd); block_tables: (B, nb) int; cache_len: (B,) tokens
-    ALREADY stored. Returns (logits, updates) with k_new/v_new (L, B, Hkv,
-    hd) — placement stays the memory pool's job (PagedKVCache.write_tokens).
+    ALREADY stored; k_scale_pool/v_scale_pool: (L, Hkv, num_blocks, bs)
+    fp32 scale pools of an int8 pool (the int8 decode kernel on the card).
+    Returns (logits, updates) with k_new/v_new (L, B, Hkv, hd) — placement
+    stays the memory pool's job (PagedKVCache.write_tokens).
     """
     _check_family(cfg, "paged decode")
     dev = resolve_device(device)
@@ -245,6 +256,8 @@ def decode_step_paged(params: Params, cfg: ModelConfig, tokens,
     for i in range(cfg.num_layers):
         lc = {"k_pool": k_pool[i], "v_pool": v_pool[i],
               "block_tables": tables, "len": lens}
+        if k_scale_pool is not None:
+            lc.update(k_scale=k_scale_pool[i], v_scale=v_scale_pool[i])
         x, c = blocks.dense_block(_layer(params["layers"], i), cfg, x,
                                   mode="decode", cache=lc,
                                   is_local=_is_local(cfg, i))

@@ -20,6 +20,8 @@ from repro_torch.serving.scheduler import (ChunkedPrefillPolicy, FCFSPolicy,
                                            RequestScheduler, SchedulingPolicy,
                                            make_policy)
 from repro_torch.serving.stats import EngineStats
+from repro_torch.serving.worker_pool import (AttentionWorkerPool, TransferLog,
+                                             expected_transfer_bytes)
 
 __all__ = [
     "EngineConfig", "EngineStats", "EngineEvent", "LLMEngine",
@@ -29,4 +31,5 @@ __all__ = [
     "request_generator", "request_seed", "sample_per_request",
     "ChunkedPrefillPolicy", "FCFSPolicy", "PreemptingPolicy", "PrefixIndex",
     "RequestScheduler", "SchedulingPolicy", "make_policy",
+    "AttentionWorkerPool", "TransferLog", "expected_transfer_bytes",
 ]

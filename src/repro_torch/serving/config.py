@@ -5,9 +5,8 @@ Port of ``repro/serving/config.py`` (``EngineConfig``).
 The fields and validation are the reference's, minus ``decode_backend``:
 the port has no backend knob — the device of the KV pool decides whether
 the paged attention runs the CUDA kernels (a GPU pool) or their plain
-PyTorch twins (a CPU pool). Placements and pool dtypes that later slices
-port are refused with a clear error: ``placement`` accepts
-``"homogeneous"`` and ``kv_dtype`` accepts ``"bf16"`` (the model's dtype).
+PyTorch twins (a CPU pool). The placement a later slice ports
+(``"moe_offload"``) is refused with a clear error.
 """
 from __future__ import annotations
 
@@ -18,8 +17,7 @@ PLACEMENTS = ("homogeneous", "attention_pool", "moe_offload")
 PARTITIONS = ("head", "request", "block")
 SCHEDULERS = ("fcfs", "preempt")
 KV_DTYPES = ("bf16", "int8")
-PORTED_PLACEMENTS = ("homogeneous",)
-PORTED_KV_DTYPES = ("bf16",)
+PORTED_PLACEMENTS = ("homogeneous", "attention_pool")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,7 +35,9 @@ class EngineConfig:
     num_blocks: int = 256
     block_size: int = 16
     kv_shards: Optional[int] = None    # None => derived
-    # Pool element dtype: "bf16" stores the pool in the model's dtype.
+    # Pool element dtype: "bf16" stores the pool in the model's dtype;
+    # "int8" stores int8 values with per-token fp32 scales (kernels fuse
+    # the dequant).
     kv_dtype: str = "bf16"
 
     # ---- batching / scheduling ----
@@ -82,10 +82,6 @@ class EngineConfig:
                 f"kv_dtype must be one of {KV_DTYPES}; got "
                 f"{self.kv_dtype!r} (placement={self.placement!r}, "
                 f"partition={self.partition!r})")
-        if self.kv_dtype not in PORTED_KV_DTYPES:
-            raise NotImplementedError(
-                f"kv_dtype {self.kv_dtype!r} is not ported yet (int8 pools "
-                f"and their kernels come in a later slice); use 'bf16'")
         for field in ("attention_workers", "expert_workers", "num_blocks",
                       "block_size", "max_batch"):
             if getattr(self, field) < 1:
@@ -111,10 +107,30 @@ class EngineConfig:
                     f"— every chunk boundary except the prompt's final "
                     f"partial block must be block-aligned so chunk KV "
                     f"scatters into whole pool blocks")
-        if self.kv_shards is not None and self.kv_shards != 1:
-            raise NotImplementedError(
-                f"kv_shards={self.kv_shards}: the port serves one pool "
-                f"shard so far")
+        if self.kv_shards is not None and self.kv_shards < 1:
+            raise ValueError(f"kv_shards must be >= 1 (or None to derive); "
+                             f"got {self.kv_shards}")
+        if self.placement != "homogeneous" and self.partition == "block":
+            shards = self.kv_shards
+            if shards is not None and shards != self.attention_workers:
+                raise ValueError(
+                    "block partition shards the pool over the workers: "
+                    f"kv_shards ({shards}) must equal attention_workers "
+                    f"({self.attention_workers})")
+        if self.num_blocks % self.resolved_kv_shards:
+            raise ValueError(
+                f"num_blocks ({self.num_blocks}) must divide evenly over "
+                f"kv_shards ({self.resolved_kv_shards})")
+
+    @property
+    def resolved_kv_shards(self) -> int:
+        """kv_shards with the block-partition default applied: the pool's
+        block axis is sharded over exactly the attention workers."""
+        if self.kv_shards is not None:
+            return self.kv_shards
+        if self.placement != "homogeneous" and self.partition == "block":
+            return self.attention_workers
+        return 1
 
     def replace(self, **kw) -> "EngineConfig":
         return dataclasses.replace(self, **kw)

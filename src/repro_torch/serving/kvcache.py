@@ -1,5 +1,7 @@
 """Paged KV-cache manager (PagedAttention-style, paper baseline [28]).
-Port of ``repro/serving/kvcache.py`` for one pool shard and bf16/fp32 pools.
+Port of ``repro/serving/kvcache.py``: block-sharded, bf16/fp32 or int8
+pools (shard quarantine and the handoff API arrive with the fault and
+cluster slices).
 
 Fixed-size blocks of ``block_size`` tokens from a global pool; per-sequence
 block tables; allocation is O(1) off a free list. The allocator is
@@ -17,8 +19,21 @@ block carries a refcount, is freed only when the last reference goes, and
 the first divergent write into a shared block forks a private copy
 (``_cow_block``).
 
-Int8 scale pools, block-granular handoff and shard quarantine arrive with
-their slices (ROADMAP Queue 1).
+Block shards (``n_shards > 1``): the pool's block axis is cut into
+``n_shards`` contiguous ranges of ``num_blocks // n_shards`` blocks — shard
+s owns global ids [s·npb, (s+1)·npb), the slice one attention worker of the
+block partition reads. A sequence's i-th block lands ROUND-ROBIN on shard
+i mod n_shards (the most-free shard when that one is empty);
+``block_table_shards()`` gives each shard's compacted table and each
+slot's global base position.
+
+Quantized pool (``kv_dtype="int8"``): int8 value pools plus per-token,
+per-kv-head fp32 scale pools ``(L, Hkv, num_blocks, block_size)`` that
+mirror the value pools' block axis. Every write path quantizes at write
+time (``models/kv_quant.py``) and every block operation (copy-on-write,
+free, round-robin placement) moves the scale tile with its value tile —
+scales follow blocks. The attention kernels fuse dequantization; nothing
+on the hot path builds a dequantized slab.
 
 Invariants (tests/test_torch_engine.py replays the reference's):
   * a block's refcount == the number of live tables referencing it,
@@ -34,6 +49,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.paged_decode_attention import POS_PAD
+from repro_torch.models import kv_quant
 from repro_torch.models.common import ModelConfig, resolve_device
 
 
@@ -60,20 +77,39 @@ class PagedKVCache:
     cfg: ModelConfig
     num_blocks: int
     block_size: int = 16
-    kv_dtype: str = "bf16"             # "bf16": the model's dtype
+    n_shards: int = 1
+    kv_dtype: str = "bf16"             # "bf16" (the model's dtype) | "int8"
     device: object = "cuda"
 
     def __post_init__(self):
-        if self.kv_dtype != "bf16":
-            raise NotImplementedError(
-                f"kv_dtype {self.kv_dtype!r} is not ported yet; use 'bf16'")
+        if self.num_blocks % self.n_shards:
+            raise ValueError(
+                f"num_blocks ({self.num_blocks}) must divide evenly over "
+                f"n_shards ({self.n_shards}) — the pool's block axis is "
+                f"sharded contiguously over the attention workers")
+        if self.kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype must be 'bf16' or 'int8'; "
+                             f"got {self.kv_dtype!r}")
         self.device = resolve_device(self.device)
         hd = self.cfg.resolved_head_dim
+        L, Hkv = self.cfg.num_layers, self.cfg.num_kv_heads
+        pool_dtype = torch.int8 if self.kv_dtype == "int8" else self.cfg.dtype
         self.k_pool = torch.zeros(
-            (self.cfg.num_layers, self.cfg.num_kv_heads, self.num_blocks,
-             self.block_size, hd), dtype=self.cfg.dtype, device=self.device)
+            (L, Hkv, self.num_blocks, self.block_size, hd), dtype=pool_dtype,
+            device=self.device)
         self.v_pool = torch.zeros_like(self.k_pool)
-        self._free: List[int] = list(range(self.num_blocks))
+        # int8: fp32 per-token scale pools mirroring the block axis (scales
+        # follow blocks); None for bf16 pools
+        self.k_scale = self.v_scale = None
+        if self.kv_dtype == "int8":
+            self.k_scale = torch.zeros(
+                (L, Hkv, self.num_blocks, self.block_size),
+                dtype=torch.float32, device=self.device)
+            self.v_scale = torch.zeros_like(self.k_scale)
+        npb = self.blocks_per_shard
+        # per-shard free lists: shard s owns global ids [s·npb, (s+1)·npb)
+        self._free_shard: List[List[int]] = [
+            list(range(s * npb, (s + 1) * npb)) for s in range(self.n_shards)]
         self.tables: Dict[int, List[int]] = {}
         self.lengths: Dict[int, int] = {}
         # block id -> number of live tables referencing it (free blocks have
@@ -89,23 +125,37 @@ class PagedKVCache:
         self._gather_idx_cache: Dict[Tuple[int, ...], torch.Tensor] = {}
 
     @property
+    def blocks_per_shard(self) -> int:
+        return self.num_blocks // self.n_shards
+
+    @property
     def free(self) -> List[int]:
-        """All free block ids (read-only copy)."""
-        return list(self._free)
+        """All free block ids, shard by shard (read-only copy)."""
+        return [b for shard in self._free_shard for b in shard]
 
     @property
     def num_free(self) -> int:
-        return len(self._free)
+        return sum(len(shard) for shard in self._free_shard)
 
     @property
     def capacity_blocks(self) -> int:
         """Total blocks the pool can hold."""
         return self.num_blocks
 
-    def _pop_block(self) -> int:
-        if not self._free:
-            raise OutOfBlocks("pool exhausted")
-        return self._free.pop()
+    def shard_of(self, block_id: int) -> int:
+        return block_id // self.blocks_per_shard
+
+    def _pop_block(self, seq_slot: int) -> int:
+        """Pop a free block for a sequence's ``seq_slot``-th table entry:
+        shard ``seq_slot mod n_shards`` (round robin), or the most-free
+        shard when that one is empty."""
+        target = seq_slot % self.n_shards
+        if not self._free_shard[target]:
+            target = max(range(self.n_shards),
+                         key=lambda s: len(self._free_shard[s]))
+            if not self._free_shard[target]:
+                raise OutOfBlocks("pool exhausted")
+        return self._free_shard[target].pop()
 
     # ---------------- allocation ----------------
     def blocks_needed(self, n_tokens: int) -> int:
@@ -134,8 +184,8 @@ class PagedKVCache:
                 seq_id)
         if table is None:
             table = self.tables[seq_id] = []
-        for _ in range(need):
-            b = self._pop_block()
+        for i in range(len(table), len(table) + need):
+            b = self._pop_block(i)       # the i-th block on shard i mod n
             self.refcounts[b] = 1
             table.append(b)
         self.lengths[seq_id] = n_tokens
@@ -161,16 +211,20 @@ class PagedKVCache:
         return len(shared)
 
     def _cow_block(self, seq_id: int, slot: int) -> None:
-        """Copy-on-write fork of `seq_id`'s table slot: pop a private block,
-        copy the physical tile in place, decrement the donor's refcount."""
+        """Copy-on-write fork of `seq_id`'s table slot: pop a private block
+        (same round-robin slot rule), copy the physical tile — and its
+        scale tile — in place, decrement the donor's refcount."""
         old = self.tables[seq_id][slot]
-        new = self._pop_block()
+        new = self._pop_block(slot)
         self.refcounts[old] -= 1
         self.refcounts[new] = 1
         self.tables[seq_id][slot] = new
         self._borrowed.get(seq_id, set()).discard(old)
         self.k_pool[:, :, new] = self.k_pool[:, :, old]
         self.v_pool[:, :, new] = self.v_pool[:, :, old]
+        if self.k_scale is not None:   # the scale tile forks with its block
+            self.k_scale[:, :, new] = self.k_scale[:, :, old]
+            self.v_scale[:, :, new] = self.v_scale[:, :, old]
         self.cow_forks += 1
 
     def blocks_to_append(self, seq_id: int) -> int:
@@ -189,7 +243,7 @@ class PagedKVCache:
         table = self.tables[seq_id]
         try:
             if self.blocks_needed(n) > len(table):
-                b = self._pop_block()
+                b = self._pop_block(len(table))
                 self.refcounts[b] = 1
                 table.append(b)
             else:
@@ -211,7 +265,7 @@ class PagedKVCache:
             self.refcounts[b] -= 1
             if self.refcounts[b] == 0:
                 del self.refcounts[b]
-                self._free.append(b)
+                self._free_shard[self.shard_of(b)].append(b)
         self._borrowed.pop(seq_id, None)
         del self.lengths[seq_id]
 
@@ -222,29 +276,28 @@ class PagedKVCache:
 
     @property
     def pool_bytes_resident(self) -> int:
-        """Resident bytes of the whole pool allocation (K + V)."""
-        return 2 * self.k_pool.numel() * self.k_pool.element_size()
+        """Resident bytes of the whole pool allocation: K + V value pools
+        plus (int8) the fp32 scale pools — hd + 4 bytes per token-head
+        instead of 2·hd for a bf16 pool."""
+        total = 2 * self.k_pool.numel() * self.k_pool.element_size()
+        if self.k_scale is not None:
+            total += 2 * self.k_scale.numel() * self.k_scale.element_size()
+        return total
 
     def bytes_per_live_token(self) -> int:
-        """Pool bytes one token of context occupies (K + V, all layers)."""
+        """Pool bytes one token of context occupies (K + V, all layers,
+        scales included) — the per-step KV read accounting unit."""
         L, Hkv, _, _, hd = self.k_pool.shape
-        return 2 * L * Hkv * hd * self.k_pool.element_size()
+        per = 2 * L * Hkv * hd * self.k_pool.element_size()
+        if self.k_scale is not None:
+            per += 2 * L * Hkv * self.k_scale.element_size()
+        return per
 
     def unique_live_tokens(self, seq_ids: Optional[Sequence[int]] = None
                            ) -> int:
         """Live tokens over UNIQUE physical blocks — a block shared by K
         sequences counts once, at the deepest fill any sharer reaches."""
-        if seq_ids is None:
-            seq_ids = list(self.tables)
-        per_block: Dict[int, int] = {}
-        bs = self.block_size
-        for sid in seq_ids:
-            length = self.lengths[sid]
-            for j, g in enumerate(self.tables[sid]):
-                t = min(bs, max(0, length - j * bs))
-                if t > per_block.get(g, 0):
-                    per_block[g] = t
-        return sum(per_block.values())
+        return sum(self._block_fill(seq_ids).values())
 
     # ---------------- hot-path views ----------------
     def block_table_batch(self, seq_ids: Sequence[int]
@@ -259,6 +312,68 @@ class PagedKVCache:
             t = self.tables[sid][:nb]
             tables[i, :len(t)] = t
         return tables, lens
+
+    def block_table_shards(self, seq_ids: Sequence[int]
+                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Per-shard compacted block tables for the block-partition decode
+        step. Returns (local_tables, local_positions, shard_tokens):
+          * local_tables (n_shards, B, nbl) int32 — block ids LOCAL to each
+            shard's slice (global − shard·blocks_per_shard); pad slots 0;
+          * local_positions (n_shards, B, nbl) int32 — each slot's global
+            base position (slot index in the sequence's table ×
+            block_size), POS_PAD on pad slots so every mask kills them;
+          * shard_tokens (n_shards, B) int32 — live tokens per (shard,
+            seq), a physical block shared in the batch counted once, for
+            the first sequence that references it, at the deepest fill any
+            sharer reaches."""
+        B = len(seq_ids)
+        n, npb, bs = self.n_shards, self.blocks_per_shard, self.block_size
+        per = [[[] for _ in range(B)] for _ in range(n)]  # (local id, base)
+        shard_tokens = np.zeros((n, B), np.int32)
+        fill = self._block_fill(seq_ids)
+        counted: set = set()
+        for i, sid in enumerate(seq_ids):
+            for j, g in enumerate(self.tables[sid]):
+                s = self.shard_of(g)
+                per[s][i].append((g - s * npb, j * bs))
+                if g not in counted:
+                    counted.add(g)
+                    shard_tokens[s, i] += fill[g]
+        nbl = max([1] + [len(per[s][i]) for s in range(n) for i in range(B)])
+        local_tables = np.zeros((n, B, nbl), np.int32)
+        local_positions = np.full((n, B, nbl), POS_PAD, np.int32)
+        for s in range(n):
+            for i in range(B):
+                for j, (lb, base) in enumerate(per[s][i]):
+                    local_tables[s, i, j] = lb
+                    local_positions[s, i, j] = base
+        return local_tables, local_positions, shard_tokens
+
+    def shard_live_tokens(self, seq_ids: Optional[Sequence[int]] = None
+                          ) -> np.ndarray:
+        """(n_shards,) live tokens held per pool shard (all sequences by
+        default); a shared physical block counts once, at the deepest fill
+        any sharer reaches."""
+        totals = np.zeros((self.n_shards,), np.int64)
+        for g, t in self._block_fill(seq_ids).items():
+            totals[self.shard_of(g)] += t
+        return totals
+
+    def _block_fill(self, seq_ids: Optional[Sequence[int]] = None
+                    ) -> Dict[int, int]:
+        """Physical block id -> live tokens in it, at the deepest fill any
+        of ``seq_ids`` (default: every sequence) reaches."""
+        if seq_ids is None:
+            seq_ids = list(self.tables)
+        fill: Dict[int, int] = {}
+        bs = self.block_size
+        for sid in seq_ids:
+            length = self.lengths[sid]
+            for j, g in enumerate(self.tables[sid]):
+                t = min(bs, max(0, length - j * bs))
+                if t > fill.get(g, 0):
+                    fill[g] = t
+        return fill
 
     # ---------------- data movement ----------------
     def write_prefill(self, seq_id: int, k: torch.Tensor, v: torch.Tensor,
@@ -294,6 +409,10 @@ class PagedKVCache:
         for slot in range(b0, b0 + nb):
             if table[slot] in borrowed and self.refcounts[table[slot]] > 1:
                 self._cow_block(seq_id, slot)
+        ks = vs = None
+        if self.kv_dtype == "int8":    # quantize at write time, pre-pad
+            k, ks = kv_quant.quantize_kv(k)
+            v, vs = kv_quant.quantize_kv(v)
         pad = nb * self.block_size - S
         if pad:
             k = torch.nn.functional.pad(k, (0, 0, 0, pad))
@@ -302,6 +421,12 @@ class PagedKVCache:
         idx = torch.as_tensor(table[b0:b0 + nb], device=self.device)
         self.k_pool[:, :, idx] = k.reshape(L, Hkv, nb, self.block_size, hd)
         self.v_pool[:, :, idx] = v.reshape(L, Hkv, nb, self.block_size, hd)
+        if ks is not None:
+            if pad:
+                ks = torch.nn.functional.pad(ks, (0, pad))
+                vs = torch.nn.functional.pad(vs, (0, pad))
+            self.k_scale[:, :, idx] = ks.reshape(L, Hkv, nb, self.block_size)
+            self.v_scale[:, :, idx] = vs.reshape(L, Hkv, nb, self.block_size)
 
     def write_prefill_chunk(self, seq_id: int, k: torch.Tensor,
                             v: torch.Tensor, start_token: int) -> None:
@@ -338,8 +463,15 @@ class PagedKVCache:
                               device=self.device)
         off = torch.as_tensor([p % self.block_size for p in positions],
                               device=self.device)
-        self.k_pool[:, :, blk, off] = k_new.transpose(1, 2)  # (L, Hkv, B, hd)
-        self.v_pool[:, :, blk, off] = v_new.transpose(1, 2)
+        kn = k_new.transpose(1, 2)                           # (L, Hkv, B, hd)
+        vn = v_new.transpose(1, 2)
+        if self.kv_dtype == "int8":
+            kn, kns = kv_quant.quantize_token(kn)            # (L, Hkv, B)
+            vn, vns = kv_quant.quantize_token(vn)
+            self.k_scale[:, :, blk, off] = kns
+            self.v_scale[:, :, blk, off] = vns
+        self.k_pool[:, :, blk, off] = kn
+        self.v_pool[:, :, blk, off] = vn
 
     def gather_prefix_indices(self, seq_id: int,
                               n_tokens: int) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """LLMEngine — the streaming serving facade.
-Port of ``repro/serving/llm_engine.py`` for the homogeneous placement.
+Port of ``repro/serving/llm_engine.py`` for the homogeneous and
+attention-pool placements, over bf16 or int8 pools.
 
 The request lifecycle is streaming: :meth:`LLMEngine.submit` returns a
 :class:`RequestHandle` per request whose iterator drives the engine and
@@ -13,7 +14,8 @@ resolution (preempting under the ``preempt`` policy), at most one prefill
 chunk, then one decode token for every running request whose prefill is
 complete. Chunked prefill runs the paged chunk-prefill kernel; decode runs
 the paged decode kernel — both on the card when the pool lives there, their
-plain twins when it lives on the CPU. Eager PyTorch replaces ``jax.jit``.
+plain twins when it lives on the CPU; an int8 pool hands its scale pools to
+the int8 kernels. Eager PyTorch replaces ``jax.jit``.
 
 Sampling honours ``SamplingParams.seed``: token ``i`` of a request is drawn
 from a generator seeded by (its seed, i) alone (``serving/sampler.py``).
@@ -134,6 +136,7 @@ class LLMEngine:
         self.config = econf
         self.params = params
         self.kv = PagedKVCache(cfg, econf.num_blocks, econf.block_size,
+                               n_shards=econf.resolved_kv_shards,
                                kv_dtype=econf.kv_dtype, device=self.device)
         self.placement: PlacementStrategy = make_placement(cfg, econf,
                                                            self.device)
@@ -193,6 +196,23 @@ class LLMEngine:
 
     def _emit(self, kind: str, rid: int, **info) -> None:
         self._events.append(EngineEvent(kind, rid, self._step_no, info))
+
+    @property
+    def pool(self):
+        """The attention worker pool (None for homogeneous placement)."""
+        return self.placement.pool
+
+    @property
+    def transfer_log(self):
+        return self.placement.transfer_log
+
+    def _scale_kwargs(self, k_name: str, v_name: str) -> Dict:
+        """The int8 pool's scale pools keyed by the callee's kwarg names;
+        empty for bf16 pools (every path that reads the pool gets its
+        scales)."""
+        if self.kv.k_scale is None:
+            return {}
+        return {k_name: self.kv.k_scale, v_name: self.kv.v_scale}
 
     # ------------------------------------------------------------------
     # the iteration
@@ -351,7 +371,8 @@ class LLMEngine:
         idx = self.kv.gather_prefix_indices(rid, cursor)
         logits, cache = transformer.prefill_chunk(
             self.params, self.cfg, {"tokens": [list(known[cursor:target])]},
-            self.kv.k_pool, self.kv.v_pool, idx, device=self.device)
+            self.kv.k_pool, self.kv.v_pool, idx, device=self.device,
+            **self._scale_kwargs("k_scale_pool", "v_scale_pool"))
         # chunk cache k/v are head-major (L, 1, Hkv, C, hd)
         self.kv.write_prefill_chunk(rid, cache["k"][:, 0], cache["v"][:, 0],
                                     start_token=cursor)
@@ -410,7 +431,8 @@ class LLMEngine:
         t0 = time.time()
         logits, updates = self._decode_fn(
             self.params, tokens, self.kv.k_pool, self.kv.v_pool, tables,
-            lens, *extra)
+            lens, *extra, **self._scale_kwargs("k_scale_pool",
+                                               "v_scale_pool"))
         # validate before anything is committed (the host copy synchronises)
         self._guard_finite(running, logits)
         dt = time.time() - t0

@@ -176,9 +176,10 @@ def test_engine_streams_tokens_and_events(setup):
 
 
 @pytest.mark.parametrize("bad,exc", [
-    (dict(placement="attention_pool"), NotImplementedError),
-    (dict(kv_dtype="int8"), NotImplementedError),
-    (dict(kv_shards=2), NotImplementedError),
+    (dict(placement="moe_offload"), NotImplementedError),
+    (dict(placement="attention_pool", partition="block", attention_workers=2,
+          kv_shards=4), ValueError),
+    (dict(kv_shards=3), ValueError),         # 256 blocks do not split in 3
     (dict(placement="nope"), ValueError),
     (dict(prefill_chunk_tokens=12, block_size=8), ValueError),
 ])

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+"""The port's CUDA kernels (bf16 and int8 pools) against their plain
+PyTorch twins, on the card.
 
 Marked ``gpu``: without a CUDA device every test skips (the kernels are
 CUDA C++ for sm_90a and have no interpret mode). The file imports neither
@@ -111,3 +112,83 @@ def test_cuda_wrappers_count_launches_and_refuse_what_they_do_not_take(cuda):
         torch.zeros((5, 2, 64), dtype=torch.bfloat16, device=cuda),
         torch.zeros((5, 2, 64), dtype=torch.bfloat16, device=cuda))
     assert ppa.paged_prefill_chunk_attention.launches == n + 1
+
+
+def _int8_pool(x, dev):
+    """Quantize a float pool (Hkv, NB, bs, hd) per token: int8 values and
+    fp32 scales (Hkv, NB, bs) on the card."""
+    from repro_torch.models.kv_quant import quantize_kv
+    q, s = quantize_kv(torch.from_numpy(np.asarray(x, np.float32)))
+    return q.to(dev), s.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,sw,sinks,cap", [(4, 0, 0, 0.0), (2, 40, 4, 50.0),
+                                            (8, 0, 0, 0.0), (1, 9, 0, 0.0)])
+def test_cuda_int8_decode_kernel_matches_plain(cuda, G, sw, sinks, cap):
+    q, kp, vp, bt, lens = _rand_paged(G + 10, 5, 2, G, 128, 16, 6)
+    kq, ks = _int8_pool(kp, cuda)
+    vq, vs = _int8_pool(vp, cuda)
+    ks[:, 0] = float("nan")                  # padded slots point here
+    vs[:, 0] = float("nan")
+    args = (_bf16(q, cuda), kq, vq, torch.from_numpy(bt).to(cuda),
+            torch.from_numpy(lens).to(cuda))
+    kw = dict(k_scale=ks, v_scale=vs, sliding_window=sw,
+              attention_sinks=sinks, logit_softcap=cap, return_partials=True)
+    got = pda.paged_decode_attention(*args, **kw)
+    want = pda.paged_decode_attention_plain(*args, **kw)
+    for a, b, tol in zip(got, want, (8e-3, 1e-3, 1e-3)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,C,nb,sw,sinks,cap", [(4, 100, 5, 0, 0, 0.0),
+                                                 (2, 64, 0, 0, 0, 0.0),
+                                                 (4, 77, 7, 50, 4, 50.0)])
+def test_cuda_int8_prefill_kernel_matches_plain(cuda, G, C, nb, sw, sinks,
+                                                cap):
+    rng = np.random.default_rng(C + 1)
+    Hkv, hd, bs = 2, 128, 16
+    kq, ks = _int8_pool(rng.standard_normal((Hkv, 12, bs, hd)), cuda)
+    vq, vs = _int8_pool(rng.standard_normal((Hkv, 12, bs, hd)), cuda)
+    table = torch.from_numpy(rng.permutation(12)[:nb].astype(np.int32))
+    args = (_bf16(rng.standard_normal((C, Hkv * G, hd)), cuda), kq, vq,
+            table.to(cuda), _bf16(rng.standard_normal((C, Hkv, hd)), cuda),
+            _bf16(rng.standard_normal((C, Hkv, hd)), cuda))
+    kw = dict(k_scale=ks, v_scale=vs, sliding_window=sw,
+              attention_sinks=sinks, logit_softcap=cap)
+    got = ppa.paged_prefill_chunk_attention(*args, **kw)
+    want = ppa.paged_prefill_chunk_attention_plain(*args, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                               atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_cuda_int8_wrappers_count_launches_and_need_fp32_scales(cuda):
+    q, kp, vp, bt, lens = _rand_paged(1, 2, 2, 4, 64, 16, 3)   # hd = 64
+    kq, ks = _int8_pool(kp, cuda)
+    vq, vs = _int8_pool(vp, cuda)
+    args = [_bf16(q, cuda), kq, vq, torch.from_numpy(bt).to(cuda),
+            torch.from_numpy(lens).to(cuda)]
+    n, n16 = (pda.paged_decode_attention_int8.launches,
+              pda.paged_decode_attention.launches)
+    pda.paged_decode_attention(*args, k_scale=ks, v_scale=vs)
+    assert pda.paged_decode_attention_int8.launches == n + 1
+    assert pda.paged_decode_attention.launches == n16     # bf16 untouched
+    with pytest.raises(TypeError):                        # bf16 scales
+        pda.paged_decode_attention(*args, k_scale=ks.bfloat16(),
+                                   v_scale=vs.bfloat16())
+    with pytest.raises(TypeError):                        # int8, no scales
+        pda.paged_decode_attention(*args)
+    with pytest.raises(ValueError):                       # one scale pool
+        pda.paged_decode_attention(*args, k_scale=ks)
+    n = ppa.paged_prefill_chunk_attention_int8.launches
+    chunk = torch.zeros((5, 2, 64), dtype=torch.bfloat16, device=cuda)
+    ppa.paged_prefill_chunk_attention(
+        torch.zeros((5, 8, 64), dtype=torch.bfloat16, device=cuda), kq, vq,
+        args[3][0].contiguous(), chunk, chunk, k_scale=ks, v_scale=vs)
+    assert ppa.paged_prefill_chunk_attention_int8.launches == n + 1
+    with pytest.raises(TypeError):
+        ppa.paged_prefill_chunk_attention(
+            torch.zeros((5, 8, 64), dtype=torch.bfloat16, device=cuda), kq,
+            vq, args[3][0].contiguous(), chunk, chunk)

@@ -286,13 +286,16 @@ def test_wrappers_run_plain_twins_on_cpu_without_counting_launches():
 
 
 def test_int8_scale_pools_are_refused():
+    """An int8 pool needs both scale pools: a lone one is refused by both
+    wrappers (the int8 twins themselves are held against the reference in
+    tests/test_torch_int8.py)."""
     q, kp, vp, bt, lens = _rand_paged(3, 2, 2, 4, 32, 8, 2)
     scales = torch.ones(kp.shape[:3])
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="int8"):
         pda.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(bt), _t(lens),
-                                   k_scale=scales, v_scale=scales)
-    with pytest.raises(NotImplementedError, match="int8"):
+                                   k_scale=scales)
+    with pytest.raises(ValueError, match="int8"):
         ppa.paged_prefill_chunk_attention(
             torch.randn(5, 8, 32), _t(kp), _t(vp),
             torch.tensor([1], dtype=torch.int32), torch.randn(5, 2, 32),
-            torch.randn(5, 2, 32), k_scale=scales, v_scale=scales)
+            torch.randn(5, 2, 32), v_scale=scales)
