@@ -25,8 +25,22 @@ Phases (any failure exits non-zero and prints no result line):
      an int8 and a bf16 pool on 2 requests: next-step logits at one shared
      state (cosine), per-partition launch counts, token agreement, and
      decode peak memory (the block partition copies no pool slice);
-  7. one JSON line describing every ported kernel (and the TPU kernels
-     still to port), then the result line.
+  7. (run right after phase 3, with the other kernel phases) the
+     dense-cache decode kernel vs its plain twin (o, and the (o, l, m)
+     triple) at zamba2's, llama3-8b's and a gemma2-shaped (window, sinks,
+     softcap) decode shape, with NaN in every slot past cache_len; the
+     Mamba2 and RWKV6 scan kernels vs their plain twins at zamba2's and
+     rwkv6's prefill shapes (B=8, S=2048);
+  8. end to end through transformer.prefill -> 32 x (decode_step +
+     apply_decode_updates): zamba2-1.2b, then rwkv6-7b, at full width and
+     depth (random bf16 weights from seed 0, 8 prompts of 2048 tokens):
+     launch counts per the path, finite logits, prefill and decode-step
+     walls, tokens/s, peak memory, cache bytes, a profiled window of 3
+     decode steps;
+  9. the card against the CPU at full width and reduced depth (zamba2 with
+     4 layers, rwkv6 with 2; B=2, S=128, then 4 decode steps): row cosine
+     of every step's logits;
+ 10. one JSON line describing every ported kernel, then the result line.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a CUDA device or without the repository's ``src/`` beside it.
@@ -46,8 +60,14 @@ sys.path.insert(0, str(ROOT / "src"))
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 on the CUDA cores
 ERR_RTOL, ERR_ATOL = 8e-3, 1e-3   # bf16 outputs: 2 ulp relative + floor
-MIN_COSINE = 0.999             # int8 vs full precision; placements
+# fp32 scans vs their fp32 twins: the same operations in another order (a
+# fused multiply-add, a 4-lane shuffle sum); over 2048 steps the outputs
+# agree to within 1e-6 of their scale
+SCAN_RTOL = 1e-4               # and atol = SCAN_RTOL * max |plain|
+MIN_COSINE = 0.999             # int8 vs full precision; placements; card
+                               # vs CPU logits
 
 KERNELS = {   # name -> (source, TPU kernel it replaces)
     "paged_decode_attention": (
@@ -62,12 +82,25 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
     "paged_prefill_chunk_attention_int8": (
         "src/repro_torch/csrc/paged_prefill_attention.cu",
         "src/repro/kernels/paged_prefill_attention.py:128"),
+    "decode_attention": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:31"),
+    "ssm_scan": (
+        "src/repro_torch/csrc/ssm_scan.cu",
+        "src/repro/kernels/ssm_scan.py:20"),
+    "rwkv6_scan": (
+        "src/repro_torch/csrc/rwkv6_scan.cu",
+        "src/repro/kernels/rwkv6_scan.py:22"),
 }
-TODO_KERNELS = [
-    ("decode_attention", "src/repro/kernels/decode_attention.py:31"),
-    ("ssm_scan", "src/repro/kernels/ssm_scan.py:20"),
-    ("rwkv6_scan", "src/repro/kernels/rwkv6_scan.py:22"),
-]
+
+
+# the dense-cache decode and scan kernels launch on none of LLMEngine's paths
+NO_NEW_KERNEL = {"decode_attention": 0, "ssm_scan": 0, "rwkv6_scan": 0}
+# nor does a paged kernel on the dense-cache / recurrent path
+NO_PAGED_KERNEL = {"paged_decode_attention": 0,
+                   "paged_prefill_chunk_attention": 0,
+                   "paged_decode_attention_int8": 0,
+                   "paged_prefill_chunk_attention_int8": 0}
 
 
 def log(*a):
@@ -82,17 +115,20 @@ def sync(torch):
 # launch counters, timing, checks
 # ---------------------------------------------------------------------------
 class Launches:
-    """The four kernel wrappers' launch counters: zeroed just before a path
-    is driven, read just after it."""
+    """The kernel wrappers' launch counters: zeroed just before a path is
+    driven, read just after it."""
 
-    def __init__(self, pda, ppa):
+    def __init__(self, pda, ppa, da, ssm, rwkv):
         self.fns = {"paged_decode_attention": pda.paged_decode_attention,
                     "paged_prefill_chunk_attention":
                         ppa.paged_prefill_chunk_attention,
                     "paged_decode_attention_int8":
                         pda.paged_decode_attention_int8,
                     "paged_prefill_chunk_attention_int8":
-                        ppa.paged_prefill_chunk_attention_int8}
+                        ppa.paged_prefill_chunk_attention_int8,
+                    "decode_attention": da.decode_attention,
+                    "ssm_scan": ssm.ssm_scan,
+                    "rwkv6_scan": rwkv.rwkv6_scan}
 
     def reset(self):
         for fn in self.fns.values():
@@ -128,9 +164,9 @@ class Timer:
         return times[len(times) // 2]
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flop_per_s=BF16_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -410,7 +446,7 @@ def homogeneous_e2e(torch, np, cfg, params, prompts, counters):
         "paged_decode_attention": L * st.steps,
         "paged_prefill_chunk_attention": L * st.prefill_chunks_run,
         "paged_decode_attention_int8": 0,
-        "paged_prefill_chunk_attention_int8": 0},
+        "paged_prefill_chunk_attention_int8": 0, **NO_NEW_KERNEL},
         f"e2e homogeneous bf16 ({L} layers x {st.steps} steps / "
         f"{st.prefill_chunks_run} chunks)")
     result = serving_summary(st, reqs, wall, peak)
@@ -479,7 +515,8 @@ def lamina_e2e(torch, np, cfg, params, prompts, counters, bf16_resident):
         "paged_decode_attention": 0,
         "paged_prefill_chunk_attention": 0,
         "paged_decode_attention_int8": L * st.steps * n,
-        "paged_prefill_chunk_attention_int8": L * st.prefill_chunks_run},
+        "paged_prefill_chunk_attention_int8": L * st.prefill_chunks_run,
+        **NO_NEW_KERNEL},
         f"e2e Lamina head int8 ({L} layers x {st.steps} steps x {n} "
         f"workers / {st.prefill_chunks_run} chunks)")
     hd, Hkv = cfg.resolved_head_dim, cfg.num_kv_heads
@@ -660,12 +697,8 @@ def partitions_e2e(torch, np, cfg, params, prompts, counters, kv_dtype):
 def profile_decode(torch, eng, prompts, n_steps=3):
     """Where a decode step's time goes: a second wave of the same prompts
     is driven until every request decodes, then ``n_steps`` decode-only
-    steps (B=8) run under torch.profiler. Reports host wall per step,
-    device-busy time per step (sum of kernel self time), the idle share
-    and the top kernels. Runs after the launch counts were read."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    steps (B=8) run under torch.profiler (``profile_window``). Runs after
+    the launch counts were read."""
     from repro_torch.serving import State
 
     wave = make_requests(prompts, 64)
@@ -673,15 +706,26 @@ def profile_decode(torch, eng, prompts, n_steps=3):
     while not all(r.state == State.RUNNING and eng.sched.prefill_done(r.rid)
                   for r in wave):
         eng.step()
+    prof = profile_window(torch, eng.step, n_steps, len(wave))
+    eng.cancel_all()
+    return prof
+
+
+def profile_window(torch, step, n_steps, batch):
+    """Run ``step()`` ``n_steps`` times under torch.profiler. Reports host
+    wall per step, device-busy time per step (sum of kernel self time), the
+    idle share and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     sync(torch)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            eng.step()
+            step()
         sync(torch)
         wall = time.perf_counter() - t0
-    eng.cancel_all()
     # device-side events only (kernels, copies): CPU ops' device totals
     # would count the same kernels a second time
     dev = [(e.key, e.self_device_time_total / 1e3 / n_steps)
@@ -690,10 +734,260 @@ def profile_decode(torch, eng, prompts, n_steps=3):
     busy = sum(t for _, t in dev)
     step_ms = wall * 1e3 / n_steps
     top = sorted(dev, key=lambda kv: -kv[1])[:6]
-    return dict(batch=len(wave), step_ms_profiled=step_ms,
+    return dict(batch=batch, step_ms_profiled=step_ms,
                 device_busy_ms=busy,
                 idle_share=1 - busy / step_ms if step_ms else None,
                 top_kernels_ms={k[:60]: round(v, 3) for k, v in top})
+
+
+# ---------------------------------------------------------------------------
+# phase 7: dense-cache decode and the two scans
+# ---------------------------------------------------------------------------
+def dense_decode_case(torch, da, timer, *, B, Hkv, G, hd, lens, S, seed,
+                      sliding_window=0, sinks=0, softcap=0.0):
+    """The dense decode kernel vs its twin on a (B, Hkv, S, hd) cache whose
+    slots past each cache_len hold NaN; o alone and the (o, l, m) triple."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    shape = (B, Hkv, S, hd)
+    k = torch.randn(shape, generator=gen, device=DEV).bfloat16()
+    v = torch.randn(shape, generator=gen, device=DEV).bfloat16()
+    cache_len = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    pos = torch.arange(S, device=DEV)
+    stale = pos[None] >= cache_len[:, None]                      # (B, S)
+    k[stale[:, None].expand(B, Hkv, S)] = float("nan")
+    v[stale[:, None].expand(B, Hkv, S)] = float("nan")
+    q = torch.randn((B, Hkv, G, hd), generator=gen, device=DEV).bfloat16()
+    kw = dict(sliding_window=sliding_window, attention_sinks=sinks,
+              logit_softcap=softcap)
+    o1 = da.decode_attention(q, k, v, cache_len, **kw)
+    o, l, m = da.decode_attention(q, k, v, cache_len, return_partials=True,
+                                  **kw)
+    sync(torch)
+    po, pl, pm = da.decode_attention_plain(q, k, v, cache_len,
+                                           return_partials=True, **kw)
+    err = check_close("dense decode o", o, po)
+    check_close("dense decode o (no partials)", o1, po)
+    check_close("dense decode l", l, pl, rtol=1e-3, atol=1e-6)
+    check_close("dense decode m", m, pm, rtol=0.0, atol=1e-3)
+    valid = pos[None] < cache_len[:, None]
+    if sliding_window:
+        valid &= (pos[None] >= cache_len[:, None] - sliding_window) | \
+            (pos[None] < sinks)
+    rows = int(valid.sum())
+    H = Hkv * G
+    nbytes = (rows * Hkv * hd * 2 * 2 + q.numel() * 2 + B * 4 +
+              o.numel() * 2 + 2 * l.numel() * 4)
+    flops = 4 * rows * H * hd
+    bound_ms, bound_by = bound(nbytes, flops)
+    kernel_ms = timer.ms(lambda: da.decode_attention(
+        q, k, v, cache_len, return_partials=True, **kw))
+    plain_ms = timer.ms(lambda: da.decode_attention_plain(
+        q, k, v, cache_len, return_partials=True, **kw), iters=5)
+    library_ms = None
+    if softcap == 0.0:
+        # yardstick only: SDPA on the same dense cache with a boolean mask
+        # (the NaN slots zeroed first, not timed: SDPA's 0 weight times NaN
+        # would poison its output)
+        kd = torch.where(valid[:, None, :, None], k, 0).repeat_interleave(
+            G, dim=1)
+        vd = torch.where(valid[:, None, :, None], v, 0).repeat_interleave(
+            G, dim=1)
+        qd = q.reshape(B, H, 1, hd)
+        mask = valid[:, None, None, :]
+        library_ms = timer.ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask))
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                rows=rows)
+
+
+def check_scan(name, got, want):
+    scale = float(want.abs().max())
+    return check_close(name, got, want, rtol=SCAN_RTOL,
+                       atol=SCAN_RTOL * max(1.0, scale))
+
+
+def ssm_case(torch, ssm, timer, *, B, S, H, P, N, seed):
+    """The Mamba2 scan kernel vs its twin at a prefill shape; inputs shaped
+    like the model's (dt-scaled x, decay = exp(-dt))."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device=DEV) - 1.0)
+    x = torch.randn((B, S, H, P), generator=gen, device=DEV) * dt[..., None]
+    Bi = torch.randn((B, S, N), generator=gen, device=DEV)
+    Ci = torch.randn((B, S, N), generator=gen, device=DEV)
+    decay = torch.exp(-dt)
+    y = ssm.ssm_scan(x, Bi, Ci, decay)
+    sync(torch)
+    want = ssm.ssm_scan_plain(x, Bi, Ci, decay)
+    err = check_scan("ssm_scan y", y, want)
+    nbytes = 4 * (x.numel() + Bi.numel() + Ci.numel() + decay.numel() +
+                  y.numel())
+    flops = 5 * B * S * H * P * N      # h·a, x·B, +, and the FMA with C
+    bound_ms, bound_by = bound(nbytes, flops, FP32_FLOP_PER_S)
+    return dict(max_abs_err=err, y_scale=float(want.abs().max()),
+                ms=timer.ms(lambda: ssm.ssm_scan(x, Bi, Ci, decay), iters=9),
+                plain_ms=timer.ms(lambda: ssm.ssm_scan_plain(x, Bi, Ci, decay),
+                                  iters=3, warmup=1),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                bytes=nbytes, flops=flops)
+
+
+def rwkv_case(torch, rwkv, timer, *, B, S, H, P, seed):
+    """The RWKV6 scan kernel vs its twin at a prefill shape, bf16 inputs
+    (the model dtype) shaped like the model's (w = exp(-exp(wlog)))."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    shape = (B, S, H, P)
+    r, k, v = (torch.randn(shape, generator=gen, device=DEV).bfloat16()
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(shape, generator=gen, device=DEV)
+                             - 2.0)).bfloat16()
+    u = torch.randn((H, P), generator=gen, device=DEV) * 0.5
+    y = rwkv.rwkv6_scan(r, k, v, w, u)
+    sync(torch)
+    want = rwkv.rwkv6_scan_plain(r, k, v, w, u)
+    err = check_scan("rwkv6_scan y", y, want)
+    nbytes = 2 * 4 * r.numel() + 4 * u.numel() + 4 * y.numel()
+    flops = B * S * H * (5 * P * P + 5 * P)   # r·S, w·S + k⊗v; the bonus
+    bound_ms, bound_by = bound(nbytes, flops, FP32_FLOP_PER_S)
+    return dict(max_abs_err=err, y_scale=float(want.abs().max()),
+                ms=timer.ms(lambda: rwkv.rwkv6_scan(r, k, v, w, u), iters=9),
+                plain_ms=timer.ms(lambda: rwkv.rwkv6_scan_plain(r, k, v, w, u),
+                                  iters=3, warmup=1),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                bytes=nbytes, flops=flops)
+
+
+# ---------------------------------------------------------------------------
+# phases 8-9: recurrent models end to end; the card against the CPU
+# ---------------------------------------------------------------------------
+def tree_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def generate(transformer, cfg, params, tokens, n_steps, max_seq, device):
+    """prefill, then ``n_steps`` greedy decode_step + apply_decode_updates.
+    Returns (per-step logits list (prefill's first), cache)."""
+    logits, cache = transformer.prefill(params, cfg, {"tokens": tokens},
+                                        max_seq, device=device)
+    out = [logits]
+    for _ in range(n_steps):
+        logits, upd = transformer.decode_step(
+            params, cfg, logits.argmax(-1).int(), cache, device=device)
+        cache = transformer.apply_decode_updates(cache, upd)
+        out.append(logits)
+    return out, cache
+
+
+def recurrent_e2e(torch, np, transformer, cfg, counters, want_launches):
+    """Phase 8: one model at full width and depth: 8 prompts of 2048
+    tokens, prefill, 32 greedy decode steps, then 3 profiled steps.
+    ``want_launches(n)``: every kernel's launches for prefill + n steps."""
+    B, S, n_new = 8, 2048, 32
+    t0 = time.perf_counter()
+    params = transformer.init_params(0, cfg, device=DEV)
+    sync(torch)
+    weights = torch.cuda.memory_allocated()
+    log(f"e2e {cfg.name}: L={cfg.num_layers} d={cfg.d_model} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} weights "
+        f"{weights / 2**30:.2f} GiB init {time.perf_counter() - t0:.1f} s")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                               size=(B, S)).tolist()
+    max_seq = S + n_new + 3
+    # warm-up (library handles, allocator) on a short prompt, not counted
+    generate(transformer, cfg, params, [t[:64] for t in tokens[:2]], 2,
+             64 + 2, DEV)
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(params, cfg, {"tokens": tokens},
+                                        max_seq, device=DEV)
+    sync(torch)
+    prefill_s = time.perf_counter() - t0
+    after_prefill = counters.read()
+    step_ms = []
+    out = [logits]
+    for _ in range(n_new):
+        t1 = time.perf_counter()
+        logits, upd = transformer.decode_step(
+            params, cfg, logits.argmax(-1).int(), cache, device=DEV)
+        cache = transformer.apply_decode_updates(cache, upd)
+        sync(torch)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        out.append(logits)
+    launches = counters.read()
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches(after_prefill, want_launches(0), f"e2e {cfg.name} prefill")
+    expect_launches(launches, want_launches(n_new),
+                    f"e2e {cfg.name} (prefill + {n_new} decode steps)")
+    for i, lg in enumerate(out):
+        if lg.shape != (B, cfg.vocab_size) or \
+                not bool(torch.isfinite(lg.float()).all()):
+            raise AssertionError(f"{cfg.name}: logits {i} of shape "
+                                 f"{tuple(lg.shape)} not finite")
+    if int(cache["len"].min()) != S + n_new:
+        raise AssertionError(f"{cfg.name}: cache len {cache['len'].tolist()}")
+    state = {k: v for k, v in cache.items() if k != "len"}
+    decode_s = sum(step_ms) / 1e3
+    result = dict(
+        batch=B, prompt_tokens=S, new_tokens=n_new, prefill_s=prefill_s,
+        prefill_tok_s=B * S / prefill_s,
+        decode_step_ms_median=sorted(step_ms)[len(step_ms) // 2],
+        decode_step_ms=[round(t, 2) for t in step_ms],
+        decode_tok_s=B * n_new / decode_s, peak_gib=peak / 2**30,
+        weights_gib=weights / 2**30, cache_bytes=tree_bytes(state),
+        cache_shapes={k: list(v.shape) for k, v in state.items()},
+        tokens_first_row=[int(lg[0].argmax()) for lg in out[1:9]])
+
+    def step():
+        nonlocal logits, cache
+        logits, upd = transformer.decode_step(
+            params, cfg, logits.argmax(-1).int(), cache, device=DEV)
+        cache = transformer.apply_decode_updates(cache, upd)
+
+    result["profile"] = profile_window(torch, step, 3, B)
+    log(f"e2e {cfg.name}: {json.dumps(result)}")
+    return launches, result
+
+
+def card_vs_cpu(torch, np, transformer, cfg, counters):
+    """Phase 9: the same calls on the card and on the CPU (the plain twins)
+    at full width and reduced depth, same bf16 weights: B=2, S=128, then 4
+    greedy decode steps fed the card's tokens. Every step's logits must
+    agree by row cosine."""
+    B, S, n_new = 2, 128, 4
+    params = transformer.init_params(1, cfg, device=DEV)
+    cpu_params = transformer._tree_map(lambda a: a.cpu(), params)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               size=(B, S)).tolist()
+    counters.reset()
+    gpu, gcache = generate(transformer, cfg, params, tokens, n_new,
+                           S + n_new, DEV)
+    launches = {k: n for k, n in counters.read().items() if n}
+    # the CPU decodes the card's greedy tokens, so both see the same inputs
+    logits, cache = transformer.prefill(cpu_params, cfg, {"tokens": tokens},
+                                        S + n_new, device="cpu")
+    cpu = [logits]
+    for lg in gpu[:-1]:
+        logits, upd = transformer.decode_step(
+            cpu_params, cfg, lg.argmax(-1).int().cpu(), cache, device="cpu")
+        cache = transformer.apply_decode_updates(cache, upd)
+        cpu.append(logits)
+    cos = [min(cosine(g[i].cpu(), c[i]) for i in range(B))
+           for g, c in zip(gpu, cpu)]
+    log(f"card vs CPU {cfg.name} (L={cfg.num_layers}, full width, B={B}, "
+        f"S={S}, {n_new} steps): min row cosine per step "
+        f"{[round(c, 6) for c in cos]} (need >= {MIN_COSINE}); card "
+        f"launches {launches}")
+    if not min(cos) >= MIN_COSINE:
+        raise AssertionError(f"card vs CPU {cfg.name}: cosine {min(cos)} < "
+                             f"{MIN_COSINE}")
+    del params, cpu_params, gcache, cache
+    return dict(min_row_cosine=cos, launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -706,8 +1000,11 @@ def main() -> int:
         return 2
     from repro_torch.configs import registry
     from repro_torch.kernels import _cuda
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.kernels import rwkv6_scan as rwkv
+    from repro_torch.kernels import ssm_scan as ssm
     from repro_torch.models import transformer
 
     t_start = time.perf_counter()
@@ -720,14 +1017,15 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    built = _cuda.build([pda._LIB_NAME, ppa._LIB_NAME])
+    built = _cuda.build([pda._LIB_NAME, ppa._LIB_NAME, da._LIB_NAME,
+                         ssm._LIB_NAME, rwkv._LIB_NAME])
     log(f"kernels built in {time.perf_counter() - t0:.1f} s wall "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})")
     for name, text in _cuda.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    counters = Launches(pda, ppa)
+    counters = Launches(pda, ppa, da, ssm, rwkv)
 
     timer = Timer(torch)
     rng = np.random.default_rng(0)
@@ -774,6 +1072,36 @@ def main() -> int:
                          sliding_window=4096, sinks=4, softcap=50.0)
         log(f"prefill {tag} gemma2-shaped P=4096 C=512 window=4096 sinks=4 "
             f"softcap=50: {json.dumps(r)}")
+
+    # phase 7 (run with the other kernel phases): the dense-cache decode
+    # kernel and the two scans vs their plain twins
+    log(f"tolerance, scans vs plain twin: |err| <= {SCAN_RTOL} * max|plain|"
+        f" + {SCAN_RTOL} * |plain| elementwise (fp32 both)")
+    zlens = rng.integers(2048, 2081, size=8).tolist()
+    zlens[0] = 2080
+    new = {}
+    new["decode_attention"] = dense_decode_case(
+        torch, da, timer, B=8, Hkv=32, G=1, hd=64, lens=zlens, S=2080,
+        seed=30)
+    log(f"dense decode zamba2-shaped B=8 Hkv=32 G=1 hd=64 lens={zlens}: "
+        f"{json.dumps(new['decode_attention'])}")
+    r = dense_decode_case(torch, da, timer, B=8, Hkv=8, G=4, hd=128,
+                          lens=lens, S=2048, seed=31)
+    log(f"dense decode llama3-8b-shaped B=8 Hkv=8 G=4 hd=128 lens={lens}: "
+        f"{json.dumps(r)}")
+    r = dense_decode_case(torch, da, timer, B=4, Hkv=16, G=2, hd=128,
+                          lens=glens, S=8192, seed=32, sliding_window=4095,
+                          sinks=4, softcap=50.0)
+    log(f"dense decode gemma2-shaped window=4095 sinks=4 softcap=50 "
+        f"lens={glens}: {json.dumps(r)}")
+    new["ssm_scan"] = ssm_case(torch, ssm, timer, B=8, S=2048, H=64, P=64,
+                               N=64, seed=33)
+    log(f"ssm_scan zamba2 prefill B=8 S=2048 H=64 P=64 N=64: "
+        f"{json.dumps(new['ssm_scan'])}")
+    new["rwkv6_scan"] = rwkv_case(torch, rwkv, timer, B=8, S=2048, H=64,
+                                  P=64, seed=34)
+    log(f"rwkv6_scan rwkv6 prefill B=8 S=2048 H=64 P=64 bf16: "
+        f"{json.dumps(new['rwkv6_scan'])}")
     del timer
     torch.cuda.empty_cache()
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
@@ -801,16 +1129,46 @@ def main() -> int:
     torch.cuda.empty_cache()
     parts = {d: partitions_e2e(torch, np, cfg, params, prompts[:2], counters,
                                d) for d in ("int8", "bf16")}
+    log(f"llama3-8b end-to-end phases done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+
+    # phase 8: zamba2-1.2b and rwkv6-7b at full width and depth
+    zcfg = registry.get_config("zamba2-1.2b")
+    n_super = zcfg.num_layers // zcfg.shared_attn_period
+    l_zamba, zamba = recurrent_e2e(
+        torch, np, transformer, zcfg, counters, lambda n: {
+            **NO_PAGED_KERNEL, "ssm_scan": zcfg.num_layers,
+            "decode_attention": n_super * n, "rwkv6_scan": 0})
+    torch.cuda.empty_cache()
+    rcfg = registry.get_config("rwkv6-7b")
+    l_rwkv, rwkv6 = recurrent_e2e(
+        torch, np, transformer, rcfg, counters, lambda n: {
+            **NO_PAGED_KERNEL, "ssm_scan": 0, "decode_attention": 0,
+            "rwkv6_scan": rcfg.num_layers})
+    torch.cuda.empty_cache()
+
+    # phase 9: the card against the CPU, full width, reduced depth
+    versus = {
+        "zamba2-1.2b": card_vs_cpu(torch, np, transformer, zcfg.replace(
+            num_layers=4, shared_attn_period=2), counters),
+        "rwkv6-7b": card_vs_cpu(torch, np, transformer,
+                                rcfg.replace(num_layers=2), counters)}
     log(f"end-to-end phases done at {time.perf_counter() - t_start:.1f} s")
 
     stats = {"paged_decode_attention": dec["bf16"],
              "paged_prefill_chunk_attention": pre[("bf16", 1536, 512)],
              "paged_decode_attention_int8": dec["int8"],
-             "paged_prefill_chunk_attention_int8": pre[("int8", 1536, 512)]}
+             "paged_prefill_chunk_attention_int8": pre[("int8", 1536, 512)],
+             **new}
     launches = {**{k: l_bf16[k] for k in ("paged_decode_attention",
                                           "paged_prefill_chunk_attention")},
                 **{k: l_int8[k] for k in ("paged_decode_attention_int8",
-                                          "paged_prefill_chunk_attention_int8")}}
+                                          "paged_prefill_chunk_attention_int8")},
+                "decode_attention": l_zamba["decode_attention"],
+                "ssm_scan": l_zamba["ssm_scan"],
+                "rwkv6_scan": l_rwkv["rwkv6_scan"]}
     for name, n in launches.items():
         if not n:
             raise AssertionError(f"{name} was not launched on its path")
@@ -820,10 +1178,10 @@ def main() -> int:
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")})
                for name, (src, rep) in KERNELS.items()]
-    todo = [dict(name=n, replaces=r, status="todo") for n, r in TODO_KERNELS]
     log(json.dumps({"summary": {"homogeneous_bf16": e2e, "lamina_int8": lam,
-                                "partitions": parts}}))
-    log(json.dumps({"kernels": kernels, "todo": todo}))
+                                "partitions": parts, "zamba2": zamba,
+                                "rwkv6": rwkv6, "card_vs_cpu": versus}}))
+    log(json.dumps({"kernels": kernels, "todo": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

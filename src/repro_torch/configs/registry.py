@@ -12,6 +12,8 @@ from repro_torch.models.common import ModelConfig
 _MODULES = {
     "llama3-8b": "repro_torch.configs.llama3_8b",
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
 }
 
 

@@ -1,5 +1,6 @@
-// Helpers shared by the paged-attention kernels (bf16 / int8 -> fp32 in 8-
-// and 16-byte vectors). Included by every csrc/*.cu; compiled for sm_90a.
+// Helpers shared by the kernels: bf16 / int8 -> fp32 in 8- and 16-byte
+// vectors, read-only loads, and cp.async copies into shared memory.
+// Included by every csrc/*.cu; compiled for sm_90a.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,6 +56,30 @@ __device__ __forceinline__ uint4 ldg16(const void* ptr) {
 // 8-byte read-only global load.
 __device__ __forceinline__ uint2 ldg8(const void* ptr) {
   return __ldg(reinterpret_cast<const uint2*>(ptr));
+}
+
+// Asynchronous global -> shared copies (cp.async, sm_80+): 16 bytes
+// (bypassing L1) or 4 bytes. Completion is per thread, in commit groups.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace repro_torch

@@ -1,9 +1,11 @@
-"""Model-layer conventions around the paged decode kernel.
-Port of ``repro/kernels/ops.py``: the serving window mapping, the triple ->
-Partial conversion and the paged partial backend. The reference chose the
-kernel with a ``backend`` string; here the device of the operands decides
-(a CPU tensor runs the plain twin, a CUDA tensor the kernel) inside the
-kernel wrappers themselves, so the reference's chunk dispatch (``:37``) is
+"""Model-layer conventions around the decode kernels, and the scan entry
+points. Port of ``repro/kernels/ops.py``: the serving window mapping, the
+triple -> Partial conversion, the dense and paged partial backends, and
+``ssm_scan``/``rwkv6_scan``. The reference chose the kernel with a
+``backend`` string (and the scans with ``cfg.use_pallas_kernels``); here
+the device of the operands decides (a CPU tensor runs the plain twin, a
+CUDA tensor the kernel) inside the kernel wrappers themselves, so the
+reference's chunk dispatch (``:37``) is
 ``kernels/paged_prefill_attention.paged_prefill_chunk_attention`` itself.
 """
 from __future__ import annotations
@@ -11,7 +13,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.combine import Partial
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import paged_decode_attention as _pda
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: F401
+from repro_torch.kernels.ssm_scan import ssm_scan  # noqa: F401
 
 
 def _serving_window(sliding_window: int, attention_sinks: int, cache_len):
@@ -32,6 +37,25 @@ def _triple_to_partial(o, l, m, B, H, hd) -> Partial:
     """Kernel (o, l, m) -> combine.Partial with a = o·l."""
     return Partial(a=o.float().reshape(B, H, hd) * l.reshape(B, H)[..., None],
                    s=l.reshape(B, H), m=m.reshape(B, H))
+
+
+def decode_partial(q, k_cache, v_cache, cache_len, *,
+                   sliding_window: int = 0, attention_sinks: int = 0,
+                   logit_softcap: float = 0.0) -> Partial:
+    """Partial triple over a DENSE head-major cache (the reference's
+    ``_pallas_decode_partial_backend``, ``ops.py:97``; model-layer
+    contract: cache_len = stored tokens, window w.r.t. total length
+    cache_len + 1). q: (B, H, hd); caches (B, Hkv, S, hd)."""
+    B, H, hd = q.shape
+    Hkv = k_cache.shape[1]
+    qg = q.reshape(B, Hkv, H // Hkv, hd).contiguous()
+    sw, sinks, clen = _serving_window(sliding_window, attention_sinks,
+                                      cache_len)
+    o, l, m = _da.decode_attention(
+        qg, k_cache, v_cache, clen, sliding_window=sw,
+        attention_sinks=sinks, logit_softcap=logit_softcap,
+        return_partials=True)
+    return _triple_to_partial(o, l, m, B, H, hd)
 
 
 def paged_decode_partial(q, k_pool, v_pool, block_tables, cache_len, *,

@@ -1,7 +1,6 @@
 """Dense oracles the kernels' plain twins are held against.
 Port of ``repro/kernels/ref.py`` (the decode references, bf16/fp32 and
-int8; the recurrent-scan oracles arrive with their kernels). The
-reference's int8 oracles replay the Pallas kernels' grid in host loops; the
+int8, and the two recurrent-scan oracles). The reference's int8 oracles replay the Pallas kernels' grid in host loops; the
 copies here are vectorised, with the scale multiplies where the reference
 puts them (k scale on the scores before the softcap, v scale on the
 probabilities before the PV product)."""
@@ -150,3 +149,43 @@ def paged_prefill_chunk_attention_int8_ref(q, k_pool, v_pool, k_scale,
     acc = torch.einsum("hgck,khd->hgcd", p * vs.T[:, None, None, :], v_all)
     out = (acc / ell.clamp_min(1e-30)).permute(2, 0, 1, 3)
     return out.reshape(C, H, hd).to(q.dtype)
+
+
+def rwkv6_scan_ref(r, k, v, w, u) -> torch.Tensor:
+    """RWKV6 recurrence oracle (reference ``ref.py:217``).
+
+    r, k, v, w: (B, S, H, P) (w = per-step decay in (0,1), fp32 math);
+    u: (H, P) bonus. Returns y: (B, S, H, P), fp32.
+      y_t = r_t · (S_{t-1} + u ⊙ k_t ⊗ v_t);  S_t = w_t ⊙ S_{t-1} + k_t ⊗ v_t
+    """
+    B, S, H, P = r.shape
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    uf = u.float()
+    state = torch.zeros((B, H, P, P), dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]    # (B, H, P, P)
+        ys.append(torch.einsum("bhp,bhpq->bhq", rf[:, t],
+                               state + uf[..., None] * kv))
+        state = wf[:, t, :, :, None] * state + kv
+    return torch.stack(ys, dim=1)
+
+
+def ssm_scan_ref(x, dt, B_in, C_in, decay) -> torch.Tensor:
+    """Mamba2 scalar-decay SSD oracle (reference ``ref.py:239``).
+
+    x: (B, S, H, P) (already dt-scaled inputs), dt unused placeholder kept
+    for API parity; B_in, C_in: (B, S, N); decay: (B, S, H) in (0,1].
+    Returns y: (B, S, H, P) fp32:  h_t = decay_t h_{t-1} + x_t ⊗ B_t;
+    y_t = h_t · C_t.
+    """
+    Bb, S, H, P = x.shape
+    N = B_in.shape[-1]
+    xf, bf, cf, af = (a.float() for a in (x, B_in, C_in, decay))
+    h = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        h = h * af[:, t, :, None, None] + \
+            xf[:, t, ..., None] * bf[:, t, None, None, :]
+        ys.append(torch.einsum("bhpn,bn->bhp", h, cf[:, t]))
+    return torch.stack(ys, dim=1)

@@ -1,0 +1,92 @@
+"""Mamba2 scalar-decay selective scan: CUDA kernel wrapper + plain twin.
+
+Port of ``repro/kernels/ssm_scan.py``. The TPU kernel ``_ssm_kernel`` is
+replaced by the hand-written Hopper kernel in ``csrc/ssm_scan.cu``;
+:func:`ssm_scan_plain` is its plain PyTorch twin (a step loop with the
+kernel's arithmetic):
+
+    h_t = decay_t ⊙ h_{t-1} + x_t ⊗ B_t ;   y_t = h_t · C_t
+
+with the (H, P, N) fp32 state starting at zero. The TPU wrapper pads the
+sequence with decay 1.0 to whole VMEM chunks; the CUDA kernel loops to S and
+needs no padding.
+
+:func:`ssm_scan` dispatches on the device of ``x``: a CPU tensor runs the
+plain twin, a CUDA tensor launches the kernel or raises. The wrapper counts
+its kernel's launches (``ssm_scan.launches``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _cuda
+
+_LIB_NAME = "ssm_scan"
+STATE_SIZES = (16, 32, 64, 128)        # N the kernel is instantiated for
+
+
+def ssm_scan_plain(x, B_in, C_in, decay) -> torch.Tensor:
+    """Plain twin: x (B, S, H, P), B_in/C_in (B, S, N), decay (B, S, H);
+    returns y (B, S, H, P) fp32. fp32 math, one step per position."""
+    Bb, S, H, P = x.shape
+    N = B_in.shape[-1]
+    xf, bf, cf, af = (a.float() for a in (x, B_in, C_in, decay))
+    h = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    y = torch.empty((Bb, S, H, P), dtype=torch.float32, device=x.device)
+    for t in range(S):
+        h = h * af[:, t, :, None, None] + \
+            xf[:, t, :, :, None] * bf[:, t, None, None, :]
+        y[:, t] = (h @ cf[:, t, None, :, None])[..., 0]
+    return y
+
+
+def ssm_scan(x, B_in, C_in, decay) -> torch.Tensor:
+    """x: (B, S, H, P) dt-scaled inputs; B_in/C_in: (B, S, N) (shared by
+    every head); decay: (B, S, H) in (0, 1]. Returns y: (B, S, H, P) fp32.
+
+    CPU tensors run :func:`ssm_scan_plain`; CUDA tensors launch
+    ``csrc/ssm_scan.cu`` (fp32, contiguous; P a multiple of 8 up to 256,
+    N in ``STATE_SIZES``) or raise."""
+    if x.device.type == "cpu":
+        return ssm_scan_plain(x, B_in, C_in, decay)
+    if x.device.type != "cuda":
+        raise ValueError(f"no ssm_scan kernel for device {x.device}")
+    Bb, S, H, P = x.shape
+    N = B_in.shape[-1]
+    for name, t, shape in (("x", x, (Bb, S, H, P)), ("B_in", B_in, (Bb, S, N)),
+                           ("C_in", C_in, (Bb, S, N)),
+                           ("decay", decay, (Bb, S, H))):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 on the GPU; got "
+                            f"{t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}; got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if P % 8 or not 8 <= P <= 256 or N not in STATE_SIZES:
+        raise ValueError(f"kernel instantiated for P a multiple of 8 in "
+                         f"[8, 256] and N in {STATE_SIZES}; got P={P}, N={N}")
+    y = torch.empty((Bb, S, H, P), dtype=torch.float32, device=x.device)
+    if S:
+        err = _kernel_fn()(x.data_ptr(), B_in.data_ptr(), C_in.data_ptr(),
+                           decay.data_ptr(), y.data_ptr(), Bb, S, H, P, N,
+                           _cuda.stream_ptr(x.device))
+        _cuda.check(err, "ssm_scan_f32")
+        ssm_scan.launches += 1
+    return y
+
+
+ssm_scan.launches = 0
+
+
+def _kernel_fn():
+    fn = _cuda.load(_LIB_NAME).ssm_scan_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn

@@ -1,6 +1,7 @@
 """GQA attention: blockwise (flash-style) prefill path, the paged chunk
-prefill path and the paged single-token decode path.
-Port of ``repro/models/attention.py`` (dense paths over the paged pool).
+prefill path, and the single-token decode paths over the paged pool and
+over a dense head-major cache.
+Port of ``repro/models/attention.py``.
 
 The blockwise path carries running ``(max, denom, acc)`` statistics across
 KV blocks — the partial-softmax combine identity of paper §4.2.2
@@ -125,8 +126,38 @@ def blockwise_attention(
 
 
 # ---------------------------------------------------------------------------
-# Single-token decode over the paged pool
+# Single-token decode over a dense head-major cache / the paged pool
 # ---------------------------------------------------------------------------
+def decode_attention_partial(q, k_cache, v_cache, cache_len, *,
+                             sliding_window: int = 0,
+                             attention_sinks: int = 0,
+                             logit_softcap: float = 0.0) -> C.Partial:
+    """Partial attention over the cached prefix (reference ``:175``).
+
+    q: (B, H, hd) (RoPE applied); caches: HEAD-MAJOR (B, Hkv, S, hd);
+    cache_len: (B,) = number of tokens stored (the new token is NOT there).
+    Window masks are computed w.r.t. total length cache_len + 1. The dense
+    decode kernel on the card, its plain twin on the CPU."""
+    return ops.decode_partial(q, k_cache, v_cache, cache_len,
+                              sliding_window=sliding_window,
+                              attention_sinks=attention_sinks,
+                              logit_softcap=logit_softcap)
+
+
+def decode_attention_combine(q, k_cache, v_cache, cache_len, k_new, v_new,
+                             *, sliding_window: int = 0,
+                             attention_sinks: int = 0,
+                             logit_softcap: float = 0.0) -> torch.Tensor:
+    """Full decode attention = combine(prefix partial, new-token partial)
+    (reference ``:378``). k_new/v_new: (B, Hkv, hd) — the current token's
+    keys/values."""
+    p_prev = decode_attention_partial(
+        q, k_cache, v_cache, cache_len, sliding_window=sliding_window,
+        attention_sinks=attention_sinks, logit_softcap=logit_softcap)
+    p_new = _new_token_partial(q, k_new, v_new, logit_softcap=logit_softcap)
+    return C.finalize(C.combine(p_prev, p_new)).to(q.dtype)
+
+
 def _new_token_partial(q, k_new, v_new, *,
                        logit_softcap: float = 0.0) -> C.Partial:
     """The freshly projected token's 1-token §4.2.2 partial (B, H, ·)."""
@@ -221,6 +252,25 @@ def attention_forward(params, cfg: ModelConfig, x: torch.Tensor,
         attention_sinks=sinks, logit_softcap=cfg.attn_logit_softcap,
         q_positions=positions, block_size=block_size)
     return out_project(params, out), k, v
+
+
+def attention_decode_step(params, cfg: ModelConfig, x: torch.Tensor,
+                          k_cache: torch.Tensor, v_cache: torch.Tensor,
+                          cache_len: torch.Tensor, *, is_local: bool = False):
+    """One-token decode over a dense head-major cache (reference ``:506``).
+    x: (B, 1, d); caches (B, Hkv, S, hd); cache_len = tokens ALREADY
+    stored. Returns (y, k_new, v_new) with k_new/v_new (B, Hkv, hd) — the
+    caller owns KV placement (``transformer.apply_decode_updates``)."""
+    positions = cache_len[:, None]  # new token position, 0-based
+    q, k, v = qkv_project(params, cfg, x, positions)
+    window = cfg.sliding_window if (is_local or not cfg.local_global) else 0
+    out = decode_attention_combine(
+        q[:, 0], k_cache, v_cache, cache_len, k[:, 0], v[:, 0],
+        sliding_window=int(window),
+        attention_sinks=cfg.attention_sinks if window else 0,
+        logit_softcap=cfg.attn_logit_softcap)
+    y = out_project(params, out[:, None])
+    return y, k[:, 0], v[:, 0]
 
 
 def attention_decode_step_paged(params, cfg: ModelConfig, x: torch.Tensor,

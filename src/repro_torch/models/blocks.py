@@ -1,13 +1,18 @@
 """Transformer blocks. Port of ``repro/models/blocks.py`` for the dense
-family (llama / gemma2 / vlm stacks): pre-norm attention + SwiGLU FFN, with
-gemma2's post-norms. ``mode`` is "prefill" or "decode" (paged)."""
+family (llama / gemma2 / vlm stacks: pre-norm attention + SwiGLU FFN, with
+gemma2's post-norms), the RWKV6 block (rwkv6) and the Mamba2 block
+(zamba2's backbone). ``mode`` is "train" (full sequence, no cache),
+"prefill" (full sequence, returns the cache or state) or "decode" (one
+token)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.attention import (attention_decode_step_paged,
+from repro_torch.models import ssm
+from repro_torch.models.attention import (attention_decode_step,
+                                          attention_decode_step_paged,
                                           attention_forward, init_attention)
 from repro_torch.models.common import ModelConfig, rms_norm
 from repro_torch.models.ffn import ffn_forward, init_ffn
@@ -35,27 +40,37 @@ def dense_block(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
                 paged_prefix_scales: Optional[Tuple[torch.Tensor,
                                                     torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Dict]:
-    """Returns (x, new_cache_entries). ``mode="decode"`` reads the paged
-    pool in ``cache`` ({"k_pool", "v_pool", "block_tables", "len"}, plus
-    "k_scale"/"v_scale" for an int8 pool) and returns {"k_new", "v_new"};
+    """Returns (x, new_cache_entries). ``mode="decode"`` reads either the
+    paged pool in ``cache`` ({"k_pool", "v_pool", "block_tables", "len"},
+    plus "k_scale"/"v_scale" for an int8 pool) or a dense head-major cache
+    ({"k", "v", "len"}, (B, Hkv, S, hd)) and returns {"k_new", "v_new"};
     ``mode="prefill"`` returns this layer's {"k", "v"} (B, S, Hkv, hd),
     attending over ``paged_prefix`` (and its ``paged_prefix_scales``) when
-    given (chunked prefill, see ``attention_forward``)."""
+    given (chunked prefill, see ``attention_forward``); ``mode="train"``
+    returns no cache."""
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    new_cache: Dict = {}
     if mode == "decode":
-        attn, k_new, v_new = attention_decode_step_paged(
-            params["attn"], cfg, h, cache["k_pool"], cache["v_pool"],
-            cache["block_tables"], cache["len"], is_local=is_local,
-            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
+        if "k_pool" in cache:   # paged: attend over the block pool in place
+            attn, k_new, v_new = attention_decode_step_paged(
+                params["attn"], cfg, h, cache["k_pool"], cache["v_pool"],
+                cache["block_tables"], cache["len"], is_local=is_local,
+                k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
+        else:
+            attn, k_new, v_new = attention_decode_step(
+                params["attn"], cfg, h, cache["k"], cache["v"], cache["len"],
+                is_local=is_local)
         new_cache = {"k_new": k_new, "v_new": v_new}
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         attn, k, v = attention_forward(params["attn"], cfg, h, positions,
                                        is_local=is_local,
                                        paged_prefix=paged_prefix,
                                        paged_prefix_scales=paged_prefix_scales)
-        new_cache = {"k": k, "v": v}
+        if mode == "prefill":
+            new_cache = {"k": k, "v": v}
     else:
-        raise ValueError(f"mode must be 'prefill' or 'decode'; got {mode!r}")
+        raise ValueError(f"mode must be 'train', 'prefill' or 'decode'; got "
+                         f"{mode!r}")
     if cfg.post_norms:
         attn = rms_norm(attn, params["norm_post_attn"], cfg.norm_eps)
     x = x + attn
@@ -65,3 +80,64 @@ def dense_block(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     if cfg.post_norms:
         f = rms_norm(f, params["norm_post_ffn"], cfg.norm_eps)
     return x + f, new_cache
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 block
+# ---------------------------------------------------------------------------
+def init_rwkv_block(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
+    zeros = dict(dtype=cfg.dtype, device=device)
+    return {
+        "norm1": torch.zeros((cfg.d_model,), **zeros),
+        "norm2": torch.zeros((cfg.d_model,), **zeros),
+        "tmix": ssm.init_rwkv_time_mix(gen, cfg, device),
+        "cmix": ssm.init_rwkv_channel_mix(gen, cfg, device),
+    }
+
+
+def rwkv_block(params: Dict, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
+               state: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
+    """Returns (x, state). ``prefill`` returns the decode state after x
+    ({"S", "x_tm", "x_cm"}); ``decode`` takes and returns it."""
+    h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    if mode == "decode":
+        tm, tstate = ssm.rwkv_time_mix_decode(params["tmix"], cfg, h, state)
+    elif mode == "prefill":
+        tm, tstate = ssm.rwkv_time_mix_forward(params["tmix"], cfg, h,
+                                               final_state=True)
+    else:
+        tm = ssm.rwkv_time_mix_forward(params["tmix"], cfg, h)
+        tstate = {"x_tm": h[:, -1]}
+    x = x + tm
+    h = rms_norm(x, params["norm2"], cfg.norm_eps)
+    last = state["x_cm"] if mode == "decode" else torch.zeros_like(h[:, 0])
+    cm, _ = ssm.rwkv_channel_mix_forward(params["cmix"], cfg, h, last)
+    new_state = dict(tstate)
+    new_state["x_cm"] = h[:, -1]
+    return x + cm, new_state
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block (zamba2 hybrid)
+# ---------------------------------------------------------------------------
+def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
+    return {
+        "norm": torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device),
+        "mamba": ssm.init_mamba(gen, cfg, device),
+    }
+
+
+def mamba_block(params: Dict, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
+                state: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
+    """Returns (x, state). ``prefill`` returns the decode state after x
+    ({"h", "conv"}); ``decode`` takes and returns it; ``train`` returns
+    {}."""
+    h = rms_norm(x, params["norm"], cfg.norm_eps)
+    if mode == "decode":
+        y, new_state = ssm.mamba_decode_step(params["mamba"], cfg, h, state)
+    elif mode == "prefill":
+        y, new_state = ssm.mamba_forward(params["mamba"], cfg, h,
+                                         final_state=True)
+    else:
+        y, new_state = ssm.mamba_forward(params["mamba"], cfg, h), {}
+    return x + y, new_state

@@ -1,38 +1,51 @@
-"""Model assembly: embedding -> layer stack -> head, for the dense family.
-Port of ``repro/models/transformer.py`` (dense/vlm stacks):
+"""Model assembly: embedding -> layer stack -> head.
+Port of ``repro/models/transformer.py`` for the dense/vlm stacks, rwkv6
+(family ``ssm``) and zamba2 (family ``hybrid``):
 
     init_params(seed, cfg, device=...)                      -> params
     params_from_jax(np_tree, cfg, device)                   -> params
+    forward(params, cfg, batch, device=...)                 -> logits
+    init_cache(cfg, batch, max_seq, device=...)             -> cache
     prefill(params, cfg, batch, max_seq, device=...)        -> (logits, cache)
+    decode_step(params, cfg, tokens, cache, device=...)     -> (logits, updates)
+    apply_decode_updates(cache, updates)                    -> cache
     prefill_chunk(params, cfg, batch, k_pool, v_pool, prefix_blocks, ...,
-                  k_scale_pool=None, v_scale_pool=None)
+                  k_scale_pool=None, v_scale_pool=None)     (dense/vlm)
     decode_step_paged(params, cfg, tokens, k_pool, v_pool, block_tables,
                       cache_len, ..., k_scale_pool=None,
                       v_scale_pool=None)                    -> (logits, updates)
 
 Per-layer parameters are stacked on axis 0 exactly as in the reference
-pytree; a Python loop over layers replaces ``lax.scan``. Each function takes
-``device`` (default ``"cuda"``) and moves its integer inputs there; on a
-machine without a GPU a call that does not pass ``device="cpu"`` raises.
+pytree (zamba2's mamba layers on (n_super, period) axes); a Python loop over
+layers replaces ``lax.scan``. Each function takes ``device`` (default
+``"cuda"``) and moves its integer inputs there; on a machine without a GPU
+a call that does not pass ``device="cpu"`` raises. The dense cache of
+``decode_step`` is bf16/fp32 only (``kv_cache_bits == 8`` raises); the
+paged entry points serve int8 pools.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from repro_torch.models import blocks
+from repro_torch.models import blocks, ssm
 from repro_torch.models.common import (ModelConfig, Params, dense_init,
                                        resolve_device, rms_norm, softcap)
 
 DENSE_FAMILIES = ("dense", "vlm")
+# families the dense-cache entry points (forward, prefill, decode_step)
+# serve; the paged entry points and LLMEngine serve DENSE_FAMILIES only
+SERVE_FAMILIES = DENSE_FAMILIES + ("ssm", "hybrid")
 
 
-def _check_family(cfg: ModelConfig, what: str) -> None:
-    if cfg.family not in DENSE_FAMILIES:
+def _check_family(cfg: ModelConfig, what: str,
+                  families: Tuple[str, ...] = DENSE_FAMILIES) -> None:
+    if cfg.family not in families:
         raise NotImplementedError(
-            f"{what} is ported for the dense/vlm families; got "
+            f"{what} is ported for the families {families}; got "
             f"family={cfg.family!r}")
 
 
@@ -56,6 +69,13 @@ def _int_tensor(x, device) -> torch.Tensor:
                            dtype=torch.int32, device=device)
 
 
+def _zamba_split(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(superblocks, mamba layers per superblock, tail mamba layers)."""
+    period = cfg.shared_attn_period
+    n_super = cfg.num_layers // period
+    return n_super, period, cfg.num_layers - n_super * period
+
+
 # ===========================================================================
 # Init
 # ===========================================================================
@@ -65,7 +85,7 @@ def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> Params:
     ``torch.Generator`` on ``device``. Layers are filled one at a time into
     preallocated stacked tensors, so peak memory is the model plus one
     layer's fp32 draw."""
-    _check_family(cfg, "init_params")
+    _check_family(cfg, "init_params", SERVE_FAMILIES)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -77,16 +97,38 @@ def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> Params:
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                        cfg.dtype, dev)
-    blk = blocks.init_dense_block(gen, cfg, dev)
-    layers = _tree_map(lambda a: torch.empty((cfg.num_layers, *a.shape),
-                                             dtype=a.dtype, device=dev), blk)
-    for i in range(cfg.num_layers):
-        if i:
-            blk = blocks.init_dense_block(gen, cfg, dev)
-        for dst, src in _leaf_pairs(layers, blk):
-            dst[i].copy_(src)
-    params["layers"] = layers
+    if cfg.family == "ssm":          # rwkv6
+        params["layers"] = _stacked_init(gen, cfg, dev, (cfg.num_layers,),
+                                         blocks.init_rwkv_block)
+    elif cfg.family == "hybrid":     # zamba2
+        n_super, period, tail = _zamba_split(cfg)
+        params["layers"] = _stacked_init(gen, cfg, dev, (n_super, period),
+                                         blocks.init_mamba_block)
+        if tail:
+            params["tail"] = _stacked_init(gen, cfg, dev, (tail,),
+                                           blocks.init_mamba_block)
+        params["shared_attn"] = blocks.init_dense_block(gen, cfg, dev)
+    else:
+        params["layers"] = _stacked_init(gen, cfg, dev, (cfg.num_layers,),
+                                         blocks.init_dense_block)
     return params
+
+
+def _stacked_init(gen, cfg: ModelConfig, dev, lead: Tuple[int, ...],
+                  init_fn) -> Dict:
+    """Stack ``prod(lead)`` layers drawn by ``init_fn`` on the ``lead``
+    axes, drawing and copying one layer at a time."""
+    n = int(np.prod(lead))
+    blk = init_fn(gen, cfg, dev)
+    layers = _tree_map(lambda a: torch.empty((*lead, *a.shape),
+                                             dtype=a.dtype, device=dev), blk)
+    flat = _tree_map(lambda a: a.view(n, *a.shape[len(lead):]), layers)
+    for i in range(n):
+        if i:
+            blk = init_fn(gen, cfg, dev)
+        for dst, src in _leaf_pairs(flat, blk):
+            dst[i].copy_(src)
+    return layers
 
 
 def _leaf_pairs(a: Dict, b: Dict):
@@ -103,7 +145,7 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
     """The reference ``init_params`` pytree (stacked layers on axis 0, leaves
     converted to numpy arrays) as the port's parameters, value for value.
     bfloat16 leaves cross as their 16-bit patterns."""
-    _check_family(cfg, "params_from_jax")
+    _check_family(cfg, "params_from_jax", SERVE_FAMILIES)
     dev = resolve_device(device)
 
     def conv(a):
@@ -155,33 +197,171 @@ def _hm(kv: torch.Tensor) -> torch.Tensor:
     return kv.transpose(2, 3).contiguous()
 
 
+def _pad_seq(kv: torch.Tensor, max_seq: int) -> torch.Tensor:
+    """Pad with zeros or trim the sequence axis (-2) to ``max_seq``."""
+    S = kv.shape[-2]
+    if S >= max_seq:
+        return kv[..., :max_seq, :].contiguous()
+    return F.pad(kv, (0, 0, 0, max_seq - S))
+
+
+# ===========================================================================
+# Layer stacks (full sequence: mode "train" or "prefill")
+# ===========================================================================
+def _dense_stack(params, cfg: ModelConfig, x, positions, *, mode: str):
+    """Returns (x, [per-layer {"k", "v"}] when prefilling)."""
+    caches = []
+    for i in range(cfg.num_layers):
+        x, c = blocks.dense_block(_layer(params["layers"], i), cfg, x,
+                                  mode=mode, positions=positions,
+                                  is_local=_is_local(cfg, i))
+        caches.append(c)
+    return x, caches
+
+
+def _rwkv_stack(params, cfg: ModelConfig, x, *, mode: str):
+    """Returns (x, [per-layer state])."""
+    states = []
+    for i in range(cfg.num_layers):
+        x, st = blocks.rwkv_block(_layer(params["layers"], i), cfg, x,
+                                  mode=mode)
+        states.append(st)
+    return x, states
+
+
+def _zamba_stack(params, cfg: ModelConfig, x, positions, *, mode: str):
+    """The shared attention block, then ``period`` mamba layers, per
+    superblock; then the tail mamba layers. Returns (x, [per-superblock
+    attention cache], [per-superblock [per-layer mamba state]],
+    [per-tail-layer mamba state])."""
+    n_super, period, tail = _zamba_split(cfg)
+    attn_caches, mstates, tail_states = [], [], []
+    for si in range(n_super):
+        x, c = blocks.dense_block(params["shared_attn"], cfg, x, mode=mode,
+                                  positions=positions)
+        attn_caches.append(c)
+        sup = _layer(params["layers"], si)
+        states = []
+        for mi in range(period):
+            x, st = blocks.mamba_block(_layer(sup, mi), cfg, x, mode=mode)
+            states.append(st)
+        mstates.append(states)
+    for ti in range(tail):
+        x, st = blocks.mamba_block(_layer(params["tail"], ti), cfg, x,
+                                   mode=mode)
+        tail_states.append(st)
+    return x, attn_caches, mstates, tail_states
+
+
+def _stack_states(states: List[Dict], key: str) -> torch.Tensor:
+    return torch.stack([st[key] for st in states])
+
+
+# ===========================================================================
+# Full-sequence forward
+# ===========================================================================
+def forward(params: Params, cfg: ModelConfig, batch: Dict, *,
+            device="cuda") -> torch.Tensor:
+    """Full-sequence logits (B, S, vocab). The reference also returns the
+    MoE router's aux loss, which these families do not have."""
+    _check_family(cfg, "forward", SERVE_FAMILIES)
+    dev = resolve_device(device)
+    x, positions, n_front = _embed(params, cfg, batch, dev)
+    if cfg.family == "ssm":
+        x, _ = _rwkv_stack(params, cfg, x, mode="train")
+    elif cfg.family == "hybrid":
+        x = _zamba_stack(params, cfg, x, positions, mode="train")[0]
+    else:
+        x, _ = _dense_stack(params, cfg, x, positions, mode="train")
+        x = x[:, n_front:]
+    return _head(params, cfg, x)
+
+
+# ===========================================================================
+# KV cache / recurrent state
+# ===========================================================================
+def _check_dense_cache_bits(cfg: ModelConfig) -> None:
+    if cfg.family in DENSE_FAMILIES and cfg.kv_cache_bits == 8:
+        raise NotImplementedError(
+            "int8 dense caches are not ported (the dense decode kernel "
+            "takes no scales); int8 KV is served by the paged pool")
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+               device="cuda") -> Dict:
+    """Zero-filled decode cache: head-major K/V (L, B, Hkv, max_seq, hd) for
+    the dense family; the rwkv state {"S", "x_tm", "x_cm"} stacked over
+    layers; zamba2's shared-attention K/V (n_super, B, Hkv, max_seq, hd),
+    mamba states "h" (n_super, period, B, H, P, N) fp32 and "conv"
+    (n_super, period, B, K-1, conv_ch), plus "tail_h"/"tail_conv"."""
+    _check_family(cfg, "init_cache", SERVE_FAMILIES)
+    _check_dense_cache_bits(cfg)
+    dev = resolve_device(device)
+    hd = cfg.resolved_head_dim
+    L = cfg.num_layers
+    f32 = dict(dtype=torch.float32, device=dev)
+    model = dict(dtype=cfg.dtype, device=dev)
+    cache: Dict[str, Any] = {"len": torch.zeros((batch,), dtype=torch.int32,
+                                                device=dev)}
+    if cfg.family == "ssm":
+        H, P = ssm.rwkv_dims(cfg)
+        cache["S"] = torch.zeros((L, batch, H, P, P), **f32)
+        cache["x_tm"] = torch.zeros((L, batch, cfg.d_model), **model)
+        cache["x_cm"] = torch.zeros((L, batch, cfg.d_model), **model)
+    elif cfg.family == "hybrid":
+        n_super, period, tail = _zamba_split(cfg)
+        d_inner, H, P, N = ssm.mamba_dims(cfg)
+        conv = (cfg.ssm_conv - 1, d_inner + 2 * N)
+        cache["k"] = torch.zeros(
+            (n_super, batch, cfg.num_kv_heads, max_seq, hd), **model)
+        cache["v"] = torch.zeros_like(cache["k"])
+        cache["h"] = torch.zeros((n_super, period, batch, H, P, N), **f32)
+        cache["conv"] = torch.zeros((n_super, period, batch, *conv), **model)
+        if tail:
+            cache["tail_h"] = torch.zeros((tail, batch, H, P, N), **f32)
+            cache["tail_conv"] = torch.zeros((tail, batch, *conv), **model)
+    else:
+        cache["k"] = torch.zeros((L, batch, cfg.num_kv_heads, max_seq, hd),
+                                 **model)
+        cache["v"] = torch.zeros_like(cache["k"])
+    return cache
+
+
 # ===========================================================================
 # Prefill
 # ===========================================================================
 def prefill(params: Params, cfg: ModelConfig, batch: Dict, max_seq: int, *,
             device="cuda") -> Tuple[torch.Tensor, Dict]:
-    """Run the prompt one-shot (plain blockwise attention), return
-    (last-position logits, cache) with head-major K/V (L, B, Hkv, max_seq,
-    hd) and len."""
-    _check_family(cfg, "prefill")
+    """Run a batch of equal-length prompts one-shot, return (last-position
+    logits, cache) with the keys of :func:`init_cache` filled and len = S.
+    Attention is the plain blockwise path; the recurrent layers run the
+    scan kernels on the card, and their final state is the closed form."""
+    _check_family(cfg, "prefill", SERVE_FAMILIES)
+    _check_dense_cache_bits(cfg)
     dev = resolve_device(device)
     x, positions, _ = _embed(params, cfg, batch, dev)
-    ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, c = blocks.dense_block(_layer(params["layers"], i), cfg, x,
-                                  mode="prefill", positions=positions,
-                                  is_local=_is_local(cfg, i))
-        ks.append(c["k"])
-        vs.append(c["v"])
-    S = x.shape[1]
-    k, v = _hm(torch.stack(ks)), _hm(torch.stack(vs))
-    if max_seq != S:
-        pad = max(max_seq - S, 0)
-        k = torch.nn.functional.pad(k[..., :max_seq, :], (0, 0, 0, pad))
-        v = torch.nn.functional.pad(v[..., :max_seq, :], (0, 0, 0, pad))
-    cache = {"k": k, "v": v,
-             "len": torch.full((x.shape[0],), S, dtype=torch.int32,
-                               device=dev)}
+    cache: Dict[str, Any] = {}
+    if cfg.family == "ssm":
+        x, states = _rwkv_stack(params, cfg, x, mode="prefill")
+        for key in ("S", "x_tm", "x_cm"):
+            cache[key] = _stack_states(states, key)
+    elif cfg.family == "hybrid":
+        x, attn, mstates, tail_states = _zamba_stack(params, cfg, x,
+                                                     positions, mode="prefill")
+        for key in ("k", "v"):
+            cache[key] = _pad_seq(_hm(_stack_states(attn, key)), max_seq)
+        for key in ("h", "conv"):
+            cache[key] = torch.stack([_stack_states(sup, key)
+                                      for sup in mstates])
+        if tail_states:
+            cache["tail_h"] = _stack_states(tail_states, "h")
+            cache["tail_conv"] = _stack_states(tail_states, "conv")
+    else:
+        x, kv = _dense_stack(params, cfg, x, positions, mode="prefill")
+        for key in ("k", "v"):
+            cache[key] = _pad_seq(_hm(_stack_states(kv, key)), max_seq)
+    cache["len"] = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
+                              device=dev)
     return _head(params, cfg, x[:, -1]), cache
 
 
@@ -266,3 +446,101 @@ def decode_step_paged(params: Params, cfg: ModelConfig, tokens,
     updates = {"k_new": torch.stack(ks), "v_new": torch.stack(vs),
                "len": lens + 1}
     return _head(params, cfg, x[:, 0]), updates
+
+
+# ===========================================================================
+# Decode step over a dense cache / recurrent state
+# ===========================================================================
+def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Dict, *,
+                device="cuda") -> Tuple[torch.Tensor, Dict]:
+    """One decoding iteration. tokens: (B,) int — the freshly sampled token.
+
+    cache["len"] = tokens ALREADY stored (the new token is not in the
+    cache); attention is combine(prefix partial, new-token partial) per
+    §4.2.2, the prefix partial from the dense decode kernel on the card.
+    Returns (logits, updates): the refreshed recurrent states, len + 1 and,
+    for the attention layers, k_new/v_new (L or n_super, B, Hkv, hd) —
+    KV placement is :func:`apply_decode_updates`' job. The cache's K/V are
+    only read."""
+    _check_family(cfg, "decode_step", SERVE_FAMILIES)
+    _check_dense_cache_bits(cfg)
+    dev = resolve_device(device)
+    cur_len = _int_tensor(cache["len"], dev)
+    x = _embed_tokens(params, cfg, _int_tensor(tokens, dev)[:, None])
+    updates: Dict[str, Any] = {k: v for k, v in cache.items()
+                               if k not in ("k", "v")}
+    updates["len"] = cur_len + 1
+
+    if cfg.family == "ssm":
+        states = []
+        for i in range(cfg.num_layers):
+            st = {key: cache[key][i] for key in ("S", "x_tm", "x_cm")}
+            x, st = blocks.rwkv_block(_layer(params["layers"], i), cfg, x,
+                                      mode="decode", state=st)
+            states.append(st)
+        for key in ("S", "x_tm", "x_cm"):
+            updates[key] = _stack_states(states, key)
+    elif cfg.family == "hybrid":
+        n_super, period, tail = _zamba_split(cfg)
+        k_new, v_new, hs, convs = [], [], [], []
+        for si in range(n_super):
+            x, c = blocks.dense_block(
+                params["shared_attn"], cfg, x, mode="decode",
+                cache={"k": cache["k"][si], "v": cache["v"][si],
+                       "len": cur_len})
+            k_new.append(c["k_new"])
+            v_new.append(c["v_new"])
+            sup = _layer(params["layers"], si)
+            states = []
+            for mi in range(period):
+                x, st = blocks.mamba_block(
+                    _layer(sup, mi), cfg, x, mode="decode",
+                    state={"h": cache["h"][si, mi],
+                           "conv": cache["conv"][si, mi]})
+                states.append(st)
+            hs.append(_stack_states(states, "h"))
+            convs.append(_stack_states(states, "conv"))
+        updates.update(k_new=torch.stack(k_new), v_new=torch.stack(v_new),
+                       h=torch.stack(hs), conv=torch.stack(convs))
+        states = []
+        for ti in range(tail):
+            x, st = blocks.mamba_block(
+                _layer(params["tail"], ti), cfg, x, mode="decode",
+                state={"h": cache["tail_h"][ti],
+                       "conv": cache["tail_conv"][ti]})
+            states.append(st)
+        if tail:
+            updates["tail_h"] = _stack_states(states, "h")
+            updates["tail_conv"] = _stack_states(states, "conv")
+    else:
+        caches = []
+        for i in range(cfg.num_layers):
+            x, c = blocks.dense_block(
+                _layer(params["layers"], i), cfg, x, mode="decode",
+                cache={"k": cache["k"][i], "v": cache["v"][i],
+                       "len": cur_len}, is_local=_is_local(cfg, i))
+            caches.append(c)
+        updates["k_new"] = _stack_states(caches, "k_new")
+        updates["v_new"] = _stack_states(caches, "v_new")
+    return _head(params, cfg, x[:, 0]), updates
+
+
+def apply_decode_updates(cache: Dict, updates: Dict) -> Dict:
+    """Write the step's k_new/v_new into the dense cache at the old length
+    and adopt the refreshed recurrent states and len — the placement used by
+    simple generation loops and tests. Unlike the reference (which returns
+    a new cache), the K/V are written IN PLACE into ``cache["k"]`` /
+    ``cache["v"]``, so a step never copies the whole cache; the returned
+    dict holds those same tensors."""
+    new_cache = dict(cache)
+    if "k_new" in updates:
+        B = updates["k_new"].shape[1]
+        idx = cache["len"].long()  # position of the token just processed
+        b = torch.arange(B, device=idx.device)
+        # head-major (L, B, Hkv, S, hd): one S position per sequence
+        cache["k"][:, b, :, idx] = updates["k_new"].transpose(0, 1)
+        cache["v"][:, b, :, idx] = updates["v_new"].transpose(0, 1)
+    for key, val in updates.items():
+        if key not in ("k_new", "v_new"):
+            new_cache[key] = val
+    return new_cache

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (bf16 and int8 pools) against their plain
-PyTorch twins, on the card.
+"""The port's CUDA kernels (paged decode and chunk prefill over bf16 and
+int8 pools, dense-cache decode, the Mamba2 and RWKV6 scans) against their
+plain PyTorch twins, on the card.
 
 Marked ``gpu``: without a CUDA device every test skips (the kernels are
 CUDA C++ for sm_90a and have no interpret mode). The file imports neither
@@ -10,14 +11,18 @@ JAX nor the JAX package, so it also runs on a GPU host without JAX:
 Tolerances: bf16 outputs within 2 ulp relative (8e-3) plus a 1e-3 floor —
 the kernel and its twin both accumulate in fp32 and differ by summation
 order and exp approximation before the final bf16 rounding; l and m are
-fp32 (1e-3).
+fp32 (1e-3). The scans run fp32 math on both sides (the same operations in
+another order): 1e-4 relative plus 1e-4 of the output's largest entry.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import paged_prefill_attention as ppa
+from repro_torch.kernels import rwkv6_scan as rw
+from repro_torch.kernels import ssm_scan as ssm
 
 
 def _rand_paged(seed, B, Hkv, G, hd, bs, nb, spare=3):
@@ -192,3 +197,91 @@ def test_cuda_int8_wrappers_count_launches_and_need_fp32_scales(cuda):
         ppa.paged_prefill_chunk_attention(
             torch.zeros((5, 8, 64), dtype=torch.bfloat16, device=cuda), kq,
             vq, args[3][0].contiguous(), chunk, chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,hd,sw,sinks,cap", [(1, 64, 0, 0, 0.0),
+                                               (4, 128, 0, 0, 0.0),
+                                               (2, 128, 40, 4, 50.0),
+                                               (8, 64, 9, 0, 0.0)])
+def test_cuda_dense_decode_kernel_matches_plain(cuda, G, hd, sw, sinks, cap):
+    rng = np.random.default_rng(G * 7 + hd)
+    B, Hkv, S = 5, 3, 300
+    kc = rng.standard_normal((B, Hkv, S, hd))
+    vc = rng.standard_normal((B, Hkv, S, hd))
+    lens = rng.integers(1, S + 1, size=B).astype(np.int32)
+    lens[0] = S
+    lens[1] = 1
+    for b, n in enumerate(lens):             # stale slots past cache_len
+        kc[b, :, n:] = np.nan
+        vc[b, :, n:] = np.nan
+    args = (_bf16(rng.standard_normal((B, Hkv, G, hd)), cuda),
+            _bf16(kc, cuda), _bf16(vc, cuda), torch.from_numpy(lens).to(cuda))
+    kw = dict(sliding_window=sw, attention_sinks=sinks, logit_softcap=cap)
+    n = da.decode_attention.launches
+    got = da.decode_attention(*args, return_partials=True, **kw)
+    o = da.decode_attention(*args, **kw)
+    assert da.decode_attention.launches == n + 2
+    want = da.decode_attention_plain(*args, return_partials=True, **kw)
+    torch.testing.assert_close(o.float(), want[0].float(), rtol=8e-3,
+                               atol=1e-3)
+    for a, b, tol in zip(got, want, (8e-3, 1e-3, 1e-3)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_cuda_dense_decode_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((2, 2, 4, 64), dtype=torch.bfloat16, device=cuda)
+    kc = torch.zeros((2, 2, 16, 64), dtype=torch.bfloat16, device=cuda)
+    lens = torch.full((2,), 16, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):                        # fp32 on the card
+        da.decode_attention(q.float(), kc.float(), kc.float(), lens)
+    with pytest.raises(ValueError):                       # G = 3
+        da.decode_attention(q[:, :, :3].contiguous(), kc, kc, lens)
+    with pytest.raises(ValueError):                       # strided cache
+        da.decode_attention(q, kc[:, :, ::2], kc[:, :, ::2], lens)
+
+
+def _scan_close(got, want):
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * max(1.0, scale))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,N", [(2, 300, 3, 64, 64),
+                                       (1, 37, 2, 32, 16),
+                                       (2, 16, 4, 64, 128)])
+def test_cuda_ssm_scan_matches_plain(cuda, B, S, H, P, N):
+    g = torch.Generator(device=cuda).manual_seed(S)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=cuda) - 1.0)
+    x = torch.randn((B, S, H, P), generator=g, device=cuda) * dt[..., None]
+    Bi = torch.randn((B, S, N), generator=g, device=cuda)
+    Ci = torch.randn((B, S, N), generator=g, device=cuda)
+    n = ssm.ssm_scan.launches
+    got = ssm.ssm_scan(x, Bi, Ci, torch.exp(-dt))
+    assert ssm.ssm_scan.launches == n + 1
+    _scan_close(got, ssm.ssm_scan_plain(x, Bi, Ci, torch.exp(-dt)))
+    with pytest.raises(TypeError):                        # bf16 x
+        ssm.ssm_scan(x.bfloat16(), Bi, Ci, torch.exp(-dt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,dtype", [(2, 300, 3, 64, torch.bfloat16),
+                                           (1, 37, 2, 32, torch.float32),
+                                           (2, 16, 4, 64, torch.float32)])
+def test_cuda_rwkv6_scan_matches_plain(cuda, B, S, H, P, dtype):
+    g = torch.Generator(device=cuda).manual_seed(S + P)
+    shape = (B, S, H, P)
+    r, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(shape, generator=g, device=cuda)
+                             - 2.0)).to(dtype)
+    u = torch.randn((H, P), generator=g, device=cuda) * 0.5
+    n = rw.rwkv6_scan.launches
+    got = rw.rwkv6_scan(r, k, v, w, u)
+    assert rw.rwkv6_scan.launches == n + 1
+    _scan_close(got, rw.rwkv6_scan_plain(r, k, v, w, u))
+    with pytest.raises(TypeError):                        # mixed dtypes
+        rw.rwkv6_scan(r, k, v, w.half(), u)
