@@ -11,11 +11,17 @@ Phases (any failure exits non-zero and prints no result line):
      values (bf16) or NaN scales (int8); the int8 kernel is also held
      against the bf16 twin on the unquantized pool (cosine);
   3. paged chunk-prefill kernels vs their plain twin, bf16 and int8 (C=512
-     at P=0 and P=1536, C=300 at P=1024, a gemma2-shaped masked case);
+     at P=0 and P=1536, C=300 at P=1024, a gemma2-shaped masked case),
+     with NaN values (bf16) or NaN scales (int8) in the pool blocks the
+     table skips; each time beside the same call timed with the card held
+     busy through the enqueue, and the host time of one call, for the
+     kernel and SDPA; the kernel's launch geometry and the HGMMA count of
+     its SASS are logged with the build;
   4. end to end, homogeneous bf16: llama3-8b at full width and depth
      (random bf16 weights from seed 0) serving 8 requests through
      LLMEngine with chunked prefill; checks kernel launch counts,
-     finishes, and the chunked vs one-shot logit cosine;
+     finishes, and the chunked vs one-shot logit cosine; profiles one
+     512-token prefill chunk and decode steps;
   5. end to end, Lamina: the same requests through the attention-pool
      placement (head partition, 2 workers) over an int8 pool; checks the
      int8 kernels' launch counts (and no bf16 launch), the pool's resident
@@ -140,19 +146,28 @@ class Launches:
 
 class Timer:
     """Median per-call device time with a cold L2 before every call (the
-    main path reads a different layer's pool slice each call)."""
+    main path reads a different layer's pool slice each call), from an
+    event recorded after the 128 MB flush to one after the call: a call
+    whose host enqueue outlasts the flush is charged the gap. This is the
+    time every kernel row reports. With ``hold=True`` the card first spins
+    ~0.1 ms after the flush, so the enqueue lands while it is busy and only
+    device time is counted (reported beside it as ``ms_held``)."""
+
+    HOLD_CYCLES = 200_000          # ~0.1 ms at the H100's clock
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
 
-    def ms(self, fn, iters=15, warmup=2):
+    def ms(self, fn, iters=15, warmup=2, hold=False):
         torch = self.torch
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(iters):
             self.flush.zero_()
+            if hold:
+                torch.cuda._sleep(self.HOLD_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -162,6 +177,18 @@ class Timer:
             times.append(a.elapsed_time(b))
         times.sort()
         return times[len(times) // 2]
+
+    def host_us(self, fn, calls=50):
+        """Host time to enqueue one call (µs), the mean over ``calls``
+        back-to-back calls that never wait for the card."""
+        fn()
+        sync(self.torch)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t = time.perf_counter() - t0
+        sync(self.torch)
+        return t / calls * 1e6
 
 
 def bound(nbytes, flops, flop_per_s=BF16_FLOP_PER_S):
@@ -317,6 +344,8 @@ def prefill_case(torch, ppa, timer, *, H, Hkv, hd, bs, P, C, seed,
     k_pool = torch.randn(shape, generator=gen, device=DEV).bfloat16()
     v_pool = torch.randn(shape, generator=gen, device=DEV).bfloat16()
     table = (torch.randperm(NB, generator=gen, device=DEV)[:nb]).int()
+    unref = torch.ones(NB, dtype=torch.bool, device=DEV)
+    unref[table.long()] = False            # the 5 blocks the table skips
     q = torch.randn((C, H, hd), generator=gen, device=DEV).bfloat16()
     kc = torch.randn((C, Hkv, hd), generator=gen, device=DEV).bfloat16()
     vc = torch.randn((C, Hkv, hd), generator=gen, device=DEV).bfloat16()
@@ -326,8 +355,13 @@ def prefill_case(torch, ppa, timer, *, H, Hkv, hd, bs, P, C, seed,
     if int8:
         kq, ks = quantize_pool(torch, k_pool)
         vq, vs = quantize_pool(torch, v_pool)
+        ks[:, unref] = float("nan")        # the kernel must never load them
+        vs[:, unref] = float("nan")
         pools = (kq, vq)
         kw.update(k_scale=ks, v_scale=vs)
+    else:
+        k_pool[:, unref] = float("nan")    # the kernel must never load them
+        v_pool[:, unref] = float("nan")
     out = ppa.paged_prefill_chunk_attention(q, *pools, table, kc, vc, **kw)
     sync(torch)
     ref = ppa.paged_prefill_chunk_attention_plain(q, *pools, table, kc, vc,
@@ -344,8 +378,12 @@ def prefill_case(torch, ppa, timer, *, H, Hkv, hd, bs, P, C, seed,
               P * Hkv * row_bytes + nb * 4)
     flops = 4 * pairs * H * hd
     bound_ms, bound_by = bound(nbytes, flops)
-    kernel_ms = timer.ms(lambda: ppa.paged_prefill_chunk_attention(
-        q, *pools, table, kc, vc, **kw), iters=9)
+    def kernel():
+        return ppa.paged_prefill_chunk_attention(q, *pools, table, kc, vc,
+                                                 **kw)
+    kernel_ms = timer.ms(kernel, iters=9)
+    timing = dict(ms_held=timer.ms(kernel, iters=9, hold=True),
+                  host_us=timer.host_us(kernel))
     plain_ms = timer.ms(lambda: ppa.paged_prefill_chunk_attention_plain(
         q, *pools, table, kc, vc, **kw), iters=5)
     library_ms = None
@@ -365,8 +403,34 @@ def prefill_case(torch, ppa, timer, *, H, Hkv, hd, bs, P, C, seed,
         library_ms = timer.ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qd, kd, vd, attn_mask=valid[None, None]), iters=9)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=valid[None, None])
+        timing.update(library_ms_held=timer.ms(library, iters=9, hold=True),
+                      library_host_us=timer.host_us(library))
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                **timing)
+
+
+def prefill_design(ppa):
+    """The chunk kernel's launch at the main shape (C=512, H=32, Hkv=8,
+    hd=128) and the count of HGMMA (wgmma) instructions in its library's
+    SASS; raises if there is none (the tensor-core path is missing)."""
+    from repro_torch.kernels import _cuda
+    geo = {tag: ppa.launch_geometry(512, 32, 8, 128, int8=tag == "int8")
+           for tag in ("bf16", "int8")}
+    tool = Path(_cuda._nvcc()).parent / "cuobjdump"   # the build's toolkit
+    sass = subprocess.run([str(tool), "--dump-sass",
+                           str(_cuda._target(ppa._LIB_NAME))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    if not hgmma:
+        raise AssertionError("no HGMMA in the chunk kernel's SASS")
+    return json.dumps({"launch_at_C512_H32_Hkv8_hd128": geo,
+                       "hgmma_instructions_in_sass": hgmma})
 
 
 # ---------------------------------------------------------------------------
@@ -482,6 +546,16 @@ def homogeneous_e2e(torch, np, cfg, params, prompts, counters):
     if not cos >= 0.99:
         raise AssertionError(f"chunked vs one-shot cosine {cos} < 0.99")
     result.update(cosine=cos, chunk_ms=chunk_ms, oneshot_prefill_ms=oneshot_ms)
+    # the third chunk (P=1024, C=512) again, under the profiler: how much of
+    # a chunk's wall the card is busy, and with what
+    c0 = 1024
+    prefix = kv.gather_prefix_indices(0, c0)
+    prof = profile_window(torch, lambda: transformer.prefill_chunk(
+        params, cfg, {"tokens": [prompt[c0:c0 + 512]]}, kv.k_pool,
+        kv.v_pool, prefix, device=DEV), 2, 1)
+    log(f"e2e homogeneous bf16: profiled prefill chunk P={c0} C=512: "
+        f"{json.dumps(prof)}")
+    result["profile_prefill_chunk"] = prof
     prof = profile_decode(torch, eng, prompts)
     log(f"e2e homogeneous bf16: profiled decode-only steps: "
         f"{json.dumps(prof)}")
@@ -1025,6 +1099,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    log(f"paged chunk prefill, tensor-core design: {prefill_design(ppa)}")
     counters = Launches(pda, ppa, da, ssm, rwkv)
 
     timer = Timer(torch)

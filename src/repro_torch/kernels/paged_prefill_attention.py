@@ -97,7 +97,7 @@ def paged_prefill_chunk_attention_plain(q, k_pool, v_pool, block_table,
 def _check_cuda_operands(q, k_pool, v_pool, block_table, k_chunk, v_chunk,
                          k_scale=None, v_scale=None):
     C, H, hd = q.shape
-    dev = q.device
+    dev = q.get_device()          # an int: cheaper than comparing devices
     pool_dtype = torch.bfloat16 if k_scale is None else torch.int8
     for name, t, dtype in (("q", q, torch.bfloat16),
                            ("k_pool", k_pool, pool_dtype),
@@ -109,8 +109,8 @@ def _check_cuda_operands(q, k_pool, v_pool, block_table, k_chunk, v_chunk,
                            ("v_scale", v_scale, torch.float32)):
         if t is None:
             continue
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if t.get_device() != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype} on the GPU; got {t.dtype}")
         if not t.is_contiguous():
@@ -199,7 +199,7 @@ paged_prefill_chunk_attention_int8.launches = 0   # int8 kernel launches
 def _launch(entry, q, k_pool, v_pool, k_scale, v_scale, block_table,
             k_chunk, v_chunk, *, sliding_window, attention_sinks,
             logit_softcap):
-    if q.device.type != "cuda":
+    if not q.is_cuda:
         raise ValueError(f"no paged prefill kernel for device {q.device}")
     _check_cuda_operands(q, k_pool, v_pool, block_table, k_chunk, v_chunk,
                          k_scale, v_scale)
@@ -216,6 +216,21 @@ def _launch(entry, q, k_pool, v_pool, k_scale, v_scale, block_table,
              float(logit_softcap), _cuda.stream_ptr(q.device))
     _cuda.check(err, entry)
     return out
+
+
+def launch_geometry(C, H, Hkv, hd, int8=False):
+    """The CUDA kernel's launch for one call, from the code that launches
+    it: threads and packed query rows per CTA, keys per tile, ring stages,
+    dynamic shared memory (bytes) and CTAs. Needs the built library (a GPU
+    host)."""
+    fn = _cuda.load(_LIB_NAME).paged_prefill_chunk_geometry
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    _cuda.check(fn(C, H, Hkv, hd, int(int8), ctypes.addressof(out)),
+                "paged_prefill_chunk_geometry")
+    return dict(zip(("threads", "query_rows", "keys_per_tile", "stages",
+                     "smem_bytes", "ctas"), out))
 
 
 def _kernel_fn(entry: str):

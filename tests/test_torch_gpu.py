@@ -71,16 +71,50 @@ def test_cuda_decode_kernel_matches_plain(cuda, G, sw, sinks, cap):
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=1e-3)
 
 
+# Chunk-prefill cases: the tensor-core kernel packs 64 query rows (G heads
+# x 64/G positions) per CTA and walks 64-key tiles, so C = 63/64/65 and
+# C = 1 sit on its row-tile edges, nb = 0 has no prefix, G covers every
+# packing, hd = 64 and 128 both layouts; windows end inside a key tile
+# (with sinks and softcap, and tiles skipped before the window).
+PREFILL_CASES = [  # G, hd, C, nb, window, sinks, softcap, block size
+    (4, 128, 100, 5, 0, 0, 0.0, 16), (2, 128, 64, 0, 0, 0, 0.0, 16),
+    (4, 128, 77, 7, 50, 4, 50.0, 16), (1, 128, 1, 7, 0, 0, 0.0, 16),
+    (8, 128, 63, 9, 0, 0, 0.0, 16), (1, 64, 64, 3, 0, 0, 0.0, 16),
+    (2, 64, 65, 0, 0, 0, 0.0, 16), (8, 64, 300, 10, 0, 0, 0.0, 16),
+    (4, 128, 300, 11, 100, 4, 30.0, 16), (1, 128, 65, 11, 70, 3, 50.0, 16),
+    (4, 64, 63, 4, 37, 2, 20.0, 16), (2, 128, 1, 0, 0, 0, 0.0, 16),
+    (8, 128, 300, 6, 90, 0, 0.0, 16),
+    # block sizes: TMA boxes of 1, 2, 4, 8, 32 and 64 rows, a block that
+    # spans two key tiles (128), and 12 (boxes of 4 that are not a block)
+    (2, 64, 65, 13, 0, 0, 0.0, 1), (1, 128, 63, 11, 0, 0, 0.0, 1),
+    (1, 64, 40, 7, 9, 2, 0.0, 2), (4, 128, 100, 9, 0, 0, 0.0, 4),
+    (4, 128, 65, 0, 0, 0, 0.0, 4), (8, 128, 77, 6, 50, 4, 50.0, 8),
+    (4, 64, 300, 5, 0, 0, 0.0, 12), (2, 128, 130, 3, 100, 4, 30.0, 32),
+    (4, 128, 64, 2, 0, 0, 0.0, 128), (8, 64, 1, 3, 0, 0, 0.0, 128)]
+
+
+def _prefill_pools(rng, Hkv, hd, bs, nb):
+    """Random float pools with 5 blocks past the table, a table of nb
+    distinct blocks, and the mask of blocks the table does not name."""
+    NB = nb + 5
+    kp = rng.standard_normal((Hkv, NB, bs, hd))
+    vp = rng.standard_normal((Hkv, NB, bs, hd))
+    table = rng.permutation(NB)[:nb].astype(np.int32)
+    unref = np.ones(NB, bool)
+    unref[table] = False
+    return kp, vp, torch.from_numpy(table), torch.from_numpy(unref)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("G,C,nb,sw,sinks,cap", [(4, 100, 5, 0, 0, 0.0),
-                                                 (2, 64, 0, 0, 0, 0.0),
-                                                 (4, 77, 7, 50, 4, 50.0)])
-def test_cuda_prefill_kernel_matches_plain(cuda, G, C, nb, sw, sinks, cap):
-    rng = np.random.default_rng(C)
-    Hkv, hd, bs = 2, 128, 16
-    kp = rng.standard_normal((Hkv, 12, bs, hd))
-    vp = rng.standard_normal((Hkv, 12, bs, hd))
-    table = torch.from_numpy(rng.permutation(12)[:nb].astype(np.int32))
+@pytest.mark.parametrize("G,hd,C,nb,sw,sinks,cap,bs", PREFILL_CASES)
+def test_cuda_prefill_kernel_matches_plain(cuda, G, hd, C, nb, sw, sinks,
+                                           cap, bs):
+    rng = np.random.default_rng(C + 1000 * G + hd +
+                                (0 if bs == 16 else 10000 * bs))
+    Hkv = 2
+    kp, vp, table, unref = _prefill_pools(rng, Hkv, hd, bs, nb)
+    kp[:, unref.numpy()] = np.nan           # the kernel must never load them
+    vp[:, unref.numpy()] = np.nan
     args = (_bf16(rng.standard_normal((C, Hkv * G, hd)), cuda),
             _bf16(kp, cuda), _bf16(vp, cuda), table.to(cuda),
             _bf16(rng.standard_normal((C, Hkv, hd)), cuda),
@@ -147,16 +181,17 @@ def test_cuda_int8_decode_kernel_matches_plain(cuda, G, sw, sinks, cap):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("G,C,nb,sw,sinks,cap", [(4, 100, 5, 0, 0, 0.0),
-                                                 (2, 64, 0, 0, 0, 0.0),
-                                                 (4, 77, 7, 50, 4, 50.0)])
-def test_cuda_int8_prefill_kernel_matches_plain(cuda, G, C, nb, sw, sinks,
-                                                cap):
-    rng = np.random.default_rng(C + 1)
-    Hkv, hd, bs = 2, 128, 16
-    kq, ks = _int8_pool(rng.standard_normal((Hkv, 12, bs, hd)), cuda)
-    vq, vs = _int8_pool(rng.standard_normal((Hkv, 12, bs, hd)), cuda)
-    table = torch.from_numpy(rng.permutation(12)[:nb].astype(np.int32))
+@pytest.mark.parametrize("G,hd,C,nb,sw,sinks,cap,bs", PREFILL_CASES)
+def test_cuda_int8_prefill_kernel_matches_plain(cuda, G, hd, C, nb, sw,
+                                                sinks, cap, bs):
+    rng = np.random.default_rng(C + 1000 * G + hd + 1 +
+                                (0 if bs == 16 else 10000 * bs))
+    Hkv = 2
+    kp, vp, table, unref = _prefill_pools(rng, Hkv, hd, bs, nb)
+    kq, ks = _int8_pool(kp, cuda)
+    vq, vs = _int8_pool(vp, cuda)
+    ks[:, unref.to(cuda)] = float("nan")    # the kernel must never load them
+    vs[:, unref.to(cuda)] = float("nan")
     args = (_bf16(rng.standard_normal((C, Hkv * G, hd)), cuda), kq, vq,
             table.to(cuda), _bf16(rng.standard_normal((C, Hkv, hd)), cuda),
             _bf16(rng.standard_normal((C, Hkv, hd)), cuda))
