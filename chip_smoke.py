@@ -5,11 +5,16 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. device: card name and power limit, torch/CUDA versions, kernel build;
-  2. paged decode kernels vs their plain PyTorch twin on the card, bf16
-     and int8 pools, at llama3-8b's decode shapes, with POS_PAD slots, and
-     a gemma2-shaped window + sinks + softcap case; stale blocks hold NaN
-     values (bf16) or NaN scales (int8); the int8 kernel is also held
-     against the bf16 twin on the unquantized pool (cosine);
+  2. paged decode kernels (split-KV) vs their plain PyTorch twin on the
+     card, bf16 and int8 pools, at llama3-8b's decode shapes (all 8 kv
+     heads, one head-partition worker's 4, and a long-context batch of
+     16384-32768 tokens), with POS_PAD slots, and a gemma2-shaped window +
+     sinks + softcap case; stale blocks hold NaN values (bf16) or NaN
+     scales (int8); the int8 kernel is also held against the bf16 twin on
+     the unquantized pool (cosine); each timed case beside the same call
+     with the card held busy through the enqueue, the host time of one
+     call (kernel and SDPA) and the launch grid; ptxas' registers and
+     spill of every instantiation are logged with the build;
   3. paged chunk-prefill kernels vs their plain twin, bf16 and int8 (C=512
      at P=0 and P=1536, C=300 at P=1024, a gemma2-shaped masked case),
      with NaN values (bf16) or NaN scales (int8) in the pool blocks the
@@ -54,6 +59,7 @@ without a CUDA device or without the repository's ``src/`` beside it.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -303,8 +309,14 @@ def decode_case(torch, pda, timer, *, B, Hkv, G, hd, bs, lens, seed,
               B * 4 + o.numel() * 2 + 2 * l.numel() * 4)
     flops = 4 * rows * H * hd          # QK + PV, per kept (row, query head)
     bound_ms, bound_by = bound(nbytes, flops)
-    kernel_ms = timer.ms(lambda: pda.paged_decode_attention(
-        q, *pools, tables, cache_len, **kw))
+
+    def kernel():
+        return pda.paged_decode_attention(q, *pools, tables, cache_len, **kw)
+    kernel_ms = timer.ms(kernel)
+    timing = {}
+    if library:
+        timing = dict(ms_held=timer.ms(kernel, hold=True),
+                      host_us=timer.host_us(kernel))
     plain_ms = timer.ms(lambda: pda.paged_decode_attention_plain(
         q, *pools, tables, cache_len, **kw), iters=5)
     library_ms = None
@@ -323,13 +335,39 @@ def decode_case(torch, pda, timer, *, B, Hkv, G, hd, bs, lens, seed,
             G, dim=1)
         qd = q.reshape(B, H, 1, hd)
         mask = valid[:, None, None, :]
-        library_ms = timer.ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qd, kc, vc, attn_mask=mask))
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qd, kc, vc, attn_mask=mask)
+        library_ms = timer.ms(library)
+        timing.update(library_ms_held=timer.ms(library, hold=True),
+                      library_host_us=timer.host_us(library))
+        del kc, vc
     out.update(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-               rows=rows)
+               rows=rows, **timing,
+               launch=pda.launch_geometry(B, Hkv, nb,
+                                          pda._sm_count(q.device)))
     return out
+
+
+def ptxas_summary(text, marker):
+    """Registers, shared memory and spill of every instantiation <T, HD, G>
+    in nvcc's -Xptxas=-v output of a kernel whose mangled name holds
+    ``marker``, one line each."""
+    rows, name, spill = [], None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if marker in line else None
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "registers" in line:
+            t, hd, g = re.match(r"(a|13__nv_bfloat16)Li(\d+)ELi(\d+)",
+                                name.split(marker, 1)[1]).groups()
+            rows.append(f"{'int8' if t == 'a' else 'bf16'} hd={hd} G={g}: "
+                        f"{line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -810,6 +848,8 @@ def profile_window(torch, step, n_steps, batch):
     top = sorted(dev, key=lambda kv: -kv[1])[:6]
     return dict(batch=batch, step_ms_profiled=step_ms,
                 device_busy_ms=busy,
+                paged_decode_kernel_ms=sum(
+                    t for k, t in dev if "paged_decode_kernel" in k),
                 idle_share=1 - busy / step_ms if step_ms else None,
                 top_kernels_ms={k[:60]: round(v, 3) for k, v in top})
 
@@ -1096,6 +1136,10 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s wall "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})")
     for name, text in _cuda.BUILD_LOG.items():
+        if name == pda._LIB_NAME:      # one line per instantiation
+            for row in ptxas_summary(text, "paged_decode_kernelI"):
+                log(f"  ptxas {name}: {row}")
+            continue
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
@@ -1115,6 +1159,10 @@ def main() -> int:
     lens[0] = 2048
     glens = rng.integers(1, 8193, size=4).tolist()
     glens[0] = 8192
+    # Lamina's long-context regime: ~1 GB bf16 pools
+    long_lens = np.random.default_rng(5).integers(16384, 32769,
+                                                  size=8).tolist()
+    long_lens[0] = 32768
     dec = {}
     for int8 in (False, True):
         tag = "int8" if int8 else "bf16"
@@ -1122,6 +1170,14 @@ def main() -> int:
                                bs=16, lens=lens, seed=1, int8=int8)
         log(f"decode {tag} llama3-8b B=8 lens={lens}: "
             f"{json.dumps(dec[tag])}")
+        # one head-partition worker's launch: Hkv/2 kv heads, same lengths
+        r = decode_case(torch, pda, timer, B=8, Hkv=4, G=4, hd=128, bs=16,
+                        lens=lens, seed=4, int8=int8)
+        log(f"decode {tag} head-partition launch Hkv=4: {json.dumps(r)}")
+        r = decode_case(torch, pda, timer, B=8, Hkv=8, G=4, hd=128, bs=16,
+                        lens=long_lens, seed=5, int8=int8)
+        log(f"decode {tag} long context lens={long_lens}: {json.dumps(r)}")
+        torch.cuda.empty_cache()
         r = decode_case(torch, pda, timer, B=8, Hkv=8, G=4, hd=128, bs=16,
                         lens=lens, seed=2, int8=int8, pos_pad=True,
                         library=False)

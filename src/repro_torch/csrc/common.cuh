@@ -1,5 +1,6 @@
 // Helpers shared by the kernels: bf16 / int8 -> fp32 in 8- and 16-byte
-// vectors, read-only loads, and cp.async copies into shared memory.
+// vectors, read-only loads, and cp.async copies into shared memory (with a
+// zero-fill form for masked rows).
 // Included by every csrc/*.cu; compiled for sm_90a.
 #pragma once
 
@@ -25,11 +26,16 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& raw, float* out) {
   }
 }
 
-// One 32-bit word of 4 int8 values -> 4 floats (sign-extended bytes).
+// One 32-bit word of 4 int8 values -> 4 floats, exactly and without I2F:
+// x = w ^ 0x80808080 holds b + 128 in each byte; __byte_perm puts byte i
+// under 0x4B0000 (the float 2^23, whose ulp is 1), and subtracting
+// 2^23 + 128 leaves b. One LOP3 per word, one PRMT and one FADD per value.
 __device__ __forceinline__ void int8x4_to_float(uint32_t w, float* out) {
+  const uint32_t x = w ^ 0x80808080u;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    out[i] = static_cast<float>(static_cast<int8_t>(w >> (8 * i)));
+    out[i] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440u + i)) -
+             8388736.0f;
 }
 
 // 16 int8 values packed in one 16-byte word -> 16 floats.
@@ -53,11 +59,6 @@ __device__ __forceinline__ uint4 ldg16(const void* ptr) {
   return __ldg(reinterpret_cast<const uint4*>(ptr));
 }
 
-// 8-byte read-only global load.
-__device__ __forceinline__ uint2 ldg8(const void* ptr) {
-  return __ldg(reinterpret_cast<const uint2*>(ptr));
-}
-
 // Asynchronous global -> shared copies (cp.async, sm_80+): 16 bytes
 // (bypassing L1) or 4 bytes. Completion is per thread, in commit groups.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -70,6 +71,29 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(gmem));
+}
+
+// The same copies with a source size of 0 when !ok: nothing is read from
+// global memory and the shared bytes are zero-filled (masked rows).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async8_zfill(void* smem, const void* gmem,
+                                                bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(ok ? 8 : 0));
+}
+
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem,
+                                                bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(ok ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

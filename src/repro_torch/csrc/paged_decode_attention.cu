@@ -1,46 +1,92 @@
 // Paged flash-decode GQA attention over the head-major KV block pool, for
-// bf16 pools and for int8 pools with fp32 per-token scales.
+// bf16 pools and for int8 pools with fp32 per-token scales: split-KV over
+// the SMs, one launch that merges its own partials.
 //
 // Replaces the TPU kernel repro/kernels/paged_decode_attention.py
-// `_paged_decode_kernel` (bf16 pools; pallas_call at :273) with the entry
-// point `paged_decode_attention_bf16`, and its int8-pool variant
-// `_paged_decode_kernel_int8` (:119) with `paged_decode_attention_int8`.
-// Same contract: q (B, Hkv, G, hd) bf16; pools (Hkv, num_blocks, bs, hd);
-// int8 pools add scale pools (Hkv, num_blocks, bs) fp32 walked through the
-// same table; block_tables (B, nb) int32; optional block_positions (B, nb)
-// int32 (each slot's global base position, POS_PAD on slots to ignore);
-// cache_len (B,). Writes o (B, Hkv, G, hd) in q's dtype and the §4.2.2
-// partial l, m as fp32 (B, Hkv, G). The int8 kernel multiplies the scores
-// by the k scale after q·k and before the softcap, and p by the v scale
-// before the PV product (l sums the unscaled p), as the TPU kernel does;
-// nothing dequantized is written anywhere.
+// `_paged_decode_kernel` (:55, bf16 pools) with the entry point
+// `paged_decode_attention_bf16`, and its int8-pool variant
+// `_paged_decode_kernel_int8` (:119) with `paged_decode_attention_int8`;
+// both are called there by pallas_call at :273. Same contract: q (B, Hkv, G, hd) bf16; pools (Hkv, num_blocks, bs,
+// hd); int8 pools add scale pools (Hkv, num_blocks, bs) fp32 walked through
+// the same table; block_tables (B, nb) int32; optional block_positions
+// (B, nb) int32 (each slot's global base position, POS_PAD on slots to
+// ignore); cache_len (B,). Writes o (B, Hkv, G, hd) in q's dtype and the
+// §4.2.2 partial l, m as fp32 (B, Hkv, G). The int8 kernel multiplies the
+// scores by the k scale after q·k and before the softcap, and p by the v
+// scale before the PV product (l sums the unscaled p), as the TPU kernel
+// does; nothing dequantized is written anywhere.
 //
 // What bounds it on an H100: decode reads every live K/V row once and does
 // 2·G flops per element read — a few flops per byte against the card's
-// ~295 flop/byte ridge — so it is bound by device-memory bytes. int8 pools
-// halve those bytes (hd + 4 per token-head instead of 2·hd).
+// ~295 flop/byte ridge — so it is bound by device-memory bytes (int8 pools
+// read hd + 4 bytes per token-head for K and for V instead of 2·hd). To move
+// 3.35 TB/s the card needs ~25 KB in flight on every one of its 132 SMs.
 //
 // What the design does about it:
-//  * one CTA per (sequence, kv head) walks the block table in a loop (the
-//    TPU's sequential kb grid axis). Warp w takes table slots w, w+4, ...;
-//    inside a pool block, each group of hd/EPL lanes owns one key row and
-//    reads EPL elements of it per lane, so one read of a K row serves all G
-//    query heads of the group (GQA reuse). bf16: EPL = 8 (16-byte loads).
-//    int8: EPL = 16 (16-byte loads, twice the rows per warp load) for
-//    G <= 4; at G = 8 the q and accumulator registers (2·G·EPL floats per
-//    lane) would spill, so EPL = 8 (8-byte loads).
-//  * U rows per lane are loaded before any arithmetic, keeping U row loads
-//    of K and V (and their scales) in flight per lane.
-//  * every row group keeps its own fp32 online-softmax state per query
-//    head; the states are merged once at the end in shared memory by the
-//    §4.2.2 rule.
-//  * masks select, never multiply: a masked row is never loaded (its k, v
-//    and scales stay 0) and its p is 0, so stale or NaN memory behind a
-//    padded table slot or past cache_len — values or scales — cannot reach
-//    the accumulator; a table slot whose rows are all masked is skipped
-//    without a load, which is exact.
-//  * not done yet: splitting one sequence's KV across CTAs. With B·Hkv CTAs
-//    (64 at B=8, Hkv=8) on 132 SMs the card is under-occupied (PERF.md).
+//  * split-KV: one CTA per (b, h, split), launched as grid (S, Hkv, B)
+//    with the splits fastest, so a long sequence's splits go to different
+//    SMs. Split j of sequence b takes table slots [j·nb/S, (j+1)·nb/S).
+//    The wrapper picks S on the host from nb, B·Hkv and the SM count
+//    (plan_splits: 4 CTAs an SM, >= 2 wherever the table has the slots),
+//    never from cache_len, so it needs no sync. A CTA first compacts its
+//    slice of the table into shared memory (slots with a live row only:
+//    past cache_len, outside the window or POS_PAD drop out), so a split
+//    with nothing live does no load and no math.
+//  * one launch: each split writes its fp32 (m, l, acc) partial to a
+//    workspace; the last CTA of a (b, h) to arrive (an atomic ticket after
+//    a __threadfence) merges the S partials by the §4.2.2 rule, writes o,
+//    l and m, and resets the ticket to 0 for the next call. With S = 1 the
+//    CTA writes o, l, m itself. A second combine kernel would add a launch
+//    to each of a decode step's 32 (bf16) or 64 (int8, head partition)
+//    host-bound calls.
+//  * loads in flight while the CTA computes: a 4-stage ring in shared
+//    memory, filled by per-thread 16-byte cp.async (4-byte for the scales)
+//    three items ahead of the one being computed. Each lane reads back only
+//    what it copied itself, so the ring needs no barrier. An item is 2 rows
+//    for each row group (16-64 rows of the split's live rows); rows are
+//    found from the compacted slot list, so any block size works. A masked
+//    row is copied with src-size 0: nothing is read from device memory and
+//    its k, v and scales are zero in the ring, so stale or NaN memory past
+//    cache_len, outside the window or behind a POS_PAD slot — values or
+//    scales — never reaches the math; its score is selected to NEG_INF and
+//    its p to 0 (masks select, never multiply).
+//  * lane layout: each group of LPR = hd/EPL lanes owns one key row, EPL
+//    elements a lane (bf16: 8, one 16-byte load; int8: 16 for G <= 4, else
+//    8), so one read of a K row serves all G query heads (GQA reuse). The
+//    G partial dot products are reduce-scattered over the group's lanes
+//    (G - 1 + log2(LPR/G) shuffles instead of G·log2(LPR)), so each lane
+//    runs the online softmax of one query head; the G weights p then reach
+//    every lane of the group by G shuffles for PV.
+//  * lazy rescale: a query head's reference max moves only when a score
+//    exceeds it by more than 8 (p <= e^8 in fp32), so the G·EPL
+//    accumulator rescale runs a few times per split instead of at every
+//    row; the true max is tracked beside it and the partial written with
+//    it, exactly.
+//  * int8 conversion without I2F: x ^ 0x80808080 turns each byte into
+//    b + 128; __byte_perm places it in the low mantissa of 2^23, and one
+//    FADD of -(2^23 + 128) leaves b exactly (common.cuh). Per byte of K or
+//    V that is 1/4 LOP3 + 1 PRMT + 1 FADD on full-rate pipes, against one
+//    I2F a byte on the 16-a-clock conversion pipe before (~80 % of that
+//    pipe at the bandwidth bound).
+//
+// CUDA-core instructions per byte read, estimated from this source (per
+// lane, per row of 2·EPL bytes of K and V, G = 4; the SM issues 128 thread
+// instructions a clock, and 3.35 TB/s over 132 SMs at 1.755-1.98 GHz is
+// 12.8-14.5 bytes a clock):
+//   int8 (EPL 16, LPR 8): convert 2 × 33, QK FMA 64, reduce-scatter 4 SHFL
+//   + 4 FADD + 6 SEL, own-head softmax ~10, p gather 4 SHFL, PV FMA 64,
+//   v scale 1, cp.async + addressing + validity ~26: ~249 / 32 bytes = 7.8
+//   a byte, 100-113 of the 128 issue slots a clock at the bandwidth
+//   bound: the int8 entry meets the issue limit about where it would meet
+//   the byte limit (the FMAs alone are 4 a byte at G = 4). The previous
+//   design (I2F, a full all-reduce per head, the softmax of all G heads in
+//   every lane, a rescale every 4 rows) came to ~11.5 a byte. mma.sync for
+//   QKᵀ and PV (K/V converted to bf16 exactly, ~2.5 a byte) would need V
+//   transposed through shared memory and a hi + lo bf16 split of P to stay
+//   within 2 bf16 ulp of the fp32 twin; not done.
+//   bf16 (EPL 8, LPR 16): convert 2 × 4, FMA 2 × 32, reduce-scatter 5 SHFL
+//   + 5 FADD + 6 SEL, softmax ~10, gather 4, cp.async + addressing ~22:
+//   ~124 / 32 bytes = 3.9 a byte -> 50-57 of 128 slots at the bound.
 
 #include <cmath>
 #include <type_traits>
@@ -52,8 +98,51 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
+constexpr int kStages = 4;        // ring depth: items in flight + 1
+constexpr int kRows = 2;          // rows of each row group in one item
+constexpr int kMaxSlots = 512;    // table slots of one split (shared list)
+constexpr int kMaxSplits = 512;   // splits of one (b, h)
+constexpr int kMaxBlockSize = 1024;   // exact row -> slot by mul-hi below
+constexpr float kLazy = 8.0f;     // reference-max headroom (natural log)
 
-// The raw vector one lane loads per key row: EPL elements of T.
+template <typename T, int HD, int G>
+struct Cfg {
+  static constexpr bool kQuant = std::is_same<T, int8_t>::value;
+  static constexpr int EPL = (kQuant && G <= 4) ? 16 : 8;   // elements/lane
+  static constexpr int CHUNK = EPL * static_cast<int>(sizeof(T));  // bytes
+  static constexpr int LPR = HD / EPL;          // lanes per key row
+  static constexpr int RPW = 32 / LPR;          // rows one warp load covers
+  static constexpr int NGROUPS = kWarps * RPW;  // row groups of the CTA
+  static constexpr int ROWS = kRows * NGROUPS;  // rows per item
+  static constexpr int LPG = LPR / G;           // lanes per query head
+  static_assert(G <= LPR, "the reduce-scatter needs G <= lanes per row");
+  // shared memory, one union: the ring while the split runs, then the row
+  // groups' partials, then the S splits' (m, l) in the last CTA
+  static constexpr int RING = kStages * kRows * 2 * kThreads * CHUNK;
+  static constexpr int SCALES = kQuant ? kStages * kRows * 2 * kThreads * 4
+                                       : 0;
+  static_assert(NGROUPS * G <= kThreads, "one thread per group weight");
+  static constexpr int MERGE = (NGROUPS * G * (HD + 4) + G) * 4;
+  static constexpr int SPLITS = 2 * kMaxSplits * G * 4;
+  static constexpr int UNION_ = (RING + SCALES > MERGE ? RING + SCALES
+                                                       : MERGE);
+  static constexpr int UNION = UNION_ > SPLITS ? UNION_ : SPLITS;
+};
+
+struct Params {
+  const __nv_bfloat16* q;
+  const void *k_pool, *v_pool;
+  const float *k_scale, *v_scale;
+  const int32_t *tables, *positions, *cache_len;
+  __nv_bfloat16* o;
+  float *l, *m;
+  float* ws;          // S > 1: acc (B·Hkv·S·G·HD) then (m, l) pairs
+  int* tickets;       // S > 1: one per (b, h), 0 between calls
+  int Hkv, num_blocks, bs, nb, sliding_window, sinks;
+  float softcap, scale;
+};
+
+// The raw vector one lane copies per key row: EPL elements of T.
 template <int BYTES> struct RawVec;
 template <> struct RawVec<16> { using type = uint4; };
 template <> struct RawVec<8> { using type = uint2; };
@@ -70,305 +159,513 @@ __device__ __forceinline__ void unpack(const uint2& r, float* out,
                                        const int8_t*) {
   int8x8_to_float(r, out);
 }
-__device__ __forceinline__ uint4 load_raw(const void* p, uint4*) {
-  return ldg16(p);
-}
-__device__ __forceinline__ uint2 load_raw(const void* p, uint2*) {
-  return ldg8(p);
+
+template <int BYTES>
+__device__ __forceinline__ void copy_row(void* smem, const void* gmem,
+                                         bool ok) {
+  if constexpr (BYTES == 16) cp_async16_zfill(smem, gmem, ok);
+  else cp_async8_zfill(smem, gmem, ok);
 }
 
-template <typename T, int HD, int G, int U, int EPL>
+// Sum G partial dot products over the LPR lanes of a row: the first
+// log2(G) steps halve the heads each lane keeps (it sends the other half
+// to its partner), the rest all-reduce. Lane cl ends with the full dot of
+// query head cl / (LPR / G).
+template <int G, int LPR>
+__device__ __forceinline__ float reduce_scatter(float (&d)[G], int cl) {
+#pragma unroll
+  for (int n = G, off = LPR / 2; n > 1; n /= 2, off /= 2) {
+    const bool upper = (cl & off) != 0;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i) {
+      const float keep = upper ? d[n / 2 + i] : d[i];
+      const float send = upper ? d[i] : d[n / 2 + i];
+      d[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+  }
+  float v = d[0];
+#pragma unroll
+  for (int off = LPR / (2 * G); off > 0; off /= 2)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool,
-                    const float* __restrict__ k_scale,
-                    const float* __restrict__ v_scale,
-                    const int32_t* __restrict__ block_tables,
-                    const int32_t* __restrict__ block_positions,
-                    const int32_t* __restrict__ cache_len,
-                    __nv_bfloat16* __restrict__ o,
-                    float* __restrict__ l_out,
-                    float* __restrict__ m_out,
-                    int Hkv, int num_blocks, int bs, int nb,
-                    int sliding_window, int sinks, float softcap,
-                    float scale) {
-  constexpr bool kQuant = std::is_same<T, int8_t>::value;
-  using Raw = typename RawVec<static_cast<int>(EPL * sizeof(T))>::type;
-  constexpr int LPR = HD / EPL;          // lanes per key row
-  constexpr int RPW = 32 / LPR;          // key rows one warp load covers
-  constexpr int NGROUPS = kWarps * RPW;  // independent softmax states
+paged_decode_kernel(const Params p) {
+  using C = Cfg<T, HD, G>;
+  constexpr bool kQuant = C::kQuant;
+  constexpr int EPL = C::EPL, LPR = C::LPR, RPW = C::RPW;
+  constexpr int NGROUPS = C::NGROUPS, LPG = C::LPG;
+  using Raw = typename RawVec<C::CHUNK>::type;
+  constexpr int kSlotsPerThread = kMaxSlots / kThreads;
 
-  __shared__ float sm_m[NGROUPS][G];
-  __shared__ float sm_l[NGROUPS][G];
-  __shared__ float sm_acc[NGROUPS][G][HD];
+  __shared__ alignas(16) unsigned char sm_raw[C::UNION];
+  __shared__ int sm_tile[kMaxSlots];
+  __shared__ int sm_base[kMaxSlots];
+  __shared__ int sm_wcount[kWarps];
+  __shared__ float sm_gm[G], sm_gl[G];
+  __shared__ int sm_last;
 
-  const int b = blockIdx.x;
+  const int split = blockIdx.x;         // splits fastest: see launch()
   const int h = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int b = blockIdx.z;
+  const int S = gridDim.x;
+  const size_t BHkv = static_cast<size_t>(gridDim.z) * p.Hkv;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
   const int sub = lane / LPR;            // which row of a warp load
   const int cl = lane % LPR;             // which EPL-element slice of hd
   const int group = warp * RPW + sub;
-  const size_t bh = static_cast<size_t>(b) * Hkv + h;
+  const int g_own = cl / LPG;            // this lane's query head
+  const size_t bh = static_cast<size_t>(b) * p.Hkv + h;
+  const int bs = p.bs;
+  const int lo = static_cast<int>(static_cast<int64_t>(split) * p.nb / S);
+  const int n = static_cast<int>(static_cast<int64_t>(split + 1) * p.nb / S)
+                - lo;
 
+  // every load the prologue needs, issued together
+  const int len = p.cache_len[b];
+  const int32_t* table = p.tables + static_cast<size_t>(b) * p.nb + lo;
+  const int32_t* bpos = p.positions
+      ? p.positions + static_cast<size_t>(b) * p.nb + lo : nullptr;
+  int tile_r[kSlotsPerThread], base_r[kSlotsPerThread];
+#pragma unroll
+  for (int i = 0; i < kSlotsPerThread; ++i) {
+    const int s = i * kThreads + tid;
+    tile_r[i] = 0;
+    base_r[i] = 0;
+    if (s < n) {
+      tile_r[i] = __ldg(table + s);
+      base_r[i] = bpos ? __ldg(bpos + s) : (lo + s) * bs;
+    }
+  }
   float qf[G][EPL];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
 #pragma unroll
     for (int c = 0; c < EPL / 8; ++c)
-      bf16x8_to_float(ldg16(q + (bh * G + g) * HD + cl * EPL + c * 8),
+      bf16x8_to_float(ldg16(p.q + (bh * G + g) * HD + cl * EPL + c * 8),
                       qf[g] + c * 8);
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) qf[g][e] *= scale;
+    for (int e = 0; e < EPL; ++e) qf[g][e] *= p.scale;
   }
 
-  float m[G], l[G], acc[G][EPL];
+  // compact the split's live slots (any row unmasked) into shared memory,
+  // in table order
+  const int sw = p.sliding_window, sinks = p.sinks;
+  const int win_lo = len - sw;               // first in-window position
+  int n_live = 0;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
+  for (int i = 0; i < kSlotsPerThread; ++i) {
+    if (i * kThreads >= n) break;            // uniform over the CTA
+    const int base = base_r[i];
+    const bool live = i * kThreads + tid < n && base < len &&
+        !(sw > 0 && base + bs <= win_lo && !(sinks > 0 && base < sinks));
+    const unsigned bal = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) sm_wcount[warp] = __popc(bal);
+    __syncthreads();
+    int off = n_live, total = 0;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = sm_wcount[w];
+      off += w < warp ? c : 0;
+      total += c;
+    }
+    if (live) {
+      const int at = off + __popc(bal & ((1u << lane) - 1u));
+      sm_tile[at] = tile_r[i];
+      sm_base[at] = base;
+    }
+    n_live += total;
+    __syncthreads();
   }
 
-  const int len = cache_len[b];
-  const int win_lo = len - sliding_window;   // first in-window position
-  const int32_t* table = block_tables + static_cast<size_t>(b) * nb;
-  const int32_t* bpos = block_positions
-      ? block_positions + static_cast<size_t>(b) * nb : nullptr;
+  float m_true = NEG_INF;          // the split's max score, head g_own
+  float l_sum = 0.f;               // its sum of p against m_ref below
 
-  for (int kb = warp; kb < nb; kb += kWarps) {
-    const int base = bpos ? bpos[kb] : kb * bs;
-    // whole-slot skip (uniform over the warp): every row is masked
-    if (base >= len) continue;
-    if (sliding_window > 0 && base + bs <= win_lo &&
-        !(sinks > 0 && base < sinks)) continue;
-    const size_t tile = (static_cast<size_t>(h) * num_blocks + table[kb]) * bs;
-    const T* kt = k_pool + tile * HD + cl * EPL;
-    const T* vt = v_pool + tile * HD + cl * EPL;
+  if (n_live > 0) {
+    Raw* ring = reinterpret_cast<Raw*>(sm_raw);
+    float* sc_ring = reinterpret_cast<float*>(sm_raw + C::RING);
+    const T* k_pool = static_cast<const T*>(p.k_pool);
+    const T* v_pool = static_cast<const T*>(p.v_pool);
+    const size_t head_rows = static_cast<size_t>(h) * p.num_blocks;
+    const int n_items = (n_live * bs + C::ROWS - 1) / C::ROWS;
+    // exact floor(j / bs) for j · bs < 2^32 (j < (kMaxSlots + 1) · bs)
+    const uint64_t magic = ((1ull << 32) + bs - 1) / bs;
+    uint32_t vbits = 0;                      // valid bit per (stage, row)
 
-    for (int r0 = 0; r0 < bs; r0 += U * RPW) {
-      Raw kraw[U], vraw[U];
-      float ksc[U], vsc[U];
-      bool valid[U];
+    auto issue = [&](int t) {
+      if (t < n_items) {
+        const int st = t % kStages;
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int r = r0 + u * RPW + sub;
-        const int pos = base + r;
-        bool ok = r < bs && pos < len;
-        if (sliding_window > 0)
-          ok = ok && (pos >= win_lo || (sinks > 0 && pos < sinks));
-        valid[u] = ok;
-        kraw[u] = Raw{};
-        vraw[u] = Raw{};
-        ksc[u] = kQuant ? 0.f : 1.f;
-        vsc[u] = ksc[u];
-        if (ok) {
-          kraw[u] = load_raw(kt + static_cast<size_t>(r) * HD, &kraw[u]);
-          vraw[u] = load_raw(vt + static_cast<size_t>(r) * HD, &vraw[u]);
-          if constexpr (kQuant) {
-            ksc[u] = __ldg(k_scale + tile + r);
-            vsc[u] = __ldg(v_scale + tile + r);
+        for (int u = 0; u < kRows; ++u) {
+          const uint32_t j = static_cast<uint32_t>((t * kRows + u) * NGROUPS
+                                                   + group);
+          const uint32_t k = static_cast<uint32_t>((j * magic) >> 32);
+          const int r = static_cast<int>(j - k * bs);
+          bool ok = false;
+          int tile = 0;
+          if (k < static_cast<uint32_t>(n_live)) {
+            const int pos = sm_base[k] + r;
+            ok = pos < len &&
+                 (sw <= 0 || pos >= win_lo || (sinks > 0 && pos < sinks));
+            tile = sm_tile[k];
           }
+          const size_t row = (head_rows + tile) * bs + (ok ? r : 0);
+          const int slot = (st * kRows + u) * 2 * kThreads + tid;
+          copy_row<C::CHUNK>(ring + slot, k_pool + row * HD + cl * EPL, ok);
+          copy_row<C::CHUNK>(ring + slot + kThreads,
+                             v_pool + row * HD + cl * EPL, ok);
+          if constexpr (kQuant) {
+            cp_async4_zfill(sc_ring + slot, p.k_scale + row, ok);
+            cp_async4_zfill(sc_ring + slot + kThreads, p.v_scale + row, ok);
+          }
+          const int bit = st * kRows + u;
+          vbits = (vbits & ~(1u << bit)) | (static_cast<uint32_t>(ok) << bit);
         }
       }
+      cp_async_commit();
+    };
 
-      float s[U][G];
+    float m_ref = NEG_INF;           // reference max of head g_own
+    float acc[G][EPL];
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
+
+#pragma unroll
+    for (int t = 0; t < kStages - 1; ++t) issue(t);
+    for (int t = 0; t < n_items; ++t) {
+      issue(t + kStages - 1);
+      cp_async_wait<kStages - 1>();
+      const int st = t % kStages;
+      float s[kRows];
+      bool valid[kRows];
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        const int slot = (st * kRows + u) * 2 * kThreads + tid;
+        valid[u] = (vbits >> (st * kRows + u)) & 1u;
         float kf[EPL];
-        unpack(kraw[u], kf, k_pool);
+        unpack(ring[slot], kf, k_pool);
+        float d[G];
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          float d = 0.f;
+          float a = 0.f;
 #pragma unroll
-          for (int e = 0; e < EPL; ++e) d = fmaf(qf[g][e], kf[e], d);
+          for (int e = 0; e < EPL; ++e) a = fmaf(qf[g][e], kf[e], a);
+          d[g] = a;
+        }
+        float dot = reduce_scatter<G, LPR>(d, cl);
+        if constexpr (kQuant) dot *= sc_ring[slot];   // k dequant, pre-cap
+        if (p.softcap > 0.f) dot = p.softcap * tanhf(dot / p.softcap);
+        s[u] = valid[u] ? dot : NEG_INF;
+      }
+      float mx = s[0];
 #pragma unroll
-          for (int off = LPR / 2; off > 0; off >>= 1)
-            d += __shfl_xor_sync(0xffffffffu, d, off);
-          if (kQuant) d *= ksc[u];          // fused k dequant, pre-cap
-          if (softcap > 0.f) d = softcap * tanhf(d / softcap);
-          s[u][g] = valid[u] ? d : NEG_INF;
+      for (int u = 1; u < kRows; ++u) mx = fmaxf(mx, s[u]);
+      m_true = fmaxf(m_true, mx);
+      const bool need = mx > m_ref + kLazy;
+      if (__any_sync(0xffffffffu, need)) {   // rare: rescale to a new max
+        const float alpha = need ? __expf(m_ref - mx) : 1.f;
+        m_ref = need ? mx : m_ref;
+        l_sum *= alpha;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float a = G == 1 ? alpha
+              : __shfl_sync(0xffffffffu, alpha, sub * LPR + g * LPG);
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) acc[g][e] *= a;
         }
       }
-
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float mx = NEG_INF;
-#pragma unroll
-        for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[u][g]);
-        const float m_new = fmaxf(m[g], mx);
-        const float alpha = __expf(m[g] - m_new);
-        float psum = 0.f;
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          s[u][g] = valid[u] ? __expf(s[u][g] - m_new) : 0.f;   // p
-          psum += s[u][g];
-        }
-        l[g] = l[g] * alpha + psum;
-        m[g] = m_new;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
-      }
-
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
+      for (int u = 0; u < kRows; ++u) {
+        const int slot = (st * kRows + u) * 2 * kThreads + tid;
+        const float pr = valid[u] ? __expf(s[u] - m_ref) : 0.f;
+        l_sum += pr;
+        const float pw = kQuant ? pr * sc_ring[slot + kThreads] : pr;
         float vf[EPL];
-        unpack(vraw[u], vf, v_pool);
+        unpack(ring[slot + kThreads], vf, v_pool);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          const float pw = kQuant ? s[u][g] * vsc[u] : s[u][g];  // v dequant
+          const float w = G == 1 ? pw
+              : __shfl_sync(0xffffffffu, pw, sub * LPR + g * LPG);
 #pragma unroll
-          for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(pw, vf[e], acc[g][e]);
+          for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(w, vf[e], acc[g][e]);
         }
       }
     }
-  }
+    cp_async_wait<0>();
+    __syncthreads();                 // the ring becomes the merge scratch
 
-  // merge the row groups' partials (§4.2.2) and normalise
-  if (cl == 0) {
+    // merge the row groups' partials (§4.2.2) in shared memory
+    float* sm_acc = reinterpret_cast<float*>(sm_raw);        // [NG][G][HD]
+    float* sm_mref = sm_acc + NGROUPS * G * HD;              // [NG][G]
+    float* sm_mtrue = sm_mref + NGROUPS * G;
+    float* sm_l = sm_mtrue + NGROUPS * G;
+    float* sm_w = sm_l + NGROUPS * G;                        // [NG][G]
+    float* sm_M = sm_w + NGROUPS * G;                        // [G]
+    if (cl % LPG == 0) {
+      sm_mref[group * G + g_own] = m_ref;
+      sm_mtrue[group * G + g_own] = m_true;
+      sm_l[group * G + g_own] = l_sum;
+    }
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      sm_m[group][g] = m[g];
-      sm_l[group][g] = l[g];
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < EPL; e += 4)
+        *reinterpret_cast<float4*>(sm_acc + (group * G + g) * HD + cl * EPL
+                                   + e) =
+            make_float4(acc[g][e], acc[g][e + 1], acc[g][e + 2],
+                        acc[g][e + 3]);
+    __syncthreads();
+    if (tid < NGROUPS * G) {         // one weight per (group, head)
+      const int g = tid % G;
+      float M = NEG_INF;
+#pragma unroll
+      for (int i = 0; i < NGROUPS; ++i) M = fmaxf(M, sm_mtrue[i * G + g]);
+      sm_w[tid] = __expf(sm_mref[tid] - M);                 // <= 1
+      if (tid < G) sm_M[tid] = M;
+    }
+    __syncthreads();
+    for (int idx = tid; idx < G * HD; idx += kThreads) {
+      const int g = idx / HD;
+      const float M = sm_M[g];
+      float L = 0.f, A = 0.f;
+#pragma unroll
+      for (int i = 0; i < NGROUPS; ++i) {
+        const float w = sm_w[i * G + g];
+        L = fmaf(sm_l[i * G + g], w, L);
+        A = fmaf(sm_acc[(i * G + g) * HD + idx % HD], w, A);
+      }
+      if (S == 1) {
+        p.o[bh * G * HD + idx] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+        if (idx % HD == 0) {
+          p.l[bh * G + g] = L;
+          p.m[bh * G + g] = M;
+        }
+      } else {
+        const size_t part = bh * S + split;
+        p.ws[part * G * HD + idx] = A;
+        if (idx % HD == 0) {
+          float* ml = p.ws + BHkv * S * G * HD + (part * G + g) * 2;
+          ml[0] = M;
+          ml[1] = L;
+        }
+      }
+    }
+    if (S == 1) return;
+  } else {
+    // nothing live in this split: the empty partial (o = 0, l = 0,
+    // m = NEG_INF); with S > 1 only (m, l) is written, and the merge skips
+    // the acc of a partial whose l is 0
+    if (S == 1) {
+      for (int idx = tid; idx < G * HD; idx += kThreads) {
+        p.o[bh * G * HD + idx] = __float2bfloat16(0.f);
+        if (idx % HD == 0) {
+          p.l[bh * G + idx / HD] = 0.f;
+          p.m[bh * G + idx / HD] = NEG_INF;
+        }
+      }
+      return;
+    }
+    if (tid < G) {
+      float* ml = p.ws + BHkv * S * G * HD
+          + ((bh * S + split) * G + tid) * 2;
+      ml[0] = NEG_INF;
+      ml[1] = 0.f;
     }
   }
+
+  // the last split of (b, h) to finish merges all S partials
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) sm_last = atomicAdd(p.tickets + bh, 1) == S - 1;
+  __syncthreads();
+  if (!sm_last) return;
+  __threadfence();
+
+  const float* ws_acc = p.ws + bh * S * G * HD;
+  const float* ws_part = p.ws + BHkv * S * G * HD + bh * S * G * 2;
+  // each thread sums its EPT elements over the S splits, kBatch splits'
+  // loads in flight at a time (the first batch's beside the (m, l) loads);
+  // an empty split's acc was never written, so its weight 0 selects it away
+  constexpr int EPT = (G * HD + kThreads - 1) / kThreads;
+  constexpr int kBatch = EPT >= 32 ? 1 : 32 / EPT;
+  float v[kBatch][EPT];
+  auto load_batch = [&](int i0) {
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+    for (int c = 0; c < kBatch; ++c)
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) sm_acc[group][g][cl * EPL + e] = acc[g][e];
+      for (int k = 0; k < EPT; ++k) {
+        const int idx = tid + k * kThreads;
+        v[c][k] = i0 + c < S && idx < G * HD
+            ? __ldcg(ws_acc + (i0 + c) * G * HD + idx) : 0.f;
+      }
+  };
+  load_batch(0);
+  float* sp_w = reinterpret_cast<float*>(sm_raw);   // [S][G]: m, then weight
+  float* sp_l = sp_w + kMaxSplits * G;              // [S][G]
+  for (int idx = tid; idx < S * G; idx += kThreads) {
+    const float2 ml = __ldcg(reinterpret_cast<const float2*>(ws_part) + idx);
+    sp_w[idx] = ml.x;
+    sp_l[idx] = ml.y;
   }
   __syncthreads();
-
-  for (int idx = threadIdx.x; idx < G * HD; idx += kThreads) {
-    const int g = idx / HD;
-    const int d = idx % HD;
+  for (int g = warp; g < G; g += kWarps) {
     float M = NEG_INF;
+    for (int i = lane; i < S; i += 32)
+      if (sp_l[i * G + g] > 0.f) M = fmaxf(M, sp_w[i * G + g]);
 #pragma unroll
-    for (int i = 0; i < NGROUPS; ++i) M = fmaxf(M, sm_m[i][g]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int i = 0; i < NGROUPS; ++i) {
-      const float w = __expf(sm_m[i][g] - M);
-      L = fmaf(sm_l[i][g], w, L);
-      A = fmaf(sm_acc[i][g][d], w, A);
+    for (int off = 16; off > 0; off >>= 1)
+      M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+    float L = 0.f;
+    for (int i = lane; i < S; i += 32) {
+      const float li = sp_l[i * G + g];
+      const float w = li > 0.f ? __expf(sp_w[i * G + g] - M) : 0.f;
+      sp_w[i * G + g] = w;
+      L = fmaf(li, w, L);
     }
-    o[(bh * G + g) * HD + d] = __float2bfloat16(A / fmaxf(L, 1e-30f));
-    if (d == 0) {
-      l_out[bh * G + g] = L;
-      m_out[bh * G + g] = M;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      L += __shfl_xor_sync(0xffffffffu, L, off);
+    if (lane == 0) {
+      sm_gm[g] = M;
+      sm_gl[g] = L;
     }
   }
+  __syncthreads();
+  float A[EPT];
+#pragma unroll
+  for (int k = 0; k < EPT; ++k) A[k] = 0.f;
+  for (int i0 = 0; i0 < S; i0 += kBatch) {
+    if (i0 > 0) load_batch(i0);
+#pragma unroll
+    for (int c = 0; c < kBatch; ++c)
+#pragma unroll
+      for (int k = 0; k < EPT; ++k) {
+        const int idx = tid + k * kThreads;
+        const float w = i0 + c < S && idx < G * HD
+            ? sp_w[(i0 + c) * G + idx / HD] : 0.f;
+        A[k] = w != 0.f ? fmaf(w, v[c][k], A[k]) : A[k];
+      }
+  }
+#pragma unroll
+  for (int k = 0; k < EPT; ++k) {
+    const int idx = tid + k * kThreads;
+    if (idx >= G * HD) continue;
+    const int g = idx / HD;
+    p.o[bh * G * HD + idx] = __float2bfloat16(A[k] /
+                                              fmaxf(sm_gl[g], 1e-30f));
+    if (idx % HD == 0) {
+      p.l[bh * G + g] = sm_gl[g];
+      p.m[bh * G + g] = sm_gm[g];
+    }
+  }
+  if (tid == 0) p.tickets[bh] = 0;   // ready for the next call
 }
 
-struct Args {
-  const __nv_bfloat16* q;
-  const void *k_pool, *v_pool;
-  const float *k_scale, *v_scale;
-  const int32_t *tables, *positions, *cache_len;
-  __nv_bfloat16* o;
-  float *l, *m;
-  int B, Hkv, num_blocks, bs, nb, sliding_window, sinks;
-  float softcap, scale;
-  cudaStream_t stream;
-};
-
 template <typename T, int HD, int G>
-cudaError_t launch(const Args& a) {
-  constexpr bool kQuant = std::is_same<T, int8_t>::value;
-  // bf16: 8 elements (16 bytes) per lane. int8: 16 elements (16 bytes) per
-  // lane while the q + accumulator registers (2·G·EPL) fit, else 8.
-  constexpr int EPL = (kQuant && G <= 4) ? 16 : 8;
-  constexpr int U = (kQuant || G > 4) ? 4 : 8;
-  const dim3 grid(a.B, a.Hkv);
-  paged_decode_kernel<T, HD, G, U, EPL><<<grid, kThreads, 0, a.stream>>>(
-      a.q, static_cast<const T*>(a.k_pool), static_cast<const T*>(a.v_pool),
-      a.k_scale, a.v_scale, a.tables, a.positions, a.cache_len, a.o, a.l,
-      a.m, a.Hkv, a.num_blocks, a.bs, a.nb, a.sliding_window, a.sinks,
-      a.softcap, a.scale);
+cudaError_t launch(const Params& prm, int B, int splits, cudaStream_t stream) {
+  // the splits of one (b, h) are neighbours in launch order, so the block
+  // scheduler spreads a long sequence's splits over different SMs (with
+  // b fastest, a 132-SM round robin stacks one sequence's CTAs on a few)
+  const dim3 grid(splits, prm.Hkv, B);
+  paged_decode_kernel<T, HD, G><<<grid, kThreads, 0, stream>>>(prm);
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
-cudaError_t dispatch_group(int G, const Args& a) {
+cudaError_t dispatch_group(int G, const Params& prm, int B, int splits,
+                           cudaStream_t stream) {
   switch (G) {
-    case 1: return launch<T, HD, 1>(a);
-    case 2: return launch<T, HD, 2>(a);
-    case 4: return launch<T, HD, 4>(a);
-    case 8: return launch<T, HD, 8>(a);
+    case 1: return launch<T, HD, 1>(prm, B, splits, stream);
+    case 2: return launch<T, HD, 2>(prm, B, splits, stream);
+    case 4: return launch<T, HD, 4>(prm, B, splits, stream);
+    case 8: return launch<T, HD, 8>(prm, B, splits, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-int dispatch(int head_dim, int G, const Args& a) {
+int entry(const void* q, const void* k_pool, const void* v_pool,
+          const void* k_scale, const void* v_scale, const void* block_tables,
+          const void* block_positions, const void* cache_len, void* o,
+          void* l, void* m, void* workspace, void* tickets, int B, int Hkv,
+          int G, int head_dim, int num_blocks, int block_size, int nb,
+          int splits, int sliding_window, int attention_sinks,
+          float logit_softcap, void* stream) {
+  // the split plan the kernel can hold: S in [1, kMaxSplits], no split
+  // longer than kMaxSlots slots, S <= nb unless the table is empty; a
+  // workspace and tickets when S > 1
+  const int max_part = nb > 0 ? (nb + splits - 1) / splits : 0;
+  if (B > 65535 || Hkv > 65535 ||       // grid.z and grid.y
+      splits < 1 || splits > kMaxSplits || (nb > 0 && splits > nb) ||
+      (nb == 0 && splits != 1) || max_part > kMaxSlots || block_size < 1 ||
+      block_size > kMaxBlockSize ||
+      (splits > 1 && (workspace == nullptr || tickets == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params prm{static_cast<const __nv_bfloat16*>(q), k_pool, v_pool,
+                   static_cast<const float*>(k_scale),
+                   static_cast<const float*>(v_scale),
+                   static_cast<const int32_t*>(block_tables),
+                   static_cast<const int32_t*>(block_positions),
+                   static_cast<const int32_t*>(cache_len),
+                   static_cast<__nv_bfloat16*>(o), static_cast<float*>(l),
+                   static_cast<float*>(m), static_cast<float*>(workspace),
+                   static_cast<int*>(tickets), Hkv, num_blocks, block_size,
+                   nb, sliding_window, attention_sinks, logit_softcap,
+                   1.0f / sqrtf(static_cast<float>(head_dim))};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 64: return static_cast<int>(dispatch_group<T, 64>(G, a));
-    case 128: return static_cast<int>(dispatch_group<T, 128>(G, a));
+    case 64: return static_cast<int>(dispatch_group<T, 64>(G, prm, B, splits,
+                                                           s));
+    case 128: return static_cast<int>(dispatch_group<T, 128>(G, prm, B,
+                                                             splits, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-Args make_args(const void* q, const void* k_pool, const void* v_pool,
-               const void* k_scale, const void* v_scale,
-               const void* block_tables, const void* block_positions,
-               const void* cache_len, void* o, void* l, void* m, int B,
-               int Hkv, int head_dim, int num_blocks, int block_size, int nb,
-               int sliding_window, int attention_sinks, float logit_softcap,
-               void* stream) {
-  return Args{static_cast<const __nv_bfloat16*>(q), k_pool, v_pool,
-              static_cast<const float*>(k_scale),
-              static_cast<const float*>(v_scale),
-              static_cast<const int32_t*>(block_tables),
-              static_cast<const int32_t*>(block_positions),
-              static_cast<const int32_t*>(cache_len),
-              static_cast<__nv_bfloat16*>(o), static_cast<float*>(l),
-              static_cast<float*>(m), B, Hkv, num_blocks, block_size, nb,
-              sliding_window, attention_sinks, logit_softcap,
-              1.0f / sqrtf(static_cast<float>(head_dim)),
-              static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
 }  // namespace repro_torch
 
-// Plain C entry points (bound with ctypes). Both launch on `stream` and
-// return cudaGetLastError() as an int (0 = launched); cudaErrorInvalidValue
-// for a head_dim / group size the kernel is not instantiated for. The bf16
-// entry ignores k_scale / v_scale; the int8 entry needs both.
+// Plain C entry points (bound with ctypes). Both launch one kernel on
+// `stream` and return cudaGetLastError() as an int (0 = launched);
+// cudaErrorInvalidValue for a head_dim / group size the kernel is not
+// instantiated for, or a split plan it cannot hold. `splits` is S of the
+// grid (B, Hkv, S); with S > 1, `workspace` holds B·Hkv·S·G·(head_dim + 2)
+// fp32 and `tickets` B·Hkv int32 that are 0 (the kernel leaves them 0).
+// The bf16 entry ignores k_scale / v_scale; the int8 entry needs both.
 extern "C" int paged_decode_attention_bf16(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale,
     const void* block_tables, const void* block_positions,
-    const void* cache_len, void* o, void* l, void* m,
-    int B, int Hkv, int G, int head_dim, int num_blocks, int block_size,
-    int nb, int sliding_window, int attention_sinks, float logit_softcap,
-    void* stream) {
-  using namespace repro_torch;
-  const Args a = make_args(q, k_pool, v_pool, nullptr, nullptr, block_tables,
-                           block_positions, cache_len, o, l, m, B, Hkv,
-                           head_dim, num_blocks, block_size, nb,
-                           sliding_window, attention_sinks, logit_softcap,
-                           stream);
-  return dispatch<__nv_bfloat16>(head_dim, G, a);
+    const void* cache_len, void* o, void* l, void* m, void* workspace,
+    void* tickets, int B, int Hkv, int G, int head_dim, int num_blocks,
+    int block_size, int nb, int splits, int sliding_window,
+    int attention_sinks, float logit_softcap, void* stream) {
+  return repro_torch::entry<__nv_bfloat16>(
+      q, k_pool, v_pool, nullptr, nullptr, block_tables, block_positions,
+      cache_len, o, l, m, workspace, tickets, B, Hkv, G, head_dim,
+      num_blocks, block_size, nb, splits, sliding_window, attention_sinks,
+      logit_softcap, stream);
 }
 
 extern "C" int paged_decode_attention_int8(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale,
     const void* block_tables, const void* block_positions,
-    const void* cache_len, void* o, void* l, void* m,
-    int B, int Hkv, int G, int head_dim, int num_blocks, int block_size,
-    int nb, int sliding_window, int attention_sinks, float logit_softcap,
-    void* stream) {
-  using namespace repro_torch;
+    const void* cache_len, void* o, void* l, void* m, void* workspace,
+    void* tickets, int B, int Hkv, int G, int head_dim, int num_blocks,
+    int block_size, int nb, int splits, int sliding_window,
+    int attention_sinks, float logit_softcap, void* stream) {
   if (k_scale == nullptr || v_scale == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a = make_args(q, k_pool, v_pool, k_scale, v_scale, block_tables,
-                           block_positions, cache_len, o, l, m, B, Hkv,
-                           head_dim, num_blocks, block_size, nb,
-                           sliding_window, attention_sinks, logit_softcap,
-                           stream);
-  return dispatch<int8_t>(head_dim, G, a);
+  return repro_torch::entry<int8_t>(
+      q, k_pool, v_pool, k_scale, v_scale, block_tables, block_positions,
+      cache_len, o, l, m, workspace, tickets, B, Hkv, G, head_dim,
+      num_blocks, block_size, nb, splits, sliding_window, attention_sinks,
+      logit_softcap, stream);
 }

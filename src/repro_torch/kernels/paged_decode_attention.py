@@ -9,6 +9,11 @@ int8-pool kernel ``_paged_decode_kernel_int8`` is the second entry point of
 the same source (:func:`paged_decode_attention_int8`), with the same twin
 given the scale pools.
 
+The kernel splits each sequence's table over S CTAs (:func:`plan_splits`,
+from shapes and the SM count only, so a call never waits for the card) and
+merges the splits' partials in the same launch: the wrapper hands it a
+workspace from the caching allocator and the stream's merge tickets.
+
 :func:`paged_decode_attention` dispatches on the device of ``q``: a CPU
 tensor runs the plain twin, a CUDA tensor launches the kernel or raises.
 There is no other switch and no fallback. Each wrapper counts its own
@@ -30,6 +35,47 @@ NEG_INF = -1e30
 POS_PAD = 1 << 30
 
 _LIB_NAME = "paged_decode_attention"
+
+# The split-KV plan (kept equal to the constants of the CUDA source): aim at
+# CTAS_PER_SM CTAs on every SM, at most MAX_SPLITS splits of one (sequence,
+# kv head) and at most MAX_SLOTS_PER_SPLIT table slots in one split.
+CTAS_PER_SM = 4
+MAX_SPLITS = 512
+MAX_SLOTS_PER_SPLIT = 512
+MAX_BLOCK_SIZE = 1024
+
+
+def plan_splits(B: int, Hkv: int, nb: int, sm_count: int) -> int:
+    """S, the splits of each (sequence, kv head), from shapes alone (the
+    wrapper never reads cache_len or the tables on the host): enough for
+    CTAS_PER_SM CTAs a SM, never more than the table's nb slots (no split is
+    empty of slots), and enough that no split holds more than
+    MAX_SLOTS_PER_SPLIT slots."""
+    if nb <= 0:
+        return 1
+    want = -(-CTAS_PER_SM * sm_count // max(B * Hkv, 1))
+    splits = max(1, min(want, nb, MAX_SPLITS),
+                 -(-nb // MAX_SLOTS_PER_SPLIT))
+    if splits > MAX_SPLITS:
+        raise ValueError(f"a table of {nb} slots needs more than "
+                         f"{MAX_SPLITS} splits of {MAX_SLOTS_PER_SPLIT}")
+    return splits
+
+
+def split_ranges(nb: int, splits: int):
+    """Table slots [lo, hi) of each split, as the kernel cuts them: split j
+    takes [j·nb // S, (j+1)·nb // S)."""
+    return [(j * nb // splits, (j + 1) * nb // splits)
+            for j in range(splits)]
+
+
+def launch_geometry(B: int, Hkv: int, nb: int, sm_count: int) -> dict:
+    """The kernel's launch for these shapes: grid (x, y, z) = (S, Hkv, B),
+    splits fastest; CTAs, threads a CTA, splits and the most table slots
+    one split walks."""
+    splits = plan_splits(B, Hkv, nb, sm_count)
+    return dict(grid=[splits, Hkv, B], ctas=B * Hkv * splits, threads=128,
+                splits=splits, slots_per_split=-(-nb // splits) if nb else 0)
 
 
 def default_block_positions(B: int, nb: int, block_size: int,
@@ -154,6 +200,9 @@ def _check_cuda_operands(q, k_pool, v_pool, block_tables, cache_len,
     if hd not in (64, 128) or G not in (1, 2, 4, 8):
         raise ValueError(f"kernel instantiated for head_dim in (64, 128) and "
                          f"group size in (1, 2, 4, 8); got hd={hd}, G={G}")
+    if not 1 <= k_pool.shape[2] <= MAX_BLOCK_SIZE:
+        raise ValueError(f"block size {k_pool.shape[2]} outside the kernel's "
+                         f"1..{MAX_BLOCK_SIZE}")
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
@@ -233,9 +282,19 @@ def _launch(entry, q, k_pool, v_pool, k_scale, v_scale, block_tables,
     B, Hkv, G, hd = q.shape
     _, num_blocks, bs, _ = k_pool.shape
     nb = block_tables.shape[1]
+    dev = q.device
+    stream = _cuda.stream_ptr(dev)
+    splits = plan_splits(B, Hkv, nb, _sm_count(dev))
     o = torch.empty_like(q)
-    l = torch.empty((B, Hkv, G), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, Hkv, G), dtype=torch.float32, device=dev)
     m = torch.empty_like(l)
+    ws = tickets = None
+    if splits > 1:
+        # each split's fp32 (acc, m, l) partial; the tickets stay 0 between
+        # calls (the merging CTA resets its own)
+        ws = torch.empty(B * Hkv * splits * G * (hd + 2), dtype=torch.float32,
+                         device=dev)
+        tickets = _tickets(dev, stream, B * Hkv)
     fn = _kernel_fn(entry)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              None if k_scale is None else k_scale.data_ptr(),
@@ -243,19 +302,47 @@ def _launch(entry, q, k_pool, v_pool, k_scale, v_scale, block_tables,
              block_tables.data_ptr(),
              None if block_positions is None else block_positions.data_ptr(),
              cache_len.data_ptr(), o.data_ptr(), l.data_ptr(), m.data_ptr(),
-             B, Hkv, G, hd, num_blocks, bs, nb, int(sliding_window),
-             int(attention_sinks), float(logit_softcap),
-             _cuda.stream_ptr(q.device))
+             None if ws is None else ws.data_ptr(),
+             None if tickets is None else tickets.data_ptr(),
+             B, Hkv, G, hd, num_blocks, bs, nb, splits, int(sliding_window),
+             int(attention_sinks), float(logit_softcap), stream)
     _cuda.check(err, entry)
     if return_partials:
         return o, l, m
     return o
 
 
+_SM_COUNT = {}     # device index -> SM count
+_TICKETS = {}      # (device index, stream) -> int32 tickets, all 0
+
+
+def _sm_count(device) -> int:
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    n = _SM_COUNT.get(index)
+    if n is None:
+        n = _SM_COUNT[index] = \
+            torch.cuda.get_device_properties(index).multi_processor_count
+    return n
+
+
+def _tickets(device, stream: int, n: int) -> torch.Tensor:
+    """The merge tickets of (device, stream), one per (sequence, kv head),
+    allocated zeroed once and grown when a call needs more. Launches on one
+    stream run in order, so they share the array; another stream gets its
+    own."""
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                        device=device)
+    return t
+
+
 def _kernel_fn(entry: str):
     fn = getattr(_cuda.load(_LIB_NAME), entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + \
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn

@@ -71,6 +71,97 @@ def test_cuda_decode_kernel_matches_plain(cuda, G, sw, sinks, cap):
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=1e-3)
 
 
+# Split-KV decode cases: long tables span many splits (plan_splits; the
+# grid is (S, Hkv, B)), whole splits fall outside a window (or past a short
+# cache_len), one sequence has cache_len 0, one row of block_positions is
+# all POS_PAD, the pools may be the head partition's contiguous Hkv/2 slice,
+# block sizes 1, 8, 12 and 32 cut rows across slots. Every value (bf16) or
+# scale (int8) the masks drop is NaN.
+SPLIT_CASES = [  # G, hd, bs, nb, window, sinks, softcap, pos_pad, half_pool
+    (4, 128, 16, 128, 0, 0, 0.0, False, False),
+    (4, 128, 16, 128, 0, 0, 0.0, False, True),
+    (4, 128, 16, 96, 100, 4, 0.0, False, False),
+    (2, 128, 16, 64, 300, 0, 50.0, True, False),
+    (8, 64, 16, 40, 0, 0, 0.0, True, True),
+    (1, 64, 1, 700, 33, 2, 0.0, False, False),
+    (4, 128, 8, 90, 0, 0, 30.0, False, True),
+    (2, 64, 12, 50, 77, 3, 0.0, True, False),
+    (4, 128, 32, 33, 0, 0, 0.0, False, False),
+    (8, 128, 32, 20, 50, 0, 0.0, False, True)]
+
+
+def _split_inputs(seed, G, hd, bs, nb, pos_pad, half):
+    """B = 4 sequences over Hkv = 4 kv heads (2 when the pool is the head
+    partition's slice): lengths up to nb·bs, the second 0; pad slots and
+    every row past a sequence's cache_len hold NaN."""
+    rng = np.random.default_rng(seed)
+    B, Hkv = 4, 4
+    NB = B * nb + 2
+    kp = rng.standard_normal((Hkv, NB, bs, hd)).astype(np.float32)
+    vp = rng.standard_normal((Hkv, NB, bs, hd)).astype(np.float32)
+    lens = rng.integers(1, nb * bs + 1, size=B).astype(np.int32)
+    lens[0], lens[1] = nb * bs, 0
+    perm = rng.permutation(np.arange(1, NB))[:B * nb].reshape(B, nb)
+    bt = np.zeros((B, nb), np.int32)
+    stale = np.zeros((NB, bs), bool)
+    stale[0] = True
+    for b in range(B):
+        live = -(-int(lens[b]) // bs)
+        bt[b, :live] = perm[b, :live]
+        if live:
+            stale[bt[b, live - 1], int(lens[b]) - (live - 1) * bs:] = True
+    pos = None
+    if pos_pad:             # a block-sharded table; row 3 owns no slot
+        pos = np.tile(np.arange(nb, dtype=np.int32) * bs, (B, 1))
+        pos[:, 1::2] = pda.POS_PAD
+        pos[3] = pda.POS_PAD
+        bt[:, 1::2] = 0
+    q = rng.standard_normal((B, Hkv // 2 if half else Hkv, G, hd))
+    return q, kp, vp, bt, lens, stale, pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("G,hd,bs,nb,sw,sinks,cap,pos_pad,half", SPLIT_CASES)
+def test_cuda_split_decode_matches_plain(cuda, int8, G, hd, bs, nb, sw,
+                                         sinks, cap, pos_pad, half):
+    q, kp, vp, bt, lens, stale, pos = _split_inputs(
+        nb + bs + G, G, hd, bs, nb, pos_pad, half)
+    kw = dict(sliding_window=sw, attention_sinks=sinks, logit_softcap=cap,
+              return_partials=True, block_positions=None if pos is None
+              else torch.from_numpy(pos).to(cuda))
+    if int8:
+        kpool, ks = _int8_pool(kp, cuda)
+        vpool, vs = _int8_pool(vp, cuda)
+        ks[:, torch.from_numpy(stale).to(cuda)] = float("nan")
+        vs[:, torch.from_numpy(stale).to(cuda)] = float("nan")
+        kw.update(k_scale=ks, v_scale=vs)
+    else:
+        kp[:, stale] = np.nan
+        vp[:, stale] = np.nan
+        kpool, vpool = _bf16(kp, cuda), _bf16(vp, cuda)
+    if half:    # the head partition's worker: a contiguous Hkv/2 slice
+        sl = slice(2, 4)
+        kpool, vpool = kpool[sl], vpool[sl]
+        if int8:
+            kw.update(k_scale=ks[sl], v_scale=vs[sl])
+    args = (_bf16(q, cuda), kpool, vpool, torch.from_numpy(bt).to(cuda),
+            torch.from_numpy(lens).to(cuda))
+    geo = pda.launch_geometry(4, kpool.shape[0], nb, pda._sm_count(cuda))
+    assert geo["splits"] > 1
+    want = pda.paged_decode_attention_plain(*args, **kw)
+    for _ in range(2):      # a second call: the merge tickets were reset
+        got = pda.paged_decode_attention(*args, **kw)
+        for a, b, tol in zip(got, want, (8e-3, 1e-3, 1e-3)):
+            torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                       atol=1e-3)
+    o, l, m = got
+    assert (o[1] == 0).all() and (l[1] == 0).all()       # cache_len 0
+    assert (m[1] == pda.NEG_INF).all()
+    if pos_pad:                                          # all POS_PAD
+        assert (l[3] == 0).all() and (m[3] == pda.NEG_INF).all()
+
+
 # Chunk-prefill cases: the tensor-core kernel packs 64 query rows (G heads
 # x 64/G positions) per CTA and walks 64-key tiles, so C = 63/64/65 and
 # C = 1 sit on its row-tile edges, nb = 0 has no prefix, G covers every
