@@ -40,14 +40,19 @@ Phases (any failure exits non-zero and prints no result line):
      dense-cache decode kernel vs its plain twin (o, and the (o, l, m)
      triple) at zamba2's, llama3-8b's and a gemma2-shaped (window, sinks,
      softcap) decode shape, with NaN in every slot past cache_len; the
-     Mamba2 and RWKV6 scan kernels vs their plain twins at zamba2's and
-     rwkv6's prefill shapes (B=8, S=2048);
+     chunked Mamba2 and RWKV6 scan kernels vs their step twins at zamba2's
+     and rwkv6's prefill shapes (B=8, S=2048), with decays that hold exact
+     0 and 1.0, and at a ragged S=2047; the dense decode kernel (beside
+     SDPA) and the scans timed unheld and held, with the host time of a
+     call; the scans' ptxas lines and the HMMA count of their SASS are
+     logged with the build;
   8. end to end through transformer.prefill -> 32 x (decode_step +
      apply_decode_updates): zamba2-1.2b, then rwkv6-7b, at full width and
      depth (random bf16 weights from seed 0, 8 prompts of 2048 tokens):
      launch counts per the path, finite logits, prefill and decode-step
      walls, tokens/s, peak memory, cache bytes, a profiled window of 3
-     decode steps;
+     decode steps and one profiled prefill (device busy, the scan kernel's
+     device time);
   9. the card against the CPU at full width and reduced depth (zamba2 with
      4 layers, rwkv6 with 2; B=2, S=128, then 4 decode steps): row cosine
      of every step's logits;
@@ -74,9 +79,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 on the CUDA cores
 ERR_RTOL, ERR_ATOL = 8e-3, 1e-3   # bf16 outputs: 2 ulp relative + floor
-# fp32 scans vs their fp32 twins: the same operations in another order (a
-# fused multiply-add, a 4-lane shuffle sum); over 2048 steps the outputs
-# agree to within 1e-6 of their scale
+# the chunked scan kernels vs their fp32 step twins: every tensor-core
+# product runs three bf16 passes (hi + lo, ~1e-5 of each product); over
+# 2048 steps the outputs agree to within 1.3e-5 of their scale (H100 runs)
 SCAN_RTOL = 1e-4               # and atol = SCAN_RTOL * max |plain|
 MIN_COSINE = 0.999             # int8 vs full precision; placements; card
                                # vs CPU logits
@@ -351,10 +356,14 @@ def decode_case(torch, pda, timer, *, B, Hkv, G, hd, bs, lens, seed,
     return out
 
 
-def ptxas_summary(text, marker):
-    """Registers, shared memory and spill of every instantiation <T, HD, G>
-    in nvcc's -Xptxas=-v output of a kernel whose mangled name holds
-    ``marker``, one line each."""
+def ptxas_summary(text, marker, names):
+    """Registers, shared memory and spill of every instantiation in nvcc's
+    -Xptxas=-v output of a kernel whose mangled name holds ``marker``, one
+    line each, labelled by its template arguments: the element type (int8,
+    bf16, f32; none for the Mamba2 scan), then its integer ones under
+    ``names`` (("hd", "G") for paged decode, ("N", "W") for the Mamba2
+    scan, ("P", "W") for RWKV6)."""
+    types = {"a": "int8 ", "13__nv_bfloat16": "bf16 ", "f": "f32 "}
     rows, name, spill = [], None, ""
     for line in text.splitlines():
         if "Compiling entry function" in line:
@@ -362,12 +371,26 @@ def ptxas_summary(text, marker):
         elif name and "spill" in line:
             spill = line.strip()
         elif name and "registers" in line:
-            t, hd, g = re.match(r"(a|13__nv_bfloat16)Li(\d+)ELi(\d+)",
-                                name.split(marker, 1)[1]).groups()
-            rows.append(f"{'int8' if t == 'a' else 'bf16'} hd={hd} G={g}: "
+            t, ints = re.match(r"(a|13__nv_bfloat16|f)?((?:Li\d+E)+)",
+                               name.split(marker, 1)[1]).groups()
+            args = " ".join(f"{n}={v}" for n, v in
+                            zip(names, re.findall(r"Li(\d+)E", ints)))
+            rows.append(f"{types.get(t, '')}{args}: "
                         f"{line.split(':', 1)[1].strip()}; {spill}")
             name = None
     return rows
+
+
+def sass_count(lib_name, opcode):
+    """How many instructions of ``opcode`` (e.g. HMMA, HGMMA) the SASS of a
+    built kernel library holds, from the build toolkit's cuobjdump."""
+    from repro_torch.kernels import _cuda
+    tool = Path(_cuda._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "--dump-sass",
+                           str(_cuda._target(lib_name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return sum(opcode in line for line in sass.splitlines())
 
 
 # ---------------------------------------------------------------------------
@@ -456,15 +479,9 @@ def prefill_design(ppa):
     """The chunk kernel's launch at the main shape (C=512, H=32, Hkv=8,
     hd=128) and the count of HGMMA (wgmma) instructions in its library's
     SASS; raises if there is none (the tensor-core path is missing)."""
-    from repro_torch.kernels import _cuda
     geo = {tag: ppa.launch_geometry(512, 32, 8, 128, int8=tag == "int8")
            for tag in ("bf16", "int8")}
-    tool = Path(_cuda._nvcc()).parent / "cuobjdump"   # the build's toolkit
-    sass = subprocess.run([str(tool), "--dump-sass",
-                           str(_cuda._target(ppa._LIB_NAME))],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
-    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    hgmma = sass_count(ppa._LIB_NAME, "HGMMA")
     if not hgmma:
         raise AssertionError("no HGMMA in the chunk kernel's SASS")
     return json.dumps({"launch_at_C512_H32_Hkv8_hd128": geo,
@@ -823,10 +840,12 @@ def profile_decode(torch, eng, prompts, n_steps=3):
     return prof
 
 
-def profile_window(torch, step, n_steps, batch):
+def profile_window(torch, step, n_steps, batch,
+                   kernels=("paged_decode_kernel",)):
     """Run ``step()`` ``n_steps`` times under torch.profiler. Reports host
     wall per step, device-busy time per step (sum of kernel self time), the
-    idle share and the top kernels."""
+    idle share, the top kernels, and per step the device time of the
+    kernels whose names hold each of ``kernels`` (``<name>_ms``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -848,8 +867,8 @@ def profile_window(torch, step, n_steps, batch):
     top = sorted(dev, key=lambda kv: -kv[1])[:6]
     return dict(batch=batch, step_ms_profiled=step_ms,
                 device_busy_ms=busy,
-                paged_decode_kernel_ms=sum(
-                    t for k, t in dev if "paged_decode_kernel" in k),
+                **{f"{name}_ms": sum(t for k, t in dev if name in k)
+                   for name in kernels},
                 idle_share=1 - busy / step_ms if step_ms else None,
                 top_kernels_ms={k[:60]: round(v, 3) for k, v in top})
 
@@ -893,8 +912,12 @@ def dense_decode_case(torch, da, timer, *, B, Hkv, G, hd, lens, S, seed,
               o.numel() * 2 + 2 * l.numel() * 4)
     flops = 4 * rows * H * hd
     bound_ms, bound_by = bound(nbytes, flops)
-    kernel_ms = timer.ms(lambda: da.decode_attention(
-        q, k, v, cache_len, return_partials=True, **kw))
+    def kernel():
+        return da.decode_attention(q, k, v, cache_len, return_partials=True,
+                                   **kw)
+    kernel_ms = timer.ms(kernel)
+    timing = dict(ms_held=timer.ms(kernel, hold=True),
+                  host_us=timer.host_us(kernel))
     plain_ms = timer.ms(lambda: da.decode_attention_plain(
         q, k, v, cache_len, return_partials=True, **kw), iters=5)
     library_ms = None
@@ -908,12 +931,16 @@ def dense_decode_case(torch, da, timer, *, B, Hkv, G, hd, lens, S, seed,
             G, dim=1)
         qd = q.reshape(B, H, 1, hd)
         mask = valid[:, None, None, :]
-        library_ms = timer.ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qd, kd, vd, attn_mask=mask))
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask)
+        library_ms = timer.ms(library)
+        timing.update(library_ms_held=timer.ms(library, hold=True),
+                      library_host_us=timer.host_us(library))
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                rows=rows)
+                rows=rows, **timing)
 
 
 def check_scan(name, got, want):
@@ -922,9 +949,21 @@ def check_scan(name, got, want):
                        atol=SCAN_RTOL * max(1.0, scale))
 
 
-def ssm_case(torch, ssm, timer, *, B, S, H, P, N, seed):
-    """The Mamba2 scan kernel vs its twin at a prefill shape; inputs shaped
-    like the model's (dt-scaled x, decay = exp(-dt))."""
+def edge_decays(torch, gen, a):
+    """Exact 0 (5 %) and exact 1.0 (25 %) decays sprinkled into ``a``, and a
+    run of 1.0 over the whole second 16-step tile of the chunked kernels."""
+    pick = torch.rand(a.shape, generator=gen, device=DEV)
+    a = torch.where(pick < 0.05, 0.0, torch.where(pick > 0.75, 1.0, a))
+    a[:, 16:32] = 1.0
+    return a.contiguous()
+
+
+def ssm_case(torch, ssm, timer, *, B, S, H, P, N, seed, edges=False,
+             timed=True):
+    """The Mamba2 scan kernel vs its step twin at a prefill shape; inputs
+    shaped like the model's (dt-scaled x, decay = exp(-dt)); ``edges`` puts
+    exact 0 and 1.0 among the decays. ``timed``: also its times, held and
+    unheld, the host time of a call, and its bounds."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     dt = torch.nn.functional.softplus(
         torch.randn((B, S, H), generator=gen, device=DEV) - 1.0)
@@ -932,45 +971,95 @@ def ssm_case(torch, ssm, timer, *, B, S, H, P, N, seed):
     Bi = torch.randn((B, S, N), generator=gen, device=DEV)
     Ci = torch.randn((B, S, N), generator=gen, device=DEV)
     decay = torch.exp(-dt)
+    if edges:
+        decay = edge_decays(torch, gen, decay)
     y = ssm.ssm_scan(x, Bi, Ci, decay)
     sync(torch)
     want = ssm.ssm_scan_plain(x, Bi, Ci, decay)
-    err = check_scan("ssm_scan y", y, want)
+    out = dict(max_abs_err=check_scan("ssm_scan y", y, want),
+               y_scale=float(want.abs().max()))
+    if not timed:
+        return out
     nbytes = 4 * (x.numel() + Bi.numel() + Ci.numel() + decay.numel() +
                   y.numel())
-    flops = 5 * B * S * H * P * N      # h·a, x·B, +, and the FMA with C
-    bound_ms, bound_by = bound(nbytes, flops, FP32_FLOP_PER_S)
-    return dict(max_abs_err=err, y_scale=float(want.abs().max()),
-                ms=timer.ms(lambda: ssm.ssm_scan(x, Bi, Ci, decay), iters=9),
-                plain_ms=timer.ms(lambda: ssm.ssm_scan_plain(x, Bi, Ci, decay),
-                                  iters=3, warmup=1),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                bytes=nbytes, flops=flops)
+    # the chunked form's products, one bf16 pass: h·Cᵀ and X̃ᵀB (2·P·N each
+    # a step and head), the diagonal block (16·P) and C·Bᵀ (16·N, per step)
+    flops = B * S * (H * (4 * P * N + 32 * P) + 32 * N)
+    bound_ms, bound_by = bound(nbytes, flops)
+
+    def kernel():
+        return ssm.ssm_scan(x, Bi, Ci, decay)
+    out.update(
+        ms=timer.ms(kernel, iters=9), ms_held=timer.ms(kernel, iters=9,
+                                                       hold=True),
+        host_us=timer.host_us(kernel),
+        plain_ms=timer.ms(lambda: ssm.ssm_scan_plain(x, Bi, Ci, decay),
+                          iters=3, warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, bytes=nbytes,
+        flops=flops,
+        # the sequential form's bound, kept for comparison: its fp32 FMAs on
+        # the CUDA cores (h·a, x·B, +, and the FMA with C)
+        seq_fp32_ops_ms=5 * B * S * H * P * N / FP32_FLOP_PER_S * 1e3)
+    return out
 
 
-def rwkv_case(torch, rwkv, timer, *, B, S, H, P, seed):
-    """The RWKV6 scan kernel vs its twin at a prefill shape, bf16 inputs
-    (the model dtype) shaped like the model's (w = exp(-exp(wlog)))."""
+def rwkv_case(torch, rwkv, timer, *, B, S, H, P, seed, decays="randn",
+              timed=True):
+    """The RWKV6 scan kernel vs its step twin at a prefill shape, bf16
+    inputs (the model dtype). ``decays``: "randn", w = exp(-exp(N(0,1) - 2));
+    "model", the layer's w = exp(-exp(-6 + noise)) in bf16 (mostly 0.996 or
+    exactly 1.0) with exact 0 among them. ``timed``: also its times, held
+    and unheld, the host time of a call, and its bounds."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     shape = (B, S, H, P)
     r, k, v = (torch.randn(shape, generator=gen, device=DEV).bfloat16()
                for _ in range(3))
-    w = torch.exp(-torch.exp(torch.randn(shape, generator=gen, device=DEV)
-                             - 2.0)).bfloat16()
+    noise = torch.randn(shape, generator=gen, device=DEV)
+    if decays == "model":
+        w = torch.exp(-torch.exp(-6.0 + 0.5 * noise))
+        pick = torch.rand(shape, generator=gen, device=DEV)
+        w = torch.where(pick < 0.02, 0.0, w).bfloat16()
+    else:
+        w = torch.exp(-torch.exp(noise - 2.0)).bfloat16()
     u = torch.randn((H, P), generator=gen, device=DEV) * 0.5
     y = rwkv.rwkv6_scan(r, k, v, w, u)
     sync(torch)
     want = rwkv.rwkv6_scan_plain(r, k, v, w, u)
-    err = check_scan("rwkv6_scan y", y, want)
+    out = dict(max_abs_err=check_scan("rwkv6_scan y", y, want),
+               y_scale=float(want.abs().max()))
+    if not timed:
+        return out
     nbytes = 2 * 4 * r.numel() + 4 * u.numel() + 4 * y.numel()
-    flops = B * S * H * (5 * P * P + 5 * P)   # r·S, w·S + k⊗v; the bonus
-    bound_ms, bound_by = bound(nbytes, flops, FP32_FLOP_PER_S)
-    return dict(max_abs_err=err, y_scale=float(want.abs().max()),
-                ms=timer.ms(lambda: rwkv.rwkv6_scan(r, k, v, w, u), iters=9),
-                plain_ms=timer.ms(lambda: rwkv.rwkv6_scan_plain(r, k, v, w, u),
-                                  iters=3, warmup=1),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                bytes=nbytes, flops=flops)
+    # the chunked form's tensor-core products, one bf16 pass: r̃·S and
+    # k̃ᵀv (2·P² each a step and head), G·v (16·P) and G's cross block (8·P)
+    flops = B * S * H * (4 * P * P + 40 * P)
+    bound_ms, bound_by = bound(nbytes, flops)
+
+    def kernel():
+        return rwkv.rwkv6_scan(r, k, v, w, u)
+    out.update(
+        ms=timer.ms(kernel, iters=9), ms_held=timer.ms(kernel, iters=9,
+                                                       hold=True),
+        host_us=timer.host_us(kernel),
+        plain_ms=timer.ms(lambda: rwkv.rwkv6_scan_plain(r, k, v, w, u),
+                          iters=3, warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, bytes=nbytes,
+        flops=flops,
+        # the sequential form's bound, kept for comparison: its fp32
+        # operations on the CUDA cores (r·S, w·S + k⊗v; the bonus)
+        seq_fp32_ops_ms=B * S * H * (5 * P * P + 5 * P) / FP32_FLOP_PER_S
+        * 1e3)
+    return out
+
+
+def scan_design(ssm, rwkv):
+    """The count of HMMA (mma.sync) instructions in each scan library's
+    SASS; raises if one has none (the tensor-core path is missing)."""
+    hmma = {lib: sass_count(lib, "HMMA")
+            for lib in (ssm._LIB_NAME, rwkv._LIB_NAME)}
+    if not all(hmma.values()):
+        raise AssertionError(f"no HMMA in a scan kernel's SASS: {hmma}")
+    return json.dumps({"hmma_instructions_in_sass": hmma})
 
 
 # ---------------------------------------------------------------------------
@@ -998,7 +1087,8 @@ def generate(transformer, cfg, params, tokens, n_steps, max_seq, device):
 
 def recurrent_e2e(torch, np, transformer, cfg, counters, want_launches):
     """Phase 8: one model at full width and depth: 8 prompts of 2048
-    tokens, prefill, 32 greedy decode steps, then 3 profiled steps.
+    tokens, prefill, 32 greedy decode steps, then 3 profiled steps and one
+    profiled prefill (device busy, the scan kernel's device time).
     ``want_launches(n)``: every kernel's launches for prefill + n steps."""
     B, S, n_new = 8, 2048, 32
     t0 = time.perf_counter()
@@ -1063,7 +1153,14 @@ def recurrent_e2e(torch, np, transformer, cfg, counters, want_launches):
             params, cfg, logits.argmax(-1).int(), cache, device=DEV)
         cache = transformer.apply_decode_updates(cache, upd)
 
-    result["profile"] = profile_window(torch, step, 3, B)
+    result["profile"] = profile_window(torch, step, 3, B,
+                                       kernels=("dense_decode_kernel",))
+    del logits, cache, out, upd, state
+    torch.cuda.empty_cache()
+    result["prefill_profile"] = profile_window(
+        torch, lambda: transformer.prefill(params, cfg, {"tokens": tokens},
+                                           max_seq, device=DEV),
+        1, B, kernels=("ssm_scan_kernel", "rwkv6_scan_kernel"))
     log(f"e2e {cfg.name}: {json.dumps(result)}")
     return launches, result
 
@@ -1135,15 +1232,19 @@ def main() -> int:
                          ssm._LIB_NAME, rwkv._LIB_NAME])
     log(f"kernels built in {time.perf_counter() - t0:.1f} s wall "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})")
+    per_instance = {pda._LIB_NAME: ("paged_decode_kernelI", ("hd", "G")),
+                    ssm._LIB_NAME: ("ssm_scan_kernelI", ("N", "W")),
+                    rwkv._LIB_NAME: ("rwkv6_scan_kernelI", ("P", "W"))}
     for name, text in _cuda.BUILD_LOG.items():
-        if name == pda._LIB_NAME:      # one line per instantiation
-            for row in ptxas_summary(text, "paged_decode_kernelI"):
+        if name in per_instance:       # one line per instantiation
+            for row in ptxas_summary(text, *per_instance[name]):
                 log(f"  ptxas {name}: {row}")
             continue
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     log(f"paged chunk prefill, tensor-core design: {prefill_design(ppa)}")
+    log(f"chunked scans, tensor-core design: {scan_design(ssm, rwkv)}")
     counters = Launches(pda, ppa, da, ssm, rwkv)
 
     timer = Timer(torch)
@@ -1229,10 +1330,24 @@ def main() -> int:
                                N=64, seed=33)
     log(f"ssm_scan zamba2 prefill B=8 S=2048 H=64 P=64 N=64: "
         f"{json.dumps(new['ssm_scan'])}")
+    r = ssm_case(torch, ssm, timer, B=8, S=2048, H=64, P=64, N=64, seed=35,
+                 edges=True, timed=False)
+    log(f"ssm_scan zamba2 prefill, decays with exact 0 and 1.0: "
+        f"{json.dumps(r)}")
+    r = ssm_case(torch, ssm, timer, B=8, S=2047, H=64, P=64, N=64, seed=36,
+                 timed=False)
+    log(f"ssm_scan zamba2 prefill, ragged S=2047: {json.dumps(r)}")
     new["rwkv6_scan"] = rwkv_case(torch, rwkv, timer, B=8, S=2048, H=64,
                                   P=64, seed=34)
     log(f"rwkv6_scan rwkv6 prefill B=8 S=2048 H=64 P=64 bf16: "
         f"{json.dumps(new['rwkv6_scan'])}")
+    r = rwkv_case(torch, rwkv, timer, B=8, S=2048, H=64, P=64, seed=37,
+                  decays="model", timed=False)
+    log(f"rwkv6_scan rwkv6 prefill, the model's decays with exact 0 and "
+        f"1.0: {json.dumps(r)}")
+    r = rwkv_case(torch, rwkv, timer, B=8, S=2047, H=64, P=64, seed=38,
+                  timed=False)
+    log(f"rwkv6_scan rwkv6 prefill, ragged S=2047: {json.dumps(r)}")
     del timer
     torch.cuda.empty_cache()
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")

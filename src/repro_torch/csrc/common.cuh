@@ -106,4 +106,136 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The current device's SM count, read once (132 on an H100 SXM if the
+// query fails). Host code: the scans size their CTAs with it.
+inline int sm_count() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || n <= 0)
+      n = 132;
+  }
+  return n;
+}
+
+// ---------------------------------------------------------------------------
+// Warp-level tensor-core products (mma.sync m16n8k16, bf16 in, fp32
+// accumulate) and fp32 operands carried as bf16 hi + lo. Used by the
+// chunked scans (ssm_scan.cu, rwkv6_scan.cu).
+//
+// Fragments of one warp, g = lane / 4, c = lane % 4:
+//   A (16 x 16, row-major) a[0..3]: (g, 2c..2c+1), (g+8, 2c..), (g, 2c+8..),
+//       (g+8, 2c+8..);  B (16 x 8) b0: (k = 2c..2c+1, n = g), b1: (k = 2c+8..);
+//   C (16 x 8, fp32) d[0..3]: (g, 2c), (g, 2c+1), (g+8, 2c), (g+8, 2c+1).
+// So the accumulators of two neighbouring n-tiles are, after the split, the
+// A fragment of one k-step (the state kept in registers feeds the next
+// product without shared memory).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 b16 matrices: lanes 8i..8i+7 give the row addresses of matrix i,
+// register i receives matrix i (row g, columns 2c, 2c+1; .trans: rows 2c,
+// 2c+1 of column g).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// d += a · b (m16n8k16, bf16 operands, fp32 accumulators). Registers only,
+// so not volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[j] += (ah + al) · (bh + bl)[j] for NJ neighbouring n-tiles (b0, b1 of
+// tile j at 2j, 2j+1) without the al · bl term: three passes, each operand
+// split into its bf16 rounding and the bf16 rounding of the rest, so each
+// operand is kept to 2^-17 of itself and a product to ~1e-5 of |a·b| (one
+// pass alone is 2^-8). Small terms first; pass by pass, so consecutive
+// products go to different accumulators and do not wait on each other.
+template <int NJ>
+__device__ __forceinline__ void mma_bf16x3(float (*d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2 * NJ],
+                                           const uint32_t (&bl)[2 * NJ]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) mma_bf16(d[j], al, bh[2 * j], bh[2 * j + 1]);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) mma_bf16(d[j], ah, bl[2 * j], bl[2 * j + 1]);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) mma_bf16(d[j], ah, bh[2 * j], bh[2 * j + 1]);
+}
+
+// The same with an exact A (bf16 inputs): two passes.
+template <int NJ>
+__device__ __forceinline__ void mma_bf16x2(float (*d)[4],
+                                           const uint32_t (&a)[4],
+                                           const uint32_t (&bh)[2 * NJ],
+                                           const uint32_t (&bl)[2 * NJ]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) mma_bf16(d[j], a, bl[2 * j], bl[2 * j + 1]);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) mma_bf16(d[j], a, bh[2 * j], bh[2 * j + 1]);
+}
+
+// (x0, x1) -> packed bf16x2 hi = bf16(x) and lo = bf16(x - hi); x0 in the
+// low half.
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The split of four consecutive values, stored to 8-byte aligned hi and lo
+// rows in shared memory.
+__device__ __forceinline__ void store_split4(__nv_bfloat16* hi,
+                                             __nv_bfloat16* lo, float x0,
+                                             float x1, float x2, float x3) {
+  uint2 h, l;
+  split_bf16x2(x0, x1, h.x, l.x);
+  split_bf16x2(x2, x3, h.y, l.y);
+  *reinterpret_cast<uint2*>(hi) = h;
+  *reinterpret_cast<uint2*>(lo) = l;
+}
+
+__device__ __forceinline__ void store_split2(__nv_bfloat16* hi,
+                                             __nv_bfloat16* lo, float x0,
+                                             float x1) {
+  uint32_t h, l;
+  split_bf16x2(x0, x1, h, l);
+  *reinterpret_cast<uint32_t*>(hi) = h;
+  *reinterpret_cast<uint32_t*>(lo) = l;
+}
+
+__device__ __forceinline__ void store_split1(__nv_bfloat16* hi,
+                                             __nv_bfloat16* lo, float x) {
+  const __nv_bfloat16 h = __float2bfloat16_rn(x);
+  *hi = h;
+  *lo = __float2bfloat16_rn(x - __bfloat162float(h));
+}
+
 }  // namespace repro_torch

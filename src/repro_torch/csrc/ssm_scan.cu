@@ -1,4 +1,5 @@
-// Mamba2 scalar-decay selective scan, fp32.
+// Mamba2 scalar-decay selective scan, fp32: a chunked scan whose products
+// run on the tensor cores.
 //
 // Replaces the TPU kernel repro/kernels/ssm_scan.py `_ssm_kernel` (wrapper
 // `ssm_scan`, pallas_call at :60) with the entry point `ssm_scan_f32`.
@@ -7,142 +8,346 @@
 // fp32 with
 //     h_t = decay_t · h_{t-1} + x_t ⊗ B_t ;   y_t = h_t · C_t
 // and the (P, N) state of each (batch, head) starting at zero. The TPU
-// wrapper pads S to whole VMEM chunks with decay 1.0; this kernel loops to
-// S and needs no padding.
+// wrapper pads S to whole VMEM chunks with decay 1.0; this kernel masks the
+// ragged last tile itself and reads or writes nothing past S. One launch
+// per call.
 //
-// What bounds it on an H100: every input is read once and y written once
-// (about (2·H·P + 2·N + H)·4 bytes per (batch, step)), and every step does
-// about 5·P·N fp32 operations per head on the CUDA cores (decay, outer
-// product, dot with C), so the fp32 operation rate bounds it (~3 flop per
-// byte moved against fp32's ~20 flop/byte ridge). The recurrence is
-// sequential in t: each (batch, head) is one chain of S dependent steps.
+// The chunked form (SSD). Per (batch, head) the sequence is cut into tiles
+// of L = 16 steps starting at b. With D(s, t) = Π_{s<m≤t} a_m,
+//     y_t = pre(t) · (h_{b-1} · C_t) + Σ_{b≤s≤t} (C_t·B_s) D(s, t) x_s
+//     h_{b+15} = T · h_{b-1} + Σ_s suf(s) x_s ⊗ B_s
+// with pre(t) = D(b-1, t), suf(s) = D(s, b+15) and T = pre(b+15): four
+// products per tile (C Bᵀ, (C Bᵀ ∘ D) X, h Cᵀ, X̃ᵀ B), and the sequential
+// chain is S/16 state updates instead of S steps. Every decay factor is a
+// product of factors in [0, 1] taken in fp32 (never a ratio or an exp of
+// log differences), so a decay that is exactly 0 gives 0 and 1.0 gives 1.
+//
+// What bounds it on an H100: bytes. Each input is read once and y written
+// once: (2·H·P + 2·N + H)·4 bytes per (batch, step), 549.5 MB at zamba2's
+// prefill (B=8, S=2048, H=64, P=N=64), 0.164 ms at 3.35 TB/s. The products
+// are 4·P·N + 32·P flops per step and head (h·Cᵀ, X̃ᵀB, the diagonal block)
+// plus 32·N per step for C·Bᵀ, 21.5 GFLOP there (0.022 ms at the bf16
+// tensor-core peak), which the split below runs in three bf16 passes on
+// mma.sync, at half of Hopper's wgmma rate: those passes and the per-tile
+// conversion, not the bytes, are what the kernel spends most of its time
+// on. (The sequential form needed ~5·P·N fp32 FMAs per step on the CUDA
+// cores and one dependent chain of S steps.)
 //
 // What the design does about it:
-//  * one CTA per (batch, head): the TPU's sequential chunk grid axis
-//    becomes the CTA's loop over t, and the B·H chains run in parallel
-//    (512 CTAs at zamba2's B=8, H=64, about 4 per SM).
-//  * the (P, N) state lives in registers: 4·P threads, thread (p, q) holds
-//    h[p, q + 4j] for j < N/4 and reduces y_t[p] over its 4 lanes with two
-//    warp shuffles. Nothing of the state touches memory until the end
-//    (and not then: the final state is the model layer's closed form).
-//  * x_t, B_t, C_t and decay_t are staged through shared memory in chunks
-//    of T steps with cp.async, double-buffered, so the next chunk's loads
-//    are in flight while this chunk's steps run; within a chunk every read
-//    is a conflict-free shared-memory broadcast, and one barrier serves T
-//    steps.
-//  * y_t rows are gathered in shared memory and written once per chunk
-//    with 16-byte stores.
+//  * one CTA per (batch, head, slice of 16·W state rows p): the rows of h
+//    evolve independently, so a CTA of W warps owns 16·W of them (W = 4 at
+//    P = 64: 512 CTAs of 128 threads at zamba2's B=8, H=64, one wave at four
+//    CTAs an SM); when B·H is small, narrower CTAs over more slices keep
+//    two CTAs an SM busy (pick_warps). P up to 256 in slices of 64.
+//  * each warp keeps its 16 rows of h (16 x N fp32) in mma accumulators for
+//    the whole sequence. After a bf16 hi + lo split they are the A operand
+//    of y's h·Cᵀ directly (common.cuh), so the state never touches memory.
+//  * precision: every operand is fp32, so every product runs three bf16
+//    passes (hi·hi + hi·lo + lo·hi, common.cuh `mma_bf16x3`), ~1e-5 of each
+//    product; one bf16 or TF32 pass would miss the 1e-4 gate.
+//  * x, B, C and the decays of tile i+2 are copied into shared memory with
+//    cp.async (double-buffered) while tile i is computed; each tile is
+//    converted once into hi / lo rows (x, x·suf(s), B, C) that every warp
+//    reads with ldmatrix (rows padded by 16 bytes: no bank conflict). The
+//    tile's 16 x 16 C·Bᵀ is computed once per CTA (its two column halves by
+//    two warps, while the others start on h·Cᵀ), masked with the tile's D
+//    table and shared as hi / lo rows, so no warp spends products on
+//    another's share.
+//  * the tile's decay table is one running product per row t, in
+//    registers (a chain of 16 multiplies); four barriers per tile. y is
+//    stored straight from the accumulators: each store instruction writes
+//    four whole 32-byte sectors.
 
 #include "common.cuh"
 
 namespace repro_torch {
 namespace {
 
-constexpr int T = 16;                  // steps per staged chunk
+constexpr int L = 16;     // steps per tile: one k-step of mma.m16n8k16
 
-template <int N>
-__global__ void ssm_scan_kernel(const float* __restrict__ x,
-                                const float* __restrict__ B_in,
-                                const float* __restrict__ C_in,
-                                const float* __restrict__ decay,
-                                float* __restrict__ y, int S, int H, int P) {
-  constexpr int NPT = N / 4;           // state entries per thread
-  extern __shared__ __align__(16) float smem[];
-  const int stage = T * (P + 2 * N + 4);
-  float* ys = smem + 2 * stage;        // (T, P) outputs of one chunk
+template <int N, int W>
+struct SsmSmem {
+  static constexpr int PS = 16 * W;    // state rows p of the CTA
+  // staging, double-buffered, fp32 as loaded (zero past S and past P)
+  float xs[2][L][PS];
+  float bs[2][L][N + 4];
+  float cs[2][L][N + 4];
+  float as[2][L];
+  // one tile converted to bf16 hi / lo; rows padded by 8 elements
+  __nv_bfloat16 xh[L][PS + 8], xl[L][PS + 8];    // x          [s][p]
+  __nv_bfloat16 th[L][PS + 8], tl[L][PS + 8];    // x · suf(s) [s][p]
+  __nv_bfloat16 bh[L][N + 8], bl[L][N + 8];      // B          [s][n]
+  __nv_bfloat16 ch[L][N + 8], cl[L][N + 8];      // C          [t][n]
+  __nv_bfloat16 gh[L][L + 8], gl[L][L + 8];      // (C Bᵀ ∘ D) [t][s]
+  float dmask[L][L];                             // D(s, t) at [t][s]; 0 if s > t
+  float pre[L];                                  // Π_{b≤m≤t} a_m
+};
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
+template <int N, int W>
+__global__ void __launch_bounds__(32 * W, (N <= 64 ? 16 : 8) / W)
+ssm_scan_kernel(const float* __restrict__ x, const float* __restrict__ B_in,
+                const float* __restrict__ C_in,
+                const float* __restrict__ decay, float* __restrict__ y,
+                int S, int H, int P, int nslices) {
+  using Sm = SsmSmem<N, W>;
+  constexpr int PS = Sm::PS, NT = 32 * W;
+  constexpr int XV = PS / 4, NV = N / 4;         // 16-byte vectors per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>(smem_raw);
+
+  const int slice = blockIdx.x % nslices;
+  const int bh = blockIdx.x / nslices;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int p0 = slice * PS;                     // first state row of the CTA
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;     // 4·P
-  const int p = tid >> 2;
-  const int q = tid & 3;
-  const size_t row0 = static_cast<size_t>(b) * S;   // (b, t = 0)
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;  // fragment row, column pair
+  const int mi = lane >> 3, r8 = lane & 7;       // ldmatrix matrix, row
+  const int pw = 16 * warp;                      // warp's rows in the slice
+  const size_t row0 = static_cast<size_t>(b) * S;
+  const int ntiles = (S + L - 1) / L;
 
-  auto load_chunk = [&](int c, float* buf) {
-    const int t0 = c * T;
-    const int nt = min(T, S - t0);
-    float* xs = buf;
-    float* bs = xs + T * P;
-    float* cs = bs + T * N;
-    float* as = cs + T * N;
-    const int xv = P / 4, nv = N / 4;
-    for (int i = tid; i < nt * xv; i += nthreads) {
-      const int r = i / xv, c4 = (i % xv) * 4;
-      cp_async16(xs + r * P + c4,
-                 x + ((row0 + t0 + r) * H + h) * P + c4);
+  // a thread's copies are the same in every tile: a 64-bit base per tile,
+  // then 32-bit offsets the compiler keeps out of the tile loop
+  const int HP = H * P;
+  auto load = [&](int c, int buf) {
+    const int t0 = c * L;
+    const int nt = min(L, S - t0);
+    const float* xt = x + ((row0 + t0) * H + h) * P + p0;
+    const float* bt = B_in + (row0 + t0) * N;
+    const float* ct = C_in + (row0 + t0) * N;
+#pragma unroll
+    for (int it = 0; it < (L * XV + NT - 1) / NT; ++it) {
+      const int i = tid + it * NT;
+      if (L * XV % NT == 0 || i < L * XV) {
+        const int r = i / XV, c4 = (i % XV) * 4;
+        const bool ok = r < nt && p0 + c4 < P;
+        cp_async16_zfill(&sm.xs[buf][r][c4], ok ? xt + r * HP + c4 : x, ok);
+      }
     }
-    for (int i = tid; i < nt * nv; i += nthreads) {
-      const int r = i / nv, c4 = (i % nv) * 4;
-      cp_async16(bs + r * N + c4, B_in + (row0 + t0 + r) * N + c4);
-      cp_async16(cs + r * N + c4, C_in + (row0 + t0 + r) * N + c4);
+#pragma unroll
+    for (int it = 0; it < (L * NV + NT - 1) / NT; ++it) {
+      const int i = tid + it * NT;
+      if (L * NV % NT == 0 || i < L * NV) {
+        const int r = i / NV, c4 = (i % NV) * 4;
+        const bool ok = r < nt;
+        cp_async16_zfill(&sm.bs[buf][r][c4], ok ? bt + r * N + c4 : B_in, ok);
+        cp_async16_zfill(&sm.cs[buf][r][c4], ok ? ct + r * N + c4 : C_in, ok);
+      }
     }
-    for (int i = tid; i < nt; i += nthreads)
-      cp_async4(as + i, decay + (row0 + t0 + i) * H + h);
+    if (tid < L)
+      cp_async4_zfill(&sm.as[buf][tid],
+                      tid < nt ? decay + (row0 + t0 + tid) * H + h : decay,
+                      tid < nt);
   };
 
-  float hs[NPT];
+  // the tile's decays: D(s, t) = Π_{s<m≤t} a_m at dmask[t][s] and
+  // pre(t) = Π_{b≤m≤t} a_m, one row t a thread, a running product down s
+  auto decays = [&](int c, int buf) {
+    const int nt = min(L, S - c * L);
+    const int t = tid;
+    if (t < L) {
+      float a[L];
 #pragma unroll
-  for (int j = 0; j < NPT; ++j) hs[j] = 0.f;
-
-  const int nchunks = (S + T - 1) / T;
-  load_chunk(0, smem);
-  cp_async_commit();
-  for (int c = 0; c < nchunks; ++c) {
-    if (c + 1 < nchunks) {
-      load_chunk(c + 1, smem + ((c + 1) & 1) * stage);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const float* xs = smem + (c & 1) * stage;
-    const float* bs = xs + T * P;
-    const float* cs = bs + T * N;
-    const float* as = cs + T * N;
-    const int nt = min(T, S - c * T);
-    for (int i = 0; i < nt; ++i) {
-      const float a = as[i];
-      const float xp = xs[i * P + p];
-      float yp = 0.f;
+      for (int m = 0; m < L; ++m) a[m] = m < nt ? sm.as[buf][m] : 1.f;
+      float d = 1.f;
 #pragma unroll
-      for (int j = 0; j < NPT; ++j) {
-        const int n = q + 4 * j;
-        hs[j] = fmaf(hs[j], a, xp * bs[i * N + n]);
-        yp = fmaf(hs[j], cs[i * N + n], yp);
+      for (int s = L - 1; s >= 0; --s) {
+        sm.dmask[t][s] = s <= t ? d : 0.f;
+        if (s <= t) d *= a[s];
       }
-      yp += __shfl_xor_sync(0xffffffffu, yp, 1);
-      yp += __shfl_xor_sync(0xffffffffu, yp, 2);
-      if (q == 0) ys[i * P + p] = yp;
+      sm.pre[t] = d;
     }
-    __syncthreads();
+  };
+  // staging -> hi / lo rows: x, x·suf(s) with suf(s) = D(s, b+15), B, C
+  auto convert = [&](int buf) {
+#pragma unroll
+    for (int it = 0; it < (L * XV + NT - 1) / NT; ++it) {
+      const int i = tid + it * NT;
+      if (L * XV % NT == 0 || i < L * XV) {
+        const int s = i / XV, c4 = (i % XV) * 4;
+        const float suf = sm.dmask[L - 1][s];
+        const float4 v = *reinterpret_cast<const float4*>(&sm.xs[buf][s][c4]);
+        store_split4(&sm.xh[s][c4], &sm.xl[s][c4], v.x, v.y, v.z, v.w);
+        store_split4(&sm.th[s][c4], &sm.tl[s][c4], v.x * suf, v.y * suf,
+                     v.z * suf, v.w * suf);
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < (L * NV + NT - 1) / NT; ++it) {
+      const int i = tid + it * NT;
+      if (L * NV % NT == 0 || i < L * NV) {
+        const int r = i / NV, c4 = (i % NV) * 4;
+        const float4 vb = *reinterpret_cast<const float4*>(&sm.bs[buf][r][c4]);
+        const float4 vc = *reinterpret_cast<const float4*>(&sm.cs[buf][r][c4]);
+        store_split4(&sm.bh[r][c4], &sm.bl[r][c4], vb.x, vb.y, vb.z, vb.w);
+        store_split4(&sm.ch[r][c4], &sm.cl[r][c4], vc.x, vc.y, vc.z, vc.w);
+      }
+    }
+  };
 
-    const int t0 = c * T;
-    const int xv = P / 4;
-    for (int i = tid; i < nt * xv; i += nthreads) {
-      const int r = i / xv, c4 = (i % xv) * 4;
-      *reinterpret_cast<float4*>(y + ((row0 + t0 + r) * H + h) * P + c4) =
-          *reinterpret_cast<const float4*>(ys + r * P + c4);
+  // the warp's 16 rows of h: rows pw + g (+8), columns 8j + c2 (+1)
+  float hs[N / 8][4];
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hs[j][e] = 0.f;
+
+  load(0, 0);
+  cp_async_commit();
+  if (ntiles > 1) load(1, 1);
+  cp_async_commit();
+  for (int c = 0; c < ntiles; ++c) {
+    const int buf = c & 1;
+    cp_async_wait<1>();
+    __syncthreads();                 // tile c staged; tile c-1 fully read
+    decays(c, buf);
+    __syncthreads();
+    convert(buf);
+    __syncthreads();                 // tile c converted; staging[buf] free
+    if (c + 2 < ntiles) load(c + 2, buf);
+    cp_async_commit();
+
+    // G = (C Bᵀ) ∘ D (M = t, N = s, K = n) once per CTA, the s half jh by
+    // warp jh (both by warp 0 when W = 1), into shared memory as the hi / lo
+    // B operand of the diagonal product; the other warps start on h·Cᵀ
+    for (int jh = warp; jh < 2; jh += W) {
+      float ga[2][4] = {};             // even and odd k-steps apart
+#pragma unroll
+      for (int kk = 0; kk < N / 16; kk += 2) {
+        uint32_t bh4[4], bl4[4];
+        const int br = 8 * jh + r8, bc = 16 * (kk + (mi >> 1)) + (mi & 1) * 8;
+        ldsm_x4(bh4, &sm.bh[br][bc]);  // k-steps kk, kk + 1 (past N at
+        ldsm_x4(bl4, &sm.bl[br][bc]);  // N = 16: read, never used)
+#pragma unroll
+        for (int k2 = 0; k2 < 2; ++k2) {
+          if (kk + k2 >= N / 16) break;
+          uint32_t ah[4], al[4];
+          const int ar = (mi & 1) * 8 + r8;
+          const int ac = 16 * (kk + k2) + (mi >> 1) * 8;
+          ldsm_x4(ah, &sm.ch[ar][ac]);
+          ldsm_x4(al, &sm.cl[ar][ac]);
+          const uint32_t bh2[2] = {bh4[2 * k2], bh4[2 * k2 + 1]};
+          const uint32_t bl2[2] = {bl4[2 * k2], bl4[2 * k2 + 1]};
+          mma_bf16x3<1>(&ga[k2], ah, al, bh2, bl2);
+        }
+      }
+      const int s = 8 * jh + c2;
+      store_split2(&sm.gh[g][s], &sm.gl[g][s],
+                   (ga[0][0] + ga[1][0]) * sm.dmask[g][s],
+                   (ga[0][1] + ga[1][1]) * sm.dmask[g][s + 1]);
+      store_split2(&sm.gh[g + 8][s], &sm.gl[g + 8][s],
+                   (ga[0][2] + ga[1][2]) * sm.dmask[g + 8][s],
+                   (ga[0][3] + ga[1][3]) * sm.dmask[g + 8][s + 1]);
+    }
+
+    // yᵀ[p, t]: h·Cᵀ (M = p, K = n, N = t), scaled by pre(t) ...
+    float yk[2][2][4] = {};          // even and odd k-steps apart
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      uint32_t ah[4], al[4], bh4[4], bl4[4];
+      split_bf16x2(hs[2 * kk][0], hs[2 * kk][1], ah[0], al[0]);
+      split_bf16x2(hs[2 * kk][2], hs[2 * kk][3], ah[1], al[1]);
+      split_bf16x2(hs[2 * kk + 1][0], hs[2 * kk + 1][1], ah[2], al[2]);
+      split_bf16x2(hs[2 * kk + 1][2], hs[2 * kk + 1][3], ah[3], al[3]);
+      const int br = (mi >> 1) * 8 + r8, bc = 16 * kk + (mi & 1) * 8;
+      ldsm_x4(bh4, &sm.ch[br][bc]);
+      ldsm_x4(bl4, &sm.cl[br][bc]);
+      mma_bf16x3<2>(yk[kk & 1], ah, al, bh4, bl4);
+    }
+    float ya[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float q0 = sm.pre[8 * j + c2], q1 = sm.pre[8 * j + c2 + 1];
+      ya[j][0] = (yk[0][j][0] + yk[1][j][0]) * q0;
+      ya[j][1] = (yk[0][j][1] + yk[1][j][1]) * q1;
+      ya[j][2] = (yk[0][j][2] + yk[1][j][2]) * q0;
+      ya[j][3] = (yk[0][j][3] + yk[1][j][3]) * q1;
+    }
+    __syncthreads();                 // G in shared memory
+    // ... plus the diagonal block Xᵀ (C Bᵀ ∘ D)ᵀ (M = p, K = s, N = t)
+    {
+      uint32_t xah[4], xal[4], gbh[4], gbl[4];
+      const int ar = (mi >> 1) * 8 + r8, ac = pw + (mi & 1) * 8;
+      ldsm_x4_trans(xah, &sm.xh[ar][ac]);
+      ldsm_x4_trans(xal, &sm.xl[ar][ac]);
+      const int br = (mi >> 1) * 8 + r8, bc = (mi & 1) * 8;
+      ldsm_x4(gbh, &sm.gh[br][bc]);
+      ldsm_x4(gbl, &sm.gl[br][bc]);
+      mma_bf16x3<2>(ya, xah, xal, gbh, gbl);
+    }
+    const int t0 = c * L;
+    const int nt = min(L, S - t0);
+    float* yt = y + ((row0 + t0) * H + h) * P + p0 + pw + g;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = 8 * j + c2 + (e & 1);
+        if (t < nt && p0 + pw + g + 8 * (e >> 1) < P)
+          yt[t * HP + 8 * (e >> 1)] = ya[j][e];
+      }
+
+    // h <- T h + X̃ᵀ B (M = p, K = s, N = n)
+    const float T = sm.pre[L - 1];
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hs[j][e] *= T;
+    uint32_t tah[4], tal[4];
+    {
+      const int ar = (mi >> 1) * 8 + r8, ac = pw + (mi & 1) * 8;
+      ldsm_x4_trans(tah, &sm.th[ar][ac]);
+      ldsm_x4_trans(tal, &sm.tl[ar][ac]);
+    }
+#pragma unroll
+    for (int nn = 0; nn < N / 16; ++nn) {
+      uint32_t bh4[4], bl4[4];
+      const int br = (mi & 1) * 8 + r8, bc = 16 * nn + (mi >> 1) * 8;
+      ldsm_x4_trans(bh4, &sm.bh[br][bc]);
+      ldsm_x4_trans(bl4, &sm.bl[br][bc]);
+      mma_bf16x3<2>(&hs[2 * nn], tah, tal, bh4, bl4);
     }
   }
 }
 
-template <int N>
+// Warps per CTA (16 state rows each): enough for P (1, 2 or 4), then
+// narrower while B·H·slices would leave fewer than two CTAs an SM.
+int pick_warps(int BH, int P) {
+  int w = P <= 16 ? 1 : P <= 32 ? 2 : 4;
+  const long want = 2L * sm_count();
+  while (w > 1 && static_cast<long>(BH) * ((P + 16 * w - 1) / (16 * w)) < want)
+    w /= 2;
+  return w;
+}
+
+template <int N, int W>
 cudaError_t launch(const float* x, const float* B_in, const float* C_in,
                    const float* decay, float* y, int B, int S, int H, int P,
                    cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * T * (P + 2 * N + 4) + T * P);
+  const size_t smem = sizeof(SsmSmem<N, W>);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ssm_scan_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ssm_scan_kernel<N, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  ssm_scan_kernel<N><<<B * H, 4 * P, smem, stream>>>(x, B_in, C_in, decay,
-                                                     y, S, H, P);
+  const int nslices = (P + 16 * W - 1) / (16 * W);
+  ssm_scan_kernel<N, W><<<B * H * nslices, 32 * W, smem, stream>>>(
+      x, B_in, C_in, decay, y, S, H, P, nslices);
   return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t launch_n(const float* x, const float* B_in, const float* C_in,
+                     const float* decay, float* y, int B, int S, int H, int P,
+                     cudaStream_t stream) {
+  switch (pick_warps(B * H, P)) {
+    case 1: return launch<N, 1>(x, B_in, C_in, decay, y, B, S, H, P, stream);
+    case 2: return launch<N, 2>(x, B_in, C_in, decay, y, B, S, H, P, stream);
+    default: return launch<N, 4>(x, B_in, C_in, decay, y, B, S, H, P, stream);
+  }
 }
 
 }  // namespace
@@ -166,10 +371,10 @@ extern "C" int ssm_scan_f32(const void* x, const void* B_in, const void* C_in,
   auto* yf = static_cast<float*>(y);
   auto st = static_cast<cudaStream_t>(stream);
   switch (N) {
-    case 16: return static_cast<int>(launch<16>(xf, bf, cf, af, yf, B, S, H, P, st));
-    case 32: return static_cast<int>(launch<32>(xf, bf, cf, af, yf, B, S, H, P, st));
-    case 64: return static_cast<int>(launch<64>(xf, bf, cf, af, yf, B, S, H, P, st));
-    case 128: return static_cast<int>(launch<128>(xf, bf, cf, af, yf, B, S, H, P, st));
+    case 16: return static_cast<int>(launch_n<16>(xf, bf, cf, af, yf, B, S, H, P, st));
+    case 32: return static_cast<int>(launch_n<32>(xf, bf, cf, af, yf, B, S, H, P, st));
+    case 64: return static_cast<int>(launch_n<64>(xf, bf, cf, af, yf, B, S, H, P, st));
+    case 128: return static_cast<int>(launch_n<128>(xf, bf, cf, af, yf, B, S, H, P, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

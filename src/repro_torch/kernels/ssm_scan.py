@@ -1,15 +1,20 @@
-"""Mamba2 scalar-decay selective scan: CUDA kernel wrapper + plain twin.
+"""Mamba2 scalar-decay selective scan: CUDA kernel wrapper + plain twins.
 
 Port of ``repro/kernels/ssm_scan.py``. The TPU kernel ``_ssm_kernel`` is
-replaced by the hand-written Hopper kernel in ``csrc/ssm_scan.cu``;
-:func:`ssm_scan_plain` is its plain PyTorch twin (a step loop with the
-kernel's arithmetic):
+replaced by the hand-written Hopper kernel in ``csrc/ssm_scan.cu``, which
+computes
 
     h_t = decay_t ⊙ h_{t-1} + x_t ⊗ B_t ;   y_t = h_t · C_t
 
-with the (H, P, N) fp32 state starting at zero. The TPU wrapper pads the
-sequence with decay 1.0 to whole VMEM chunks; the CUDA kernel loops to S and
-needs no padding.
+with the (H, P, N) fp32 state starting at zero, in chunked (SSD) form: tiles
+of ``CHUNK`` steps whose products run on the tensor cores, the state
+advancing once per tile. :func:`ssm_scan_plain` is its plain twin, the step
+loop (the CPU path and the reference the kernel is held to);
+:func:`ssm_scan_chunked_plain` is a plain PyTorch model of the kernel's
+chunked algorithm (same tiles, same decay products), which the CPU tests
+hold against the step loop. The TPU wrapper pads the sequence with decay 1.0
+to whole VMEM chunks; the CUDA kernel masks its ragged last tile and needs
+no padding.
 
 :func:`ssm_scan` dispatches on the device of ``x``: a CPU tensor runs the
 plain twin, a CUDA tensor launches the kernel or raises. The wrapper counts
@@ -25,6 +30,7 @@ from repro_torch.kernels import _cuda
 
 _LIB_NAME = "ssm_scan"
 STATE_SIZES = (16, 32, 64, 128)        # N the kernel is instantiated for
+CHUNK = 16                             # the kernel's tile: steps per state update
 
 
 def ssm_scan_plain(x, B_in, C_in, decay) -> torch.Tensor:
@@ -40,6 +46,50 @@ def ssm_scan_plain(x, B_in, C_in, decay) -> torch.Tensor:
             xf[:, t, :, :, None] * bf[:, t, None, None, :]
         y[:, t] = (h @ cf[:, t, None, :, None])[..., 0]
     return y
+
+
+def segment_products(a: torch.Tensor) -> torch.Tensor:
+    """a: (B, n, ...) -> D (B, n, n, ...) with D[:, t, s] = Π_{s<m≤t} a_m
+    for s ≤ t (1 on the diagonal) and 0 above it. A running product of
+    factors in [0, 1] down each column, never a ratio or an exp of log
+    differences: a decay of exactly 0 gives 0, not NaN."""
+    n = a.shape[1]
+    lower = torch.ones((n, n), dtype=torch.bool, device=a.device).tril(-1)
+    lower = lower.view((1, n, n) + (1,) * (a.dim() - 2))
+    factors = torch.where(lower, a[:, :, None], torch.ones_like(a[:, :, None]))
+    return torch.cumprod(factors, dim=1) * lower.logical_or(
+        torch.eye(n, dtype=torch.bool, device=a.device).view(lower.shape))
+
+
+def ssm_scan_chunked_plain(x, B_in, C_in, decay, chunk: int = CHUNK,
+                           return_state: bool = False):
+    """The kernel's chunked algorithm in plain PyTorch (fp32): per tile of
+    ``chunk`` steps starting at b, with D(s, t) = Π_{s<m≤t} decay_m,
+
+        y_t = D(b-1, t) (h_{b-1} · C_t) + Σ_{b≤s≤t} (C_t·B_s) D(s, t) x_s
+        h_end = D(b-1, end) h_{b-1} + Σ_s D(s, end) x_s ⊗ B_s
+
+    Same shapes as :func:`ssm_scan_plain`; with ``return_state`` also the
+    state after the last step, (B, H, P, N)."""
+    Bb, S, H, P = x.shape
+    N = B_in.shape[-1]
+    xf, bf, cf, af = (a.float() for a in (x, B_in, C_in, decay))
+    h = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    y = torch.empty((Bb, S, H, P), dtype=torch.float32, device=x.device)
+    for b0 in range(0, S, chunk):
+        xc, bc, cc = xf[:, b0:b0 + chunk], bf[:, b0:b0 + chunk], \
+            cf[:, b0:b0 + chunk]
+        ac = af[:, b0:b0 + chunk]                                # (B, n, H)
+        D = segment_products(ac)                                 # (B, n, n, H)
+        pre = torch.cumprod(ac, dim=1)                           # D(b-1, t)
+        suf = D[:, -1]                                           # D(s, end)
+        G = torch.einsum("btn,bsn->bts", cc, bc)[..., None] * D
+        y[:, b0:b0 + chunk] = (
+            torch.einsum("bhpn,btn->bthp", h, cc) * pre[..., None] +
+            torch.einsum("btsh,bshp->bthp", G, xc))
+        h = h * pre[:, -1, :, None, None] + torch.einsum(
+            "bshp,bsn->bhpn", xc * suf[..., None], bc)
+    return (y, h) if return_state else y
 
 
 def ssm_scan(x, B_in, C_in, decay) -> torch.Tensor:

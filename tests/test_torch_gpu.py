@@ -11,8 +11,9 @@ JAX nor the JAX package, so it also runs on a GPU host without JAX:
 Tolerances: bf16 outputs within 2 ulp relative (8e-3) plus a 1e-3 floor —
 the kernel and its twin both accumulate in fp32 and differ by summation
 order and exp approximation before the final bf16 rounding; l and m are
-fp32 (1e-3). The scans run fp32 math on both sides (the same operations in
-another order): 1e-4 relative plus 1e-4 of the output's largest entry.
+fp32 (1e-3). The scan kernels take their chunked products in three bf16
+passes (hi + lo, ~1e-5 of each product) against the fp32 step twins:
+1e-4 relative plus 1e-4 of the output's largest entry.
 """
 import numpy as np
 import pytest
@@ -374,36 +375,79 @@ def _scan_close(got, want):
                                atol=1e-4 * max(1.0, scale))
 
 
+def _edge_decays(g, a):
+    """Exact 0 (5 %) and exact 1.0 (25 %) decays sprinkled into ``a``, and a
+    run of 1.0 over the whole second 16-step tile of the chunked kernels."""
+    pick = torch.rand(a.shape, generator=g, device=a.device)
+    a = torch.where(pick < 0.05, 0.0, torch.where(pick > 0.75, 1.0, a))
+    a[:, 16:32] = 1.0
+    return a.contiguous()
+
+
+# (B, S, H, P, N, edge decays): S across the kernel's 16-step tiles (1,
+# 63, 64, 65, 2047), P from 8 to 256 (slices of the state rows), N 16 to 128;
+# B·H below the SM count (narrower CTAs), at 192 (two warps a CTA) and at
+# 320 (four warps a CTA)
+SSM_CASES = [(2, 300, 3, 64, 64, False), (1, 37, 2, 32, 16, False),
+             (2, 16, 4, 64, 128, False), (1, 1, 2, 8, 16, False),
+             (2, 63, 3, 8, 16, True), (1, 64, 2, 256, 128, True),
+             (2, 65, 2, 40, 32, True), (1, 2047, 3, 64, 64, True),
+             (5, 40, 64, 64, 128, True), (5, 33, 64, 64, 64, False),
+             (3, 40, 64, 64, 64, True)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,H,P,N", [(2, 300, 3, 64, 64),
-                                       (1, 37, 2, 32, 16),
-                                       (2, 16, 4, 64, 128)])
-def test_cuda_ssm_scan_matches_plain(cuda, B, S, H, P, N):
+@pytest.mark.parametrize("B,S,H,P,N,edges", SSM_CASES)
+def test_cuda_ssm_scan_matches_plain(cuda, B, S, H, P, N, edges):
     g = torch.Generator(device=cuda).manual_seed(S)
     dt = torch.nn.functional.softplus(
         torch.randn((B, S, H), generator=g, device=cuda) - 1.0)
     x = torch.randn((B, S, H, P), generator=g, device=cuda) * dt[..., None]
     Bi = torch.randn((B, S, N), generator=g, device=cuda)
     Ci = torch.randn((B, S, N), generator=g, device=cuda)
+    a = torch.exp(-dt)
+    if edges:
+        a = _edge_decays(g, a)
     n = ssm.ssm_scan.launches
-    got = ssm.ssm_scan(x, Bi, Ci, torch.exp(-dt))
+    got = ssm.ssm_scan(x, Bi, Ci, a)
     assert ssm.ssm_scan.launches == n + 1
-    _scan_close(got, ssm.ssm_scan_plain(x, Bi, Ci, torch.exp(-dt)))
+    _scan_close(got, ssm.ssm_scan_plain(x, Bi, Ci, a))
     with pytest.raises(TypeError):                        # bf16 x
-        ssm.ssm_scan(x.bfloat16(), Bi, Ci, torch.exp(-dt))
+        ssm.ssm_scan(x.bfloat16(), Bi, Ci, a)
+
+
+# (B, S, H, P, dtype, decays): "randn" exp(-exp(N(0,1) - 2)); "model" the
+# RWKV6 layer's exp(-exp(-6 + noise)) in the input dtype (mostly 0.996 or
+# 1.0); "edges" exact 0 and 1.0 and a tile of 1.0
+RWKV_CASES = [(2, 300, 3, 64, torch.bfloat16, "randn"),
+              (1, 37, 2, 32, torch.float32, "randn"),
+              (2, 16, 4, 64, torch.float32, "randn"),
+              (1, 1, 2, 32, torch.bfloat16, "randn"),
+              (2, 63, 2, 64, torch.bfloat16, "edges"),
+              (1, 64, 3, 32, torch.float32, "edges"),
+              (2, 65, 2, 64, torch.float32, "model"),
+              (1, 2047, 2, 64, torch.bfloat16, "model"),
+              (1, 2047, 2, 64, torch.float32, "edges"),
+              (5, 40, 64, 64, torch.bfloat16, "edges"),
+              (5, 33, 64, 32, torch.float32, "model"),
+              (3, 40, 64, 64, torch.float32, "edges")]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,H,P,dtype", [(2, 300, 3, 64, torch.bfloat16),
-                                           (1, 37, 2, 32, torch.float32),
-                                           (2, 16, 4, 64, torch.float32)])
-def test_cuda_rwkv6_scan_matches_plain(cuda, B, S, H, P, dtype):
+@pytest.mark.parametrize("B,S,H,P,dtype,decays", RWKV_CASES)
+def test_cuda_rwkv6_scan_matches_plain(cuda, B, S, H, P, dtype, decays):
     g = torch.Generator(device=cuda).manual_seed(S + P)
     shape = (B, S, H, P)
     r, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
                for _ in range(3))
-    w = torch.exp(-torch.exp(torch.randn(shape, generator=g, device=cuda)
-                             - 2.0)).to(dtype)
+    noise = torch.randn(shape, generator=g, device=cuda)
+    if decays == "model":
+        w = torch.exp(-torch.exp(-6.0 + 0.5 * noise))
+    else:
+        w = torch.exp(-torch.exp(noise - 2.0))
+        if decays == "edges":
+            w = _edge_decays(g, w)
+    w = w.to(dtype)
     u = torch.randn((H, P), generator=g, device=cuda) * 0.5
     n = rw.rwkv6_scan.launches
     got = rw.rwkv6_scan(r, k, v, w, u)
