@@ -24,18 +24,27 @@ Phases (any failure exits non-zero and prints no result line):
      its SASS are logged with the build;
   4. end to end, homogeneous bf16: llama3-8b at full width and depth
      (random bf16 weights from seed 0) serving 8 requests through
-     LLMEngine with chunked prefill; checks kernel launch counts,
-     finishes, and the chunked vs one-shot logit cosine; profiles one
-     512-token prefill chunk and decode steps;
+     LLMEngine with chunked prefill, the decode step replayed from CUDA
+     graphs; checks kernel launch counts, finishes, and the chunked vs
+     one-shot logit cosine; reports the graphs captured and their capture
+     seconds; profiles one 512-token prefill chunk and decode steps
+     (replays); at the B=8 state holds a compiled step against the eager
+     step (``compiled_gates``: bit for bit at the same padded operands,
+     two replays in a row, a bucket switch, a pool write between
+     replays); serves two requests sharing a 512-token prefix by one-shot
+     prefill with and without prefix sharing (equal tokens, the sharing
+     counters, the suffix prefill's wall);
   5. end to end, Lamina: the same requests through the attention-pool
      placement (head partition, 2 workers) over an int8 pool; checks the
      int8 kernels' launch counts (and no bf16 launch), the pool's resident
      bytes against phase 4's, and the TransferLog against the §3.1
-     formulas; profiles decode steps;
+     formulas; profiles decode steps and holds the compiled step as in 4;
   6. every partition (head, request, block) and homogeneous placement over
      an int8 and a bf16 pool on 2 requests: next-step logits at one shared
-     state (cosine), per-partition launch counts, token agreement, and
-     decode peak memory (the block partition copies no pool slice);
+     state (cosine), a compiled step of each against its eager step there
+     (bit for bit), per-partition launch counts through replays, token
+     agreement, and decode peak memory (the block partition copies no
+     pool slice);
   7. (run right after phase 3, with the other kernel phases) the
      dense-cache decode kernel vs its plain twin (o, and the (o, l, m)
      triple) at zamba2's, llama3-8b's and a gemma2-shaped (window, sinks,
@@ -527,22 +536,163 @@ def expect_launches(launches, want, what):
     log(f"{what}: launches {launches} as expected")
 
 
-def serving_summary(st, reqs, wall, peak):
+def serving_summary(st, reqs, wall, peak, compiled=None):
     n_out = sum(len(r.output) for r in reqs)
-    return dict(tok_s=n_out / wall, wall_s=wall,
-                ttft_p50_s=st.ttft_percentiles()["p50"],
-                tbt_p50_s=st.tbt_percentiles()["p50"],
-                peak_gib=peak / 2**30, decode_steps=st.steps,
-                decode_step_ms_mean=sum(st.step_times) / len(st.step_times)
-                * 1e3, chunks=st.prefill_chunks_run,
-                kv_pool_bytes_resident=st.kv_pool_bytes_resident,
-                kv_bytes_read_per_step=st.kv_bytes_read_per_step)
+    times = sorted(st.step_times)
+    out = dict(tok_s=n_out / wall, wall_s=wall,
+               ttft_p50_s=st.ttft_percentiles()["p50"],
+               tbt_p50_s=st.tbt_percentiles()["p50"],
+               peak_gib=peak / 2**30, decode_steps=st.steps,
+               decode_step_ms_mean=sum(times) / len(times) * 1e3,
+               decode_step_ms_p50=times[len(times) // 2] * 1e3,
+               chunks=st.prefill_chunks_run,
+               kv_pool_bytes_resident=st.kv_pool_bytes_resident,
+               kv_bytes_read_per_step=st.kv_bytes_read_per_step)
+    if compiled is not None:
+        out.update(compiled_stats(compiled))
+    return out
+
+
+def compiled_stats(comp):
+    """What a compiled decode step did: graphs captured (and kept), the
+    host seconds its captures took, replays, and the device memory its
+    captures reserved."""
+    return dict(graphs_captured=comp.captures, graphs_kept=comp.graphs,
+                capture_s=comp.capture_s, replays=comp.replays,
+                graph_reserved_mib=comp.reserved_bytes / 2**20)
+
+
+def compiled_gates(torch, pl, params, kv, ids, tokens, counters, kernel,
+                   per_step, pool_write=False):
+    """A fresh compiled step of placement ``pl`` against its eager step at
+    one engine state: the replay equals the eager step at the same padded
+    operands bit for bit (or, where a library GEMM takes another path under
+    capture, within ERR_RTOL/ERR_ATOL and cosine >= MIN_COSINE, reported
+    as ``bitwise: false``), twice in a row; greedy tokens equal the eager
+    step on unpadded operands and its logits' row cosine >= MIN_COSINE; a
+    bucket switch and back replays right; with ``pool_write``, the step's
+    K/V stored between replays is seen by the next replay (this advances
+    the sequences: cancel them after). Launches through replays equal the
+    eager step's. Reports capture seconds, the host enqueue time of a
+    replay and the step's synchronized wall, replayed and eager."""
+    import numpy as np
+
+    from repro_torch.serving.compiled import (CompiledDecodeStep,
+                                              pad_operands)
+    from repro_torch.serving.placement import device_operands
+
+    scales = {} if kv.k_scale is None else dict(k_scale_pool=kv.k_scale,
+                                                v_scale_pool=kv.v_scale)
+    step = pl.decode_fn()
+
+    def eager(toks, tables, lens, extra):
+        tk, tb, ln = device_operands(
+            [np.asarray(toks, np.int32), tables, lens], DEV)
+        return step(params, tk, kv.k_pool, kv.v_pool, tb, ln,
+                    *device_operands(extra, DEV), **scales)
+
+    def snap(out):
+        return [out[0].clone(), out[1]["k_new"].clone(),
+                out[1]["v_new"].clone()]
+
+    result = dict(bitwise=True, max_abs_diff=0.0)
+
+    def same(got, want, what):
+        for g, w in zip(got, want):
+            if torch.equal(g, w):
+                continue
+            result["bitwise"] = False
+            result["max_abs_diff"] = max(result["max_abs_diff"], float(
+                (g.float() - w.float()).abs().max()))
+            check_close(f"replay vs eager ({what})", g, w)
+            if not cosine(g, w) >= MIN_COSINE:
+                raise AssertionError(f"replay vs eager ({what}): cosine "
+                                     f"{cosine(g, w)} < {MIN_COSINE}")
+
+    comp = CompiledDecodeStep(step, params, kv.k_pool, kv.v_pool,
+                              kv.k_scale, kv.v_scale, DEV,
+                              n_shards=kv.n_shards)
+    tables, lens = kv.block_table_batch(ids)
+    extra = pl.decode_extra_args(kv, ids)
+    padded, pextra = pad_operands(tables, extra, kv.num_blocks,
+                                  kv.blocks_per_shard)
+    want = snap(eager(tokens, padded, lens, pextra))
+    ref = snap(eager(tokens, tables, lens, extra))
+    counters.reset()
+    calls = [snap(comp(tokens, tables, lens, *extra)) for _ in range(3)]
+    sync(torch)
+    got = counters.read()[kernel]
+    if got != 3 * per_step:
+        raise AssertionError(f"3 compiled calls: {got} launches != 3 x "
+                             f"{per_step}")
+    for i, c in enumerate(calls):
+        same(c, want, ["warm-up", "replay 1", "replay 2"][i])
+    rows = min(cosine(calls[1][0][i], ref[0][i]) for i in range(len(ids)))
+    argmax_equal = calls[1][0].argmax(-1).tolist() == \
+        ref[0].argmax(-1).tolist()
+    if not (rows >= MIN_COSINE and argmax_equal):
+        raise AssertionError(f"replay vs eager on unpadded operands: row "
+                             f"cosine {rows}, argmax equal {argmax_equal}")
+    # a bucket switch (one slot past the bucket) and back
+    wide = np.pad(tables, ((0, 0), (0, padded.shape[1] + 1 -
+                                    tables.shape[1])))
+    wpad, _ = pad_operands(wide, (), kv.num_blocks, kv.blocks_per_shard)
+    want_w = snap(eager(tokens, wpad, lens, pextra))
+    comp(tokens, wide, lens, *extra)
+    same(snap(comp(tokens, wide, lens, *extra)), want_w, "bucket switch")
+    same(snap(comp(tokens, tables, lens, *extra)), want, "switch back")
+    # host time of one replay call from an idle card (the operand copy
+    # and the graph launch enqueued, not run), and synchronized step walls
+    ts = []
+    for _ in range(10):
+        sync(torch)
+        t0 = time.perf_counter()
+        comp(tokens, tables, lens, *extra)
+        ts.append((time.perf_counter() - t0) * 1e6)
+    result["replay_host_us"] = sorted(ts)[5]
+    walls = {}
+    for name, fn in (("replay", lambda: comp(tokens, tables, lens, *extra)),
+                     ("eager", lambda: eager(tokens, tables, lens, extra))):
+        ts = []
+        for _ in range(5):
+            sync(torch)
+            t0 = time.perf_counter()
+            fn()
+            sync(torch)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        walls[name] = sorted(ts)[2]
+    result.update(replay_step_ms=walls["replay"],
+                  eager_step_ms=walls["eager"], min_row_cosine=rows,
+                  argmax_equal=argmax_equal, capture_s=comp.capture_s,
+                  graphs=comp.graphs)
+    if pool_write:
+        logits, upd = comp(tokens, tables, lens, *extra)
+        nxt = logits.float().argmax(-1).tolist()
+        for rid in ids:
+            kv.append_token(rid)
+        kv.write_tokens(ids, upd["k_new"], upd["v_new"],
+                        [int(n) for n in lens])
+        tables2, lens2 = kv.block_table_batch(ids)
+        extra2 = pl.decode_extra_args(kv, ids)
+        p2, pe2 = pad_operands(tables2, extra2, kv.num_blocks,
+                               kv.blocks_per_shard)
+        want2 = snap(eager(nxt, p2, lens2, pe2))
+        comp(nxt, tables2, lens2, *extra2)      # a new key captures here
+        replays = comp.replays
+        same(snap(comp(nxt, tables2, lens2, *extra2)), want2, "pool write")
+        if comp.replays != replays + 1:
+            raise AssertionError("the call after the pool write replayed "
+                                 "nothing")
+        if torch.equal(want2[0], want[0]):
+            raise AssertionError("the next step's logits equal this one's")
+    return result
 
 
 def homogeneous_e2e(torch, np, cfg, params, prompts, counters):
     """Phase 4: the bf16 homogeneous engine on the 8 requests."""
     from repro_torch.models import transformer
-    from repro_torch.serving import EngineConfig, LLMEngine, PagedKVCache
+    from repro_torch.serving import (EngineConfig, LLMEngine, PagedKVCache,
+                                     make_placement)
 
     econf = EngineConfig(placement="homogeneous", scheduler="fcfs",
                          block_size=16, num_blocks=2048, max_batch=8,
@@ -568,7 +718,7 @@ def homogeneous_e2e(torch, np, cfg, params, prompts, counters):
         "paged_prefill_chunk_attention_int8": 0, **NO_NEW_KERNEL},
         f"e2e homogeneous bf16 ({L} layers x {st.steps} steps / "
         f"{st.prefill_chunks_run} chunks)")
-    result = serving_summary(st, reqs, wall, peak)
+    result = serving_summary(st, reqs, wall, peak, eng.compiled)
     log(f"e2e homogeneous bf16: {len(reqs)} requests, "
         f"{json.dumps(result)}")
 
@@ -611,19 +761,95 @@ def homogeneous_e2e(torch, np, cfg, params, prompts, counters):
     log(f"e2e homogeneous bf16: profiled prefill chunk P={c0} C=512: "
         f"{json.dumps(prof)}")
     result["profile_prefill_chunk"] = prof
-    prof = profile_decode(torch, eng, prompts)
+    prof, gates = profile_decode(
+        torch, eng, prompts, at_state=lambda wave: compiled_gates(
+            torch, make_placement(cfg, econf, torch.device(DEV)), params,
+            eng.kv, [r.rid for r in wave], [r.output[-1] for r in wave],
+            counters, "paged_decode_attention", L, pool_write=True))
     log(f"e2e homogeneous bf16: profiled decode-only steps: "
         f"{json.dumps(prof)}")
-    result["profile"] = prof
+    log(f"e2e homogeneous bf16: compiled step vs eager at the B=8 state: "
+        f"{json.dumps(gates)}")
+    result.update(profile=prof, compiled_gates=gates)
     del eng
+    torch.cuda.empty_cache()
+    result["oneshot_sharing"] = oneshot_sharing(torch, cfg, params)
+    log(f"e2e homogeneous bf16: one-shot prefix sharing: "
+        f"{json.dumps(result['oneshot_sharing'])}")
     return launches, result
+
+
+def oneshot_sharing(torch, cfg, params, prefix_len=512, suffixes=(100, 150),
+                    new=16):
+    """Two requests sharing a ``prefix_len``-token prompt prefix through
+    one-shot prefill (``prefill_chunk_tokens`` unset), with and without
+    prefix sharing: equal greedy tokens, the sharing counters, and the
+    sharer's suffix prefill (gather_prefix + prefill_suffix) timed against
+    its full one-shot prefill at the same state."""
+    import numpy as np
+
+    from repro_torch.models import transformer
+    from repro_torch.serving import EngineConfig, LLMEngine
+
+    rng = np.random.default_rng(3)
+    prefix = rng.integers(0, cfg.vocab_size, size=prefix_len).tolist()
+    prompts = [prefix + rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in suffixes]
+    out, stats, walls = {}, {}, {}
+    for share in (False, True):
+        eng = LLMEngine(cfg, params, EngineConfig(
+            block_size=16, num_blocks=512, max_batch=2,
+            prefix_sharing=share), device=DEV)
+        donor, sharer = make_requests(prompts, new)
+        eng.submit(donor)
+        eng.step()                       # the donor's prefill + 1 decode
+        if share:
+            suffix = sharer.prompt[prefix_len:]
+            for what in ("suffix", "full", "suffix", "full"):
+                sync(torch)
+                t0 = time.perf_counter()
+                if what == "suffix":
+                    k, v = eng.kv.gather_prefix(donor.rid, prefix_len)
+                    transformer.prefill_suffix(
+                        params, cfg, {"tokens": [suffix]}, k[:, None],
+                        v[:, None], device=DEV)
+                else:
+                    transformer.prefill(params, cfg,
+                                        {"tokens": [sharer.prompt]},
+                                        max_seq=len(sharer.prompt),
+                                        device=DEV)
+                sync(torch)
+                walls[what] = (time.perf_counter() - t0) * 1e3
+        eng.submit(sharer)
+        eng.run()
+        check_finished(cfg, [donor, sharer], new)
+        out[share] = [donor.output, sharer.output]
+        stats[share] = eng.stats
+        del eng
+    on = stats[True]
+    want_skip = prefix_len
+    if out[True] != out[False]:
+        raise AssertionError(f"one-shot sharing changed greedy tokens: "
+                             f"{out[True]} vs {out[False]}")
+    if on.prefill_tokens_skipped != want_skip or \
+            on.blocks_shared != want_skip // 16 or \
+            stats[False].prefill_tokens_skipped:
+        raise AssertionError(f"sharing counters: skipped "
+                             f"{on.prefill_tokens_skipped}, blocks "
+                             f"{on.blocks_shared}")
+    return dict(prompt_lens=[len(p) for p in prompts],
+                tokens_equal=True,
+                prefill_tokens_skipped=on.prefill_tokens_skipped,
+                blocks_shared=on.blocks_shared,
+                suffix_prefill_ms=walls["suffix"],
+                full_prefill_ms=walls["full"])
 
 
 def lamina_e2e(torch, np, cfg, params, prompts, counters, bf16_resident):
     """Phase 5: Lamina's deployment — attention on 2 workers (head
     partition) reading an int8 pool in place."""
     from repro_torch.serving import (EngineConfig, LLMEngine,
-                                     expected_transfer_bytes)
+                                     expected_transfer_bytes, make_placement)
 
     econf = EngineConfig(placement="attention_pool", partition="head",
                          attention_workers=2, kv_dtype="int8",
@@ -676,12 +902,19 @@ def lamina_e2e(torch, np, cfg, params, prompts, counters, bf16_resident):
     log(f"e2e Lamina: TransferLog {got_log} = the §3.1 formulas "
         f"({tokens} decode tokens, {chunk_tokens} chunk tokens); "
         f"per-worker KV bytes read {eng.pool.per_worker_kv_bytes}")
-    result = serving_summary(st, reqs, wall, peak)
+    result = serving_summary(st, reqs, wall, peak, eng.compiled)
     log(f"e2e Lamina head int8: {len(reqs)} requests, {json.dumps(result)}")
-    prof = profile_decode(torch, eng, prompts)
+    prof, gates = profile_decode(
+        torch, eng, prompts, at_state=lambda wave: compiled_gates(
+            torch, make_placement(cfg, econf, torch.device(DEV)), params,
+            eng.kv, [r.rid for r in wave], [r.output[-1] for r in wave],
+            counters, "paged_decode_attention_int8", L * n, pool_write=True))
     log(f"e2e Lamina head int8: profiled decode-only steps: "
         f"{json.dumps(prof)}")
-    result.update(resident_ratio=ratio, transfer_log=got_log, profile=prof)
+    log(f"e2e Lamina head int8: compiled step vs eager at the B=8 state: "
+        f"{json.dumps(gates)}")
+    result.update(resident_ratio=ratio, transfer_log=got_log, profile=prof,
+                  compiled_gates=gates)
     del eng
     return launches, result
 
@@ -690,6 +923,7 @@ def partitions_e2e(torch, np, cfg, params, prompts, counters, kv_dtype):
     """Phase 6: every placement over a ``kv_dtype`` pool, 2 requests."""
     from repro_torch.serving import (EngineConfig, LLMEngine, State,
                                      make_placement)
+    from repro_torch.serving.placement import device_operands
 
     L, workers, new = cfg.num_layers, 2, 8
     base = EngineConfig(kv_dtype=kv_dtype, block_size=16, num_blocks=2048,
@@ -725,7 +959,8 @@ def partitions_e2e(torch, np, cfg, params, prompts, counters, kv_dtype):
     steps = {}
     for name, econf in confs.items():
         pl = make_placement(cfg, econf, torch.device(DEV))
-        steps[name] = (pl.decode_fn(), pl.decode_extra_args(eng.kv, ids))
+        steps[name] = (pl.decode_fn(), device_operands(
+            pl.decode_extra_args(eng.kv, ids), DEV))
     times = {name: [] for name in confs}
     order = list(confs)
     for rnd in range(5):        # alternate the order: host time drifts
@@ -758,6 +993,12 @@ def partitions_e2e(torch, np, cfg, params, prompts, counters, kv_dtype):
                                  f"{MIN_COSINE}")
     log(f"partitions {kv_dtype}, shared state: {kernel} launches per step "
         f"{ {n: L * k for n, k in per_layer.items()} } as expected")
+    graphs = {name: compiled_gates(
+        torch, make_placement(cfg, econf, torch.device(DEV)), params,
+        eng.kv, ids, tokens, counters, kernel, L * per_layer[name])
+        for name, econf in confs.items()}
+    log(f"partitions {kv_dtype}, shared state: compiled step vs eager: "
+        f"{json.dumps(graphs)}")
     log(f"partitions {kv_dtype}, shared state (B={len(ids)}, lens "
         f"{lens.tolist()}): "
         f"{json.dumps(shared)}")
@@ -796,7 +1037,8 @@ def partitions_e2e(torch, np, cfg, params, prompts, counters, kv_dtype):
         runs[name] = dict(
             tokens=[r.output for r in reqs],
             decode_peak_over_resident_mib=(torch.cuda.max_memory_allocated()
-                                           - before) / 2**20)
+                                           - before) / 2**20,
+            **compiled_stats(eng.compiled))
         del eng
         torch.cuda.empty_cache()
     ref_tokens = runs["homogeneous"]["tokens"]
@@ -818,16 +1060,20 @@ def partitions_e2e(torch, np, cfg, params, prompts, counters, kv_dtype):
     if grow >= slice_mib:
         raise AssertionError(f"block partition's decode peak grew by "
                              f"{grow} MiB >= a pool slice ({slice_mib} MiB)")
-    return dict(shared_state=shared, runs={
+    return dict(shared_state=shared, compiled=graphs, runs={
         k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
         for k, v in runs.items()})
 
 
-def profile_decode(torch, eng, prompts, n_steps=3):
+def profile_decode(torch, eng, prompts, n_steps=3, at_state=None):
     """Where a decode step's time goes: a second wave of the same prompts
-    is driven until every request decodes, then ``n_steps`` decode-only
-    steps (B=8) run under torch.profiler (``profile_window``). Runs after
-    the launch counts were read."""
+    is driven until every request decodes, two more steps capture the
+    graph of that batch, ``n_steps`` decode-only steps (B=8) are timed
+    (median wall, ``step_ms_unprofiled``), then ``n_steps`` more run under
+    torch.profiler (``profile_window``): replays, with the graphs captured
+    and replayed in the window counted. ``at_state(wave)`` then
+    runs at that state before the wave is cancelled; returns (profile,
+    its result). Runs after the launch counts were read."""
     from repro_torch.serving import State
 
     wave = make_requests(prompts, 64)
@@ -835,9 +1081,27 @@ def profile_decode(torch, eng, prompts, n_steps=3):
     while not all(r.state == State.RUNNING and eng.sched.prefill_done(r.rid)
                   for r in wave):
         eng.step()
+    for _ in range(2):
+        eng.step()
+    comp = eng.compiled
+    captures, replays = comp.captures, comp.replays
+    walls = []
+    for _ in range(n_steps):             # the same steps, unprofiled
+        sync(torch)
+        t0 = time.perf_counter()
+        eng.step()
+        sync(torch)
+        walls.append((time.perf_counter() - t0) * 1e3)
     prof = profile_window(torch, eng.step, n_steps, len(wave))
+    prof.update(step_ms_unprofiled=sorted(walls)[n_steps // 2],
+                captures_in_window=comp.captures - captures,
+                replays_in_window=comp.replays - replays - n_steps)
+    if prof["replays_in_window"] != n_steps:
+        raise AssertionError(f"profiled window: {prof['replays_in_window']} "
+                             f"replays in {n_steps} decode steps")
+    out = at_state(wave) if at_state is not None else None
     eng.cancel_all()
-    return prof
+    return prof, out
 
 
 def profile_window(torch, step, n_steps, batch,

@@ -12,7 +12,8 @@ given the scale pools.
 The kernel splits each sequence's table over S CTAs (:func:`plan_splits`,
 from shapes and the SM count only, so a call never waits for the card) and
 merges the splits' partials in the same launch: the wrapper hands it a
-workspace from the caching allocator and the stream's merge tickets.
+workspace from the caching allocator and the stream's merge tickets (a
+captured CUDA graph's own, :func:`private_tickets`).
 
 :func:`paged_decode_attention` dispatches on the device of ``q``: a CPU
 tensor runs the plain twin, a CUDA tensor launches the kernel or raises.
@@ -21,6 +22,7 @@ kernel's launches (``.launches``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
@@ -330,13 +332,38 @@ def _tickets(device, stream: int, n: int) -> torch.Tensor:
     """The merge tickets of (device, stream), one per (sequence, kv head),
     allocated zeroed once and grown when a call needs more. Launches on one
     stream run in order, so they share the array; another stream gets its
-    own."""
+    own. A stream being captured into a CUDA graph must have its tickets
+    set up before the capture (:func:`private_tickets`)."""
     key = (device.index, stream)
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"paged decode under CUDA graph capture needs {n} merge "
+                f"tickets set up before the capture (private_tickets)")
         t = _TICKETS[key] = torch.zeros(max(n, 256), dtype=torch.int32,
                                         device=device)
     return t
+
+
+@contextlib.contextmanager
+def private_tickets(device, stream: int, n: int):
+    """Merge tickets owned by one CUDA graph: a zeroed array of at least
+    ``n`` allocated now, before the graph is captured on ``stream``, and
+    handed to every launch captured there; yields it (the graph keeps it
+    alive). Its kernels reset each ticket they use, so every replay finds
+    them zero; no eager call on another stream shares the array."""
+    key = (device.index, stream)
+    prev = _TICKETS.get(key)
+    t = _TICKETS[key] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                    device=device)
+    try:
+        yield t
+    finally:
+        if prev is None:
+            _TICKETS.pop(key, None)
+        else:
+            _TICKETS[key] = prev
 
 
 def _kernel_fn(entry: str):

@@ -217,12 +217,21 @@ def paged_decode_attention_combine(q, k_pool, v_pool, block_tables,
 def attention_forward(params, cfg: ModelConfig, x: torch.Tensor,
                       positions: torch.Tensor, *, is_local: bool = False,
                       block_size: int = 512,
+                      prefix_kv: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None,
                       paged_prefix: Optional[Tuple[torch.Tensor, torch.Tensor,
                                                    torch.Tensor]] = None,
                       paged_prefix_scales: Optional[Tuple[torch.Tensor,
                                                           torch.Tensor]] = None):
     """Full-sequence attention (prefill). x: (B, S, d). Returns
     (y, k, v) with k/v (B, S, Hkv, hd) for the tokens of ``x``.
+
+    ``prefix_kv``: HEAD-MAJOR (B, Hkv, P, hd) K/V of an already-cached
+    prompt prefix (the prefix-sharing suffix prefill, reference ``:442``):
+    ``x`` then holds only the suffix at global ``positions`` P + i and its
+    queries attend over concat(prefix, suffix) keys by the same blockwise
+    path as a full prefill, so windows, sinks and softcaps follow. The
+    returned k/v cover the suffix only.
 
     ``paged_prefix``: this layer's ``(k_pool, v_pool, block_table)`` —
     head-major pool slices plus the sequence's first ``nb`` block ids
@@ -247,8 +256,13 @@ def attention_forward(params, cfg: ModelConfig, x: torch.Tensor,
             sliding_window=int(window),
             attention_sinks=sinks, logit_softcap=cfg.attn_logit_softcap)[None]
         return out_project(params, out), k, v
+    k_all, v_all = k, v
+    if prefix_kv is not None:        # head-major -> seq-major for blockwise
+        pk, pv = prefix_kv
+        k_all = torch.cat([pk.transpose(1, 2), k], dim=1)
+        v_all = torch.cat([pv.transpose(1, 2), v], dim=1)
     out = blockwise_attention(
-        q, k, v, causal=True, sliding_window=int(window),
+        q, k_all, v_all, causal=True, sliding_window=int(window),
         attention_sinks=sinks, logit_softcap=cfg.attn_logit_softcap,
         q_positions=positions, block_size=block_size)
     return out_project(params, out), k, v

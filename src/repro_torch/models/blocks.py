@@ -35,6 +35,7 @@ def init_dense_block(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
 def dense_block(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
                 mode: str, positions: Optional[torch.Tensor] = None,
                 cache: Optional[Dict] = None, is_local: bool = False,
+                prefix_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 paged_prefix: Optional[Tuple[torch.Tensor, torch.Tensor,
                                              torch.Tensor]] = None,
                 paged_prefix_scales: Optional[Tuple[torch.Tensor,
@@ -46,7 +47,8 @@ def dense_block(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     ({"k", "v", "len"}, (B, Hkv, S, hd)) and returns {"k_new", "v_new"};
     ``mode="prefill"`` returns this layer's {"k", "v"} (B, S, Hkv, hd),
     attending over ``paged_prefix`` (and its ``paged_prefix_scales``) when
-    given (chunked prefill, see ``attention_forward``); ``mode="train"``
+    given (chunked prefill) or over the head-major ``prefix_kv`` (the
+    suffix prefill; see ``attention_forward``); ``mode="train"``
     returns no cache."""
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
     new_cache: Dict = {}
@@ -64,6 +66,7 @@ def dense_block(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     elif mode in ("prefill", "train"):
         attn, k, v = attention_forward(params["attn"], cfg, h, positions,
                                        is_local=is_local,
+                                       prefix_kv=prefix_kv,
                                        paged_prefix=paged_prefix,
                                        paged_prefix_scales=paged_prefix_scales)
         if mode == "prefill":

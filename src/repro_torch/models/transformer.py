@@ -7,6 +7,8 @@ Port of ``repro/models/transformer.py`` for the dense/vlm stacks, rwkv6
     forward(params, cfg, batch, device=...)                 -> logits
     init_cache(cfg, batch, max_seq, device=...)             -> cache
     prefill(params, cfg, batch, max_seq, device=...)        -> (logits, cache)
+    prefill_suffix(params, cfg, batch, k_prefix, v_prefix, device=...)
+                                                            (dense/vlm)
     decode_step(params, cfg, tokens, cache, device=...)     -> (logits, updates)
     apply_decode_updates(cache, updates)                    -> cache
     prefill_chunk(params, cfg, batch, k_pool, v_pool, prefix_blocks, ...,
@@ -164,8 +166,10 @@ def _embed_tokens(params: Params, cfg: ModelConfig,
                   tokens: torch.Tensor) -> torch.Tensor:
     tok = params["embed"][tokens.long()]
     if cfg.tie_embeddings:
+        # sqrt(d) rounded to the model dtype on the host: a Python scalar,
+        # so a captured decode step copies nothing host -> device here
         scale = torch.sqrt(torch.tensor(float(cfg.d_model)))
-        tok = tok * scale.to(device=tok.device, dtype=tok.dtype)
+        tok = tok * scale.to(tok.dtype).item()
     return tok
 
 
@@ -362,6 +366,42 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict, max_seq: int, *,
             cache[key] = _pad_seq(_hm(_stack_states(kv, key)), max_seq)
     cache["len"] = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
                               device=dev)
+    return _head(params, cfg, x[:, -1]), cache
+
+
+def prefill_suffix(params: Params, cfg: ModelConfig, batch: Dict,
+                   k_prefix: torch.Tensor, v_prefix: torch.Tensor, *,
+                   device="cuda") -> Tuple[torch.Tensor, Dict]:
+    """Prefix-cached prefill (reference ``transformer.py:485``): run only a
+    prompt's unshared SUFFIX, the shared prefix's KV supplied from the
+    paged pool — the prefix-sharing engine's prefill-skip path.
+
+    batch["tokens"]: (B, S_suf) suffix tokens; k_prefix/v_prefix:
+    HEAD-MAJOR (L, B, Hkv, P, hd), what ``PagedKVCache.gather_prefix``
+    returns with a batch axis. Suffix queries sit at global positions
+    P + i and attend over concat(prefix, suffix) by the blockwise path of
+    :func:`prefill`, so windows, sinks, softcaps and post-norms follow.
+    Returns (last-position logits, {"k", "v", "len"}) with SUFFIX-ONLY
+    head-major K/V (L, B, Hkv, S_suf, hd) and len = P + S_suf."""
+    if cfg.family not in ("dense", "vlm", "moe"):
+        raise ValueError("prefix-cached prefill serves KV-cache dense "
+                         f"stacks; got family={cfg.family}")
+    _check_family(cfg, "prefix-cached prefill")
+    dev = resolve_device(device)
+    P = k_prefix.shape[3]
+    x, positions, _ = _embed(params, cfg, batch, dev)
+    positions = positions + P           # suffix tokens sit at P + i
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        x, c = blocks.dense_block(_layer(params["layers"], i), cfg, x,
+                                  mode="prefill", positions=positions,
+                                  is_local=_is_local(cfg, i),
+                                  prefix_kv=(k_prefix[i], v_prefix[i]))
+        ks.append(c["k"])
+        vs.append(c["v"])
+    cache = {"k": _hm(torch.stack(ks)), "v": _hm(torch.stack(vs)),
+             "len": torch.full((x.shape[0],), P + x.shape[1],
+                               dtype=torch.int32, device=dev)}
     return _head(params, cfg, x[:, -1]), cache
 
 

@@ -491,3 +491,21 @@ class PagedKVCache:
             idx = torch.as_tensor(key, dtype=torch.int32, device=self.device)
             self._gather_idx_cache[key] = idx
         return idx
+
+    def gather_prefix(self, seq_id: int, n_tokens: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """HEAD-MAJOR (L, Hkv, n_tokens, hd) K/V of this sequence's first
+        `n_tokens` (block-aligned) — the context operand of the prefix-
+        sharing suffix prefill (reference ``kvcache.py:750``). An int8 pool
+        dequantizes with its scales into the model's dtype. The one dense
+        read of the pool: once per ADMISSION, never per decode step."""
+        idx = self.gather_prefix_indices(seq_id, n_tokens).long()
+        L, Hkv, _, _, hd = self.k_pool.shape
+        k = self.k_pool[:, :, idx].reshape(L, Hkv, n_tokens, hd)
+        v = self.v_pool[:, :, idx].reshape(L, Hkv, n_tokens, hd)
+        if self.kv_dtype == "int8":   # admission-time dequant (off hot path)
+            ks = self.k_scale[:, :, idx].reshape(L, Hkv, n_tokens)
+            vs = self.v_scale[:, :, idx].reshape(L, Hkv, n_tokens)
+            k = kv_quant.dequantize_kv(k, ks, self.cfg.dtype)
+            v = kv_quant.dequantize_kv(v, vs, self.cfg.dtype)
+        return k, v

@@ -15,7 +15,11 @@ chunk, then one decode token for every running request whose prefill is
 complete. Chunked prefill runs the paged chunk-prefill kernel; decode runs
 the paged decode kernel — both on the card when the pool lives there, their
 plain twins when it lives on the CPU; an int8 pool hands its scale pools to
-the int8 kernels. Eager PyTorch replaces ``jax.jit``.
+the int8 kernels. On the card the decode step replays from CUDA graphs
+keyed by (B, table-width bucket) (``serving/compiled.py``, the port of
+``jax.jit``); the CPU and the prefill paths run eagerly. A shared prompt
+prefix is skipped by one-shot prefill too: only the suffix runs
+(``transformer.prefill_suffix`` over ``PagedKVCache.gather_prefix``).
 
 Sampling honours ``SamplingParams.seed``: token ``i`` of a request is drawn
 from a generator seeded by (its seed, i) alone (``serving/sampler.py``).
@@ -33,9 +37,11 @@ import torch
 
 from repro_torch.models import transformer
 from repro_torch.models.common import ModelConfig, resolve_device
+from repro_torch.serving.compiled import CompiledDecodeStep
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.kvcache import PagedKVCache, PoolExhausted
-from repro_torch.serving.placement import PlacementStrategy, make_placement
+from repro_torch.serving.placement import (PlacementStrategy,
+                                           device_operands, make_placement)
 from repro_torch.serving.request import Request, SamplingParams, State
 from repro_torch.serving.sampler import request_generator, sample_per_request
 from repro_torch.serving.scheduler import RequestScheduler, make_policy
@@ -149,6 +155,17 @@ class LLMEngine:
         self.stats = EngineStats()
         self.stats.kv_pool_bytes_resident = self.kv.pool_bytes_resident
         self._decode_fn = self.placement.decode_fn()
+        # the port of jax.jit(decode_fn): on the card the step replays from
+        # CUDA graphs keyed by shape; the CPU runs it eagerly
+        self.compiled: Optional[CompiledDecodeStep] = None
+        if self.device.type == "cuda":
+            self.compiled = CompiledDecodeStep(
+                self._decode_fn, params, self.kv.k_pool, self.kv.v_pool,
+                self.kv.k_scale, self.kv.v_scale, self.device,
+                n_shards=self.kv.n_shards)
+        # suffix-only prefill is exact for every family the engine serves
+        # (the reference recomputes MoE prompts, which the port lacks)
+        self._skip_prefill_compute = cfg.family != "moe"
         self._events: List[EngineEvent] = []
         self._step_no = 0
 
@@ -316,20 +333,35 @@ class LLMEngine:
         self._prefill_known(req.rid, req.prompt + req.output[:-1])
 
     def _prefill_known(self, rid: int, known: Sequence[int]) -> torch.Tensor:
-        """One-shot prefill: compute and store pool KV for `known` tokens;
-        returns the last position's logits."""
-        if self.sched.shared_prefix_tokens(rid):
-            raise NotImplementedError(
-                "prefix-sharing suffix prefill (transformer.prefill_suffix) "
-                "is not yet ported; serve shared prefixes with "
-                "prefill_chunk_tokens set")
+        """One-shot prefill: compute and store pool KV for `known` tokens,
+        honouring the prefix the scheduler mapped onto a donor's blocks at
+        admission (reference ``llm_engine.py:591``); returns the last
+        position's logits. With a shared prefix only the suffix runs
+        through the model (``transformer.prefill_suffix`` over the prefix
+        gathered from the pool) and only the suffix is written."""
+        shared = self.sched.shared_prefix_tokens(rid)
+        self.stats.blocks_shared += shared // self.kv.block_size
+        if shared and self._skip_prefill_compute:
+            k_pre, v_pre = self.kv.gather_prefix(rid, shared)
+            logits, cache = transformer.prefill_suffix(
+                self.params, self.cfg, {"tokens": [list(known[shared:])]},
+                k_pre[:, None], v_pre[:, None], device=self.device)
+            # suffix cache k/v are head-major (L, 1, Hkv, S - shared, hd)
+            self.kv.write_prefill(rid, cache["k"][:, 0], cache["v"][:, 0],
+                                  start_token=shared)
+            self.stats.prefill_tokens_skipped += shared
+            self.stats.max_prefill_slab_tokens = max(
+                self.stats.max_prefill_slab_tokens, len(known) - shared)
+            return logits
         self.stats.max_prefill_slab_tokens = max(
             self.stats.max_prefill_slab_tokens, len(known))
         logits, cache = transformer.prefill(
             self.params, self.cfg, {"tokens": [list(known)]},
             max_seq=len(known), device=self.device)
         # cache k/v are head-major (L, 1, Hkv, S, hd) — the pool's layout
-        self.kv.write_prefill(rid, cache["k"][:, 0], cache["v"][:, 0])
+        self.kv.write_prefill(rid, cache["k"][:, 0, :, shared:],
+                              cache["v"][:, 0, :, shared:],
+                              start_token=shared)
         return logits
 
     # ------------------------------------------------------------------
@@ -429,10 +461,13 @@ class LLMEngine:
         tables, lens = self.kv.block_table_batch(ids)
         tokens = [r.output[-1] for r in running]
         t0 = time.time()
-        logits, updates = self._decode_fn(
-            self.params, tokens, self.kv.k_pool, self.kv.v_pool, tables,
-            lens, *extra, **self._scale_kwargs("k_scale_pool",
-                                               "v_scale_pool"))
+        if self.compiled is not None:
+            logits, updates = self.compiled(tokens, tables, lens, *extra)
+        else:
+            logits, updates = self._decode_fn(
+                self.params, tokens, self.kv.k_pool, self.kv.v_pool, tables,
+                lens, *device_operands(extra, self.device),
+                **self._scale_kwargs("k_scale_pool", "v_scale_pool"))
         # validate before anything is committed (the host copy synchronises)
         self._guard_finite(running, logits)
         dt = time.time() - t0

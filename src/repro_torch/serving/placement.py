@@ -5,11 +5,12 @@ Port of ``repro/serving/placement.py`` (``PlacementStrategy``,
 ``models/moe.py``).
 
 Each strategy builds the one-iteration decode step over the paged pool
-(:meth:`PlacementStrategy.decode_fn`), supplies its per-iteration operands
-and data-dependent KV-read accounting (:meth:`decode_extra_args`) and does
-the analytic §3.1 wire accounting (:meth:`log_step`,
-:meth:`log_prefill_chunk`). Every placement decodes greedy token for token
-like the homogeneous one (the §4.2.2 combine identity).
+(:meth:`PlacementStrategy.decode_fn`), supplies its per-iteration host
+operands and data-dependent KV-read accounting (:meth:`decode_extra_args`;
+the caller puts the operands on the device) and does the analytic §3.1
+wire accounting (:meth:`log_step`, :meth:`log_prefill_chunk`). Every
+placement decodes greedy token for token like the homogeneous one (the
+§4.2.2 combine identity).
 """
 from __future__ import annotations
 
@@ -98,7 +99,12 @@ class PlacementStrategy:
         raise NotImplementedError
 
     def decode_extra_args(self, kv: PagedKVCache,
-                          ids: Sequence[int]) -> Tuple:
+                          ids: Sequence[int]) -> Tuple[np.ndarray, ...]:
+        """The step's host side, run every step: this step's per-worker
+        KV-read accounting, and its extra operands as host int32 arrays.
+        Placing them on the device is the caller's: the eager step takes
+        them as tensors (:func:`device_operands`), the compiled step copies
+        them into its static buffers."""
         return ()
 
     def log_step(self, batch: int) -> None:
@@ -164,19 +170,17 @@ class AttentionPoolPlacement(PlacementStrategy):
         return step
 
     def decode_extra_args(self, kv: PagedKVCache,
-                          ids: Sequence[int]) -> Tuple:
+                          ids: Sequence[int]) -> Tuple[np.ndarray, ...]:
         """Per-worker live-token KV-read accounting, plus, for the block
         partition, each worker's compacted table (global pool ids: the
-        shard's local ids + shard·blocks_per_shard) and slot positions,
-        built once per step and moved to the device."""
+        shard's local ids + shard·blocks_per_shard) and slot positions as
+        host arrays, built once per step."""
         pool, L = self._pool, self.cfg.num_layers
         if pool.partition == "block":
             lt, lp, shard_tokens = kv.block_table_shards(ids)
             pool.log_paged_kv(shard_tokens.sum(axis=1), L)
             offsets = np.arange(kv.n_shards, dtype=np.int32)[:, None, None]
-            gt = lt + offsets * kv.blocks_per_shard
-            return (torch.from_numpy(gt).to(self.device),
-                    torch.from_numpy(lp).to(self.device))
+            return lt + offsets * kv.blocks_per_shard, lp
         # a prefix-SHARED physical block is read once per worker, not once
         # per sharer: unique_live_tokens dedupes
         if pool.partition == "head":
@@ -202,6 +206,13 @@ class AttentionPoolPlacement(PlacementStrategy):
         self._pool.log.kv_bytes += (2 * tokens * cfg.num_kv_heads *
                                     per_head * cfg.num_layers)
         self._pool.log.transfers += cfg.num_layers
+
+
+def device_operands(arrays: Sequence[np.ndarray], device) -> Tuple:
+    """Host int32 operands as tensors on ``device`` — the eager step's
+    inputs."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in arrays)
 
 
 _PLACEMENTS = {"homogeneous": HomogeneousPlacement,

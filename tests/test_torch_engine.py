@@ -113,25 +113,30 @@ def test_engine_fcfs_pool_exhaustion_raises_like_reference(setup):
     cfg, tcfg, p, tp = setup
     kw = dict(max_batch=4, block_size=8, num_blocks=9, decode_headroom=0)
     jeng = JLLMEngine(cfg, p, JEngineConfig(**kw))
-    jeng.submit([JRequest(prompt=x, params=JSamplingParams(max_new_tokens=16))
-                 for x in _prompts(cfg)])
+    jreqs = [JRequest(prompt=x, params=JSamplingParams(max_new_tokens=16))
+             for x in _prompts(cfg)]
+    jeng.submit(jreqs)
     teng = LLMEngine(tcfg, tp, EngineConfig(**kw), device="cpu")
-    teng.submit([Request(prompt=x, params=SamplingParams(max_new_tokens=16))
-                 for x in _prompts(cfg)])
+    treqs = [Request(prompt=x, params=SamplingParams(max_new_tokens=16))
+             for x in _prompts(cfg)]
+    teng.submit(treqs)
     with pytest.raises(Exception) as jerr:
         jeng.run(max_steps=500)
     with pytest.raises(PoolExhausted) as terr:
         teng.run(max_steps=500)
     assert type(jerr.value).__name__ == "PoolExhausted"
-    assert terr.value.rid == jerr.value.rid
+    # the two packages draw request ids from separate global counters, so
+    # compare the failing request by its position in the submitted list
+    assert [r.rid for r in treqs].index(terr.value.rid) == \
+        [r.rid for r in jreqs].index(jerr.value.rid)
     assert terr.value.free_blocks == jerr.value.free_blocks
     assert "preempt" in str(terr.value)
 
 
 def test_engine_prefix_sharing_through_chunked_prefill(setup):
     """Shared prompt prefixes map onto the donor's blocks (chunked prefill
-    skips them) and the greedy streams equal the unshared run; the one-shot
-    suffix prefill is not ported and says so."""
+    skips them) and the greedy streams equal the unshared run and the
+    one-shot run, whose suffix prefill skips the shared blocks too."""
     _, tcfg, _, tp = setup
     rng = np.random.default_rng(5)
     prefix = rng.integers(0, tcfg.vocab_size, size=16).tolist()
@@ -153,9 +158,13 @@ def test_engine_prefix_sharing_through_chunked_prefill(setup):
     assert outs[True] == outs[False]
     eng = LLMEngine(tcfg, tp, device="cpu", max_batch=4, block_size=8,
                     num_blocks=64, prefix_sharing=True)
-    eng.submit([Request(prompt=list(x)) for x in prompts])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        eng.run()
+    reqs = [Request(prompt=list(x), params=SamplingParams(max_new_tokens=6))
+            for x in prompts]
+    eng.submit(reqs)
+    eng.run()
+    assert [r.output for r in reqs] == outs[True]
+    assert eng.stats.prefill_tokens_skipped == 16
+    assert eng.stats.blocks_shared == 2
 
 
 def test_engine_streams_tokens_and_events(setup):

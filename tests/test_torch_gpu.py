@@ -1,6 +1,7 @@
 """The port's CUDA kernels (paged decode and chunk prefill over bf16 and
 int8 pools, dense-cache decode, the Mamba2 and RWKV6 scans) against their
-plain PyTorch twins, on the card.
+plain PyTorch twins, on the card; and the engine's compiled decode step
+(CUDA graph replays) against the eager step, bit for bit.
 
 Marked ``gpu``: without a CUDA device every test skips (the kernels are
 CUDA C++ for sm_90a and have no interpret mode). The file imports neither
@@ -13,7 +14,8 @@ the kernel and its twin both accumulate in fp32 and differ by summation
 order and exp approximation before the final bf16 rounding; l and m are
 fp32 (1e-3). The scan kernels take their chunked products in three bf16
 passes (hi + lo, ~1e-5 of each product) against the fp32 step twins:
-1e-4 relative plus 1e-4 of the output's largest entry.
+1e-4 relative plus 1e-4 of the output's largest entry. A replay runs the
+same kernels on the same inputs as the eager step: no tolerance.
 """
 import numpy as np
 import pytest
@@ -455,3 +457,167 @@ def test_cuda_rwkv6_scan_matches_plain(cuda, B, S, H, P, dtype, decays):
     _scan_close(got, rw.rwkv6_scan_plain(r, k, v, w, u))
     with pytest.raises(TypeError):                        # mixed dtypes
         rw.rwkv6_scan(r, k, v, w.half(), u)
+
+
+# ---------------------------------------------------------------------------
+# the compiled decode step (serving/compiled.py): CUDA graph replays
+# ---------------------------------------------------------------------------
+GRAPH_PLACEMENTS = {
+    "homogeneous": dict(),
+    "head": dict(placement="attention_pool", partition="head"),
+    "request": dict(placement="attention_pool", partition="request"),
+    "block": dict(placement="attention_pool", partition="block")}
+
+
+def _graph_state(dev, name, kv_dtype):
+    """A bf16 smoke llama (2 layers, G=2, hd=64) on the card paused where
+    3 requests decode, and an eager step + a fresh compiled step of the
+    placement ``name`` over its pool."""
+    from repro_torch.configs import registry as treg
+    from repro_torch.models import transformer as ttf
+    from repro_torch.serving import (EngineConfig, LLMEngine, Request,
+                                     SamplingParams, State, make_placement)
+    from repro_torch.serving.compiled import CompiledDecodeStep
+
+    cfg = treg.get_smoke_config("llama3-8b", num_kv_heads=2,
+                                dtype=torch.bfloat16)
+    params = ttf.init_params(0, cfg, device=dev)
+    econf = EngineConfig(max_batch=4, block_size=4, num_blocks=64,
+                         attention_workers=2, kv_dtype=kv_dtype,
+                         **GRAPH_PLACEMENTS[name])
+    eng = LLMEngine(cfg, params, econf, device=dev)
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, size=n).tolist(),
+                    params=SamplingParams(max_new_tokens=32))
+            for n in (21, 12, 9)]
+    eng.submit(reqs)
+    while not all(r.state == State.RUNNING and eng.sched.prefill_done(r.rid)
+                  and r.output for r in reqs):
+        eng.step()
+    pl = make_placement(cfg, econf, dev)
+    kv = eng.kv
+    comp = CompiledDecodeStep(pl.decode_fn(), params, kv.k_pool, kv.v_pool,
+                              kv.k_scale, kv.v_scale, dev,
+                              n_shards=kv.n_shards)
+    return cfg, params, eng, reqs, pl, comp
+
+
+def _eager(pl, params, kv, dev, tokens, tables, lens, extra):
+    from repro_torch.serving.placement import device_operands
+    scales = {} if kv.k_scale is None else dict(k_scale_pool=kv.k_scale,
+                                                v_scale_pool=kv.v_scale)
+    tok, tb, ln = device_operands(
+        [np.asarray(tokens, np.int32), tables, lens], dev)
+    return pl.decode_fn()(params, tok, kv.k_pool, kv.v_pool, tb, ln,
+                          *device_operands(extra, dev), **scales)
+
+
+def _snap(out):
+    logits, upd = out
+    return [logits.clone(), upd["k_new"].clone(), upd["v_new"].clone()]
+
+
+def _bitwise(a, b):
+    for x, y in zip(a, b):
+        assert torch.equal(x, y), float((x.float() - y.float()).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("name", list(GRAPH_PLACEMENTS))
+def test_cuda_graph_replay_equals_eager_step(cuda, name, kv_dtype):
+    """Replay = the eager step at the same padded operands, bit for bit:
+    two replays in a row, a bucket switch and back, a pool write between
+    replays; launch counts after replays = the eager step's."""
+    from repro_torch.serving.compiled import pad_operands
+
+    cfg, params, eng, reqs, pl, comp = _graph_state(cuda, name, kv_dtype)
+    kv = eng.kv
+    fn = pda.paged_decode_attention_int8 if kv_dtype == "int8" else \
+        pda.paged_decode_attention
+    per_step = cfg.num_layers * (1 if name == "homogeneous" else 2)
+    ids = [r.rid for r in reqs]
+    tokens = [r.output[-1] for r in reqs]
+    tables, lens = kv.block_table_batch(ids)
+    extra = pl.decode_extra_args(kv, ids)
+    padded, pextra = pad_operands(tables, extra, kv.num_blocks,
+                                  kv.blocks_per_shard)
+    want = _snap(_eager(pl, params, kv, cuda, tokens, padded, lens, pextra))
+    n0 = fn.launches
+    first = _snap(comp(tokens, tables, lens, *extra))     # warm-up + capture
+    r1 = _snap(comp(tokens, tables, lens, *extra))
+    r2 = _snap(comp(tokens, tables, lens, *extra))
+    torch.cuda.synchronize()
+    assert (comp.captures, comp.replays) == (1, 2)
+    assert fn.launches - n0 == 3 * per_step
+    for got in (first, r1, r2):
+        _bitwise(got, want)
+    # a bucket switch (width 9 -> bucket 16) and back
+    wide = np.pad(tables, ((0, 0), (0, 9 - tables.shape[1])))
+    wpad, _ = pad_operands(wide, (), kv.num_blocks, kv.blocks_per_shard)
+    assert wpad.shape[1] == 16
+    want16 = _snap(_eager(pl, params, kv, cuda, tokens, wpad, lens, pextra))
+    comp(tokens, wide, lens, *extra)
+    _bitwise(_snap(comp(tokens, wide, lens, *extra)), want16)
+    _bitwise(_snap(comp(tokens, tables, lens, *extra)), want)
+    assert (comp.captures, comp.graphs) == (2, 2)
+    # a pool write between replays: store this step's K/V, decode the next
+    logits, upd = comp(tokens, tables, lens, *extra)
+    nxt = logits.float().argmax(-1).tolist()
+    for rid in ids:
+        kv.append_token(rid)
+    kv.write_tokens(ids, upd["k_new"], upd["v_new"], [int(n) for n in lens])
+    tables2, lens2 = kv.block_table_batch(ids)
+    extra2 = pl.decode_extra_args(kv, ids)
+    p2, pe2 = pad_operands(tables2, extra2, kv.num_blocks,
+                           kv.blocks_per_shard)
+    want2 = _snap(_eager(pl, params, kv, cuda, nxt, p2, lens2, pe2))
+    captures = comp.captures
+    _bitwise(_snap(comp(nxt, tables2, lens2, *extra2)), want2)
+    assert comp.captures == captures              # the same key replayed
+    assert not torch.equal(want2[0], want[0])
+    torch.cuda.synchronize()
+    # 8 compiled calls (2 of them eager warm-ups) and 2 eager references
+    assert fn.launches - n0 == 10 * per_step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["homogeneous", "request"])
+def test_cuda_engine_replays_its_decode_step(cuda, name):
+    """The engine on the card serves through graphs: its greedy tokens
+    equal those of the same engine stepping the placement's step eagerly
+    on unpadded operands, and every decode step counts its launches
+    once."""
+    from repro_torch.configs import registry as treg
+    from repro_torch.models import transformer as ttf
+    from repro_torch.serving import (EngineConfig, LLMEngine, Request,
+                                     SamplingParams)
+
+    cfg = treg.get_smoke_config("llama3-8b", num_kv_heads=2,
+                                dtype=torch.bfloat16)
+    params = ttf.init_params(0, cfg, device=cuda)
+    econf = EngineConfig(max_batch=4, block_size=4, num_blocks=64,
+                         attention_workers=2, prefill_chunk_tokens=8,
+                         **GRAPH_PLACEMENTS[name])
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (21, 12, 9)]
+    outs = {}
+    for compiled in (True, False):
+        eng = LLMEngine(cfg, params, econf, device=cuda)
+        if not compiled:
+            eng.compiled = None           # the eager step, as the reference
+        reqs = [Request(prompt=list(x), params=SamplingParams(
+            max_new_tokens=24)) for x in prompts]
+        n0 = pda.paged_decode_attention.launches
+        eng.submit(reqs)
+        eng.run()
+        torch.cuda.synchronize()
+        outs[compiled] = [r.output for r in reqs]
+        want = cfg.num_layers * (len(eng.stats.batch_sizes) if name ==
+                                 "homogeneous" else
+                                 sum(min(2, b) for b in eng.stats.batch_sizes))
+        assert pda.paged_decode_attention.launches - n0 == want
+        if compiled:
+            assert eng.compiled.replays > 0 and eng.compiled.captures > 0
+    assert outs[True] == outs[False]
