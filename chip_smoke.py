@@ -24,11 +24,20 @@ Phases (any failure exits non-zero and prints no result line):
      its SASS are logged with the build;
   4. end to end, homogeneous bf16: llama3-8b at full width and depth
      (random bf16 weights from seed 0) serving 8 requests through
-     LLMEngine with chunked prefill, the decode step replayed from CUDA
-     graphs; checks kernel launch counts, finishes, and the chunked vs
-     one-shot logit cosine; reports the graphs captured and their capture
-     seconds; profiles one 512-token prefill chunk and decode steps
-     (replays); at the B=8 state holds a compiled step against the eager
+     LLMEngine with chunked prefill, the decode step and the chunk step
+     replayed from CUDA graphs; checks kernel launch counts, finishes, and
+     the chunked vs one-shot logit cosine; reports the graphs captured
+     per program and their capture seconds; serves the 8 requests again
+     on the warmed engine (TTFT, launches, captures of that pass); holds
+     each compiled prefill program against the eager one
+     (``prefill_gates``: bit for bit at the same padded operands, the
+     unpadded eager logits at cosine >= 0.999 with the replay's token at
+     most 2 bf16 ulps under the eager top logit (a tie), replayed
+     and eager walls: chunks of 512 at nb 0/32/64/96 and a partial one,
+     one-shot prefills of 662 and 2000 tokens, a suffix of 150 after 512
+     shared tokens; a profiled replayed chunk) and counts the device ops
+     of one pool write; profiles one eager 512-token prefill chunk and
+     decode steps (replays); at the B=8 state holds a compiled step against the eager
      step (``compiled_gates``: bit for bit at the same padded operands,
      two replays in a row, a bucket switch, a pool write between
      replays); serves two requests sharing a 512-token prefix by one-shot
@@ -38,7 +47,9 @@ Phases (any failure exits non-zero and prints no result line):
      placement (head partition, 2 workers) over an int8 pool; checks the
      int8 kernels' launch counts (and no bf16 launch), the pool's resident
      bytes against phase 4's, and the TransferLog against the §3.1
-     formulas; profiles decode steps and holds the compiled step as in 4;
+     formulas; serves them again warmed; profiles decode steps and holds
+     the compiled step as in 4, and the int8 chunk and suffix programs
+     over an int8 pool;
   6. every partition (head, request, block) and homogeneous placement over
      an int8 and a bf16 pool on 2 requests: next-step logits at one shared
      state (cosine), a compiled step of each against its eager step there
@@ -65,14 +76,26 @@ Phases (any failure exits non-zero and prints no result line):
   9. the card against the CPU at full width and reduced depth (zamba2 with
      4 layers, rwkv6 with 2; B=2, S=128, then 4 decode steps): row cosine
      of every step's logits;
- 10. one JSON line describing every ported kernel, then the result line.
+ 10. (run after phase 6) fault recovery at full width: llama3-8b on the
+     block partition over an int8 pool (2 shards), chunked prefill, the 8
+     requests fault-free, then through a shard death at step 12 with a
+     rejoin at 30, then through a corrupt partial at step 20 that clears
+     on the third attempt (``fault_e2e``): greedy tokens equal the
+     fault-free run's, the corrupt attempts bit-identical replays, the
+     pool whole after the rejoin, one recovery latency per recovered
+     request; recovery latency p50;
+ 11. one JSON line describing every ported kernel, then the result line.
+     A failed gate of phases 4, 5 and 10 is reported where it happens and
+     fails the run after the last phase.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a CUDA device or without the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -131,6 +154,18 @@ NO_PAGED_KERNEL = {"paged_decode_attention": 0,
 
 def log(*a):
     print(*a, flush=True)
+
+
+# gates of this run that failed; main raises after the last phase, so one
+# run reports every phase (the run still exits non-zero, no result line)
+FAILED = []
+
+
+def gate(ok, what):
+    if not ok:
+        FAILED.append(what)
+        log(f"GATE FAILED: {what}")
+    return bool(ok)
 
 
 def sync(torch):
@@ -234,6 +269,26 @@ def check_close(name, got, want, rtol=ERR_RTOL, atol=ERR_ATOL):
 def cosine(a, b):
     a, b = a.float().flatten(), b.float().flatten()
     return float(a @ b / (a.norm() * b.norm()))
+
+
+# bf16 logits tie often: two equivalent paths (padded and unpadded
+# operands, recomputed and decode-written K/V) differ by bf16 rounding
+# (row cosine ~0.99997 on this card), which flips an argmax only where
+# the top logits lie within a few bf16 ulps of each other
+NEAR_TIE_ULPS = 2
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 values at |x|."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def gap_ulps(logits, token):
+    """How far below the top of ``logits`` (one row) ``token``'s logit
+    lies, in bf16 ulps of the top logit (0 for the argmax itself)."""
+    row = logits.float().flatten()
+    top = float(row.max())
+    return (top - float(row[token])) / bf16_ulp(top)
 
 
 def quantize_pool(torch, pool):
@@ -536,7 +591,7 @@ def expect_launches(launches, want, what):
     log(f"{what}: launches {launches} as expected")
 
 
-def serving_summary(st, reqs, wall, peak, compiled=None):
+def serving_summary(st, reqs, wall, peak, compiled=None, prefill=None):
     n_out = sum(len(r.output) for r in reqs)
     times = sorted(st.step_times)
     out = dict(tok_s=n_out / wall, wall_s=wall,
@@ -550,7 +605,208 @@ def serving_summary(st, reqs, wall, peak, compiled=None):
                kv_bytes_read_per_step=st.kv_bytes_read_per_step)
     if compiled is not None:
         out.update(compiled_stats(compiled))
+    if prefill is not None:
+        out["prefill_graphs"] = prefill_stats(prefill)
     return out
+
+
+def prefill_stats(comp):
+    """``compiled_stats`` of each compiled prefill program (chunk,
+    one-shot, suffix)."""
+    return {kind: compiled_stats(g) for kind, g in comp.programs().items()}
+
+
+def warm_pass(torch, cfg, eng, prompts, counters, want, what):
+    """The same requests again on the warmed engine: launches per the path
+    (``want(steps, chunks)``), TTFT p50 of this pass, and the graphs the
+    pass captured and replayed per program."""
+    st = eng.stats
+    progs = dict(eng.compiled_prefill.programs(), decode=eng.compiled)
+    before = {k: (g.captures, g.replays) for k, g in progs.items()}
+    steps0, chunks0 = st.steps, st.prefill_chunks_run
+    n_ttft, n_tbt = len(st.request_ttfts), len(st.request_tbts)
+    reqs = make_requests(prompts, 32)
+    launches, wall, peak = serve(torch, eng, reqs, counters)
+    check_finished(cfg, reqs, 32)
+    steps, chunks = st.steps - steps0, st.prefill_chunks_run - chunks0
+    expect_launches(launches, want(steps, chunks),
+                    f"{what} ({steps} steps / {chunks} chunks)")
+    out = dict(wall_s=wall, tok_s=sum(len(r.output) for r in reqs) / wall,
+               ttft_p50_s=st._pcts(st.request_ttfts[n_ttft:])["p50"],
+               tbt_p50_s=st._pcts(st.request_tbts[n_tbt:])["p50"],
+               peak_gib=peak / 2**30, chunks=chunks, decode_steps=steps,
+               **{f"{k}_captures": g.captures - before[k][0]
+                  for k, g in progs.items()},
+               **{f"{k}_replays": g.replays - before[k][1]
+                  for k, g in progs.items()})
+    log(f"{what}: {json.dumps(out)}")
+    return out
+
+
+def median_wall(torch, fn, n=5):
+    """Median synchronized wall of ``fn()`` in ms."""
+    ts = []
+    for _ in range(n):
+        sync(torch)
+        t0 = time.perf_counter()
+        fn()
+        sync(torch)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ts)[n // 2]
+
+
+def prefill_gates(torch, cfg, params, kv, counters, kernel, rid=0,
+                  oneshot=True):
+    """A fresh ``CompiledPrefill`` over ``kv`` (sequence ``rid`` holds at
+    least 1536 prompt tokens) against the eager programs: each replay
+    equals the program run eagerly at the same padded operands bit for
+    bit (warm-up and two replays); a padded replay's logits against the
+    eager program on unpadded operands (the engine's path before the
+    graphs): row cosine >= MIN_COSINE, and the replay's token at most
+    NEAR_TIE_ULPS bf16 ulps under the eager top logit; chunk launches
+    through replays = L a call. Reports replayed and eager walls (chunk
+    of 512 at nb 0, 32, 64, 96; a partial chunk of 300 padded to 512;
+    one-shot prefills of 662 and 2000 tokens; a suffix of 150 after 512
+    shared tokens), a profiled replayed chunk (P=1024), and the graphs
+    and capture seconds per program."""
+    import numpy as np
+
+    from repro_torch.models import transformer
+    from repro_torch.serving.compiled import (CompiledPrefill, chunk_bucket,
+                                              pad_tokens, prefill_bucket)
+
+    comp = CompiledPrefill(cfg, params, kv, DEV, 512)
+    rng = np.random.default_rng(11)
+    L, bs = cfg.num_layers, kv.block_size
+    scales = {} if kv.k_scale is None else dict(k_scale_pool=kv.k_scale,
+                                                v_scale_pool=kv.v_scale)
+    result = {}
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=DEV)
+
+    def snap(out):
+        return [x.clone() for x in out]
+
+    def bitwise(got, want, what):
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                gate(False, f"{what}: replay != eager at the same padded "
+                     f"operands (max |diff| "
+                     f"{float((g.float() - w.float()).abs().max())})")
+                return False
+        return True
+
+    def case(what, call, program, ops, unpadded):
+        """Three calls (warm-up + 2 replays) against ``program`` run
+        eagerly on fresh copies of the padded operands ``ops``."""
+        want = snap(program(*[dev(a) for a in ops]))
+        counters.reset()
+        got = [snap(call()) for _ in range(3)]
+        sync(torch)
+        n = counters.read()[kernel]
+        per = L if what.startswith("chunk") else 0
+        gate(n == 3 * per, f"{what}: {n} {kernel} launches in 3 calls "
+             f"!= 3 x {per}")
+        ok = all(bitwise(g, want, what) for g in got)
+        ref = unpadded()
+        cos = cosine(got[1][0], ref)
+        token = int(got[1][0].argmax())
+        arg = token == int(ref.argmax())
+        gap = gap_ulps(ref, token)
+        gate(cos >= MIN_COSINE and gap <= NEAR_TIE_ULPS,
+             f"{what}: padded replay vs eager on unpadded operands: cosine "
+             f"{cos}, argmax equal {arg}, the replay's token "
+             f"{gap} bf16 ulps under the eager top")
+        top2 = ref.float().flatten().topk(2).values.tolist()
+        return dict(bitwise=ok, cosine_vs_unpadded=cos, argmax_equal=arg,
+                    token_gap_ulps=gap,
+                    eager_top2_margin_ulps=(top2[0] - top2[1]) /
+                    bf16_ulp(top2[0]),
+                    replay_ms=median_wall(torch, call),
+                    eager_ms=median_wall(torch, unpadded))
+
+    def eager_chunk(toks, blocks):
+        return lambda: transformer.prefill_chunk(
+            params, cfg, {"tokens": [toks]}, kv.k_pool, kv.v_pool,
+            dev(blocks), device=DEV, **scales)[0]
+
+    table = kv.tables[rid]
+    for nb, C in ((0, 512), (32, 512), (64, 512), (96, 512), (32, 300)):
+        toks = rng.integers(0, cfg.vocab_size, size=C).tolist()
+        blocks = table[:nb]
+        width = chunk_bucket(C, 512)
+        result[f"chunk_C{C}_nb{nb}"] = case(
+            f"chunk C={C} nb={nb}",
+            lambda: comp.run_chunk(toks, blocks), comp._chunk,
+            (pad_tokens(toks, width), blocks, [C]), eager_chunk(toks, blocks))
+    toks = rng.integers(0, cfg.vocab_size, size=512).tolist()
+    result["profile_chunk_P1024"] = profile_window(
+        torch, lambda: comp.run_chunk(toks, table[:64]), 2, 1)
+    suffix = rng.integers(0, cfg.vocab_size, size=150).tolist()
+    result["suffix_P512_S150"] = case(
+        "suffix P=512 S=150", lambda: comp.run_suffix(suffix, table[:32]),
+        comp._suffix, (pad_tokens(suffix, prefill_bucket(150)), table[:32],
+                       [150]),
+        lambda: transformer.prefill_suffix(
+            params, cfg, {"tokens": [suffix]},
+            *[x[:, None] for x in kv.gather_prefix(rid, 512)],
+            device=DEV)[0])
+    if oneshot:
+        for S in (662, 2000):
+            toks = rng.integers(0, cfg.vocab_size, size=S).tolist()
+            result[f"oneshot_S{S}"] = case(
+                f"one-shot S={S}", lambda: comp.run_oneshot(toks),
+                comp._oneshot, (pad_tokens(toks, prefill_bucket(S)), [S]),
+                lambda: transformer.prefill(params, cfg, {"tokens": [toks]},
+                                            max_seq=S, device=DEV)[0])
+    result["graphs"] = prefill_stats(comp)
+    del comp
+    return result
+
+
+def fill_pool(torch, cfg, params, kv, prompt, rid=0):
+    """Write ``prompt`` into ``kv`` as sequence ``rid`` by eager chunks of
+    512; returns each chunk's synchronized wall (ms) and the last
+    logits."""
+    from repro_torch.models import transformer
+
+    scales = {} if kv.k_scale is None else dict(k_scale_pool=kv.k_scale,
+                                                v_scale_pool=kv.v_scale)
+    walls = []
+    for c0 in range(0, len(prompt), 512):
+        c1 = min(c0 + 512, len(prompt))
+        t0 = time.perf_counter()
+        logits, cache = transformer.prefill_chunk(
+            params, cfg, {"tokens": [prompt[c0:c1]]}, kv.k_pool, kv.v_pool,
+            kv.gather_prefix_indices(rid, c0) if c0 else
+            torch.zeros((0,), dtype=torch.int32, device=DEV), device=DEV,
+            **scales)
+        kv.write_prefill_chunk(rid, cache["k"][:, 0], cache["v"][:, 0], c0)
+        sync(torch)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls, logits
+
+
+def write_launches(torch, cfg, kv_dtype, C=300):
+    """Device kernels (and copies) one ``write_prefill_chunk`` of C rows
+    into a fresh ``kv_dtype`` pool enqueues, counted by the profiler: the
+    pool write the compiled programs leave outside their graphs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import PagedKVCache
+
+    kv = PagedKVCache(cfg, 32, 16, kv_dtype=kv_dtype, device=DEV)
+    L, Hkv, _, _, hd = kv.k_pool.shape
+    k = torch.randn((L, Hkv, C, hd), device=DEV).to(cfg.dtype)
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        kv.write_prefill_chunk(0, k, k, 0)
+        sync(torch)
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
 
 
 def compiled_stats(comp):
@@ -718,9 +974,17 @@ def homogeneous_e2e(torch, np, cfg, params, prompts, counters):
         "paged_prefill_chunk_attention_int8": 0, **NO_NEW_KERNEL},
         f"e2e homogeneous bf16 ({L} layers x {st.steps} steps / "
         f"{st.prefill_chunks_run} chunks)")
-    result = serving_summary(st, reqs, wall, peak, eng.compiled)
+    result = serving_summary(st, reqs, wall, peak, eng.compiled,
+                             eng.compiled_prefill)
     log(f"e2e homogeneous bf16: {len(reqs)} requests, "
         f"{json.dumps(result)}")
+    result["warm_pass"] = warm_pass(
+        torch, cfg, eng, prompts, counters, lambda steps, chunks: {
+            "paged_decode_attention": L * steps,
+            "paged_prefill_chunk_attention": L * chunks,
+            "paged_decode_attention_int8": 0,
+            "paged_prefill_chunk_attention_int8": 0, **NO_NEW_KERNEL},
+        "e2e homogeneous bf16, second pass on the warmed engine")
 
     # chunked kernel path vs one-shot plain blockwise prefill, one prompt
     prompt = max(prompts, key=len)
@@ -751,6 +1015,14 @@ def homogeneous_e2e(torch, np, cfg, params, prompts, counters):
     if not cos >= 0.99:
         raise AssertionError(f"chunked vs one-shot cosine {cos} < 0.99")
     result.update(cosine=cos, chunk_ms=chunk_ms, oneshot_prefill_ms=oneshot_ms)
+    result["prefill_gates"] = prefill_gates(
+        torch, cfg, params, kv, counters, "paged_prefill_chunk_attention")
+    result["write_prefill_chunk_launches"] = write_launches(torch, cfg,
+                                                           "bf16")
+    log(f"e2e homogeneous bf16: compiled prefill vs eager: "
+        f"{json.dumps(result['prefill_gates'])}; one write_prefill_chunk "
+        f"of 300 rows enqueues {result['write_prefill_chunk_launches']} "
+        f"device ops")
     # the third chunk (P=1024, C=512) again, under the profiler: how much of
     # a chunk's wall the card is busy, and with what
     c0 = 1024
@@ -848,7 +1120,7 @@ def oneshot_sharing(torch, cfg, params, prefix_len=512, suffixes=(100, 150),
 def lamina_e2e(torch, np, cfg, params, prompts, counters, bf16_resident):
     """Phase 5: Lamina's deployment — attention on 2 workers (head
     partition) reading an int8 pool in place."""
-    from repro_torch.serving import (EngineConfig, LLMEngine,
+    from repro_torch.serving import (EngineConfig, LLMEngine, PagedKVCache,
                                      expected_transfer_bytes, make_placement)
 
     econf = EngineConfig(placement="attention_pool", partition="head",
@@ -902,8 +1174,17 @@ def lamina_e2e(torch, np, cfg, params, prompts, counters, bf16_resident):
     log(f"e2e Lamina: TransferLog {got_log} = the §3.1 formulas "
         f"({tokens} decode tokens, {chunk_tokens} chunk tokens); "
         f"per-worker KV bytes read {eng.pool.per_worker_kv_bytes}")
-    result = serving_summary(st, reqs, wall, peak, eng.compiled)
+    result = serving_summary(st, reqs, wall, peak, eng.compiled,
+                             eng.compiled_prefill)
     log(f"e2e Lamina head int8: {len(reqs)} requests, {json.dumps(result)}")
+    result["warm_pass"] = warm_pass(
+        torch, cfg, eng, prompts, counters, lambda steps, chunks: {
+            "paged_decode_attention": 0,
+            "paged_prefill_chunk_attention": 0,
+            "paged_decode_attention_int8": L * steps * n,
+            "paged_prefill_chunk_attention_int8": L * chunks,
+            **NO_NEW_KERNEL},
+        "e2e Lamina head int8, second pass on the warmed engine")
     prof, gates = profile_decode(
         torch, eng, prompts, at_state=lambda wave: compiled_gates(
             torch, make_placement(cfg, econf, torch.device(DEV)), params,
@@ -916,6 +1197,22 @@ def lamina_e2e(torch, np, cfg, params, prompts, counters, bf16_resident):
     result.update(resident_ratio=ratio, transfer_log=got_log, profile=prof,
                   compiled_gates=gates)
     del eng
+    torch.cuda.empty_cache()
+    # the int8 chunk and suffix programs over an int8 pool holding the
+    # longest prompt
+    prompt = max(prompts, key=len)
+    kv = PagedKVCache(cfg, -(-len(prompt) // 16) + 1, 16, kv_dtype="int8",
+                      device=DEV)
+    fill_pool(torch, cfg, params, kv, prompt)
+    result["prefill_gates"] = prefill_gates(
+        torch, cfg, params, kv, counters,
+        "paged_prefill_chunk_attention_int8", oneshot=False)
+    result["write_prefill_chunk_launches"] = write_launches(torch, cfg,
+                                                           "int8")
+    log(f"e2e Lamina int8 pool: compiled prefill vs eager: "
+        f"{json.dumps(result['prefill_gates'])}; one write_prefill_chunk "
+        f"of 300 rows enqueues {result['write_prefill_chunk_launches']} "
+        f"device ops")
     return launches, result
 
 
@@ -1063,6 +1360,166 @@ def partitions_e2e(torch, np, cfg, params, prompts, counters, kv_dtype):
     return dict(shared_state=shared, compiled=graphs, runs={
         k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
         for k, v in runs.items()})
+
+
+def fault_e2e(torch, np, cfg, params, prompts, counters):
+    """Phase 10: fault recovery at full width. llama3-8b served on
+    Lamina's block partition over an int8 pool (2 workers, so 2 shards),
+    chunked prefill of 512, the 8 requests of phase 5, fault-free and
+    under two scenarios: a shard death at step 12 with a rejoin at 30, and
+    a corrupt partial at step 20 that clears on the third attempt. Gates:
+    (1) every request's greedy tokens equal the fault-free run's up to
+    its first divergence, if any, and that divergence takes a token that
+    ties the fault-free top logit within NEAR_TIE_ULPS bf16 ulps (each
+    divergence is reported with the fault-free top-2 margin there);
+    (2) the corrupt step's attempts compute the same
+    logits bit for bit, the retries as graph replays; (3) after the rejoin
+    the pool is whole again; (4) one recovery latency per recovered
+    request. Launches: the int8 chunk kernel L per chunk (re-prefills
+    included), the int8 decode kernel L x 2 per decode attempt."""
+    from repro_torch.serving import (EngineConfig, FaultInjector,
+                                     FaultScenario, LLMEngine)
+
+    econf = EngineConfig(placement="attention_pool", partition="block",
+                         attention_workers=2, kv_dtype="int8",
+                         block_size=16, num_blocks=2048, max_batch=8,
+                         prefill_chunk_tokens=512)
+    L, n = cfg.num_layers, econf.attention_workers
+    scenarios = {"shard_death": "shard_death:shard=1,step=12,rejoin=30",
+                 "corrupt": "corrupt:shard=0,step=20,failures=2"}
+
+    class Recording(FaultInjector):
+        """The injector, recording every decode attempt's logits at the
+        fault step and the decode graph's replay count before each."""
+
+        def __init__(self, scenario, step, eng_ref):
+            super().__init__(scenario)
+            self.calls, self.at_step = 0, []
+            self.fault_step, self.eng_ref = step, eng_ref
+
+        def filter_decode(self, step, logits):
+            self.calls += 1
+            if step == self.fault_step:
+                self.at_step.append((logits.clone(),
+                                     self.eng_ref[0].compiled.replays))
+            return super().filter_decode(step, logits)
+
+    def run(spec):
+        ref = []
+        inj = Recording(FaultScenario.parse(spec), 20, ref) if spec else \
+            Recording(FaultScenario([]), 20, ref)
+        eng = LLMEngine(cfg, params, econf, inj, device=DEV)
+        ref.append(eng)
+        margins = {}
+        sample = eng._sample
+
+        def recorded(reqs, logits):    # the top 8 of every token's logits
+            top = logits.float().topk(8, dim=-1)
+            for r, v, i in zip(reqs, top.values.tolist(),
+                               top.indices.tolist()):
+                margins.setdefault(r.rid, []).append((v, i))
+            return sample(reqs, logits)
+        eng._sample = recorded
+        reqs = make_requests(prompts, 32)
+        launches, wall, peak = serve(torch, eng, reqs, counters)
+        check_finished(cfg, reqs, 32)
+        st = eng.stats
+        expect_launches(launches, {
+            "paged_decode_attention": 0, "paged_prefill_chunk_attention": 0,
+            "paged_decode_attention_int8": L * n * inj.calls,
+            "paged_prefill_chunk_attention_int8": L * st.prefill_chunks_run,
+            **NO_NEW_KERNEL},
+            f"fault phase {spec or 'fault-free'} ({inj.calls} decode "
+            f"attempts / {st.prefill_chunks_run} chunks)")
+        out = dict(wall_s=wall, peak_gib=peak / 2**30,
+                   ttft_p50_s=st.ttft_percentiles()["p50"],
+                   decode_steps=st.steps, chunks=st.prefill_chunks_run,
+                   **{k: getattr(st, k) for k in (
+                       "shard_failures", "shard_rejoins", "fault_retries",
+                       "transient_faults_recovered", "requests_recovered",
+                       "preemptions")},
+                   recovery_p50_s=st.recovery_percentiles()["p50"],
+                   recovery_latencies_s=list(st.recovery_latencies),
+                   event_kinds={k: sum(e.kind == k for e in eng.event_log)
+                                for k in ("shard_suspect", "retry",
+                                          "shard_down", "shard_up",
+                                          "recover", "preempt", "readmit")},
+                   decode_graphs=compiled_stats(eng.compiled),
+                   prefill_graphs=prefill_stats(eng.compiled_prefill))
+        tokens = [r.output for r in reqs]
+        rid_margins = [margins[r.rid] for r in reqs]
+        return eng, inj, tokens, rid_margins, out
+
+    _, _, ref_tokens, ref_margins, free = run(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = {"fault_free": free}
+    for name, spec in scenarios.items():
+        eng, inj, tokens, _, out = run(spec)
+        st = eng.stats
+        # gate 1: greedy tokens through recovery = the fault-free run's
+        diverged = []
+        for i, (got, want) in enumerate(zip(tokens, ref_tokens)):
+            pos = next((j for j, (a, b) in enumerate(zip(got, want))
+                        if a != b), None)
+            if pos is not None:
+                vals, idx = ref_margins[i][pos]
+                ulp = bf16_ulp(vals[0])
+                mine = vals[idx.index(got[pos])] if got[pos] in idx \
+                    else -math.inf
+                diverged.append(dict(
+                    request=i, position=pos, fault_free_top2=vals[:2],
+                    margin_bf16_ulps=(vals[0] - vals[1]) / ulp,
+                    faulted_token_gap_bf16_ulps=(vals[0] - mine) / ulp))
+        out["tokens_equal_fault_free"] = not diverged
+        out["diverged"] = diverged
+        # recomputed K/V are not bit-identical to decode-written K/V in
+        # bf16: a request may leave the fault-free stream only where the
+        # fault-free run's top logits tie (the token it takes lies within
+        # NEAR_TIE_ULPS of the top); before that, every token is equal
+        gate(all(d["faulted_token_gap_bf16_ulps"] <= NEAR_TIE_ULPS
+                 for d in diverged),
+             f"fault {name}: greedy tokens leave the fault-free run away "
+             f"from a bf16 near-tie: {diverged}")
+        # gate 4: one recovery latency per recovered request
+        gate(len(st.recovery_latencies) == st.requests_recovered,
+             f"fault {name}: {len(st.recovery_latencies)} recovery "
+             f"latencies for {st.requests_recovered} recovered requests")
+        if name == "shard_death":
+            down = [e for e in eng.event_log if e.kind == "shard_down"]
+            out["victims"] = down[0].info["victims"] if down else []
+            gate(st.shard_failures == 1 and st.shard_rejoins == 1 and
+                 st.requests_recovered >= 1 and out["victims"],
+                 f"fault {name}: counters {out}")
+            # gate 3: the pool is whole again after the rejoin
+            gate(eng.kv.quarantined_shards == () and
+                 eng.kv.capacity_blocks == econf.num_blocks and
+                 eng.kv.num_free == econf.num_blocks and not eng.kv.tables,
+                 f"fault {name}: pool after rejoin: quarantined "
+                 f"{eng.kv.quarantined_shards}, capacity "
+                 f"{eng.kv.capacity_blocks}, free {eng.kv.num_free}")
+        else:
+            # gate 2: the attempts of the corrupt step are bit-identical,
+            # the retries replays of the step's graph
+            att = inj.at_step
+            same = len(att) == 3 and all(torch.equal(a[0], att[0][0])
+                                         for a in att[1:])
+            replayed = len(att) == 3 and att[1][1] - att[0][1] == 1 and \
+                att[2][1] - att[1][1] == 1
+            out.update(attempts=len(att), attempts_bitwise=same,
+                       retries_replayed=replayed)
+            gate(same and replayed and st.fault_retries == 2 and
+                 st.transient_faults_recovered == 1 and
+                 st.shard_failures == 0,
+                 f"fault {name}: {len(att)} attempts, bit-identical {same}, "
+                 f"replayed {replayed}, counters {out}")
+        result[name] = out
+        log(f"fault phase {name}: {json.dumps(out)}")
+        del eng, inj
+        gc.collect()                  # the injector and engine reference
+        torch.cuda.empty_cache()      # each other
+    log(f"fault phase fault-free: {json.dumps(free)}")
+    return result
 
 
 def profile_decode(torch, eng, prompts, n_steps=3, at_state=None):
@@ -1639,6 +2096,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     parts = {d: partitions_e2e(torch, np, cfg, params, prompts[:2], counters,
                                d) for d in ("int8", "bf16")}
+    torch.cuda.empty_cache()
+    faults = fault_e2e(torch, np, cfg, params, prompts, counters)
     log(f"llama3-8b end-to-end phases done at "
         f"{time.perf_counter() - t_start:.1f} s")
     del params
@@ -1689,8 +2148,11 @@ def main() -> int:
                         "bound_by", "library_ms")})
                for name, (src, rep) in KERNELS.items()]
     log(json.dumps({"summary": {"homogeneous_bf16": e2e, "lamina_int8": lam,
-                                "partitions": parts, "zamba2": zamba,
-                                "rwkv6": rwkv6, "card_vs_cpu": versus}}))
+                                "partitions": parts, "faults": faults,
+                                "zamba2": zamba, "rwkv6": rwkv6,
+                                "card_vs_cpu": versus}}))
+    if FAILED:
+        raise AssertionError(f"{len(FAILED)} gate(s) failed: {FAILED}")
     log(json.dumps({"kernels": kernels, "todo": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

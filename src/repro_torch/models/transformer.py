@@ -6,13 +6,15 @@ Port of ``repro/models/transformer.py`` for the dense/vlm stacks, rwkv6
     params_from_jax(np_tree, cfg, device)                   -> params
     forward(params, cfg, batch, device=...)                 -> logits
     init_cache(cfg, batch, max_seq, device=...)             -> cache
-    prefill(params, cfg, batch, max_seq, device=...)        -> (logits, cache)
-    prefill_suffix(params, cfg, batch, k_prefix, v_prefix, device=...)
-                                                            (dense/vlm)
+    prefill(params, cfg, batch, max_seq, device=..., length=None)
+                                                            -> (logits, cache)
+    prefill_suffix(params, cfg, batch, k_prefix, v_prefix, device=...,
+                   length=None)                             (dense/vlm)
     decode_step(params, cfg, tokens, cache, device=...)     -> (logits, updates)
     apply_decode_updates(cache, updates)                    -> cache
     prefill_chunk(params, cfg, batch, k_pool, v_pool, prefix_blocks, ...,
-                  k_scale_pool=None, v_scale_pool=None)     (dense/vlm)
+                  k_scale_pool=None, v_scale_pool=None, length=None)
+                                                            (dense/vlm)
     decode_step_paged(params, cfg, tokens, k_pool, v_pool, block_tables,
                       cache_len, ..., k_scale_pool=None,
                       v_scale_pool=None)                    -> (logits, updates)
@@ -24,6 +26,13 @@ layers replaces ``lax.scan``. Each function takes ``device`` (default
 a call that does not pass ``device="cpu"`` raises. The dense cache of
 ``decode_step`` is bf16/fp32 only (``kv_cache_bits == 8`` raises); the
 paged entry points serve int8 pools.
+
+The three prefill entry points also run on PADDED operands, the static
+buffers of the engine's compiled prefill programs (``serving/compiled.py``):
+``length`` is then a (B,) int device tensor of real rows, pad tokens sit
+after them (causal masking keeps them out of every real row's attention),
+the logits are the last real row's, picked by a device index, and the
+cache's ``len`` counts real rows. Without ``length`` nothing changes.
 """
 from __future__ import annotations
 
@@ -201,6 +210,25 @@ def _hm(kv: torch.Tensor) -> torch.Tensor:
     return kv.transpose(2, 3).contiguous()
 
 
+def _last_rows(x: torch.Tensor, length) -> torch.Tensor:
+    """Each sequence's last real row of x (B, S, d): row S - 1, or, for
+    padded rows, row ``length - 1`` picked on the device (no host sync, so
+    a captured graph can run it)."""
+    if length is None:
+        return x[:, -1]
+    idx = (length.long() - 1).view(-1, 1, 1).expand(x.shape[0], 1,
+                                                    x.shape[2])
+    return x.gather(1, idx)[:, 0]
+
+
+def _cache_len(x: torch.Tensor, length, start: int) -> torch.Tensor:
+    """The cache's ``len``: ``start`` plus the real rows of x (B, S, d)."""
+    if length is None:
+        return torch.full((x.shape[0],), start + x.shape[1],
+                          dtype=torch.int32, device=x.device)
+    return (length + start).to(torch.int32).expand(x.shape[0])
+
+
 def _pad_seq(kv: torch.Tensor, max_seq: int) -> torch.Tensor:
     """Pad with zeros or trim the sequence axis (-2) to ``max_seq``."""
     S = kv.shape[-2]
@@ -335,13 +363,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 # Prefill
 # ===========================================================================
 def prefill(params: Params, cfg: ModelConfig, batch: Dict, max_seq: int, *,
-            device="cuda") -> Tuple[torch.Tensor, Dict]:
+            device="cuda", length=None) -> Tuple[torch.Tensor, Dict]:
     """Run a batch of equal-length prompts one-shot, return (last-position
     logits, cache) with the keys of :func:`init_cache` filled and len = S.
     Attention is the plain blockwise path; the recurrent layers run the
-    scan kernels on the card, and their final state is the closed form."""
+    scan kernels on the card, and their final state is the closed form.
+    ``length`` (dense/vlm): (B,) real rows of padded prompts (module
+    docstring)."""
     _check_family(cfg, "prefill", SERVE_FAMILIES)
     _check_dense_cache_bits(cfg)
+    if length is not None:
+        _check_family(cfg, "prefill of padded prompts")
     dev = resolve_device(device)
     x, positions, _ = _embed(params, cfg, batch, dev)
     cache: Dict[str, Any] = {}
@@ -364,14 +396,13 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict, max_seq: int, *,
         x, kv = _dense_stack(params, cfg, x, positions, mode="prefill")
         for key in ("k", "v"):
             cache[key] = _pad_seq(_hm(_stack_states(kv, key)), max_seq)
-    cache["len"] = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
-                              device=dev)
-    return _head(params, cfg, x[:, -1]), cache
+    cache["len"] = _cache_len(x, length, 0)
+    return _head(params, cfg, _last_rows(x, length)), cache
 
 
 def prefill_suffix(params: Params, cfg: ModelConfig, batch: Dict,
                    k_prefix: torch.Tensor, v_prefix: torch.Tensor, *,
-                   device="cuda") -> Tuple[torch.Tensor, Dict]:
+                   device="cuda", length=None) -> Tuple[torch.Tensor, Dict]:
     """Prefix-cached prefill (reference ``transformer.py:485``): run only a
     prompt's unshared SUFFIX, the shared prefix's KV supplied from the
     paged pool — the prefix-sharing engine's prefill-skip path.
@@ -382,7 +413,8 @@ def prefill_suffix(params: Params, cfg: ModelConfig, batch: Dict,
     P + i and attend over concat(prefix, suffix) by the blockwise path of
     :func:`prefill`, so windows, sinks, softcaps and post-norms follow.
     Returns (last-position logits, {"k", "v", "len"}) with SUFFIX-ONLY
-    head-major K/V (L, B, Hkv, S_suf, hd) and len = P + S_suf."""
+    head-major K/V (L, B, Hkv, S_suf, hd) and len = P + S_suf; ``length``:
+    (B,) real rows of a padded suffix (module docstring)."""
     if cfg.family not in ("dense", "vlm", "moe"):
         raise ValueError("prefix-cached prefill serves KV-cache dense "
                          f"stacks; got family={cfg.family}")
@@ -400,15 +432,14 @@ def prefill_suffix(params: Params, cfg: ModelConfig, batch: Dict,
         ks.append(c["k"])
         vs.append(c["v"])
     cache = {"k": _hm(torch.stack(ks)), "v": _hm(torch.stack(vs)),
-             "len": torch.full((x.shape[0],), P + x.shape[1],
-                               dtype=torch.int32, device=dev)}
-    return _head(params, cfg, x[:, -1]), cache
+             "len": _cache_len(x, length, P)}
+    return _head(params, cfg, _last_rows(x, length)), cache
 
 
 def prefill_chunk(params: Params, cfg: ModelConfig, batch: Dict,
                   k_pool: torch.Tensor, v_pool: torch.Tensor,
                   prefix_blocks, *, k_scale_pool=None, v_scale_pool=None,
-                  device="cuda") -> Tuple[torch.Tensor, Dict]:
+                  device="cuda", length=None) -> Tuple[torch.Tensor, Dict]:
     """Chunked paged prefill: run ONE block-aligned chunk of a prompt, its
     queries attending over the already-written pool blocks plus the in-chunk
     causal mask (the chunk-prefill kernel on the card).
@@ -420,7 +451,9 @@ def prefill_chunk(params: Params, cfg: ModelConfig, batch: Dict,
     k_scale_pool/v_scale_pool: (L, Hkv, num_blocks, bs) fp32 scale pools of
     an int8 pool (the int8 chunk kernel on the card). Returns
     (last-position logits, {"k", "v", "len"}) with CHUNK-ONLY head-major
-    K/V (L, 1, Hkv, C, hd) and len = P + C."""
+    K/V (L, 1, Hkv, C, hd) and len = P + C; ``length``: (1,) real rows of
+    a padded chunk (module docstring). P comes from the table's shape, the
+    chunk kernel's host scalar."""
     _check_family(cfg, "chunked paged prefill")
     dev = resolve_device(device)
     tokens = _int_tensor(batch["tokens"], dev)
@@ -443,9 +476,8 @@ def prefill_chunk(params: Params, cfg: ModelConfig, batch: Dict,
         ks.append(c["k"])
         vs.append(c["v"])
     cache = {"k": _hm(torch.stack(ks)), "v": _hm(torch.stack(vs)),
-             "len": torch.full((1,), P + x.shape[1], dtype=torch.int32,
-                               device=dev)}
-    return _head(params, cfg, x[:, -1]), cache
+             "len": _cache_len(x, length, P)}
+    return _head(params, cfg, _last_rows(x, length)), cache
 
 
 # ===========================================================================

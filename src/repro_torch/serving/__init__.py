@@ -7,6 +7,8 @@
         ...
 """
 from repro_torch.serving.config import EngineConfig
+from repro_torch.serving.faults import (FaultEvent, FaultInjector,
+                                        FaultScenario, ShardHealthTracker)
 from repro_torch.serving.kvcache import OutOfBlocks, PagedKVCache, PoolExhausted
 from repro_torch.serving.llm_engine import (CorruptedLogitsError, EngineEvent,
                                             LLMEngine, RequestHandle,
@@ -24,7 +26,8 @@ from repro_torch.serving.worker_pool import (AttentionWorkerPool, TransferLog,
                                              expected_transfer_bytes)
 
 __all__ = [
-    "EngineConfig", "EngineStats", "EngineEvent", "LLMEngine",
+    "EngineConfig", "EngineStats", "FaultEvent", "FaultInjector",
+    "FaultScenario", "ShardHealthTracker", "EngineEvent", "LLMEngine",
     "RequestHandle", "SchedulingStalled", "CorruptedLogitsError",
     "PlacementStrategy", "make_placement", "Request", "SamplingParams",
     "State", "PagedKVCache", "OutOfBlocks", "PoolExhausted",

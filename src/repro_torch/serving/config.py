@@ -46,16 +46,17 @@ class EngineConfig:
     decode_headroom: int = 8           # tokens reserved per admitted request
     # Refcounted prompt-prefix sharing: full prompt blocks matching a live
     # request's prefix map onto the donor's physical blocks at admission
-    # (copy-on-write on divergence). Served through chunked prefill here;
-    # the one-shot suffix prefill is not ported yet.
+    # (copy-on-write on divergence); one-shot and chunked prefill skip the
+    # shared prefix.
     prefix_sharing: bool = False
     # Chunked paged prefill: block-aligned chunks of at most this many
     # tokens, at most one chunk per engine iteration beside the decode
     # batch; None = one-shot prefill.
     prefill_chunk_tokens: Optional[int] = None
 
-    # ---- fault tolerance (carried for parity; serving/faults.py is not
-    # ported yet) ----
+    # ---- fault tolerance (the shard health machine, serving/faults.py):
+    # a shard is declared dead after fault_retry_limit consecutive strikes;
+    # attempt i of a retry sleeps fault_retry_backoff_s · 2^i ----
     fault_retry_limit: int = 3
     fault_retry_backoff_s: float = 0.0
 

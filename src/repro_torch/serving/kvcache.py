@@ -1,7 +1,7 @@
 """Paged KV-cache manager (PagedAttention-style, paper baseline [28]).
 Port of ``repro/serving/kvcache.py``: block-sharded, bf16/fp32 or int8
-pools (shard quarantine and the handoff API arrive with the fault and
-cluster slices).
+pools with shard quarantine (the handoff API arrives with the cluster
+slice).
 
 Fixed-size blocks of ``block_size`` tokens from a global pool; per-sequence
 block tables; allocation is O(1) off a free list. The allocator is
@@ -27,6 +27,14 @@ i mod n_shards (the most-free shard when that one is empty);
 ``block_table_shards()`` gives each shard's compacted table and each
 slot's global base position.
 
+Shard quarantine (fault recovery): a shard the engine declares dead is
+masked out of the allocator (``quarantine_shard``): the round-robin slot
+rule walks the LIVE shards only, and every capacity view (``num_free``,
+``capacity_blocks``, ``can_allocate``) drops to the survivors. The dead
+shard's free list is kept: victims release their refs through the normal
+refcount path and the blocks drain back in place, unallocatable until
+``rejoin_shard``. Every ``PoolExhausted`` carries the degraded context.
+
 Quantized pool (``kv_dtype="int8"``): int8 value pools plus per-token,
 per-kv-head fp32 scale pools ``(L, Hkv, num_blocks, block_size)`` that
 mirror the value pools' block axis. Every write path quantizes at write
@@ -39,7 +47,8 @@ Invariants (tests/test_torch_engine.py replays the reference's):
   * a block's refcount == the number of live tables referencing it,
   * free + referenced == total (a block is free iff its refcount is zero),
   * a sequence's capacity always covers its token count,
-  * a writer never mutates a block another live sequence references.
+  * a writer never mutates a block another live sequence references,
+  * no allocation lands on a quarantined shard (tests/test_torch_faults.py).
 """
 from __future__ import annotations
 
@@ -62,14 +71,25 @@ class PoolExhausted(OutOfBlocks):
     """Pool exhaustion with context: which request hit the wall, how many
     tokens are live in the pool, and how many blocks remain free — the
     signal the preempting scheduling policy consumes (and the clear error
-    FCFS surfaces instead of failing deep in the allocator)."""
+    FCFS surfaces instead of failing deep in the allocator).
+    ``quarantined_shards`` / ``live_shards`` tell "pool too small" from
+    "pool degraded by a shard fault"."""
 
     def __init__(self, message: str, *, rid: Optional[int] = None,
-                 live_tokens: int = 0, free_blocks: int = 0):
+                 live_tokens: int = 0, free_blocks: int = 0,
+                 quarantined_shards: Tuple[int, ...] = (),
+                 live_shards: Tuple[int, ...] = ()):
         super().__init__(message)
         self.rid = rid
         self.live_tokens = live_tokens
         self.free_blocks = free_blocks
+        self.quarantined_shards = tuple(quarantined_shards)
+        self.live_shards = tuple(live_shards)
+
+    @property
+    def degraded(self) -> bool:
+        """True when the pool was exhausted with some shards quarantined."""
+        return bool(self.quarantined_shards)
 
 
 @dataclasses.dataclass
@@ -121,6 +141,9 @@ class PagedKVCache:
         # through in place.
         self._borrowed: Dict[int, set] = {}
         self.cow_forks = 0             # copy-on-write block copies
+        # shards quarantined by fault recovery: their free lists are kept
+        # (blocks drain back) but nothing is allocated from them
+        self._quarantined: set = set()
         # memoised device index tensors keyed by the gathered block ids
         self._gather_idx_cache: Dict[Tuple[int, ...], torch.Tensor] = {}
 
@@ -130,32 +153,88 @@ class PagedKVCache:
 
     @property
     def free(self) -> List[int]:
-        """All free block ids, shard by shard (read-only copy)."""
-        return [b for shard in self._free_shard for b in shard]
+        """All ALLOCATABLE free block ids, shard by shard (a quarantined
+        shard's drained blocks excluded; read-only copy)."""
+        return [b for s, shard in enumerate(self._free_shard)
+                for b in shard if s not in self._quarantined]
 
     @property
     def num_free(self) -> int:
-        return sum(len(shard) for shard in self._free_shard)
+        """Allocatable free blocks (quarantined shards contribute none)."""
+        return sum(len(shard) for s, shard in enumerate(self._free_shard)
+                   if s not in self._quarantined)
+
+    # ---------------- shard health (fault-recovery surface) ----------------
+    @property
+    def live_shards(self) -> List[int]:
+        """Shards accepting allocations (not quarantined)."""
+        return [s for s in range(self.n_shards) if s not in self._quarantined]
+
+    @property
+    def quarantined_shards(self) -> Tuple[int, ...]:
+        return tuple(sorted(self._quarantined))
 
     @property
     def capacity_blocks(self) -> int:
-        """Total blocks the pool can hold."""
-        return self.num_blocks
+        """Blocks the pool can hold now: ``num_blocks`` when healthy, the
+        surviving shards' share when degraded — what every "can this
+        request ever fit" check reads."""
+        return self.blocks_per_shard * (self.n_shards -
+                                        len(self._quarantined))
+
+    def seqs_on_shard(self, shard: int) -> List[int]:
+        """Live sequences holding at least one block on ``shard`` (a
+        borrower of a donor's block there too): the victims its death
+        forces through recovery."""
+        lo, hi = shard * self.blocks_per_shard, \
+            (shard + 1) * self.blocks_per_shard
+        return sorted(sid for sid, table in self.tables.items()
+                      if any(lo <= b < hi for b in table))
+
+    def quarantine_shard(self, shard: int) -> None:
+        """Mask ``shard`` out of the allocator: nothing new lands on it and
+        every capacity view drops to the survivors. Its free list is kept
+        (blocks drain back as victims release their refs) but stays
+        unallocatable until :meth:`rejoin_shard`."""
+        if not 0 <= shard < self.n_shards:
+            raise ValueError(f"shard {shard} outside [0, {self.n_shards})")
+        self._quarantined.add(shard)
+
+    def rejoin_shard(self, shard: int) -> None:
+        """Restore a quarantined shard: the blocks that drained back to its
+        free list are allocatable again."""
+        self._quarantined.discard(shard)
 
     def shard_of(self, block_id: int) -> int:
         return block_id // self.blocks_per_shard
 
     def _pop_block(self, seq_slot: int) -> int:
         """Pop a free block for a sequence's ``seq_slot``-th table entry:
-        shard ``seq_slot mod n_shards`` (round robin), or the most-free
-        shard when that one is empty."""
-        target = seq_slot % self.n_shards
+        round robin over the LIVE shards (slot ``seq_slot mod live``), or
+        the most-free live shard when that one is empty."""
+        live = self.live_shards
+        if not live:
+            raise OutOfBlocks("every pool shard is quarantined")
+        target = live[seq_slot % len(live)]
         if not self._free_shard[target]:
-            target = max(range(self.n_shards),
-                         key=lambda s: len(self._free_shard[s]))
+            target = max(live, key=lambda s: len(self._free_shard[s]))
             if not self._free_shard[target]:
                 raise OutOfBlocks("pool exhausted")
         return self._free_shard[target].pop()
+
+    def _degraded_kw(self) -> Dict:
+        """The shard-health context every ``PoolExhausted`` carries."""
+        return {"quarantined_shards": self.quarantined_shards,
+                "live_shards": tuple(self.live_shards)}
+
+    def _degraded_note(self) -> str:
+        if not self._quarantined:
+            return ""
+        q = sorted(self._quarantined)
+        return (f" [pool DEGRADED: shard(s) {q} quarantined after a fault; "
+                f"{len(self.live_shards)} of {self.n_shards} shards live, "
+                f"capacity {self.capacity_blocks} of {self.num_blocks} "
+                f"blocks]")
 
     # ---------------- allocation ----------------
     def blocks_needed(self, n_tokens: int) -> int:
@@ -165,9 +244,10 @@ class PagedKVCache:
         return self.num_free >= self.blocks_needed(n_tokens)
 
     def _exhausted(self, message: str, rid: int) -> PoolExhausted:
-        return PoolExhausted(message, rid=rid,
+        """``PoolExhausted`` with the pool's context and degraded note."""
+        return PoolExhausted(message + self._degraded_note(), rid=rid,
                              live_tokens=sum(self.lengths.values()),
-                             free_blocks=self.num_free)
+                             free_blocks=self.num_free, **self._degraded_kw())
 
     def allocate(self, seq_id: int, n_tokens: int) -> None:
         """Give `seq_id` capacity for `n_tokens`. A fresh sequence gets a new
@@ -377,16 +457,24 @@ class PagedKVCache:
 
     # ---------------- data movement ----------------
     def write_prefill(self, seq_id: int, k: torch.Tensor, v: torch.Tensor,
-                      start_token: int = 0) -> None:
+                      start_token: int = 0,
+                      length: Optional[int] = None) -> None:
         """k/v: HEAD-MAJOR (L, Hkv, S, hd) for this sequence's tokens
         [start_token, start_token + S) (start block-aligned), scattered in
-        place into its blocks. A write into a still-shared BORROWED block
-        copy-on-writes first; S must equal the allocated length minus
-        start_token."""
+        place into its blocks. ``length`` (default S) is the number of real
+        rows when k/v come padded from a compiled prefill: only those are
+        written, so no pad row lands in a block. A write into a
+        still-shared BORROWED block copy-on-writes first; the real length
+        must equal the allocated length minus start_token."""
         if start_token % self.block_size:
             raise ValueError(
                 f"write_prefill start_token ({start_token}) must be "
                 f"block-aligned (block_size={self.block_size})")
+        if length is not None:
+            if not 0 <= length <= k.shape[2]:
+                raise ValueError(f"write_prefill length {length} outside "
+                                 f"the {k.shape[2]} rows given")
+            k, v = k[:, :, :length], v[:, :, :length]
         S = k.shape[2]
         table = self.tables[seq_id]
         if start_token + S > len(table) * self.block_size:
@@ -429,11 +517,13 @@ class PagedKVCache:
             self.v_scale[:, :, idx] = vs.reshape(L, Hkv, nb, self.block_size)
 
     def write_prefill_chunk(self, seq_id: int, k: torch.Tensor,
-                            v: torch.Tensor, start_token: int) -> None:
+                            v: torch.Tensor, start_token: int,
+                            length: Optional[int] = None) -> None:
         """Incremental chunk write — the chunked-prefill data path: extend
         the allocation to cover exactly this chunk, then scatter the
-        chunk's head-major (L, Hkv, C, hd) K/V at `start_token`."""
-        target = start_token + k.shape[2]
+        chunk's head-major (L, Hkv, C, hd) K/V at `start_token`; of a
+        padded chunk only its first ``length`` rows (default C)."""
+        target = start_token + (k.shape[2] if length is None else length)
         if target > self.lengths.get(seq_id, 0):
             try:
                 self.allocate(seq_id, target)
@@ -446,7 +536,8 @@ class PagedKVCache:
                     f"{self.capacity_blocks} usable blocks "
                     f"({self.num_free} free) — preempt a victim or raise "
                     f"num_blocks", seq_id) from None
-        self.write_prefill(seq_id, k, v, start_token=start_token)
+        self.write_prefill(seq_id, k, v, start_token=start_token,
+                           length=length)
 
     def write_tokens(self, seq_ids: Sequence[int], k_new: torch.Tensor,
                      v_new: torch.Tensor, positions: Sequence[int]) -> None:
@@ -499,13 +590,28 @@ class PagedKVCache:
         sharing suffix prefill (reference ``kvcache.py:750``). An int8 pool
         dequantizes with its scales into the model's dtype. The one dense
         read of the pool: once per ADMISSION, never per decode step."""
-        idx = self.gather_prefix_indices(seq_id, n_tokens).long()
-        L, Hkv, _, _, hd = self.k_pool.shape
-        k = self.k_pool[:, :, idx].reshape(L, Hkv, n_tokens, hd)
-        v = self.v_pool[:, :, idx].reshape(L, Hkv, n_tokens, hd)
-        if self.kv_dtype == "int8":   # admission-time dequant (off hot path)
-            ks = self.k_scale[:, :, idx].reshape(L, Hkv, n_tokens)
-            vs = self.v_scale[:, :, idx].reshape(L, Hkv, n_tokens)
-            k = kv_quant.dequantize_kv(k, ks, self.cfg.dtype)
-            v = kv_quant.dequantize_kv(v, vs, self.cfg.dtype)
-        return k, v
+        return gather_blocks(
+            self.k_pool, self.v_pool, self.k_scale, self.v_scale,
+            self.gather_prefix_indices(seq_id, n_tokens), self.cfg.dtype)
+
+
+def gather_blocks(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                  k_scale: Optional[torch.Tensor],
+                  v_scale: Optional[torch.Tensor], blocks: torch.Tensor,
+                  dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pool blocks ``blocks`` (nb,) (device ids) as HEAD-MAJOR
+    (L, Hkv, nb·bs, hd) K/V, int8 pools dequantized with their scales into
+    ``dtype``. The token count comes from the operand's shape, so the
+    compiled suffix prefill runs it inside its graph (the reference fuses
+    the same gather into its jitted program, ``llm_engine.py:222``)."""
+    idx = blocks.long()
+    L, Hkv, _, bs, hd = k_pool.shape
+    n_tokens = idx.shape[0] * bs
+    k = k_pool[:, :, idx].reshape(L, Hkv, n_tokens, hd)
+    v = v_pool[:, :, idx].reshape(L, Hkv, n_tokens, hd)
+    if k_scale is not None:       # admission-time dequant (off hot path)
+        ks = k_scale[:, :, idx].reshape(L, Hkv, n_tokens)
+        vs = v_scale[:, :, idx].reshape(L, Hkv, n_tokens)
+        k = kv_quant.dequantize_kv(k, ks, dtype)
+        v = kv_quant.dequantize_kv(v, vs, dtype)
+    return k, v

@@ -15,17 +15,28 @@ chunk, then one decode token for every running request whose prefill is
 complete. Chunked prefill runs the paged chunk-prefill kernel; decode runs
 the paged decode kernel — both on the card when the pool lives there, their
 plain twins when it lives on the CPU; an int8 pool hands its scale pools to
-the int8 kernels. On the card the decode step replays from CUDA graphs
-keyed by (B, table-width bucket) (``serving/compiled.py``, the port of
-``jax.jit``); the CPU and the prefill paths run eagerly. A shared prompt
-prefix is skipped by one-shot prefill too: only the suffix runs
-(``transformer.prefill_suffix`` over ``PagedKVCache.gather_prefix``).
+the int8 kernels. On the card every compiled program of the reference
+(``jax.jit``) replays from CUDA graphs (``serving/compiled.py``): the
+decode step keyed by (B, table-width bucket), the chunk step by (chunk
+bucket, prefix blocks), the one-shot prefill by its length bucket and the
+suffix prefill by (prefix blocks, suffix bucket); the CPU runs them all
+eagerly on unpadded operands. A shared prompt prefix is skipped by
+one-shot prefill too: only the suffix runs (``transformer.prefill_suffix``
+over the prefix gathered from the pool).
 
 Sampling honours ``SamplingParams.seed``: token ``i`` of a request is drawn
 from a generator seeded by (its seed, i) alone (``serving/sampler.py``).
-Non-finite logits raise :class:`CorruptedLogitsError` instead of being
-sampled. The fault-injection / shard-health machinery of the reference
-arrives with ``serving/faults.py`` in a later slice.
+
+Fault tolerance (``serving/faults.py``): a :class:`FaultInjector` supplies
+deterministic shard faults at the host-side pool boundary; detection is a
+per-shard ``healthy → suspect → dead`` machine fed by heartbeat probes and
+NaN/inf validation of the decode step's output, with bounded
+retry-with-backoff (a retry is a second replay of the same graph, so it is
+bit-identical). A dead shard is quarantined, every request holding blocks
+on it is evicted through the preemption path and re-admitted by
+recompute onto the survivors (through the prefill programs above); a
+rejoined shard restores capacity. Non-finite logits no injected fault
+accounts for raise :class:`CorruptedLogitsError`.
 """
 from __future__ import annotations
 
@@ -37,8 +48,9 @@ import torch
 
 from repro_torch.models import transformer
 from repro_torch.models.common import ModelConfig, resolve_device
-from repro_torch.serving.compiled import CompiledDecodeStep
+from repro_torch.serving.compiled import CompiledDecodeStep, CompiledPrefill
 from repro_torch.serving.config import EngineConfig
+from repro_torch.serving.faults import DEAD, FaultInjector, ShardHealthTracker
 from repro_torch.serving.kvcache import PagedKVCache, PoolExhausted
 from repro_torch.serving.placement import (PlacementStrategy,
                                            device_operands, make_placement)
@@ -54,9 +66,9 @@ class SchedulingStalled(RuntimeError):
 
 
 class CorruptedLogitsError(RuntimeError):
-    """Decode/prefill produced non-finite logits — sampling from them would
-    silently emit garbage tokens. Carries the affected request ids and the
-    engine step."""
+    """Decode/prefill produced non-finite logits that no injected fault
+    accounts for — sampling from them would silently emit garbage tokens.
+    Carries the affected request ids and the engine step."""
 
     def __init__(self, message: str, *, rids: Sequence[int] = (),
                  step: int = 0):
@@ -69,7 +81,10 @@ class CorruptedLogitsError(RuntimeError):
 class EngineEvent:
     """One iteration-level lifecycle event (the ``events()`` stream)."""
 
-    kind: str          # submit | admit | readmit | chunk | preempt | finish
+    # submit | admit | readmit | chunk | preempt | finish, plus the fault
+    # lifecycle: shard_suspect | retry | recover | shard_down | shard_up
+    # (shard-level events carry rid=-1 and name the shard in info["shard"])
+    kind: str
     rid: int
     step: int          # engine step counter when the event fired
     info: Dict = dataclasses.field(default_factory=dict)
@@ -125,11 +140,15 @@ class LLMEngine:
     """The serving facade: continuous batching over the paged KV pool."""
 
     def __init__(self, cfg: ModelConfig, params,
-                 engine_config: Optional[EngineConfig] = None, *,
+                 engine_config: Optional[EngineConfig] = None,
+                 fault_injector: Optional[FaultInjector] = None, *,
                  device="cuda", **overrides):
         """``params`` must live on ``device`` (default ``"cuda"``; a machine
         without a GPU raises unless ``device="cpu"``). ``overrides`` are
-        EngineConfig fields for call-site convenience."""
+        EngineConfig fields for call-site convenience.
+        ``fault_injector`` attaches a deterministic fault scenario at the
+        pool boundary; the health machine and the recovery paths are
+        always live."""
         if cfg.family not in transformer.DENSE_FAMILIES:
             raise NotImplementedError(
                 f"the port's engine serves {transformer.DENSE_FAMILIES} "
@@ -155,17 +174,32 @@ class LLMEngine:
         self.stats = EngineStats()
         self.stats.kv_pool_bytes_resident = self.kv.pool_bytes_resident
         self._decode_fn = self.placement.decode_fn()
-        # the port of jax.jit(decode_fn): on the card the step replays from
-        # CUDA graphs keyed by shape; the CPU runs it eagerly
+        # the port of the reference's jax.jits: on the card the decode step
+        # and the three prefill programs replay from CUDA graphs keyed by
+        # shape, all in one graph memory pool; the CPU runs them eagerly
         self.compiled: Optional[CompiledDecodeStep] = None
+        self.compiled_prefill: Optional[CompiledPrefill] = None
         if self.device.type == "cuda":
+            pool = torch.cuda.graph_pool_handle()
             self.compiled = CompiledDecodeStep(
                 self._decode_fn, params, self.kv.k_pool, self.kv.v_pool,
                 self.kv.k_scale, self.kv.v_scale, self.device,
-                n_shards=self.kv.n_shards)
+                n_shards=self.kv.n_shards, pool=pool)
+            self.compiled_prefill = CompiledPrefill(
+                cfg, params, self.kv, self.device, self._chunk_tokens,
+                pool=pool)
         # suffix-only prefill is exact for every family the engine serves
         # (the reference recomputes MoE prompts, which the port lacks)
         self._skip_prefill_compute = cfg.family != "moe"
+        # fault tolerance: the per-shard health machine (always live) plus
+        # the optional injector; _recovering maps a shard-death victim to
+        # the instant its shard was declared dead, closed out (into
+        # stats.recovery_latencies) when it is decodable again
+        self._fault = fault_injector
+        self.health = ShardHealthTracker(self.kv.n_shards,
+                                         econf.fault_retry_limit)
+        self._backoff_s = econf.fault_retry_backoff_s
+        self._recovering: Dict[int, float] = {}
         self._events: List[EngineEvent] = []
         self._step_no = 0
 
@@ -239,8 +273,12 @@ class LLMEngine:
         or chunked admission that only seeds a prefill cursor), advance at
         most one prefill chunk, decode one token for every running request
         whose prefill is complete (resolving pool pressure first), retire
-        the finished."""
+        the finished. Fault bookkeeping (rejoins, stragglers, heartbeat
+        probes) runs first, so a shard death detected at the step boundary
+        is recovered before this step's admission wave."""
         self._step_no += 1
+        self._fault_tick()
+        self._pre_admit_tick()
         while True:
             admitted = self.sched.admit()
             for req in admitted:
@@ -265,14 +303,22 @@ class LLMEngine:
             head = self.sched.waiting[0]
             need = self.sched.stored_tokens(head) + self.sched.decode_headroom
             blocks = self.kv.blocks_needed(need)
-            raise SchedulingStalled(
-                f"request {head.rid} needs {blocks} "
-                f"blocks ({need} tokens incl. headroom) but the pool "
-                f"only has {self.kv.capacity_blocks} blocks "
-                f"({self.kv.num_free} free) and nothing is running — "
-                f"it can never be admitted; shrink the prompt or grow "
-                f"num_blocks")
+            # degraded pool with a rejoin on the schedule: the head may fit
+            # once the quarantined shard returns — idle this step instead
+            waitable = (self.kv.quarantined_shards
+                        and self._fault is not None
+                        and self._fault.pending_rejoins(self._step_no)
+                        and blocks <= self.kv.num_blocks)
+            if not waitable and not self._stall_waiver():
+                raise SchedulingStalled(
+                    f"request {head.rid} needs {blocks} "
+                    f"blocks ({need} tokens incl. headroom) but the pool "
+                    f"only has {self.kv.capacity_blocks} blocks "
+                    f"({self.kv.num_free} free) and nothing is running — "
+                    f"it can never be admitted; shrink the prompt or grow "
+                    f"num_blocks" + self.kv._degraded_note())
         self._prefill_chunk_iteration()
+        self._note_recoveries()
         self._decode_iteration()
         self._retire()
 
@@ -285,6 +331,18 @@ class LLMEngine:
 
     def has_work(self) -> bool:
         return self.sched.has_work()
+
+    # ------------------------------------------------------------------
+    # disaggregation hooks (the cluster engines override these)
+    # ------------------------------------------------------------------
+    def _pre_admit_tick(self) -> None:
+        """Hook between fault bookkeeping and this step's admission wave
+        (the reference's cluster engines drain handoff queues or evict
+        retained donors here)."""
+
+    def _stall_waiver(self) -> bool:
+        """Hook: True suppresses this step's SchedulingStalled check."""
+        return False
 
     def _retire(self) -> None:
         for req in self.sched.retire_finished():
@@ -303,7 +361,109 @@ class LLMEngine:
             self.stats.observe_request(req)
             self._emit("finish", req.rid, tokens=len(req.output),
                        cancelled=True)
+        self._recovering.clear()
         return len(cancelled)
+
+    # ------------------------------------------------------------------
+    # fault detection / recovery
+    # ------------------------------------------------------------------
+    def _fault_tick(self) -> None:
+        """Per-step fault bookkeeping at the pool boundary: scheduled
+        rejoins restore quarantined capacity, stragglers are observed
+        (slow is suspect, not wrong), then every live shard is probed with
+        bounded retry-with-backoff: a shard that answers within the retry
+        budget recovers, one that does not is declared dead and its
+        requests recovered (:meth:`_handle_shard_death`)."""
+        if self._fault is None:
+            return
+        self._fault.begin_step(self._step_no)
+        for s in self._fault.rejoins(self._step_no):
+            if self.health.is_dead(s):
+                self.kv.rejoin_shard(s)
+                self.health.mark_up(s)
+                self.stats.shard_rejoins += 1
+                self._emit("shard_up", -1, shard=s,
+                           capacity_blocks=self.kv.capacity_blocks)
+        for s, delay in self._fault.straggles(self._step_no):
+            if self.health.is_dead(s):
+                continue
+            self.stats.straggle_steps += 1
+            if delay > 0:
+                time.sleep(delay)
+            self._emit("shard_suspect", -1, shard=s, cause="straggler",
+                       delay_s=delay)
+            self._emit("recover", -1, shard=s, cause="straggler")
+        for s in range(self.kv.n_shards):
+            if self.health.is_dead(s):
+                continue
+            attempt = 0
+            suspected = False
+            while not self._fault.probe(s, self._step_no):
+                self.stats.fault_retries += 1
+                if not suspected:
+                    suspected = True
+                    self._emit("shard_suspect", -1, shard=s,
+                               cause="heartbeat")
+                if self.health.strike(s) == DEAD:
+                    self._handle_shard_death(s, cause="heartbeat")
+                    break
+                self._emit("retry", -1, shard=s, attempt=attempt + 1)
+                self._backoff(attempt)
+                attempt += 1
+            else:
+                if suspected:
+                    self.health.clear(s)
+                    self.stats.transient_faults_recovered += 1
+                    self._emit("recover", -1, shard=s, cause="heartbeat",
+                               retries=attempt)
+
+    def _handle_shard_death(self, shard: int, cause: str) -> None:
+        """Quarantine a dead shard and recover its requests: the allocator
+        masks it out (capacity drops to the survivors), every request
+        holding blocks there is evicted through the preemption path
+        (generated tokens kept), and re-admission recomputes its KV onto
+        the surviving shards. Eviction bypasses ``policy.select_victim``:
+        shard death names its victims by block placement, so recovery
+        works under ``fcfs`` too, and mid-prefill victims are allowed (their
+        prefill cursor resets with the eviction)."""
+        t0 = time.time()
+        victims = set(self.kv.seqs_on_shard(shard))
+        # quarantine BEFORE freeing: the dead shard's blocks must not be
+        # handed back out to the re-admission wave
+        self.kv.quarantine_shard(shard)
+        self.stats.shard_failures += 1
+        self._emit("shard_down", -1, shard=shard, cause=cause,
+                   victims=sorted(victims),
+                   live_shards=list(self.kv.live_shards),
+                   capacity_blocks=self.kv.capacity_blocks)
+        for r in list(self.sched.running):
+            if r.rid in victims:
+                freed = self.sched.preempt(r)
+                self.stats.preemptions = self.sched.n_preemptions
+                self._emit("preempt", r.rid, freed_blocks=freed,
+                           generated_tokens=len(r.output),
+                           cause="shard_down")
+                self._recovering[r.rid] = t0
+
+    def _note_recoveries(self) -> None:
+        """Close out recovery-latency timers: a shard-death victim counts
+        as recovered once it is decodable again (running, prefill
+        complete) on the surviving shards."""
+        if not self._recovering:
+            return
+        for r in self.sched.running:
+            t0 = self._recovering.get(r.rid)
+            if t0 is not None and self.sched.prefill_done(r.rid):
+                lat = time.time() - t0
+                del self._recovering[r.rid]
+                self.stats.recovery_latencies.append(lat)
+                self.stats.requests_recovered += 1
+                self._emit("recover", r.rid, latency_s=lat,
+                           cause="readmitted")
+
+    def _backoff(self, attempt: int) -> None:
+        if self._backoff_s > 0:
+            time.sleep(self._backoff_s * (2 ** attempt))
 
     def _guard_finite(self, reqs: List[Request],
                       logits: torch.Tensor) -> None:
@@ -315,8 +475,9 @@ class LLMEngine:
         bad = [r.rid for r, ok in zip(reqs, finite.tolist()) if not ok]
         raise CorruptedLogitsError(
             f"non-finite logits at engine step {self._step_no} for "
-            f"request(s) {bad} — refusing to sample (check model numerics / "
-            f"KV integrity)", rids=bad, step=self._step_no)
+            f"request(s) {bad} — refusing to sample; no injected fault "
+            f"accounts for this (check model numerics / KV integrity)",
+            rids=bad, step=self._step_no)
 
     # ------------------------------------------------------------------
     # prefill / recompute
@@ -338,30 +499,42 @@ class LLMEngine:
         admission (reference ``llm_engine.py:591``); returns the last
         position's logits. With a shared prefix only the suffix runs
         through the model (``transformer.prefill_suffix`` over the prefix
-        gathered from the pool) and only the suffix is written."""
+        gathered from the pool) and only the suffix is written. On the card
+        both run from the compiled prefill programs on padded operands;
+        the real rows of their K/V are written."""
         shared = self.sched.shared_prefix_tokens(rid)
         self.stats.blocks_shared += shared // self.kv.block_size
+        comp = self.compiled_prefill
         if shared and self._skip_prefill_compute:
-            k_pre, v_pre = self.kv.gather_prefix(rid, shared)
-            logits, cache = transformer.prefill_suffix(
-                self.params, self.cfg, {"tokens": [list(known[shared:])]},
-                k_pre[:, None], v_pre[:, None], device=self.device)
-            # suffix cache k/v are head-major (L, 1, Hkv, S - shared, hd)
-            self.kv.write_prefill(rid, cache["k"][:, 0], cache["v"][:, 0],
-                                  start_token=shared)
+            suffix = list(known[shared:])
+            if comp is not None:
+                blocks = self.kv.tables[rid][:shared // self.kv.block_size]
+                logits, k, v = comp.run_suffix(suffix, blocks)
+            else:
+                k_pre, v_pre = self.kv.gather_prefix(rid, shared)
+                logits, cache = transformer.prefill_suffix(
+                    self.params, self.cfg, {"tokens": [suffix]},
+                    k_pre[:, None], v_pre[:, None], device=self.device)
+                # suffix cache k/v are head-major (L, 1, Hkv, S - shared, hd)
+                k, v = cache["k"][:, 0], cache["v"][:, 0]
+            self.kv.write_prefill(rid, k, v, start_token=shared,
+                                  length=len(suffix))
             self.stats.prefill_tokens_skipped += shared
             self.stats.max_prefill_slab_tokens = max(
-                self.stats.max_prefill_slab_tokens, len(known) - shared)
+                self.stats.max_prefill_slab_tokens, len(suffix))
             return logits
         self.stats.max_prefill_slab_tokens = max(
             self.stats.max_prefill_slab_tokens, len(known))
-        logits, cache = transformer.prefill(
-            self.params, self.cfg, {"tokens": [list(known)]},
-            max_seq=len(known), device=self.device)
-        # cache k/v are head-major (L, 1, Hkv, S, hd) — the pool's layout
-        self.kv.write_prefill(rid, cache["k"][:, 0, :, shared:],
-                              cache["v"][:, 0, :, shared:],
-                              start_token=shared)
+        if comp is not None:
+            logits, k, v = comp.run_oneshot(list(known))
+        else:
+            logits, cache = transformer.prefill(
+                self.params, self.cfg, {"tokens": [list(known)]},
+                max_seq=len(known), device=self.device)
+            # cache k/v are head-major (L, 1, Hkv, S, hd) — the pool's layout
+            k, v = cache["k"][:, 0], cache["v"][:, 0]
+        self.kv.write_prefill(rid, k[:, :, shared:], v[:, :, shared:],
+                              start_token=shared, length=len(known) - shared)
         return logits
 
     # ------------------------------------------------------------------
@@ -400,14 +573,20 @@ class LLMEngine:
             if not self._free_blocks_for_chunk(req,
                                                grow + headroom + reserve):
                 return  # stall this iteration; decode continues
-        idx = self.kv.gather_prefix_indices(rid, cursor)
-        logits, cache = transformer.prefill_chunk(
-            self.params, self.cfg, {"tokens": [list(known[cursor:target])]},
-            self.kv.k_pool, self.kv.v_pool, idx, device=self.device,
-            **self._scale_kwargs("k_scale_pool", "v_scale_pool"))
-        # chunk cache k/v are head-major (L, 1, Hkv, C, hd)
-        self.kv.write_prefill_chunk(rid, cache["k"][:, 0], cache["v"][:, 0],
-                                    start_token=cursor)
+        chunk = list(known[cursor:target])
+        if self.compiled_prefill is not None:
+            blocks = self.kv.tables[rid][:cursor // self.kv.block_size]
+            logits, k, v = self.compiled_prefill.run_chunk(chunk, blocks)
+        else:
+            idx = self.kv.gather_prefix_indices(rid, cursor)
+            logits, cache = transformer.prefill_chunk(
+                self.params, self.cfg, {"tokens": [chunk]}, self.kv.k_pool,
+                self.kv.v_pool, idx, device=self.device,
+                **self._scale_kwargs("k_scale_pool", "v_scale_pool"))
+            # chunk cache k/v are head-major (L, 1, Hkv, C, hd)
+            k, v = cache["k"][:, 0], cache["v"][:, 0]
+        self.kv.write_prefill_chunk(rid, k, v, start_token=cursor,
+                                    length=len(chunk))
         self.stats.prefill_chunks_run += 1
         self.stats.max_prefill_slab_tokens = max(
             self.stats.max_prefill_slab_tokens, target - cursor)
@@ -440,9 +619,9 @@ class LLMEngine:
             f"{free} of {self.kv.capacity_blocks} are free "
             f"({sum(self.kv.lengths.values())} live tokens across "
             f"{len(self.kv.tables)} sequences) with no running "
-            f"decoder left to retire: {fix}",
+            f"decoder left to retire: {fix}" + self.kv._degraded_note(),
             rid=req.rid, live_tokens=sum(self.kv.lengths.values()),
-            free_blocks=free)
+            free_blocks=free, **self.kv._degraded_kw())
 
     # ------------------------------------------------------------------
     # decode
@@ -461,15 +640,13 @@ class LLMEngine:
         tables, lens = self.kv.block_table_batch(ids)
         tokens = [r.output[-1] for r in running]
         t0 = time.time()
-        if self.compiled is not None:
-            logits, updates = self.compiled(tokens, tables, lens, *extra)
-        else:
-            logits, updates = self._decode_fn(
-                self.params, tokens, self.kv.k_pool, self.kv.v_pool, tables,
-                lens, *device_operands(extra, self.device),
-                **self._scale_kwargs("k_scale_pool", "v_scale_pool"))
-        # validate before anything is committed (the host copy synchronises)
-        self._guard_finite(running, logits)
+        out = self._decode_validated(running, tokens, tables, lens, extra)
+        if out is None:
+            # a shard died mid-decode: this iteration is aborted with
+            # NOTHING committed (no append, no pool write, no sample); its
+            # victims were evicted, survivors decode next step
+            return
+        logits, updates = out
         dt = time.time() - t0
         # placement is the memory pool's job: append the input token's K/V
         # (allocator bookkeeping per sequence, then ONE batched scatter)
@@ -489,6 +666,53 @@ class LLMEngine:
         self.stats.tokens_generated += len(running)
         self.stats.batch_sizes.append(len(running))
         self.stats.step_times.append(dt)
+
+    def _decode_validated(self, running: List[Request], tokens, tables,
+                          lens, extra):
+        """Run the decode step (a graph replay on the card) and VALIDATE
+        its output before anything is committed. Injected corruption — NaN
+        partials from a pool shard — strikes the shard and retries: the
+        step is deterministic and a retry replays the same graph on the
+        same operands, so a retry that succeeds is bit-identical to an
+        unfaulted step. Strikes past the retry budget declare the shard
+        dead (returns ``None``; the victims were evicted). Non-finite
+        logits no fault accounts for raise :class:`CorruptedLogitsError`
+        (the finite check synchronises)."""
+        attempt = 0
+        suspect = None
+        while True:
+            if self.compiled is not None:
+                logits, updates = self.compiled(tokens, tables, lens, *extra)
+            else:
+                logits, updates = self._decode_fn(
+                    self.params, tokens, self.kv.k_pool, self.kv.v_pool,
+                    tables, lens, *device_operands(extra, self.device),
+                    **self._scale_kwargs("k_scale_pool", "v_scale_pool"))
+            shard = None
+            if self._fault is not None:
+                logits, shard = self._fault.filter_decode(self._step_no,
+                                                          logits)
+            if bool(torch.isfinite(logits).all()):
+                if suspect is not None:
+                    self.health.clear(suspect)
+                    self.stats.transient_faults_recovered += 1
+                    self._emit("recover", -1, shard=suspect,
+                               cause="corrupt_partial", retries=attempt)
+                return logits, updates
+            if shard is None:
+                # non-finite output with no injected fault to blame
+                self._guard_finite(running, logits)
+            if suspect is None:
+                suspect = shard
+                self._emit("shard_suspect", -1, shard=shard,
+                           cause="corrupt_partial")
+            self.stats.fault_retries += 1
+            if self.health.strike(shard) == DEAD:
+                self._handle_shard_death(shard, cause="corrupt_partial")
+                return None
+            self._emit("retry", -1, shard=shard, attempt=attempt + 1)
+            self._backoff(attempt)
+            attempt += 1
 
     def _resolve_pool_pressure(self, running: List[Request]
                                ) -> List[Request]:
@@ -514,9 +738,10 @@ class LLMEngine:
                     f"block and {free} of {self.kv.capacity_blocks} are "
                     f"free ({sum(self.kv.lengths.values())} live tokens "
                     f"across {len(self.kv.tables)} sequences); the "
-                    f"{self.policy.name!r} policy found no victim: {fix}",
+                    f"{self.policy.name!r} policy found no victim: {fix}"
+                    + self.kv._degraded_note(),
                     rid=g.rid, live_tokens=sum(self.kv.lengths.values()),
-                    free_blocks=free)
+                    free_blocks=free, **self.kv._degraded_kw())
             freed = self.sched.preempt(victim)
             self.stats.preemptions = self.sched.n_preemptions
             self._emit("preempt", victim.rid, freed_blocks=freed,

@@ -484,9 +484,9 @@ class RequestScheduler:
         the pool only when no other live request still references them) and
         requeue it at the FRONT of the waiting queue (preempted requests
         have priority). Returns the number of physical blocks freed."""
-        free_before = self.kv.num_free
+        free_before = sum(len(s) for s in self.kv._free_shard)
         self._release(req.rid)
-        freed = self.kv.num_free - free_before
+        freed = sum(len(s) for s in self.kv._free_shard) - free_before
         self.running.remove(req)
         req.state = State.PREEMPTED
         self.waiting.insert(0, req)

@@ -1,7 +1,9 @@
 """The port's CUDA kernels (paged decode and chunk prefill over bf16 and
 int8 pools, dense-cache decode, the Mamba2 and RWKV6 scans) against their
-plain PyTorch twins, on the card; and the engine's compiled decode step
-(CUDA graph replays) against the eager step, bit for bit.
+plain PyTorch twins, on the card; and the engine's compiled programs
+(CUDA graph replays of the decode step and of the chunk step, the one-shot
+prefill and the suffix prefill) against the eager programs at the same
+operands, bit for bit.
 
 Marked ``gpu``: without a CUDA device every test skips (the kernels are
 CUDA C++ for sm_90a and have no interpret mode). The file imports neither
@@ -621,3 +623,158 @@ def test_cuda_engine_replays_its_decode_step(cuda, name):
         if compiled:
             assert eng.compiled.replays > 0 and eng.compiled.captures > 0
     assert outs[True] == outs[False]
+
+
+# ---------------------------------------------------------------------------
+# the compiled prefill programs (serving/compiled.py CompiledPrefill)
+# ---------------------------------------------------------------------------
+def _prefill_state(dev, kv_dtype, name, prefix=24):
+    """A bf16 smoke llama on the card, an engine whose pool holds one
+    request's first ``prefix`` tokens (written by chunked prefill), and a
+    fresh ``CompiledPrefill`` over that pool."""
+    from repro_torch.configs import registry as treg
+    from repro_torch.models import transformer as ttf
+    from repro_torch.serving import (EngineConfig, LLMEngine, Request,
+                                     SamplingParams)
+    from repro_torch.serving.compiled import CompiledPrefill
+
+    cfg = treg.get_smoke_config("llama3-8b", num_kv_heads=2,
+                                dtype=torch.bfloat16)
+    params = ttf.init_params(0, cfg, device=dev)
+    econf = EngineConfig(max_batch=4, block_size=4, num_blocks=64,
+                         attention_workers=2, kv_dtype=kv_dtype,
+                         prefill_chunk_tokens=8, **GRAPH_PLACEMENTS[name])
+    eng = LLMEngine(cfg, params, econf, device=dev)
+    rng = np.random.default_rng(2)
+    req = Request(prompt=rng.integers(0, cfg.vocab_size,
+                                      size=prefix + 20).tolist(),
+                  params=SamplingParams(max_new_tokens=4))
+    eng.submit(req)
+    for _ in range(prefix // 8):                  # one chunk a step
+        eng.step()
+    assert eng.sched.prefill_cursor(req.rid) == prefix
+    comp = CompiledPrefill(cfg, params, eng.kv, dev, 8)
+    return cfg, params, eng, req, comp
+
+
+def _eager_prefill(kind, cfg, params, kv, dev, tokens, blocks, width):
+    """The program ``kind`` eagerly at the same padded operands."""
+    from repro_torch.models import transformer as ttf
+    from repro_torch.serving.compiled import pad_tokens
+    from repro_torch.serving.kvcache import gather_blocks
+
+    tok = torch.from_numpy(pad_tokens(tokens, width)).to(dev)[None]
+    n = torch.tensor([len(tokens)], dtype=torch.int32, device=dev)
+    tab = torch.as_tensor(blocks, dtype=torch.int32, device=dev)
+    scales = {} if kv.k_scale is None else dict(k_scale_pool=kv.k_scale,
+                                                v_scale_pool=kv.v_scale)
+    if kind == "chunk":
+        logits, c = ttf.prefill_chunk(params, cfg, {"tokens": tok},
+                                      kv.k_pool, kv.v_pool, tab, device=dev,
+                                      length=n, **scales)
+    elif kind == "oneshot":
+        logits, c = ttf.prefill(params, cfg, {"tokens": tok}, max_seq=width,
+                                device=dev, length=n)
+    else:
+        kp, vp = gather_blocks(kv.k_pool, kv.v_pool, kv.k_scale, kv.v_scale,
+                               tab, cfg.dtype)
+        logits, c = ttf.prefill_suffix(params, cfg, {"tokens": tok},
+                                       kp[:, None], vp[:, None], device=dev,
+                                       length=n)
+    return [logits.clone(), c["k"][:, 0].clone(), c["v"][:, 0].clone()]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["chunk", "oneshot", "suffix"])
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("name", ["homogeneous", "head"])
+def test_cuda_graph_prefill_replay_equals_eager(cuda, name, kv_dtype, kind):
+    """Each prefill program's replay = the eager program at the same padded
+    operands, bit for bit: the warm-up and two replays, a second key and
+    back; the chunk kernel's launch counts through replays = the eager
+    program's."""
+    from repro_torch.serving.compiled import chunk_bucket, prefill_bucket
+
+    cfg, params, eng, req, comp = _prefill_state(cuda, kv_dtype, name)
+    kv = eng.kv
+    prefix = kv.tables[req.rid][:24 // kv.block_size]
+    fn = ppa.paged_prefill_chunk_attention_int8 if kv_dtype == "int8" \
+        else ppa.paged_prefill_chunk_attention
+    rng = np.random.default_rng(3)
+    # two keys: chunks of 5 and 8 tokens (bucket 8) over 6 and 4 prefix
+    # blocks; one-shot and suffix prefills of 5 and 70 tokens (64, 128)
+    sizes = (5, 8) if kind == "chunk" else (5, 70)
+    toks = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in sizes]
+    blocks = {"chunk": (prefix, prefix[:4]), "oneshot": ([], []),
+              "suffix": (prefix, prefix)}[kind]
+    run = {"chunk": comp.run_chunk, "suffix": comp.run_suffix,
+           "oneshot": lambda t, b: comp.run_oneshot(t)}[kind]
+    width = (lambda t: chunk_bucket(len(t), 8)) if kind == "chunk" else \
+        (lambda t: prefill_bucket(len(t)))
+    want = [_eager_prefill(kind, cfg, params, kv, cuda, t, b, width(t))
+            for t, b in zip(toks, blocks)]
+    n0 = fn.launches
+    got = [[x.clone() for x in run(toks[0], blocks[0])] for _ in range(3)]
+    torch.cuda.synchronize()
+    per = cfg.num_layers if kind == "chunk" else 0
+    assert fn.launches - n0 == 3 * per
+    prog = comp.programs()[kind]
+    assert (prog.captures, prog.replays) == (1, 2)
+    for g in got:
+        _bitwise(g, want[0])
+    run(toks[1], blocks[1])                       # a second key: capture
+    _bitwise([x.clone() for x in run(toks[1], blocks[1])], want[1])
+    _bitwise([x.clone() for x in run(toks[0], blocks[0])], want[0])
+    torch.cuda.synchronize()
+    assert (prog.captures, prog.graphs, prog.replays) == (2, 2, 4)
+    assert fn.launches - n0 == 6 * per
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_cuda_engine_replays_its_prefill_programs(cuda, kv_dtype):
+    """The engine on the card prefills through its graphs: its greedy
+    tokens equal those of the same engine with eager prefill on unpadded
+    operands, chunk launches are L per chunk, and a second pass replays
+    every prefill program."""
+    from repro_torch.configs import registry as treg
+    from repro_torch.models import transformer as ttf
+    from repro_torch.serving import (EngineConfig, LLMEngine, Request,
+                                     SamplingParams)
+
+    cfg = treg.get_smoke_config("llama3-8b", num_kv_heads=2,
+                                dtype=torch.bfloat16)
+    params = ttf.init_params(0, cfg, device=cuda)
+    rng = np.random.default_rng(4)
+    common = rng.integers(0, cfg.vocab_size, size=16).tolist()
+    prompts = [common + rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (21, 12, 9)]
+    fn = ppa.paged_prefill_chunk_attention_int8 if kv_dtype == "int8" \
+        else ppa.paged_prefill_chunk_attention
+    for chunk in (8, None):
+        econf = EngineConfig(max_batch=4, block_size=4, num_blocks=96,
+                             kv_dtype=kv_dtype, prefill_chunk_tokens=chunk,
+                             prefix_sharing=True)
+        outs = {}
+        for compiled in (True, False):
+            eng = LLMEngine(cfg, params, econf, device=cuda)
+            if not compiled:
+                eng.compiled_prefill = None     # eager, unpadded prefill
+            for rnd in range(2 if compiled else 1):
+                reqs = [Request(prompt=list(x), params=SamplingParams(
+                    max_new_tokens=12)) for x in prompts]
+                n0, c0 = fn.launches, eng.stats.prefill_chunks_run
+                eng.submit(reqs)
+                eng.run()
+                torch.cuda.synchronize()
+                assert fn.launches - n0 == cfg.num_layers * (
+                    eng.stats.prefill_chunks_run - c0)
+                outs.setdefault(compiled, [r.output for r in reqs])
+                assert [r.output for r in reqs] == outs[compiled]
+            if compiled:
+                progs = eng.compiled_prefill.programs()
+                used = progs["chunk"] if chunk else progs["oneshot"]
+                assert used.replays > 0 and used.captures > 0
+                if not chunk:
+                    assert progs["suffix"].replays > 0
+        assert outs[True] == outs[False]
