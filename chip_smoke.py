@@ -84,9 +84,29 @@ Phases (any failure exits non-zero and prints no result line):
      fault-free run's, the corrupt attempts bit-identical replays, the
      pool whole after the rejoin, one recovery latency per recovered
      request; recovery latency p50;
- 11. one JSON line describing every ported kernel, then the result line.
-     A failed gate of phases 4, 5 and 10 is reported where it happens and
-     fails the run after the last phase.
+ 11. (run after phase 10) the disaggregated prefill/decode cluster at
+     full width and depth (``cluster_e2e``): (a) one replica over phase
+     4's bf16 engine, 8 blocks landed a step, the 8 requests: first
+     tokens equal phase 4's cold run's, each handoff's blocks read back
+     through the decode table equal its payload bit for bit, the decode
+     side's bytes equal the payloads' (2 MiB a block), 8 handoffs, the
+     prefill engine launches only the chunk kernel and the decode engine
+     only the decode kernel (no chunk, no admit event, no prefill graph),
+     the greedy streams equal phase 4's up to a bf16 near-tie; (b)
+     Lamina's int8 head engine with prefix sharing on 2 affinity-routed
+     replicas of 1024 blocks, 3 groups of 3 requests sharing a 512-token
+     prefix: each group on one replica, 6 affinity hits, skipped prefill,
+     int8 payloads at 132/256 of the bf16 bytes, only the int8 kernels;
+     export / import walls and GB/s over the wire on their own, handoff
+     latency (read after a synchronisation), TTFT, TBT, tokens/s, graphs
+     per engine, peak memory (with the read-back copies);
+ 12. (after the llama weights are freed) the serve CLI in process:
+     ``repro_torch.launch.serve.main`` in router mode, 2 Lamina int8
+     replicas with prefix sharing on 8 azure-conv requests at scale 0.5,
+     with weights of its own; its summary lines are logged;
+ 13. one JSON line describing every ported kernel, then the result line.
+     A failed gate of phases 4, 5, 10 and 11 is reported where it happens
+     and fails the run after the last phase.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a CUDA device or without the repository's ``src/`` beside it.
@@ -964,6 +984,7 @@ def homogeneous_e2e(torch, np, cfg, params, prompts, counters):
     launches, wall, peak = serve(torch, eng, reqs, counters)
     st = eng.stats
     check_finished(cfg, reqs, 32)
+    cold_tokens = [list(r.output) for r in reqs]
     L = cfg.num_layers
     if st.steps == 0 or st.prefill_chunks_run == 0:
         raise AssertionError("no decode step or no chunk ran")
@@ -1048,7 +1069,7 @@ def homogeneous_e2e(torch, np, cfg, params, prompts, counters):
     result["oneshot_sharing"] = oneshot_sharing(torch, cfg, params)
     log(f"e2e homogeneous bf16: one-shot prefix sharing: "
         f"{json.dumps(result['oneshot_sharing'])}")
-    return launches, result
+    return launches, result, cold_tokens
 
 
 def oneshot_sharing(torch, cfg, params, prefix_len=512, suffixes=(100, 150),
@@ -1520,6 +1541,363 @@ def fault_e2e(torch, np, cfg, params, prompts, counters):
         torch.cuda.empty_cache()      # each other
     log(f"fault phase fault-free: {json.dumps(free)}")
     return result
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the disaggregated prefill/decode cluster and the serve CLI
+# ---------------------------------------------------------------------------
+def record_top(cluster, into, k=8):
+    """Wrap every engine's ``_sample`` to keep the top ``k`` logits
+    (values, ids) of every token it samples, per request id."""
+    def wrap(sample):
+        def recorded(reqs, logits):
+            top = logits.float().topk(k, dim=-1)
+            for r, v, i in zip(reqs, top.values.tolist(),
+                               top.indices.tolist()):
+                into.setdefault(r.rid, []).append((v, i))
+            return sample(reqs, logits)
+        return recorded
+    for replica in cluster.registry:
+        for eng in (replica.prefill, replica.decode):
+            eng._sample = wrap(eng._sample)
+
+
+def stream_divergences(reqs, ref_tokens, tops):
+    """Per request whose greedy tokens leave ``ref_tokens``: the first
+    position, the top-2 of this run's logits there and the bf16 ulps by
+    which the reference's token lies under this run's top."""
+    out = []
+    for i, (r, want) in enumerate(zip(reqs, ref_tokens)):
+        pos = next((j for j, (a, b) in enumerate(zip(r.output, want))
+                    if a != b), None)
+        if pos is None:
+            continue
+        vals, idx = tops[r.rid][pos]
+        ulp = bf16_ulp(vals[0])
+        theirs = vals[idx.index(want[pos])] if want[pos] in idx \
+            else -math.inf
+        out.append(dict(request=i, position=pos, top2=vals[:2],
+                        margin_bf16_ulps=(vals[0] - vals[1]) / ulp,
+                        reference_token_gap_bf16_ulps=(vals[0] - theirs) /
+                        ulp))
+    return out
+
+
+def engine_graphs(eng):
+    """Graphs captured and replayed per compiled program of one engine."""
+    progs = dict(eng.compiled_prefill.programs(), decode=eng.compiled)
+    return {k: [g.captures, g.replays] for k, g in progs.items()}
+
+
+def handoff_probe(torch, kv, payload, n=5):
+    """The wire on its own, after a cluster run, on a drained decode
+    pool: median wall of landing ``payload`` whole (one prealloc, then
+    ``write_handoff_blocks`` of every block, synchronised) and of
+    exporting it back (``export_seqs`` synchronises itself)."""
+    rid = next(iter(payload.tables))
+    mapping = kv.prealloc_handoff(payload)
+    imp, exp = [], []
+    for _ in range(n):
+        sync(torch)
+        t0 = time.perf_counter()
+        kv.write_handoff_blocks(payload, mapping, 0, payload.n_blocks)
+        sync(torch)
+        imp.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        back = kv.export_seqs([rid])
+        exp.append(time.perf_counter() - t0)
+    same = all(torch.equal(a, b) for a, b in zip(
+        (back.k_blocks, back.v_blocks, back.k_scales, back.v_scales),
+        (payload.k_blocks, payload.v_blocks, payload.k_scales,
+         payload.v_scales)) if a is not None)
+    kv.free_seq(rid)
+    t_imp, t_exp = sorted(imp)[n // 2], sorted(exp)[n // 2]
+    return dict(blocks=payload.n_blocks, nbytes=payload.nbytes,
+                import_ms=t_imp * 1e3,
+                import_ms_per_block=t_imp * 1e3 / payload.n_blocks,
+                h2d_gb_s=payload.nbytes / t_imp / 1e9,
+                export_ms=t_exp * 1e3,
+                d2h_gb_s=payload.nbytes / t_exp / 1e9,
+                round_trip_bitwise=same)
+
+
+def snapshot_landed(torch, dec, landed):
+    """Wrap ``dec._advance_transfer``: the moment a handoff completes (before
+    a decode step writes its tail block) its blocks are read back through
+    the decode pool's table into a device copy, ``landed[rid]``, held
+    against the payload after the run (``landed_equal``)."""
+    advance = dec._advance_transfer
+
+    def snapped():
+        pending = list(dec.transfer_q)
+        advance()
+        kv = dec.kv
+        for h in pending:
+            if h.transferred:
+                dst = torch.as_tensor(kv.tables[h.rid], device=kv.device)
+                landed[h.rid] = [None if pool is None else
+                                 pool[:, :, dst].clone()
+                                 for pool in (kv.k_pool, kv.v_pool,
+                                              kv.k_scale, kv.v_scale)]
+    dec._advance_transfer = snapped
+
+
+def landed_equal(torch, payloads, landed):
+    """Per request id: the blocks its decode table held when the transfer
+    completed equal its payload's tiles (in table order) bit for bit."""
+    out = {}
+    for rid, p in payloads.items():
+        pos = {b: i for i, b in enumerate(p.block_ids)}
+        src = [pos[b] for b in p.tables[rid]]
+        got = landed.get(rid)
+        out[rid] = got is not None and all(
+            (g is None) == (t is None) and
+            (t is None or torch.equal(g, t[:, :, src].to(g.device)))
+            for g, t in zip(got, (p.k_blocks, p.v_blocks, p.k_scales,
+                                  p.v_scales)))
+    return out
+
+
+def cluster_run(torch, cluster, reqs, counters):
+    """Serve ``reqs`` through ``cluster`` with the launch counters zeroed
+    just before and read just after; every payload the prefill engines
+    hand off is kept (with its export wall: ``export_seqs`` synchronises
+    before it returns), every landed handoff is read back
+    (``snapshot_landed``) and held against its payload after the run. The
+    card is synchronised before the handoff latencies are read."""
+    payloads, export_s, landed = {}, [], {}
+    for rep in cluster.registry:
+        pre, dec = rep.prefill, rep.decode
+        snapshot_landed(torch, dec, landed)
+        export = pre.kv.export_seqs
+
+        def timed(seq_ids, export=export):
+            t0 = time.perf_counter()
+            p = export(seq_ids)
+            export_s.append(time.perf_counter() - t0)
+            return p
+        pre.kv.export_seqs = timed
+
+        def sink(req, payload, dec=dec):
+            payloads[req.rid] = payload
+            return dec.enqueue_handoff(req, payload)
+        pre.on_handoff = sink
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    counters.reset()
+    t0 = time.perf_counter()
+    cluster.submit(reqs)
+    cluster.run()
+    sync(torch)
+    wall = time.perf_counter() - t0
+    return dict(launches=counters.read(), wall=wall, base=base,
+                peak=torch.cuda.max_memory_allocated(), payloads=payloads,
+                export_s=export_s,
+                landed=landed_equal(torch, payloads, landed))
+
+
+def cluster_report(cluster, reqs, run):
+    """The end-to-end numbers of one cluster run."""
+    s = cluster.summary()
+    ttft = sorted(r.first_token_s - r.arrival_s for r in reqs)
+    tbt = sorted(r.tbt_s() for r in reqs)
+    exp = sorted(run["export_s"])
+    return dict(
+        wall_s=run["wall"], peak_gib=run["peak"] / 2**30,
+        allocated_before_gib=run["base"] / 2**30,
+        tok_s=sum(len(r.output) for r in reqs) / run["wall"],
+        ttft_p50_s=ttft[len(ttft) // 2], tbt_p50_s=tbt[len(tbt) // 2],
+        handoff_p50_s=s["handoff_p50_s"], handoff_p90_s=s["handoff_p90_s"],
+        export_ms_p50=exp[len(exp) // 2] * 1e3, launches=run["launches"],
+        **{k: s[k] for k in ("handoffs_completed", "kv_bytes_transferred",
+                             "router_affinity_hits",
+                             "prefill_tokens_skipped", "blocks_shared",
+                             "tokens_generated")},
+        graphs={f"{role}{rep.idx}": engine_graphs(getattr(rep, role))
+                for rep in cluster.registry
+                for role in ("prefill", "decode")})
+
+
+def lane_gates(cluster, launches, L, workers, kernels, what):
+    """Each role in its lane: the prefill engines launch only the chunk
+    kernel (L per chunk) and capture no decode graph; the decode engines
+    launch only the decode kernel (L × workers per step), run no chunk,
+    record no admit / chunk event and capture no prefill graph."""
+    decode_k, chunk_k = kernels
+    chunks = sum(r.prefill.stats.prefill_chunks_run for r in cluster.registry)
+    steps = sum(r.decode.stats.steps for r in cluster.registry)
+    want = dict({k: 0 for k in launches}, **{
+        decode_k: L * workers * steps, chunk_k: L * chunks})
+    gate(launches == want, f"{what}: launches {launches} != {want} "
+         f"({chunks} chunks, {steps} decode steps)")
+    for rep in cluster.registry:
+        pre, dec = rep.prefill, rep.decode
+        kinds = {e.kind for e in dec.event_log}
+        gate(pre.stats.steps == 0 and pre.compiled.captures == 0 and
+             dec.stats.prefill_chunks_run == 0 and
+             dec.stats.max_prefill_slab_tokens == 0 and
+             not kinds & {"admit", "chunk"} and
+             all(g.captures == 0
+                 for g in dec.compiled_prefill.programs().values()),
+             f"{what}: replica {rep.idx} left its lane: prefill steps "
+             f"{pre.stats.steps}, decode graphs on the prefill engine "
+             f"{pre.compiled.captures}, decode-side chunks "
+             f"{dec.stats.prefill_chunks_run}, slab "
+             f"{dec.stats.max_prefill_slab_tokens}, events {sorted(kinds)}")
+    return chunks, steps
+
+
+def cluster_e2e(torch, np, cfg, params, prompts, counters, ref_tokens):
+    """Phase 11: the disaggregated cluster at full width and depth.
+    (a) one replica over phase 4's bf16 engine, 8 blocks landed a step:
+    first tokens equal phase 4's cold run's, every handoff read back
+    through the decode table equals its payload bit for bit, the decode
+    side's bytes equal the payloads' (2 MiB a block), 8 handoffs, each
+    role launches only its own kernels; the greedy streams equal phase
+    4's up to a bf16 near-tie (NEAR_TIE_ULPS, reported with the margin).
+    (b) Lamina's int8 engine of phase 5 with prefix sharing on 2
+    affinity-routed replicas (1024 blocks each), 3 groups × 3 requests
+    sharing a 512-token prefix: each group on one replica, 6 affinity
+    hits, skipped prefill, int8 payloads at (hd+4)/(2·hd) of the bf16
+    bytes (132/256), only the int8 kernels; the wire's export / import
+    times on their own."""
+    from repro_torch.serving import DisaggConfig, EngineConfig
+    from repro_torch.serving.cluster import DisaggCluster
+
+    L = cfg.num_layers
+    bf16_block = 2 * L * cfg.num_kv_heads * 16 * cfg.resolved_head_dim * 2
+    result = {}
+    # (a) parity, bf16, one replica
+    econf = EngineConfig(placement="homogeneous", scheduler="fcfs",
+                         block_size=16, num_blocks=2048, max_batch=8,
+                         prefill_chunk_tokens=512)
+    cluster = DisaggCluster(cfg, params, econf, replicas=1, device=DEV,
+                            disagg=DisaggConfig(transfer_blocks_per_step=8))
+    tops = {}
+    record_top(cluster, tops)
+    reqs = make_requests(prompts, 32)
+    run = cluster_run(torch, cluster, reqs, counters)
+    check_finished(cfg, reqs, 32)
+    out = cluster_report(cluster, reqs, run)
+    chunks, steps = lane_gates(
+        cluster, run["launches"], L, 1,
+        ("paged_decode_attention", "paged_prefill_chunk_attention"),
+        "cluster bf16")
+    blocks = sum(p.n_blocks for p in run["payloads"].values())
+    nbytes = sum(p.nbytes for p in run["payloads"].values())
+    firsts = [r.output[0] == t[0] for r, t in zip(reqs, ref_tokens)]
+    diverged = stream_divergences(reqs, ref_tokens, tops)
+    largest = max(run["payloads"].values(), key=lambda p: p.n_blocks)
+    out.update(chunks=chunks, decode_steps=steps, payload_blocks=blocks,
+               payload_bytes=nbytes, bytes_per_block=nbytes / blocks,
+               landed_bitwise=sum(run["landed"].values()),
+               first_tokens_equal=sum(firsts),
+               streams_equal=len(reqs) - len(diverged), diverged=diverged,
+               wire=handoff_probe(torch, cluster.registry[0].decode.kv,
+                                  largest))
+    log(f"cluster bf16 (1 replica): payloads {blocks} blocks (expect 443 "
+        f"if each table holds exactly its prompt's blocks), "
+        f"{json.dumps(out)}")
+    gate(all(firsts), f"cluster bf16: first tokens differ from phase 4's "
+         f"cold run: {firsts}")
+    gate(len(run["landed"]) == len(reqs) and all(run["landed"].values()),
+         f"cluster bf16: landed blocks != payload: {run['landed']}")
+    gate(out["kv_bytes_transferred"] == nbytes == blocks * bf16_block,
+         f"cluster bf16: decode-side bytes {out['kv_bytes_transferred']} "
+         f"vs payloads {nbytes} vs {blocks} x {bf16_block}")
+    gate(out["handoffs_completed"] == len(reqs),
+         f"cluster bf16: {out['handoffs_completed']} handoffs")
+    gate(all(d["reference_token_gap_bf16_ulps"] <= NEAR_TIE_ULPS
+             for d in diverged),
+         f"cluster bf16: greedy streams leave phase 4's away from a bf16 "
+         f"near-tie: {diverged}")
+    gate(out["wire"]["round_trip_bitwise"],
+         "cluster bf16: the wire probe's round trip is not bit-exact")
+    result["bf16_one_replica"] = out
+    del cluster, run, reqs, largest
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) Lamina int8, prefix sharing, two affinity-routed replicas
+    econf = EngineConfig(placement="attention_pool", partition="head",
+                         attention_workers=2, kv_dtype="int8",
+                         block_size=16, num_blocks=1024, max_batch=8,
+                         prefill_chunk_tokens=512, prefix_sharing=True)
+    rng = np.random.default_rng(1)
+    groups = []
+    for _ in range(3):
+        prefix = rng.integers(0, cfg.vocab_size, size=512).tolist()
+        groups.append([prefix + rng.integers(
+            0, cfg.vocab_size, size=int(n)).tolist()
+            for n in rng.integers(100, 401, size=3)])
+    cluster = DisaggCluster(cfg, params, econf, replicas=2,
+                            routing="affinity", device=DEV)
+    reqs = make_requests([p for g in groups for p in g], 32)
+    run = cluster_run(torch, cluster, reqs, counters)
+    check_finished(cfg, reqs, 32)
+    out = cluster_report(cluster, reqs, run)
+    lane_gates(cluster, run["launches"], L, econf.attention_workers,
+               ("paged_decode_attention_int8",
+                "paged_prefill_chunk_attention_int8"), "cluster int8")
+    homes = [sorted({cluster.replica_of(r.rid) for r in reqs[3 * g:3 * g + 3]})
+             for g in range(3)]
+    hd = cfg.resolved_head_dim          # int8 / bf16 bytes: (hd + 4) / (2 hd)
+    ratios = [p.nbytes * 2 * hd == p.n_blocks * bf16_block * (hd + 4)
+              for p in run["payloads"].values()]
+    dec = cluster.registry[-1].decode
+    last = run["payloads"][reqs[-1].rid]
+    out.update(homes=homes, payload_blocks=[p.n_blocks for p in
+                                            run["payloads"].values()],
+               landed_bitwise=sum(run["landed"].values()),
+               wire=handoff_probe(torch, dec.kv, last))
+    log(f"cluster Lamina int8 (2 replicas, affinity, prefix sharing): "
+        f"{json.dumps(out)}")
+    gate(all(len(h) == 1 for h in homes),
+         f"cluster int8: a prefix group split across replicas: {homes}")
+    gate(out["router_affinity_hits"] == 6,
+         f"cluster int8: {out['router_affinity_hits']} affinity hits")
+    gate(out["prefill_tokens_skipped"] > 0,
+         "cluster int8: no prefill token skipped")
+    gate(all(ratios) and len(ratios) == len(reqs),
+         f"cluster int8: payload bytes x {2 * hd} != bf16 bytes x "
+         f"{hd + 4}: {ratios}")
+    gate(all(run["landed"].values()) and len(run["landed"]) == len(reqs)
+         and out["wire"]["round_trip_bitwise"],
+         f"cluster int8: landed blocks != payload: {run['landed']}, "
+         f"round trip {out['wire']['round_trip_bitwise']}")
+    result["lamina_int8_two_replicas"] = out
+    del cluster, run, reqs, dec, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def serve_cli(torch, argv):
+    """The serve CLI in process (``repro_torch.launch.serve.main``), its
+    standard output captured and logged line by line."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve.main(argv)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  serve: {line}")
+    if not lines or not lines[0].startswith("mode=router"):
+        raise AssertionError(f"serve CLI printed no summary: {lines}")
+    return dict(argv=" ".join(argv), wall_s=wall, lines=lines,
+                allocated_before_gib=base / 2**30,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
 def profile_decode(torch, eng, prompts, n_steps=3, at_state=None):
@@ -2089,7 +2467,8 @@ def main() -> int:
                for n in plens]
     log(f"e2e: prompt lengths {plens.tolist()} "
         f"({sum(int(n) % 16 != 0 for n in plens)} not multiples of 16)")
-    l_bf16, e2e = homogeneous_e2e(torch, np, cfg, params, prompts, counters)
+    l_bf16, e2e, cold_tokens = homogeneous_e2e(torch, np, cfg, params,
+                                               prompts, counters)
     torch.cuda.empty_cache()
     l_int8, lam = lamina_e2e(torch, np, cfg, params, prompts, counters,
                              e2e["kv_pool_bytes_resident"])
@@ -2098,9 +2477,25 @@ def main() -> int:
                                d) for d in ("int8", "bf16")}
     torch.cuda.empty_cache()
     faults = fault_e2e(torch, np, cfg, params, prompts, counters)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cluster = cluster_e2e(torch, np, cfg, params, prompts, counters,
+                          cold_tokens)
     log(f"llama3-8b end-to-end phases done at "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"{time.perf_counter() - t_start:.1f} s (cluster phase "
+        f"{time.perf_counter() - t0:.1f} s)")
     del params
+    torch.cuda.empty_cache()
+    # phase 12: the serve CLI, in process, with weights of its own
+    t0 = time.perf_counter()
+    cluster["serve_cli"] = serve_cli(torch, [
+        "--arch", "llama3-8b", "--mode", "router", "--replicas", "2",
+        "--engine", "lamina", "--kv-dtype", "int8", "--prefix-sharing",
+        "--prefill-chunk-tokens", "512", "--num-blocks", "1024",
+        "--trace", "azure-conv", "--requests", "8", "--scale", "0.5"])
+    log(f"serve CLI done in {time.perf_counter() - t0:.1f} s: "
+        f"{json.dumps(cluster['serve_cli'])}")
+    gc.collect()
     torch.cuda.empty_cache()
 
     # phase 8: zamba2-1.2b and rwkv6-7b at full width and depth
@@ -2149,6 +2544,7 @@ def main() -> int:
                for name, (src, rep) in KERNELS.items()]
     log(json.dumps({"summary": {"homogeneous_bf16": e2e, "lamina_int8": lam,
                                 "partitions": parts, "faults": faults,
+                                "cluster": cluster,
                                 "zamba2": zamba, "rwkv6": rwkv6,
                                 "card_vs_cpu": versus}}))
     if FAILED:

@@ -5,11 +5,21 @@
     engine = LLMEngine(cfg, params, EngineConfig(prefill_chunk_tokens=512))
     for token in engine.generate(prompt_tokens):   # streams as generated
         ...
+
+A prefill/decode disaggregated deployment fronts K engine replicas with
+the cluster layer (``repro_torch.serving.cluster``)::
+
+    from repro_torch.serving.cluster import DisaggCluster
+
+    cluster = DisaggCluster(cfg, params, econf, replicas=4)
+    cluster.submit(requests)      # prefix-affinity routed
+    cluster.run()
 """
-from repro_torch.serving.config import EngineConfig
+from repro_torch.serving.config import DisaggConfig, EngineConfig
 from repro_torch.serving.faults import (FaultEvent, FaultInjector,
                                         FaultScenario, ShardHealthTracker)
-from repro_torch.serving.kvcache import OutOfBlocks, PagedKVCache, PoolExhausted
+from repro_torch.serving.kvcache import (KVHandoffPayload, OutOfBlocks,
+                                         PagedKVCache, PoolExhausted)
 from repro_torch.serving.llm_engine import (CorruptedLogitsError, EngineEvent,
                                             LLMEngine, RequestHandle,
                                             SchedulingStalled)
@@ -26,11 +36,12 @@ from repro_torch.serving.worker_pool import (AttentionWorkerPool, TransferLog,
                                              expected_transfer_bytes)
 
 __all__ = [
-    "EngineConfig", "EngineStats", "FaultEvent", "FaultInjector",
-    "FaultScenario", "ShardHealthTracker", "EngineEvent", "LLMEngine",
+    "EngineConfig", "DisaggConfig", "EngineStats", "FaultEvent",
+    "FaultInjector", "FaultScenario", "ShardHealthTracker", "EngineEvent", "LLMEngine",
     "RequestHandle", "SchedulingStalled", "CorruptedLogitsError",
     "PlacementStrategy", "make_placement", "Request", "SamplingParams",
-    "State", "PagedKVCache", "OutOfBlocks", "PoolExhausted",
+    "State", "PagedKVCache", "KVHandoffPayload", "OutOfBlocks",
+    "PoolExhausted",
     "request_generator", "request_seed", "sample_per_request",
     "ChunkedPrefillPolicy", "FCFSPolicy", "PreemptingPolicy", "PrefixIndex",
     "RequestScheduler", "SchedulingPolicy", "make_policy",

@@ -1,6 +1,7 @@
 """Declarative serving configuration for
-:class:`repro_torch.serving.llm_engine.LLMEngine`.
-Port of ``repro/serving/config.py`` (``EngineConfig``).
+:class:`repro_torch.serving.llm_engine.LLMEngine` and the disaggregated
+cluster's engines. Port of ``repro/serving/config.py`` (``EngineConfig``,
+and ``DisaggConfig`` at ``:192``).
 
 The fields and validation are the reference's, minus ``decode_backend``:
 the port has no backend knob — the device of the KV pool decides whether
@@ -134,4 +135,49 @@ class EngineConfig:
         return 1
 
     def replace(self, **kw) -> "EngineConfig":
+        return dataclasses.replace(self, **kw)
+
+
+DISAGG_ROLES = ("prefill", "decode")
+
+
+@dataclasses.dataclass(frozen=True)
+class DisaggConfig:
+    """Prefill/decode disaggregation knobs for the
+    :class:`~repro_torch.serving.cluster.PrefillEngine` /
+    :class:`~repro_torch.serving.cluster.DecodeEngine` split of
+    ``LLMEngine`` (``serving/cluster/``). One instance is shared by a
+    replica pair; ``role`` names which side an engine plays."""
+
+    role: str = "prefill"
+    # the wire budget: physical KV blocks a decode replica lands per engine
+    # step while draining its TransferQueue. 0 = unbounded (a whole payload
+    # imports in one step).
+    transfer_blocks_per_step: int = 8
+    # prefill-side prefix retention: an exported request's prompt blocks
+    # stay resident (and registered in the PrefixIndex) as donor prefixes,
+    # LRU-evicted under pool pressure. Only effective with
+    # EngineConfig.prefix_sharing.
+    retain_prefixes: bool = True
+    max_retained_seqs: int = 32
+    # transfer attempts per handoff before the decode replica raises a
+    # HandoffError (each mid-transfer shard death burns one)
+    max_transfer_attempts: int = 3
+
+    def __post_init__(self):
+        if self.role not in DISAGG_ROLES:
+            raise ValueError(f"role must be one of {DISAGG_ROLES}; "
+                             f"got {self.role!r}")
+        if self.transfer_blocks_per_step < 0:
+            raise ValueError(
+                f"transfer_blocks_per_step must be >= 0 (0 = unbounded); "
+                f"got {self.transfer_blocks_per_step}")
+        if self.max_retained_seqs < 0:
+            raise ValueError(f"max_retained_seqs must be >= 0; "
+                             f"got {self.max_retained_seqs}")
+        if self.max_transfer_attempts < 1:
+            raise ValueError(f"max_transfer_attempts must be >= 1; "
+                             f"got {self.max_transfer_attempts}")
+
+    def replace(self, **kw) -> "DisaggConfig":
         return dataclasses.replace(self, **kw)

@@ -1,17 +1,20 @@
 """Paged KV-cache manager (PagedAttention-style, paper baseline [28]).
 Port of ``repro/serving/kvcache.py``: block-sharded, bf16/fp32 or int8
-pools with shard quarantine (the handoff API arrives with the cluster
-slice).
+pools with shard quarantine, and the block-granular KV handoff of the
+disaggregated cluster (``export_seqs`` → ``prealloc_handoff`` →
+``write_handoff_blocks``, reference ``kvcache.py:799-1003``).
 
 Fixed-size blocks of ``block_size`` tokens from a global pool; per-sequence
 block tables; allocation is O(1) off a free list. The allocator is
 host-side Python/numpy exactly as in the reference (free list, tables,
 lengths, refcounts, copy-on-write); the pools are device tensors, HEAD-MAJOR
 ``(L, Hkv, num_blocks, block_size, hd)``, written IN PLACE (``index_put_``)
-by ``write_prefill`` / ``write_prefill_chunk`` / ``write_tokens`` — the
-reference rebuilt immutable arrays instead. One (layer, head, block) tile
-is a contiguous ``(block_size, hd)`` slab, the layout the paged kernels
-walk through ``block_table_batch()``.
+by ``write_prefill`` / ``write_prefill_chunk`` / ``write_token(s)`` and
+the handoff import — the reference rebuilt immutable arrays instead. The
+captured decode and prefill graphs read the pools by address, so no write
+may rebind them. One (layer, head, block) tile is a contiguous
+``(block_size, hd)`` slab, the layout the paged kernels walk through
+``block_table_batch()``.
 
 Prefix sharing / copy-on-write: identical prompt prefixes map several
 sequences' tables onto the SAME physical blocks (``share_blocks``); every
@@ -42,6 +45,15 @@ time (``models/kv_quant.py``) and every block operation (copy-on-write,
 free, round-robin placement) moves the scale tile with its value tile —
 scales follow blocks. The attention kernels fuse dequantization; nothing
 on the hot path builds a dequantized slab.
+
+Handoff (the prefill → decode wire): ``export_seqs`` gathers every
+physical block the exported tables reference, once, into host tiles (one
+device gather, one device-to-host copy into pinned memory on the card,
+then a synchronisation, so no reader sees a payload half copied); the
+importer reserves destination blocks all-or-nothing by the round-robin
+slot rule (``prealloc_handoff``) and lands block ranges from the host tiles
+in place (``write_handoff_blocks``: one host-to-device copy of the range,
+one ``index_copy_`` per pool).
 
 Invariants (tests/test_torch_engine.py replays the reference's):
   * a block's refcount == the number of live tables referencing it,
@@ -539,6 +551,23 @@ class PagedKVCache:
         self.write_prefill(seq_id, k, v, start_token=start_token,
                            length=length)
 
+    def write_token(self, seq_id: int, k: torch.Tensor, v: torch.Tensor,
+                    position: int) -> None:
+        """k/v: (L, Hkv, hd) for one token at `position` (0-based), written
+        in place; a shared target block copy-on-writes first."""
+        slot = position // self.block_size
+        if self.refcounts[self.tables[seq_id][slot]] > 1:
+            self._cow_block(seq_id, slot)      # never write a donor's block
+        blk = self.tables[seq_id][slot]
+        off = position % self.block_size
+        if self.kv_dtype == "int8":
+            k, ks = kv_quant.quantize_token(k)
+            v, vs = kv_quant.quantize_token(v)
+            self.k_scale[:, :, blk, off] = ks
+            self.v_scale[:, :, blk, off] = vs
+        self.k_pool[:, :, blk, off] = k
+        self.v_pool[:, :, blk, off] = v
+
     def write_tokens(self, seq_ids: Sequence[int], k_new: torch.Tensor,
                      v_new: torch.Tensor, positions: Sequence[int]) -> None:
         """Batched in-place scatter of one token per sequence — the decode
@@ -593,6 +622,203 @@ class PagedKVCache:
         return gather_blocks(
             self.k_pool, self.v_pool, self.k_scale, self.v_scale,
             self.gather_prefix_indices(seq_id, n_tokens), self.cfg.dtype)
+
+    # ---------------- block-granular KV handoff (disaggregated cluster) ----
+    def export_seqs(self, seq_ids: Sequence[int]) -> "KVHandoffPayload":
+        """The given sequences' KV state as a block-granular
+        :class:`KVHandoffPayload`, the prefill → decode wire unit
+        (reference ``kvcache.py:799``). It carries each sequence's table
+        (source block ids, in slot order) and every referenced physical
+        block exactly once, so a block several exported tables share
+        crosses once. The tiles live on the host (pinned when the pool is
+        on the card): one device gather, one device-to-host copy, and a
+        synchronisation before this returns. The source sequences are NOT
+        freed."""
+        missing = [sid for sid in seq_ids if sid not in self.tables]
+        if missing:
+            raise ValueError(
+                f"export_seqs: sequence(s) {missing} have no table in this "
+                f"pool — only admitted, prefilled sequences can be exported")
+        ids: List[int] = []
+        seen: set = set()
+        for sid in seq_ids:
+            for b in self.tables[sid]:
+                if b not in seen:
+                    seen.add(b)
+                    ids.append(b)
+        idx = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        tiles = [_to_host(t, idx) for t in (self.k_pool, self.v_pool,
+                                            self.k_scale, self.v_scale)]
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        k, v, ks, vs = tiles
+        return KVHandoffPayload(
+            tables={sid: tuple(self.tables[sid]) for sid in seq_ids},
+            lengths={sid: self.lengths[sid] for sid in seq_ids},
+            block_ids=tuple(ids), k_blocks=k, v_blocks=v,
+            block_size=self.block_size, k_scales=ks, v_scales=vs)
+
+    def prealloc_handoff(self, payload: "KVHandoffPayload"
+                         ) -> Dict[int, int]:
+        """Phase 1 of an import (reference ``kvcache.py:842``): reserve one
+        destination block per unique payload block, popped by the
+        round-robin slot rule of its FIRST referencing table entry, and
+        rebuild tables, lengths, refcounts (the number of referencing
+        tables, so shared prefixes stay shared) and ``_borrowed``. No bytes
+        move. All-or-nothing: a pool that cannot cover the payload raises
+        :class:`PoolExhausted` with nothing allocated. Returns the src →
+        dst block mapping."""
+        if payload.block_size != self.block_size:
+            raise ValueError(
+                f"prealloc_handoff: payload block_size "
+                f"({payload.block_size}) != destination pool block_size "
+                f"({self.block_size}) — handoff is block-granular and "
+                f"never re-chunks tiles")
+        for rid in payload.tables:
+            if rid in self.tables:
+                raise ValueError(
+                    f"prealloc_handoff: seq {rid} already has a table on "
+                    f"the destination pool — a handoff import must land on "
+                    f"a fresh rid")
+        need = len(payload.block_ids)
+        have = self.num_free
+        rid0 = next(iter(payload.tables))
+        if need > have:
+            raise self._exhausted(
+                f"handoff prealloc of {len(payload.tables)} seq(s) needs "
+                f"{need} blocks, have {have}", rid0)
+        first_slot: Dict[int, int] = {}
+        for table in payload.tables.values():
+            for slot, b in enumerate(table):
+                first_slot.setdefault(b, slot)
+        mapping: Dict[int, int] = {}
+        try:
+            for b in payload.block_ids:
+                mapping[b] = self._pop_block(first_slot[b])
+        except OutOfBlocks:
+            for dst in mapping.values():   # all-or-nothing: roll back
+                self._free_shard[self.shard_of(dst)].append(dst)
+            raise self._exhausted(
+                f"handoff prealloc exhausted the pool after "
+                f"{len(mapping)} of {need} blocks", rid0) from None
+        owners: Dict[int, int] = {}     # dst block -> first referencing rid
+        for rid, src_table in payload.tables.items():
+            dst_table = [mapping[b] for b in src_table]
+            self.tables[rid] = dst_table
+            self.lengths[rid] = payload.lengths[rid]
+            for d in dst_table:
+                self.refcounts[d] = self.refcounts.get(d, 0) + 1
+                owners.setdefault(d, rid)
+        for rid, src_table in payload.tables.items():
+            borrowed = {mapping[b] for b in src_table
+                        if owners[mapping[b]] != rid}
+            if borrowed:
+                self._borrowed[rid] = borrowed
+        return mapping
+
+    def write_handoff_blocks(self, payload: "KVHandoffPayload",
+                             mapping: Dict[int, int],
+                             start: int, stop: int) -> int:
+        """Phase 2 of an import (reference ``kvcache.py:915``): land payload
+        blocks [start, stop) (indices into ``payload.block_ids``) at their
+        mapped destination ids, IN PLACE: one host-to-device copy of the
+        range, then one ``index_copy_`` per pool (the captured graphs read
+        the pools by address). The dtypes are checked before any write.
+        Returns the wire bytes landed."""
+        if payload.k_scales is not None and self.k_scale is None:
+            raise ValueError(
+                "write_handoff_blocks: payload carries int8 scales but "
+                "the destination pool is not kv_dtype='int8' — source "
+                "and destination tiers must agree on kv_dtype")
+        if payload.k_scales is None and self.k_scale is not None:
+            raise ValueError(
+                "write_handoff_blocks: destination pool is kv_dtype='int8' "
+                "but the payload carries no scales — source and destination "
+                "tiers must agree on kv_dtype")
+        if payload.k_blocks.dtype != self.k_pool.dtype:
+            raise ValueError(
+                f"write_handoff_blocks: payload tiles are "
+                f"{payload.k_blocks.dtype} but the destination pool holds "
+                f"{self.k_pool.dtype}")
+        ids = payload.block_ids[start:stop]
+        if not ids:
+            return 0
+        dst = torch.as_tensor([mapping[b] for b in ids], dtype=torch.long,
+                              device=self.device)
+        pairs = [(self.k_pool, payload.k_blocks),
+                 (self.v_pool, payload.v_blocks)]
+        if payload.k_scales is not None:
+            pairs += [(self.k_scale, payload.k_scales),
+                      (self.v_scale, payload.v_scales)]
+        for pool, tiles in pairs:
+            # the tiles are block-major in memory: [start, stop) is one
+            # contiguous host range
+            part = tiles.movedim(2, 0)[start:stop].to(self.device,
+                                                      non_blocking=True)
+            pool.index_copy_(2, dst, part.movedim(0, 2))
+        return payload.bytes_of_blocks(stop - start)
+
+    def import_seqs(self, payload: "KVHandoffPayload") -> Dict[int, int]:
+        """One-shot import: prealloc + write every payload block
+        (reference ``kvcache.py:951``). Returns the src → dst mapping."""
+        mapping = self.prealloc_handoff(payload)
+        self.write_handoff_blocks(payload, mapping, 0, payload.n_blocks)
+        return mapping
+
+
+def _to_host(pool: Optional[torch.Tensor],
+             idx: torch.Tensor) -> Optional[torch.Tensor]:
+    """Pool blocks ``idx`` as a host tensor viewed (L, Hkv, n, ...) over
+    block-major memory (n, L, Hkv, ...): one gather on the pool's device,
+    one copy into a pinned buffer when that device is the card (the
+    caller synchronises before reading it)."""
+    if pool is None:
+        return None
+    tiles = pool.movedim(2, 0)[idx]                # (n, L, Hkv, ...)
+    if tiles.device.type == "cpu":
+        return tiles.movedim(0, 2)
+    host = torch.empty(tiles.shape, dtype=tiles.dtype, pin_memory=True)
+    host.copy_(tiles, non_blocking=True)
+    return host.movedim(0, 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class KVHandoffPayload:
+    """Block-granular KV handoff unit, prefill engine → decode replica
+    (reference ``kvcache.py:962``).
+
+    ``tables`` keeps each sequence's block chain in SOURCE ids;
+    ``block_ids`` lists every referenced physical block once, in the order
+    of the stacked head-major host tiles ``k_blocks`` / ``v_blocks``
+    ``(L, Hkv, n_unique, bs, hd)`` (block-major in memory). int8 pools also
+    ship ``k_scales`` / ``v_scales`` ``(L, Hkv, n_unique, bs)`` fp32 in the
+    same order: scales follow their blocks across the wire."""
+    tables: Dict[int, Tuple[int, ...]]
+    lengths: Dict[int, int]
+    block_ids: Tuple[int, ...]
+    k_blocks: torch.Tensor
+    v_blocks: torch.Tensor
+    block_size: int
+    k_scales: Optional[torch.Tensor] = None
+    v_scales: Optional[torch.Tensor] = None
+
+    @property
+    def n_blocks(self) -> int:
+        return len(self.block_ids)
+
+    @property
+    def nbytes(self) -> int:
+        """Total wire bytes (K + V tiles, plus scale tiles when int8)."""
+        tiles = [self.k_blocks, self.v_blocks]
+        if self.k_scales is not None:
+            tiles += [self.k_scales, self.v_scales]
+        return sum(t.numel() * t.element_size() for t in tiles)
+
+    def bytes_of_blocks(self, n: int) -> int:
+        """Wire bytes of `n` payload blocks (K + V, scales included)."""
+        if not self.n_blocks:
+            return 0
+        return int(self.nbytes * n // self.n_blocks)
 
 
 def gather_blocks(k_pool: torch.Tensor, v_pool: torch.Tensor,

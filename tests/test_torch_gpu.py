@@ -778,3 +778,155 @@ def test_cuda_engine_replays_its_prefill_programs(cuda, kv_dtype):
                 if not chunk:
                     assert progs["suffix"].replays > 0
         assert outs[True] == outs[False]
+
+
+# ---------------------------------------------------------------------------
+# the KV handoff on the card (PagedKVCache.export_seqs / import) and the
+# disaggregated cluster (serving/cluster/)
+# ---------------------------------------------------------------------------
+def _smoke_bf16(dev):
+    from repro_torch.configs import registry as treg
+    from repro_torch.models import transformer as ttf
+    cfg = treg.get_smoke_config("llama3-8b", num_kv_heads=2,
+                                dtype=torch.bfloat16)
+    return cfg, ttf.init_params(0, cfg, device=dev)
+
+
+def _random_pool(kv, seed):
+    g = torch.Generator(device=kv.device).manual_seed(seed)
+    if kv.k_scale is None:
+        for p in (kv.k_pool, kv.v_pool):
+            p.copy_(torch.randn(p.shape, generator=g, device=kv.device))
+        return
+    for p in (kv.k_pool, kv.v_pool):
+        p.copy_(torch.randint(-127, 128, p.shape, generator=g,
+                              device=kv.device))
+    for s in (kv.k_scale, kv.v_scale):
+        s.copy_(torch.rand(s.shape, generator=g, device=kv.device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("src_shards,dst_shards", [(1, 1), (1, 4), (2, 1),
+                                                   (4, 2)])
+def test_cuda_export_import_roundtrip_is_bit_exact(cuda, kv_dtype,
+                                                   src_shards, dst_shards):
+    """Pool → pinned host tiles → another pool on the card: every block
+    lands bit for bit, in place, with the reference's table rebuild."""
+    from repro_torch.serving import PagedKVCache
+
+    cfg, _ = _smoke_bf16(cuda)
+    src = PagedKVCache(cfg, 64, 4, n_shards=src_shards, kv_dtype=kv_dtype,
+                       device=cuda)
+    src.allocate(0, 37)
+    src.share_blocks(0, 1, 20)
+    src.allocate(1, 29)
+    src.allocate(2, 5)
+    _random_pool(src, 3)
+    payload = src.export_seqs([0, 1, 2])
+    assert payload.k_blocks.device.type == "cpu"
+    assert payload.k_blocks.is_pinned()
+    assert payload.n_blocks == len({b for s in (0, 1, 2)
+                                    for b in src.tables[s]})
+    dst = PagedKVCache(cfg, 64, 4, n_shards=dst_shards, kv_dtype=kv_dtype,
+                       device=cuda)
+    ptrs = [t.data_ptr() for t in (dst.k_pool, dst.v_pool)]
+    mapping = dst.prealloc_handoff(payload)
+    landed = sum(dst.write_handoff_blocks(payload, mapping, a,
+                                          min(a + 3, payload.n_blocks))
+                 for a in range(0, payload.n_blocks, 3))
+    torch.cuda.synchronize()
+    assert landed == payload.nbytes
+    assert [t.data_ptr() for t in (dst.k_pool, dst.v_pool)] == ptrs
+    for sid in (0, 1, 2):
+        assert dst.tables[sid] == [mapping[b] for b in src.tables[sid]]
+    for name in ("k_pool", "v_pool", "k_scale", "v_scale"):
+        s, d = getattr(src, name), getattr(dst, name)
+        if s is None:
+            continue
+        for sb, db in mapping.items():
+            assert torch.equal(d[:, :, db], s[:, :, sb]), (name, sb, db)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_cuda_import_between_replays_is_read_by_the_next_replay(cuda,
+                                                                kv_dtype):
+    """A captured decode graph reads the pool by address: a sequence
+    exported, freed and imported back with other bytes between two
+    replays of the same graph is read by the second replay, which equals
+    the eager step on the imported state bit for bit."""
+    from repro_torch.serving import KVHandoffPayload
+    from repro_torch.serving.compiled import pad_operands
+
+    cfg, params, eng, reqs, pl, comp = _graph_state(cuda, "head", kv_dtype)
+    kv = eng.kv
+    ids = [r.rid for r in reqs]
+    tokens = [r.output[-1] for r in reqs]
+    tables, lens = kv.block_table_batch(ids)
+    comp(tokens, tables, lens)                      # warm-up + capture
+    before = _snap(comp(tokens, tables, lens))      # a replay
+    victim = ids[0]
+    payload = kv.export_seqs([victim])
+    kv.free_seq(victim)
+    half = {name: None if t is None else
+            (t * 0.5 if t.is_floating_point() else t).to(t.dtype)
+            for name, t in dict(k_blocks=payload.k_blocks,
+                                k_scales=payload.k_scales).items()}
+    altered = KVHandoffPayload(
+        tables=payload.tables, lengths=payload.lengths,
+        block_ids=payload.block_ids, k_blocks=half["k_blocks"],
+        v_blocks=payload.v_blocks, block_size=payload.block_size,
+        k_scales=half["k_scales"], v_scales=payload.v_scales)
+    kv.import_seqs(altered)
+    tables2, lens2 = kv.block_table_batch(ids)
+    assert tables2.shape == tables.shape and (lens2 == lens).all()
+    captures = comp.captures
+    after = _snap(comp(tokens, tables2, lens2))
+    assert comp.captures == captures                # the same graph
+    padded, _ = pad_operands(tables2, (), kv.num_blocks, kv.blocks_per_shard)
+    want = _snap(_eager(pl, params, kv, cuda, tokens, padded, lens2, ()))
+    _bitwise(after, want)
+    assert not torch.equal(after[0][0], before[0][0])   # the import is read
+    assert torch.equal(after[0][1:], before[0][1:])      # the rest is not
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_cuda_cluster_greedy_tokens_equal_the_single_engine(cuda, kv_dtype):
+    """At smoke size, a one-replica cluster's greedy tokens equal the
+    single engine's (decode batches of one, so both replay the same
+    graphs); the prefill engine captures no decode graph and the decode
+    engine no prefill graph."""
+    from repro_torch.serving import (DisaggConfig, EngineConfig, LLMEngine,
+                                     Request, SamplingParams)
+    from repro_torch.serving.cluster import DisaggCluster
+
+    cfg, params = _smoke_bf16(cuda)
+    econf = EngineConfig(max_batch=1, block_size=4, num_blocks=96,
+                         kv_dtype=kv_dtype, prefill_chunk_tokens=8,
+                         placement="attention_pool", partition="head",
+                         attention_workers=2)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (21, 12, 30)]
+
+    def reqs():
+        return [Request(prompt=list(p), params=SamplingParams(
+            max_new_tokens=12)) for p in prompts]
+    single = LLMEngine(cfg, params, econf, device=cuda)
+    want = reqs()
+    single.submit(want)
+    single.run()
+    cluster = DisaggCluster(cfg, params, econf, replicas=1, device=cuda,
+                            disagg=DisaggConfig(transfer_blocks_per_step=2))
+    got = cluster.submit(reqs())
+    cluster.run()
+    torch.cuda.synchronize()
+    assert [r.output for r in got] == [r.output for r in want]
+    rep = cluster.registry[0]
+    assert rep.prefill.compiled.captures == 0
+    assert all(g.captures == 0
+               for g in rep.decode.compiled_prefill.programs().values())
+    assert rep.decode.compiled.replays > 0
+    assert rep.decode.stats.handoffs_completed == len(prompts)

@@ -74,6 +74,15 @@ def test_default_device_entry_points_raise_without_a_gpu():
         LLMEngine(cfg, params)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         transformer.prefill(params, cfg, {"tokens": [[1, 2, 3]]}, max_seq=3)
+    from repro_torch.launch import serve
+    from repro_torch.serving.cluster import (DecodeEngine, DisaggCluster,
+                                             PrefillEngine)
+    for entry in (DisaggCluster, PrefillEngine, DecodeEngine):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry(cfg, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "llama3-8b", "--smoke", "--mode", "router",
+                    "--requests", "2"])
 
 
 def test_init_params_on_cpu_is_seeded_and_follows_the_init_rules():
