@@ -14,14 +14,19 @@ Phases (any failure exits non-zero and prints no result line):
      the unquantized pool (cosine); each timed case beside the same call
      with the card held busy through the enqueue, the host time of one
      call (kernel and SDPA) and the launch grid; ptxas' registers and
-     spill of every instantiation are logged with the build;
+     spill of every instantiation are logged with the build; then the
+     widened shapes: glm4-9b's G = 16 (main context and 16K), G = 16 at
+     hd = 64, kimi-k2's hd = 112 (G = 8 and 4), G = 16 at hd = 112 with
+     window + sinks + softcap, POS_PAD at G = 16;
   3. paged chunk-prefill kernels vs their plain twin, bf16 and int8 (C=512
      at P=0 and P=1536, C=300 at P=1024, a gemma2-shaped masked case),
      with NaN values (bf16) or NaN scales (int8) in the pool blocks the
      table skips; each time beside the same call timed with the card held
      busy through the enqueue, and the host time of one call, for the
      kernel and SDPA; the kernel's launch geometry and the HGMMA count of
-     its SASS are logged with the build;
+     its SASS are logged with the build; then glm4-9b's G = 16 and
+     kimi-k2's hd = 112 (P=1536 C=512), hd = 112 over 1- and 2-row TMA
+     boxes, and hd = 112 at G = 16 past a 8192 window with sinks;
   4. end to end, homogeneous bf16: llama3-8b at full width and depth
      (random bf16 weights from seed 0) serving 8 requests through
      LLMEngine with chunked prefill, the decode step and the chunk step
@@ -65,7 +70,12 @@ Phases (any failure exits non-zero and prints no result line):
      0 and 1.0, and at a ragged S=2047; the dense decode kernel (beside
      SDPA) and the scans timed unheld and held, with the host time of a
      call; the scans' ptxas lines and the HMMA count of their SASS are
-     logged with the build;
+     logged with the build; the dense kernel's widened shapes (glm4-9b's
+     G = 16 at 2K and 16K, G = 16 at hd = 64, kimi-k2's hd = 112, a
+     windowed hd = 112) in bf16 and through its int8 entry (also at
+     llama3-8b's shape), each int8 case also held against the bf16 twin
+     on the unquantized cache (cosine); then every instantiation of the
+     three attention kernels (dtype × hd × G) once at a small shape;
   8. end to end through transformer.prefill -> 32 x (decode_step +
      apply_decode_updates): zamba2-1.2b, then rwkv6-7b, at full width and
      depth (random bf16 weights from seed 0, 8 prompts of 2048 tokens):
@@ -104,15 +114,46 @@ Phases (any failure exits non-zero and prints no result line):
      ``repro_torch.launch.serve.main`` in router mode, 2 Lamina int8
      replicas with prefix sharing on 8 azure-conv requests at scale 0.5,
      with weights of its own; its summary lines are logged;
- 13. one JSON line describing every ported kernel, then the result line.
-     A failed gate of phases 4, 5, 10 and 11 is reported where it happens
-     and fails the run after the last phase.
+ 13. glm4-9b at full width and depth (40 layers, d 4096, 32 / 2 heads:
+     G = 16, vocab 151552; random bf16 weights from seed 0) through
+     LLMEngine with compiled graphs, 8 requests: (a) homogeneous bf16,
+     (b) attention_pool head over 2 workers on an int8 pool, (c) the
+     block partition over 4 workers, bf16: every request finishes, the
+     launches = L × steps × workers and L × chunks, (c)'s greedy streams
+     equal (a)'s up to a bf16 near-tie, the TransferLog equals the §3.1
+     formulas, the int8 pool holds (hd + 4)/(2·hd) of the bf16 bytes;
+     TTFT, TBT, tokens/s, peak GiB. (d) glm4-9b-sinks (window 8192, 4
+     sinks; the same weights): one request of 9216 prompt tokens and 16
+     decode steps; at the last step one layer's decode attention and one
+     chunk's attention over the real pool equal their plain twins;
+ 14. the dense-cache path at glm4-9b's width (its weights still loaded):
+     ``AttentionWorkerPool.attend``, head and request over 2 workers each,
+     over one dense bf16 cache and one int8 cache (B=8, S=4096): the
+     partitions agree with each other and with the plain twins on the CPU,
+     ``per_worker_kv_bytes`` = the reference formula; ``prefill`` ->
+     ``decode_step`` -> ``apply_decode_updates`` over an int8 dense cache
+     with the first 4 layers: cosine >= 0.999 to the bf16 forward and the
+     same argmax; the listed layout's steps = the stacked ones bit for
+     bit;
+ 15. llama3-70b at full width and 8 of 80 layers through LLMEngine,
+     attention_pool head over 4 workers on an int8 pool; pixtral-12b at
+     full width and 8 layers through ``prefill`` with 1024 frontend
+     embeddings and 8 ``decode_step`` s; tinyllama-1.1b at full width and
+     depth, homogeneous bf16: every request finishes, launch counts hold;
+ 16. greedy speculative decoding: llama3-8b at full width and 4 layers as
+     the target, its first layer as the draft: the tokens equal plain
+     greedy decoding up to a bf16 near-tie; ``SpecStats``;
+ 17. one JSON line describing every ported kernel, then the result line.
+     A failed gate of phases 4, 5, 10, 11 and 13-16 is reported where it
+     happens and fails the run after the last phase. No two full-width
+     models are alive at once.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a CUDA device or without the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -154,6 +195,12 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
     "decode_attention": (
         "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention.py:31"),
+    # the int8 entry of the same kernel: the reference runs int8 dense
+    # caches through its jnp partial (models/attention.py:175); the Pallas
+    # kernel it extends takes no scales
+    "decode_attention_int8": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:31"),
     "ssm_scan": (
         "src/repro_torch/csrc/ssm_scan.cu",
         "src/repro/kernels/ssm_scan.py:20"),
@@ -164,12 +211,15 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 
 
 # the dense-cache decode and scan kernels launch on none of LLMEngine's paths
-NO_NEW_KERNEL = {"decode_attention": 0, "ssm_scan": 0, "rwkv6_scan": 0}
-# nor does a paged kernel on the dense-cache / recurrent path
+NO_NEW_KERNEL = {"decode_attention": 0, "decode_attention_int8": 0,
+                 "ssm_scan": 0, "rwkv6_scan": 0}
+# nor does a paged kernel on the dense-cache / recurrent path (whose caches
+# are bf16: the int8 dense entry runs only on phase 14's int8 dense cache)
 NO_PAGED_KERNEL = {"paged_decode_attention": 0,
                    "paged_prefill_chunk_attention": 0,
                    "paged_decode_attention_int8": 0,
-                   "paged_prefill_chunk_attention_int8": 0}
+                   "paged_prefill_chunk_attention_int8": 0,
+                   "decode_attention_int8": 0}
 
 
 def log(*a):
@@ -208,6 +258,7 @@ class Launches:
                     "paged_prefill_chunk_attention_int8":
                         ppa.paged_prefill_chunk_attention_int8,
                     "decode_attention": da.decode_attention,
+                    "decode_attention_int8": da.decode_attention_int8,
                     "ssm_scan": ssm.ssm_scan,
                     "rwkv6_scan": rwkv.rwkv6_scan}
 
@@ -436,7 +487,7 @@ def decode_case(torch, pda, timer, *, B, Hkv, G, hd, bs, lens, seed,
                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                rows=rows, **timing,
                launch=pda.launch_geometry(B, Hkv, nb,
-                                          pda._sm_count(q.device)))
+                                          pda._sm_count(q.device), G))
     return out
 
 
@@ -1142,7 +1193,7 @@ def lamina_e2e(torch, np, cfg, params, prompts, counters, bf16_resident):
     """Phase 5: Lamina's deployment — attention on 2 workers (head
     partition) reading an int8 pool in place."""
     from repro_torch.serving import (EngineConfig, LLMEngine, PagedKVCache,
-                                     expected_transfer_bytes, make_placement)
+                                     make_placement)
 
     econf = EngineConfig(placement="attention_pool", partition="head",
                          attention_workers=2, kv_dtype="int8",
@@ -1167,7 +1218,7 @@ def lamina_e2e(torch, np, cfg, params, prompts, counters, bf16_resident):
         **NO_NEW_KERNEL},
         f"e2e Lamina head int8 ({L} layers x {st.steps} steps x {n} "
         f"workers / {st.prefill_chunks_run} chunks)")
-    hd, Hkv = cfg.resolved_head_dim, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
     ratio = st.kv_pool_bytes_resident / bf16_resident
     e = torch.finfo(cfg.dtype).bits // 8       # 2: the model's bf16
     want = (hd + 4) / (e * hd)
@@ -1176,24 +1227,10 @@ def lamina_e2e(torch, np, cfg, params, prompts, counters, bf16_resident):
         f"{want:.6f} within 1%)")
     if abs(ratio / want - 1) > 0.01:
         raise AssertionError(f"int8 / bf16 resident ratio {ratio} != {want}")
-    # TransferLog against the §3.1 formulas: log_iteration per decode step
-    # (linear in the batch) and log_prefill_chunk per chunk
-    tlog = eng.transfer_log
-    tokens = st.tokens_generated
-    chunk_tokens = sum(len(p) for p in prompts)
-    chunk_kv = 2 * chunk_tokens * Hkv * (hd + 4) * L
-    want_log = dict(
-        q_bytes=tokens * cfg.num_heads * hd * 2 * L,
-        kv_bytes=2 * tokens * Hkv * hd * 2 * L + chunk_kv,
-        out_bytes=tokens * cfg.num_heads * hd * 2 * L,
-        transfers=2 * L * st.steps + L * st.prefill_chunks_run)
-    got_log = dict(q_bytes=tlog.q_bytes, kv_bytes=tlog.kv_bytes,
-                   out_bytes=tlog.out_bytes, transfers=tlog.transfers)
-    if got_log != want_log or \
-            tlog.total != expected_transfer_bytes(cfg, tokens) + chunk_kv:
-        raise AssertionError(f"TransferLog {got_log} != {want_log}")
-    log(f"e2e Lamina: TransferLog {got_log} = the §3.1 formulas "
-        f"({tokens} decode tokens, {chunk_tokens} chunk tokens); "
+    got_log = transfer_log_check(cfg, eng, prompts, "int8")
+    if not got_log["ok"]:
+        raise AssertionError(f"TransferLog {got_log}")
+    log(f"e2e Lamina: TransferLog {got_log} = the §3.1 formulas; "
         f"per-worker KV bytes read {eng.pool.per_worker_kv_bytes}")
     result = serving_summary(st, reqs, wall, peak, eng.compiled,
                              eng.compiled_prefill)
@@ -1235,6 +1272,32 @@ def lamina_e2e(torch, np, cfg, params, prompts, counters, bf16_resident):
         f"of 300 rows enqueues {result['write_prefill_chunk_launches']} "
         f"device ops")
     return launches, result
+
+
+def transfer_log_check(cfg, eng, prompts, kv_dtype):
+    """The attention-pool engine's TransferLog after serving ``prompts``
+    against the §3.1 formulas: ``log_iteration`` per decode step (linear
+    in the batch; ``expected_transfer_bytes``) and ``log_prefill_chunk``
+    per chunk (hd + 4 bytes per token-head for an int8 pool, else 2·hd).
+    Returns the log's fields, the decode and chunk tokens, and ``ok``."""
+    from repro_torch.serving import expected_transfer_bytes
+
+    st, tlog = eng.stats, eng.transfer_log
+    L, hd, Hkv = cfg.num_layers, cfg.resolved_head_dim, cfg.num_kv_heads
+    tokens = st.tokens_generated
+    chunk_tokens = sum(len(p) for p in prompts)
+    per_head = hd + 4 if kv_dtype == "int8" else 2 * hd
+    chunk_kv = 2 * chunk_tokens * Hkv * per_head * L
+    want = dict(
+        q_bytes=tokens * cfg.num_heads * hd * 2 * L,
+        kv_bytes=2 * tokens * Hkv * hd * 2 * L + chunk_kv,
+        out_bytes=tokens * cfg.num_heads * hd * 2 * L,
+        transfers=2 * L * st.steps + L * st.prefill_chunks_run)
+    got = dict(q_bytes=tlog.q_bytes, kv_bytes=tlog.kv_bytes,
+               out_bytes=tlog.out_bytes, transfers=tlog.transfers)
+    ok = got == want and \
+        tlog.total == expected_transfer_bytes(cfg, tokens) + chunk_kv
+    return dict(got, decode_tokens=tokens, chunk_tokens=chunk_tokens, ok=ok)
 
 
 def partitions_e2e(torch, np, cfg, params, prompts, counters, kv_dtype):
@@ -1546,8 +1609,8 @@ def fault_e2e(torch, np, cfg, params, prompts, counters):
 # ---------------------------------------------------------------------------
 # phase 11: the disaggregated prefill/decode cluster and the serve CLI
 # ---------------------------------------------------------------------------
-def record_top(cluster, into, k=8):
-    """Wrap every engine's ``_sample`` to keep the top ``k`` logits
+def record_top(engines, into, k=8):
+    """Wrap each engine's ``_sample`` to keep the top ``k`` logits
     (values, ids) of every token it samples, per request id."""
     def wrap(sample):
         def recorded(reqs, logits):
@@ -1557,9 +1620,8 @@ def record_top(cluster, into, k=8):
                 into.setdefault(r.rid, []).append((v, i))
             return sample(reqs, logits)
         return recorded
-    for replica in cluster.registry:
-        for eng in (replica.prefill, replica.decode):
-            eng._sample = wrap(eng._sample)
+    for eng in engines:
+        eng._sample = wrap(eng._sample)
 
 
 def stream_divergences(reqs, ref_tokens, tops):
@@ -1775,7 +1837,8 @@ def cluster_e2e(torch, np, cfg, params, prompts, counters, ref_tokens):
     cluster = DisaggCluster(cfg, params, econf, replicas=1, device=DEV,
                             disagg=DisaggConfig(transfer_blocks_per_step=8))
     tops = {}
-    record_top(cluster, tops)
+    record_top([e for rep in cluster.registry
+                for e in (rep.prefill, rep.decode)], tops)
     reqs = make_requests(prompts, 32)
     run = cluster_run(torch, cluster, reqs, counters)
     check_finished(cfg, reqs, 32)
@@ -1976,9 +2039,11 @@ def profile_window(torch, step, n_steps, batch,
 # phase 7: dense-cache decode and the two scans
 # ---------------------------------------------------------------------------
 def dense_decode_case(torch, da, timer, *, B, Hkv, G, hd, lens, S, seed,
-                      sliding_window=0, sinks=0, softcap=0.0):
+                      sliding_window=0, sinks=0, softcap=0.0, int8=False):
     """The dense decode kernel vs its twin on a (B, Hkv, S, hd) cache whose
-    slots past each cache_len hold NaN; o alone and the (o, l, m) triple."""
+    slots past each cache_len hold NaN (NaN scales too, for an int8
+    cache); o alone and the (o, l, m) triple. The int8 entry is also held
+    against the bf16 twin on the unquantized cache (cosine)."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     shape = (B, Hkv, S, hd)
     k = torch.randn(shape, generator=gen, device=DEV).bfloat16()
@@ -1986,47 +2051,73 @@ def dense_decode_case(torch, da, timer, *, B, Hkv, G, hd, lens, S, seed,
     cache_len = torch.tensor(lens, dtype=torch.int32, device=DEV)
     pos = torch.arange(S, device=DEV)
     stale = pos[None] >= cache_len[:, None]                      # (B, S)
-    k[stale[:, None].expand(B, Hkv, S)] = float("nan")
-    v[stale[:, None].expand(B, Hkv, S)] = float("nan")
+    stale3 = stale[:, None].expand(B, Hkv, S)
+    k[stale3] = float("nan")
+    v[stale3] = float("nan")
     q = torch.randn((B, Hkv, G, hd), generator=gen, device=DEV).bfloat16()
     kw = dict(sliding_window=sliding_window, attention_sinks=sinks,
               logit_softcap=softcap)
-    o1 = da.decode_attention(q, k, v, cache_len, **kw)
-    o, l, m = da.decode_attention(q, k, v, cache_len, return_partials=True,
-                                  **kw)
+    caches = (k, v)
+    if int8:
+        kq, ks = quantize_pool(torch, k)
+        vq, vs = quantize_pool(torch, v)
+        ks[stale3] = float("nan")          # the kernel must never load them
+        vs[stale3] = float("nan")
+        caches = (kq, vq)
+        kw.update(k_scale=ks, v_scale=vs)
+    o1 = da.decode_attention(q, *caches, cache_len, **kw)
+    o, l, m = da.decode_attention(q, *caches, cache_len,
+                                  return_partials=True, **kw)
     sync(torch)
-    po, pl, pm = da.decode_attention_plain(q, k, v, cache_len,
+    po, pl, pm = da.decode_attention_plain(q, *caches, cache_len,
                                            return_partials=True, **kw)
     err = check_close("dense decode o", o, po)
     check_close("dense decode o (no partials)", o1, po)
     check_close("dense decode l", l, pl, rtol=1e-3, atol=1e-6)
     check_close("dense decode m", m, pm, rtol=0.0, atol=1e-3)
+    out = {}
+    if int8:   # the int8 kernel against the bf16 twin on the unquantized cache
+        full = {x: y for x, y in kw.items() if x not in ("k_scale",
+                                                         "v_scale")}
+        out["cosine_vs_bf16"] = cosine(o, da.decode_attention_plain(
+            q, k, v, cache_len, **full))
+        if not out["cosine_vs_bf16"] >= MIN_COSINE:
+            raise AssertionError(f"int8 dense decode vs bf16 cosine "
+                                 f"{out['cosine_vs_bf16']} < {MIN_COSINE}")
     valid = pos[None] < cache_len[:, None]
     if sliding_window:
         valid &= (pos[None] >= cache_len[:, None] - sliding_window) | \
             (pos[None] < sinks)
     rows = int(valid.sum())
     H = Hkv * G
-    nbytes = (rows * Hkv * hd * 2 * 2 + q.numel() * 2 + B * 4 +
+    row_bytes = (hd + 4) * 2 if int8 else hd * 2 * 2   # K + V (+ scales)
+    nbytes = (rows * Hkv * row_bytes + q.numel() * 2 + B * 4 +
               o.numel() * 2 + 2 * l.numel() * 4)
     flops = 4 * rows * H * hd
     bound_ms, bound_by = bound(nbytes, flops)
+    out.update(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+               rows=rows)
+
     def kernel():
-        return da.decode_attention(q, k, v, cache_len, return_partials=True,
-                                   **kw)
+        return da.decode_attention(q, *caches, cache_len,
+                                   return_partials=True, **kw)
     kernel_ms = timer.ms(kernel)
     timing = dict(ms_held=timer.ms(kernel, hold=True),
                   host_us=timer.host_us(kernel))
     plain_ms = timer.ms(lambda: da.decode_attention_plain(
-        q, k, v, cache_len, return_partials=True, **kw), iters=5)
+        q, *caches, cache_len, return_partials=True, **kw), iters=5)
     library_ms = None
     if softcap == 0.0:
-        # yardstick only: SDPA on the same dense cache with a boolean mask
-        # (the NaN slots zeroed first, not timed: SDPA's 0 weight times NaN
-        # would poison its output)
-        kd = torch.where(valid[:, None, :, None], k, 0).repeat_interleave(
+        # yardstick only: SDPA on the same dense cache (pre-dequantized for
+        # int8, not timed) with a boolean mask (the NaN slots zeroed first,
+        # not timed: SDPA's 0 weight times NaN would poison its output)
+        kf, vf = k, v
+        if int8:
+            kf = (kq.float() * ks[..., None]).bfloat16()
+            vf = (vq.float() * vs[..., None]).bfloat16()
+        kd = torch.where(valid[:, None, :, None], kf, 0).repeat_interleave(
             G, dim=1)
-        vd = torch.where(valid[:, None, :, None], v, 0).repeat_interleave(
+        vd = torch.where(valid[:, None, :, None], vf, 0).repeat_interleave(
             G, dim=1)
         qd = q.reshape(B, H, 1, hd)
         mask = valid[:, None, None, :]
@@ -2037,9 +2128,41 @@ def dense_decode_case(torch, da, timer, *, B, Hkv, G, hd, lens, S, seed,
         library_ms = timer.ms(library)
         timing.update(library_ms_held=timer.ms(library, hold=True),
                       library_host_us=timer.host_us(library))
-    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                rows=rows, **timing)
+        del kd, vd
+    out.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               **timing)
+    return out
+
+
+def instantiation_sweep(torch, pda, da, ppa, timer):
+    """Every instantiation of the three attention kernels (pool or cache
+    dtype × head size × group size; the chunk kernel's group size is a
+    launch value, swept at 1, 2 and 16) once against its plain twin at a
+    small shape, with a softcap and NaN past every cache_len (values, or
+    scales for int8). Returns the checks run and the largest error per
+    kernel (toy shapes: the times are not reported)."""
+    worst = {"paged_decode": 0.0, "dense_decode": 0.0, "chunk": 0.0}
+    n = 0
+    for int8 in (False, True):
+        for hd in pda.HEAD_DIMS:
+            for G in pda.GROUPS:
+                kw = dict(B=3, Hkv=2, G=G, hd=hd, lens=[200, 37, 1],
+                          seed=G + hd, int8=int8, softcap=30.0)
+                r = decode_case(torch, pda, timer, bs=16, library=False,
+                                **kw)
+                worst["paged_decode"] = max(worst["paged_decode"],
+                                            r["max_abs_err"])
+                r = dense_decode_case(torch, da, timer, S=200, **kw)
+                worst["dense_decode"] = max(worst["dense_decode"],
+                                            r["max_abs_err"])
+                n += 2
+            for G in (1, 2, 16):
+                r = prefill_case(torch, ppa, timer, H=2 * G, Hkv=2, hd=hd,
+                                 bs=16, P=64, C=70, seed=G + hd, int8=int8,
+                                 softcap=30.0)
+                worst["chunk"] = max(worst["chunk"], r["max_abs_err"])
+                n += 1
+    return dict(checks=n, max_abs_err=worst)
 
 
 def check_scan(name, got, want):
@@ -2301,6 +2424,469 @@ def card_vs_cpu(torch, np, transformer, cfg, counters):
 
 
 # ---------------------------------------------------------------------------
+# phases 13-16: the registry's other dense archs at full width, the
+# dense-cache path and speculative decoding
+# ---------------------------------------------------------------------------
+def n_params(params):
+    from repro_torch.models import transformer
+    n = []
+    transformer._tree_map(lambda a: n.append(a.numel()), params)
+    return sum(n)
+
+
+def load_model(torch, registry, transformer, arch, seed=0, **overrides):
+    """A registry config (with ``overrides``: the depth a phase cuts) and
+    random bf16 weights from ``seed`` on the card."""
+    cfg = registry.get_config(arch).replace(**overrides)
+    t0 = time.perf_counter()
+    params = transformer.init_params(seed, cfg, device=DEV)
+    sync(torch)
+    log(f"{arch}: L={cfg.num_layers} d={cfg.d_model} "
+        f"H={cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.resolved_head_dim} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}: {n_params(params) / 1e9:.2f}"
+        f" B parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated, init {time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def release(torch):
+    """Return the memory of what the caller just deleted to the card (the
+    phases never hold two full-width models at once)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def engine_run(torch, cfg, params, econf, prompts, counters, new=32,
+               tops=None):
+    """``prompts`` through a fresh LLMEngine (compiled graphs) after a
+    small warm-up engine: every request finishes with ``new`` tokens.
+    Returns the engine, the requests, the launches and the serving
+    summary; ``tops`` records the top logits of every sampled token."""
+    from repro_torch.serving import LLMEngine
+
+    warm = LLMEngine(cfg, params, econf.replace(num_blocks=64), device=DEV)
+    warm.submit(make_requests([list(range(1, 41))], 2))
+    warm.run()
+    del warm
+    reqs = make_requests(prompts, new)
+    eng = LLMEngine(cfg, params, econf, device=DEV)
+    if tops is not None:
+        record_top([eng], tops)
+    launches, wall, peak = serve(torch, eng, reqs, counters)
+    check_finished(cfg, reqs, new)
+    return eng, reqs, launches, serving_summary(
+        eng.stats, reqs, wall, peak, eng.compiled, eng.compiled_prefill)
+
+
+def paged_want(L, steps, chunks, workers=1, int8=False):
+    """The launches of an engine run: L × steps × workers decode and L ×
+    chunks chunk launches of the pool's kernels, nothing else."""
+    dec, chunk = ("paged_decode_attention_int8",
+                  "paged_prefill_chunk_attention_int8") if int8 else \
+        ("paged_decode_attention", "paged_prefill_chunk_attention")
+    want = {"paged_decode_attention": 0, "paged_prefill_chunk_attention": 0,
+            "paged_decode_attention_int8": 0,
+            "paged_prefill_chunk_attention_int8": 0, **NO_NEW_KERNEL}
+    want.update({dec: L * steps * workers, chunk: L * chunks})
+    return want
+
+
+def launch_gate(launches, eng, L, workers, int8, what):
+    st = eng.stats
+    want = paged_want(L, st.steps, st.prefill_chunks_run, workers, int8)
+    return gate(launches == want, f"{what}: launches {launches} != {want} "
+                f"({st.steps} steps, {st.prefill_chunks_run} chunks)")
+
+
+def glm4_e2e(torch, np, registry, transformer, counters):
+    """Phase 13: glm4-9b at full width and depth (40 layers, d 4096, 32
+    heads over 2 kv heads: G = 16; vocab 151552) through LLMEngine with
+    compiled graphs, 8 requests of 300-2000 prompt tokens and 32 new: (a)
+    homogeneous bf16; (b) attention_pool head over 2 workers (one kv head,
+    16 query heads each) on an int8 pool; (c) the block partition over 4
+    workers, bf16. Then (d) glm4-9b-sinks (window 8192, 4 sinks, the same
+    weights): one request of 9216 prompt tokens and 16 decode steps, with
+    one layer's decode and one chunk's attention over the real pool held
+    against their plain twins at the last step."""
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.serving import EngineConfig, State
+
+    cfg, params = load_model(torch, registry, transformer, "glm4-9b")
+    L, hd = cfg.num_layers, cfg.resolved_head_dim
+    prng = np.random.default_rng(13)
+    plens = prng.integers(300, 2001, size=8)
+    prompts = [prng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in plens]
+    base = EngineConfig(block_size=16, num_blocks=2048, max_batch=8,
+                        prefill_chunk_tokens=512)
+    out = {"prompt_lengths": plens.tolist(), "parameters": n_params(params)}
+
+    eng, reqs, launches, summ = engine_run(torch, cfg, params, base, prompts,
+                                           counters)
+    launch_gate(launches, eng, L, 1, False, "glm4-9b (a) homogeneous bf16")
+    ref_tokens = [list(r.output) for r in reqs]
+    bf16_resident = eng.stats.kv_pool_bytes_resident
+    out["a_homogeneous_bf16"] = summ
+    log(f"glm4-9b (a) homogeneous bf16: {json.dumps(summ)}")
+    del eng, reqs
+    release(torch)
+
+    econf = base.replace(placement="attention_pool", partition="head",
+                         attention_workers=2, kv_dtype="int8")
+    eng, reqs, launches, summ = engine_run(torch, cfg, params, econf,
+                                           prompts, counters)
+    launch_gate(launches, eng, L, 2, True, "glm4-9b (b) head int8")
+    ratio = eng.stats.kv_pool_bytes_resident / bf16_resident
+    e = torch.finfo(cfg.dtype).bits // 8       # 2: the model's bf16
+    want = (hd + 4) / (e * hd)
+    gate(abs(ratio / want - 1) <= 0.01, f"glm4-9b (b): int8 / bf16 pool "
+         f"bytes {ratio} != (hd+4)/({e}·hd) = {want}")
+    tlog = transfer_log_check(cfg, eng, prompts, "int8")
+    gate(tlog["ok"], f"glm4-9b (b): TransferLog {tlog} != the §3.1 formulas")
+    summ.update(resident_ratio=ratio, transfer_log=tlog,
+                per_worker_kv_bytes=eng.pool.per_worker_kv_bytes)
+    out["b_head_int8"] = summ
+    log(f"glm4-9b (b) attention_pool head x2 int8: {json.dumps(summ)}")
+    del eng, reqs
+    release(torch)
+
+    econf = base.replace(placement="attention_pool", partition="block",
+                         attention_workers=4)
+    tops = {}
+    eng, reqs, launches, summ = engine_run(torch, cfg, params, econf,
+                                           prompts, counters, tops=tops)
+    launch_gate(launches, eng, L, 4, False, "glm4-9b (c) block x4 bf16")
+    diverged = stream_divergences(reqs, ref_tokens, tops)
+    gate(all(d["reference_token_gap_bf16_ulps"] <= NEAR_TIE_ULPS
+             for d in diverged), f"glm4-9b (c): greedy streams leave (a)'s "
+         f"away from a bf16 near-tie: {diverged}")
+    tlog = transfer_log_check(cfg, eng, prompts, "bf16")
+    gate(tlog["ok"], f"glm4-9b (c): TransferLog {tlog} != the §3.1 formulas")
+    summ.update(streams_equal=len(reqs) - len(diverged), diverged=diverged,
+                transfer_log=tlog, kv_shards=eng.kv.n_shards,
+                per_worker_kv_bytes=eng.pool.per_worker_kv_bytes)
+    out["c_block4_bf16"] = summ
+    log(f"glm4-9b (c) attention_pool block x4 bf16: {json.dumps(summ)}")
+    del eng, reqs
+    release(torch)
+
+    # (d) the sinks variant: window and sinks bite on a 9216-token prompt
+    scfg = registry.get_config("glm4-9b", variant="sinks")
+    sw, sinks = scfg.sliding_window, scfg.attention_sinks
+    prompt = prng.integers(0, cfg.vocab_size, size=9216).tolist()
+    econf = base.replace(num_blocks=1024, max_batch=1)
+    from repro_torch.serving import LLMEngine
+    eng = LLMEngine(scfg, params, econf, device=DEV)
+    req, = make_requests([prompt], 16)
+    counters.reset()
+    sync(torch)
+    t0 = time.perf_counter()
+    eng.submit([req])
+    while len(req.output) < 15:
+        eng.step()
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    tables, lens = eng.kv.block_table_batch([req.rid])
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    layer = L - 1
+    tbl = torch.as_tensor(tables, device=DEV)
+    clen = torch.as_tensor(lens, device=DEV)
+    q = torch.randn((1, cfg.num_kv_heads, cfg.gqa_group, hd), generator=gen,
+                    device=DEV).bfloat16()
+    # the kernel's window: the serving window less the incoming token
+    kw = dict(sliding_window=sw - 1, attention_sinks=sinks,
+              return_partials=True)
+    pools = (eng.kv.k_pool[layer], eng.kv.v_pool[layer])
+    o, l_, m = pda.paged_decode_attention(q, *pools, tbl, clen, **kw)
+    po, pl, pm = pda.paged_decode_attention_plain(q, *pools, tbl, clen, **kw)
+    dec = dict(cache_len=int(lens[0]), max_abs_err=check_close(
+        "sinks decode o", o, po))
+    check_close("sinks decode l", l_, pl, rtol=1e-3, atol=1e-6)
+    check_close("sinks decode m", m, pm, rtol=0.0, atol=1e-3)
+    P, C = 540 * 16, 512              # a chunk at [8640, 9152)
+    table = eng.kv.gather_prefix_indices(req.rid, P)
+    qc = torch.randn((C, cfg.num_heads, hd), generator=gen,
+                     device=DEV).bfloat16()
+    kc = torch.randn((C, cfg.num_kv_heads, hd), generator=gen,
+                     device=DEV).bfloat16()
+    vc = torch.randn_like(kc)
+    ckw = dict(sliding_window=sw, attention_sinks=sinks)
+    got = ppa.paged_prefill_chunk_attention(qc, *pools, table, kc, vc, **ckw)
+    want = ppa.paged_prefill_chunk_attention_plain(qc, *pools, table, kc, vc,
+                                                   **ckw)
+    chunk = dict(P=P, C=C, max_abs_err=check_close("sinks chunk", got, want))
+    eng.step()
+    st = eng.stats
+    gate(req.state == State.FINISHED and len(req.output) == 16,
+         f"glm4-9b-sinks: the request did not finish: {len(req.output)}")
+    want_l = paged_want(L, st.steps - 1, st.prefill_chunks_run)
+    gate(launches == want_l, f"glm4-9b-sinks: launches {launches} != "
+         f"{want_l}")
+    out["d_sinks"] = dict(prompt=len(prompt), window=sw, sinks=sinks,
+                          wall_s_15_tokens=wall, ttft_s=st.request_ttfts[0]
+                          if st.request_ttfts else None,
+                          chunks=st.prefill_chunks_run, decode_steps=st.steps,
+                          decode_vs_twin=dec, chunk_vs_twin=chunk,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"glm4-9b-sinks (d): {json.dumps(out['d_sinks'])}")
+    del eng, req
+    release(torch)
+    return cfg, params, out
+
+
+def dense_cache_e2e(torch, np, transformer, cfg, params, counters):
+    """Phase 14: the dense-cache path at glm4-9b's width. ``attend`` with
+    head and request partitions (2 workers each) over one dense bf16 cache
+    and an int8 one (B=8, S=4096): the partitions agree with each other and
+    with the plain twins on the CPU, ``per_worker_kv_bytes`` follows the
+    reference formula; then ``prefill`` -> ``decode_step`` ->
+    ``apply_decode_updates`` over an int8 dense cache with glm4-9b's first
+    4 layers against the bf16 full forward (cosine >= 0.999, the same
+    argmax), and the same steps through the listed layout equal the
+    stacked ones bit for bit."""
+    from repro_torch.kernels.decode_attention import decode_attention_int8
+    from repro_torch.models.kv_quant import quantize_kv
+    from repro_torch.serving import AttentionWorkerPool
+
+    out = {}
+    B, S, Hkv, H, hd = 8, 4096, cfg.num_kv_heads, cfg.num_heads, \
+        cfg.resolved_head_dim
+    gen = torch.Generator(device=DEV).manual_seed(15)
+    q = torch.randn((B, H, hd), generator=gen, device=DEV).bfloat16()
+    kc = torch.randn((B, Hkv, S, hd), generator=gen, device=DEV).bfloat16()
+    vc = torch.randn_like(kc)
+    kn = torch.randn((B, Hkv, hd), generator=gen, device=DEV).bfloat16()
+    vn = torch.randn_like(kn)
+    lens = torch.tensor(np.random.default_rng(15).integers(1, S + 1, size=B),
+                        dtype=torch.int32, device=DEV)
+    kq, ks = quantize_kv(kc)
+    vq, vs = quantize_kv(vc)
+    for tag, caches, skw in (("bf16", (kc, vc), {}),
+                             ("int8", (kq, vq), dict(k_scale=ks,
+                                                     v_scale=vs))):
+        res, outs = {}, {}
+        for part in ("head", "request"):
+            pool = AttentionWorkerPool(cfg, n_workers=2, partition=part)
+            counters.reset()
+            outs[part] = pool.attend(q, *caches, lens, kn, vn, **skw)
+            sync(torch)
+            res[part] = dict(launches={k: n for k, n in
+                                       counters.read().items() if n},
+                             per_worker_kv_bytes=pool.per_worker_kv_bytes)
+            per = 2 * caches[0].numel() // 2 * 2
+            gate(pool.per_worker_kv_bytes == [per, per],
+                 f"attend {tag} {part}: per_worker_kv_bytes "
+                 f"{pool.per_worker_kv_bytes} != [{per}, {per}]")
+        cpu = AttentionWorkerPool(cfg, n_workers=2, partition="head").attend(
+            *(t.cpu() for t in (q, *caches, lens, kn, vn)),
+            **{k: v.cpu() for k, v in skw.items()})
+        res["head_vs_request_max_abs_err"] = check_close(
+            f"attend {tag} head vs request", outs["head"], outs["request"])
+        res["head_vs_cpu_twin_max_abs_err"] = check_close(
+            f"attend {tag} head vs the CPU twin", outs["head"].cpu(), cpu)
+        kernel = "decode_attention_int8" if skw else "decode_attention"
+        for part in ("head", "request"):
+            gate(res[part]["launches"] == {kernel: 2},
+                 f"attend {tag} {part}: launches {res[part]['launches']}")
+        out[f"attend_{tag}"] = res
+        log(f"attend {tag} B={B} S={S} glm4-9b width: {json.dumps(res)}")
+    del kc, vc, kq, vq, ks, vs
+
+    # an int8 dense cache through the serve step, 4 layers
+    c4 = cfg.replace(num_layers=4)
+    c8 = c4.replace(kv_cache_bits=8)
+    p4 = dict(params, layers=transformer._tree_map(lambda a: a[:4],
+                                                   params["layers"]))
+    toks = np.random.default_rng(16).integers(0, cfg.vocab_size,
+                                              size=(2, 258)).tolist()
+    with torch.inference_mode():
+        full = transformer.forward(p4, c4, {"tokens": toks}, device=DEV)
+        counters.reset()
+        _, cache = transformer.prefill(p4, c8, {"tokens": [t[:-2] for t in
+                                                           toks]},
+                                       max_seq=264, device=DEV)
+        lg1, upd = transformer.decode_step(p4, c8, [t[-2] for t in toks],
+                                           cache, device=DEV)
+        cache = transformer.apply_decode_updates(cache, upd)
+        lg2, _ = transformer.decode_step(p4, c8, [t[-1] for t in toks],
+                                         cache, device=DEV)
+        sync(torch)
+        launches = {k: n for k, n in counters.read().items() if n}
+        # the listed layout: the same prefill and first step, bit for bit
+        listed = dict(p4, layers=[transformer._layer(p4["layers"], i)
+                                  for i in range(4)])
+        _, lcache = transformer.prefill(listed, c8, {"tokens": [
+            t[:-2] for t in toks]}, max_seq=264, device=DEV)
+        l_lg1, _ = transformer.decode_step(listed, c8, [t[-2] for t in toks],
+                                           lcache, device=DEV)
+        _, scache = transformer.prefill(p4, c8, {"tokens": [
+            t[:-2] for t in toks]}, max_seq=264, device=DEV)
+        s_lg1, _ = transformer.decode_step(p4, c8, [t[-2] for t in toks],
+                                           scache, device=DEV)
+    cos = [min(cosine(a[i], b[i]) for i in range(2))
+           for a, b in ((full[:, -2], lg1), (full[:, -1], lg2))]
+    same = bool((full[:, -1].argmax(-1) == lg2.argmax(-1)).all())
+    bitwise = torch.equal(l_lg1, s_lg1) and all(
+        torch.equal(torch.stack(lcache[k]), scache[k])
+        for k in ("k", "v", "k_scale", "v_scale"))
+    res = dict(min_row_cosine=cos, same_argmax=same, launches=launches,
+               listed_equals_stacked_bitwise=bitwise,
+               cache_dtype=str(cache["k"].dtype))
+    gate(min(cos) >= MIN_COSINE and same, f"int8 dense cache vs the bf16 "
+         f"forward: cosine {cos}, same argmax {same}")
+    gate(launches == {"decode_attention_int8": 2 * c4.num_layers},
+         f"int8 dense serve step: launches {launches}")
+    gate(bitwise, "the listed layout's step differs from the stacked one")
+    out["int8_dense_serve_step"] = res
+    log(f"int8 dense cache, glm4-9b width, 4 layers, B=2 S=256: "
+        f"{json.dumps(res)}")
+    # the int8 entry's launches on this path: attend (both partitions)
+    # and the serve step
+    return out, launches.get("decode_attention_int8", 0) + sum(
+        out["attend_int8"][p]["launches"].get("decode_attention_int8", 0)
+        for p in ("head", "request"))
+
+
+def other_dense_e2e(torch, np, registry, transformer, counters):
+    """Phase 15: llama3-70b (the paper's model) at full width and 8 of 80
+    layers through LLMEngine, attention_pool head over 4 workers (2 kv
+    heads each) on an int8 pool; pixtral-12b at full width and 8 layers
+    through ``prefill`` with 1024 frontend embeddings, then 8 dense
+    ``decode_step`` s; tinyllama-1.1b at full width and depth, homogeneous
+    bf16. Every request finishes and the launch counts hold."""
+    from repro_torch.serving import EngineConfig
+
+    out = {}
+    prng = np.random.default_rng(17)
+    base = EngineConfig(block_size=16, num_blocks=1024, max_batch=8,
+                        prefill_chunk_tokens=512)
+
+    cfg, params = load_model(torch, registry, transformer, "llama3-70b",
+                             num_layers=8)
+    prompts = [prng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in prng.integers(300, 1201, size=8)]
+    econf = base.replace(placement="attention_pool", partition="head",
+                         attention_workers=4, kv_dtype="int8")
+    eng, reqs, launches, summ = engine_run(torch, cfg, params, econf,
+                                           prompts, counters, new=16)
+    launch_gate(launches, eng, cfg.num_layers, 4, True,
+                "llama3-70b (8 layers) head x4 int8")
+    tlog = transfer_log_check(cfg, eng, prompts, "int8")
+    gate(tlog["ok"], f"llama3-70b: TransferLog {tlog}")
+    summ.update(parameters=n_params(params), transfer_log=tlog)
+    out["llama3_70b_8_layers_head4_int8"] = summ
+    log(f"llama3-70b, 8 of 80 layers, head x4 int8: {json.dumps(summ)}")
+    del eng, reqs, params
+    release(torch)
+
+    cfg, params = load_model(torch, registry, transformer, "pixtral-12b",
+                             num_layers=8)
+    B, S, F, n_new = 2, 128, cfg.frontend_tokens, 8
+    gen = torch.Generator(device=DEV).manual_seed(18)
+    front = torch.randn((B, F, cfg.d_model), generator=gen,
+                        device=DEV).bfloat16()
+    toks = prng.integers(0, cfg.vocab_size, size=(B, S)).tolist()
+    counters.reset()
+    sync(torch)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, cache = transformer.prefill(
+            params, cfg, {"tokens": toks, "frontend": front},
+            max_seq=F + S + n_new, device=DEV)
+        sync(torch)
+        prefill_s = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all())
+        for _ in range(n_new):
+            logits, upd = transformer.decode_step(
+                params, cfg, logits.argmax(-1), cache, device=DEV)
+            cache = transformer.apply_decode_updates(cache, upd)
+            finite &= bool(torch.isfinite(logits).all())
+    sync(torch)
+    launches = {k: n for k, n in counters.read().items() if n}
+    res = dict(parameters=n_params(params), frontend_tokens=F,
+               prompt_tokens=S, prefill_s=prefill_s,
+               wall_s=time.perf_counter() - t0,
+               cache_len=cache["len"].tolist(),
+               finite=finite, launches=launches)
+    gate(finite and logits.shape == (B, cfg.vocab_size) and
+         cache["len"].tolist() == [F + S + n_new] * B,
+         f"pixtral-12b: logits {tuple(logits.shape)} finite {finite} "
+         f"len {cache['len'].tolist()}")
+    gate(launches == {"decode_attention": cfg.num_layers * n_new},
+         f"pixtral-12b: launches {launches}")
+    out["pixtral_12b_8_layers"] = res
+    log(f"pixtral-12b, 8 of 40 layers, {F} frontend embeddings: "
+        f"{json.dumps(res)}")
+    del cache, logits, upd, front, params
+    release(torch)
+
+    cfg, params = load_model(torch, registry, transformer, "tinyllama-1.1b")
+    prompts = [prng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in prng.integers(300, 2001, size=8)]
+    eng, reqs, launches, summ = engine_run(torch, cfg, params, base, prompts,
+                                           counters)
+    launch_gate(launches, eng, cfg.num_layers, 1, False,
+                "tinyllama-1.1b homogeneous bf16")
+    summ["parameters"] = n_params(params)
+    out["tinyllama_1_1b_homogeneous_bf16"] = summ
+    log(f"tinyllama-1.1b, full depth, homogeneous bf16: {json.dumps(summ)}")
+    del eng, reqs, params
+    release(torch)
+    return out
+
+
+def speculative_e2e(torch, np, registry, transformer):
+    """Phase 16: greedy speculative decoding. Target: llama3-8b at full
+    width and 4 layers; draft: the same config at 1 layer (the target's
+    first layer, its embeddings and head: the same vocabulary). The
+    speculative tokens must equal plain greedy decoding of the target, or
+    part from it only at a bf16 near-tie of the target's logits."""
+    from repro_torch.serving.speculative import (greedy_generate,
+                                                 speculative_generate)
+
+    cfg, params = load_model(torch, registry, transformer, "llama3-8b",
+                             num_layers=4)
+    dcfg = cfg.replace(num_layers=1)
+    dparams = dict(params, layers=transformer._tree_map(lambda a: a[:1],
+                                                        params["layers"]))
+    prompt = np.random.default_rng(19).integers(0, cfg.vocab_size,
+                                                size=64).tolist()
+    n_new = 24
+    sync(torch)
+    t0 = time.perf_counter()
+    want = greedy_generate(params, cfg, prompt, n_new, device=DEV)
+    greedy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, stats = speculative_generate(params, cfg, dparams, dcfg, prompt,
+                                      n_new, k=4, device=DEV)
+    spec_s = time.perf_counter() - t0
+    pos = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+               None)
+    tie = None
+    if pos is not None:     # the target's logits where the two part
+        with torch.inference_mode():
+            lg = transformer.forward(params, cfg, {"tokens": [
+                prompt + want[:pos]]}, device=DEV)[0, -1]
+        tie = dict(position=pos, greedy=want[pos], speculative=got[pos],
+                   gap_bf16_ulps=gap_ulps(lg, got[pos]))
+    res = dict(tokens=n_new, equal=got == want, first_difference=tie,
+               stats=dict(dataclasses.asdict(stats),
+                          acceptance_rate=stats.acceptance_rate,
+                          tokens_per_target_call=stats.tokens_per_target_call),
+               greedy_s=greedy_s, speculative_s=spec_s)
+    gate(len(got) == n_new and (tie is None or
+                                tie["gap_bf16_ulps"] <= NEAR_TIE_ULPS),
+         f"speculative vs greedy: {res}")
+    log(f"speculative decoding, llama3-8b 4 layers / draft 1 layer: "
+        f"{json.dumps(res)}")
+    del params, dparams
+    release(torch)
+    return res
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     import numpy as np
     import torch
@@ -2363,7 +2949,9 @@ def main() -> int:
     long_lens = np.random.default_rng(5).integers(16384, 32769,
                                                   size=8).tolist()
     long_lens[0] = 32768
-    dec = {}
+    lens16k = np.random.default_rng(6).integers(8192, 16385, size=8).tolist()
+    lens16k[0] = 16384
+    dec, wide = {}, {}
     for int8 in (False, True):
         tag = "int8" if int8 else "bf16"
         dec[tag] = decode_case(torch, pda, timer, B=8, Hkv=8, G=4, hd=128,
@@ -2387,6 +2975,31 @@ def main() -> int:
                         sinks=4, softcap=50.0)
         log(f"decode {tag} gemma2-shaped window=4095 sinks=4 softcap=50 "
             f"lens={glens}: {json.dumps(r)}")
+        # the widened shapes: glm4-9b's G = 16 (main context and
+        # 16K), G = 16 at hd = 64 (16 lanes a row, one query head each),
+        # kimi-k2's hd = 112, and G = 16 at hd = 112 with window + sinks
+        for name, kw in (
+                ("glm4-9b B=8 Hkv=2 G=16 hd=128", dict(
+                    B=8, Hkv=2, G=16, hd=128, lens=lens)),
+                ("glm4-9b 16K B=8 Hkv=2 G=16 hd=128", dict(
+                    B=8, Hkv=2, G=16, hd=128, lens=lens16k)),
+                ("G=16 hd=64 B=8 Hkv=2", dict(B=8, Hkv=2, G=16, hd=64,
+                                              lens=lens)),
+                ("kimi-k2 B=8 Hkv=8 G=8 hd=112", dict(
+                    B=8, Hkv=8, G=8, hd=112, lens=lens)),
+                ("G=4 hd=112 B=8 Hkv=8", dict(B=8, Hkv=8, G=4, hd=112,
+                                              lens=lens, library=False)),
+                ("G=16 hd=112 window=8191 sinks=4 softcap=30", dict(
+                    B=8, Hkv=2, G=16, hd=112, lens=lens16k,
+                    sliding_window=8191, sinks=4, softcap=30.0)),
+                ("glm4-9b POS_PAD slots", dict(
+                    B=8, Hkv=2, G=16, hd=128, lens=lens, pos_pad=True,
+                    library=False))):
+            r = decode_case(torch, pda, timer, bs=16, seed=6, int8=int8,
+                            **kw)
+            wide[("decode", tag, name)] = r
+            log(f"decode {tag} {name}: {json.dumps(r)}")
+        torch.cuda.empty_cache()
 
     # phase 3: chunk-prefill kernels vs plain twin
     pre = {}
@@ -2403,6 +3016,24 @@ def main() -> int:
                          sliding_window=4096, sinks=4, softcap=50.0)
         log(f"prefill {tag} gemma2-shaped P=4096 C=512 window=4096 sinks=4 "
             f"softcap=50: {json.dumps(r)}")
+        # the widened shapes: glm4-9b's G = 16 at full width; kimi-k2's
+        # hd = 112 (the tiles run at 128), also over one- and two-row TMA
+        # boxes
+        for name, kw in (
+                ("glm4-9b H=32 Hkv=2 hd=128 P=1536 C=512", dict(
+                    H=32, Hkv=2, hd=128, bs=16, P=1536, C=512)),
+                ("kimi-k2 H=64 Hkv=8 hd=112 P=1536 C=512", dict(
+                    H=64, Hkv=8, hd=112, bs=16, P=1536, C=512)),
+                ("hd=112 G=16 bs=2 P=256 C=300", dict(
+                    H=32, Hkv=2, hd=112, bs=2, P=256, C=300)),
+                ("hd=112 G=8 bs=1 P=40 C=70", dict(
+                    H=64, Hkv=8, hd=112, bs=1, P=40, C=70)),
+                ("hd=112 G=16 P=9216 C=512 window=8192 sinks=4 softcap=30",
+                 dict(H=32, Hkv=2, hd=112, bs=16, P=9216, C=512,
+                      sliding_window=8192, sinks=4, softcap=30.0))):
+            r = prefill_case(torch, ppa, timer, seed=21, int8=int8, **kw)
+            wide[("prefill", tag, name)] = r
+            log(f"prefill {tag} {name}: {json.dumps(r)}")
 
     # phase 7 (run with the other kernel phases): the dense-cache decode
     # kernel and the two scans vs their plain twins
@@ -2425,6 +3056,34 @@ def main() -> int:
                           sinks=4, softcap=50.0)
     log(f"dense decode gemma2-shaped window=4095 sinks=4 softcap=50 "
         f"lens={glens}: {json.dumps(r)}")
+    # the widened shapes, and the int8 entry (the dense-cache path
+    # of phase 14 runs glm4-9b's shape; llama3-8b's the 16-byte int8 rows)
+    for tag in ("bf16", "int8"):
+        for name, kw in (
+                ("glm4-9b B=8 Hkv=2 G=16 hd=128", dict(
+                    B=8, Hkv=2, G=16, hd=128, lens=lens, S=2048)),
+                ("glm4-9b 16K B=8 Hkv=2 G=16 hd=128", dict(
+                    B=8, Hkv=2, G=16, hd=128, lens=lens16k, S=16384)),
+                ("G=16 hd=64 B=8 Hkv=2", dict(B=8, Hkv=2, G=16, hd=64,
+                                              lens=lens, S=2048)),
+                ("kimi-k2 B=8 Hkv=8 G=8 hd=112", dict(
+                    B=8, Hkv=8, G=8, hd=112, lens=lens, S=2048)),
+                ("llama3-8b B=8 Hkv=8 G=4 hd=128", dict(
+                    B=8, Hkv=8, G=4, hd=128, lens=lens, S=2048)),
+                ("G=2 hd=112 window=1000 sinks=4 softcap=30", dict(
+                    B=8, Hkv=8, G=2, hd=112, lens=lens, S=2048,
+                    sliding_window=1000, sinks=4, softcap=30.0))):
+            if tag == "bf16" and name.startswith("llama3-8b"):
+                continue                      # measured above
+            r = dense_decode_case(torch, da, timer, seed=39,
+                                  int8=tag == "int8", **kw)
+            wide[("dense", tag, name)] = r
+            log(f"dense decode {tag} {name}: {json.dumps(r)}")
+    new["decode_attention_int8"] = wide[("dense", "int8",
+                                         "glm4-9b B=8 Hkv=2 G=16 hd=128")]
+    sweep = instantiation_sweep(torch, pda, da, ppa, timer)
+    log(f"every instantiation vs its plain twin: {json.dumps(sweep)}")
+    torch.cuda.empty_cache()
     new["ssm_scan"] = ssm_case(torch, ssm, timer, B=8, S=2048, H=64, P=64,
                                N=64, seed=33)
     log(f"ssm_scan zamba2 prefill B=8 S=2048 H=64 P=64 N=64: "
@@ -2521,6 +3180,26 @@ def main() -> int:
                                 rcfg.replace(num_layers=2), counters)}
     log(f"end-to-end phases done at {time.perf_counter() - t_start:.1f} s")
 
+    # phase 13: glm4-9b at full width and depth (and its sinks variant)
+    t0 = time.perf_counter()
+    gcfg, gparams, glm4 = glm4_e2e(torch, np, registry, transformer,
+                                   counters)
+    log(f"glm4-9b phase done in {time.perf_counter() - t0:.1f} s")
+    # phase 14: the dense-cache path at glm4-9b's width
+    t0 = time.perf_counter()
+    dense, n_int8_dense = dense_cache_e2e(torch, np, transformer, gcfg,
+                                          gparams, counters)
+    del gparams
+    release(torch)
+    log(f"dense-cache phase done in {time.perf_counter() - t0:.1f} s")
+    # phase 15: llama3-70b, pixtral-12b, tinyllama-1.1b at full width
+    t0 = time.perf_counter()
+    others = other_dense_e2e(torch, np, registry, transformer, counters)
+    log(f"other dense archs done in {time.perf_counter() - t0:.1f} s")
+    # phase 16: speculative decoding
+    spec = speculative_e2e(torch, np, registry, transformer)
+    log(f"phases 13-16 done at {time.perf_counter() - t_start:.1f} s")
+
     stats = {"paged_decode_attention": dec["bf16"],
              "paged_prefill_chunk_attention": pre[("bf16", 1536, 512)],
              "paged_decode_attention_int8": dec["int8"],
@@ -2531,6 +3210,7 @@ def main() -> int:
                 **{k: l_int8[k] for k in ("paged_decode_attention_int8",
                                           "paged_prefill_chunk_attention_int8")},
                 "decode_attention": l_zamba["decode_attention"],
+                "decode_attention_int8": n_int8_dense,
                 "ssm_scan": l_zamba["ssm_scan"],
                 "rwkv6_scan": l_rwkv["rwkv6_scan"]}
     for name, n in launches.items():
@@ -2546,7 +3226,12 @@ def main() -> int:
                                 "partitions": parts, "faults": faults,
                                 "cluster": cluster,
                                 "zamba2": zamba, "rwkv6": rwkv6,
-                                "card_vs_cpu": versus}}))
+                                "card_vs_cpu": versus, "glm4_9b": glm4,
+                                "dense_cache": dense, "other_dense": others,
+                                "speculative": spec,
+                                "widened_kernel_cases": {
+                                    " / ".join(k): v
+                                    for k, v in wide.items()}}}))
     if FAILED:
         raise AssertionError(f"{len(FAILED)} gate(s) failed: {FAILED}")
     log(json.dumps({"kernels": kernels, "todo": []}))

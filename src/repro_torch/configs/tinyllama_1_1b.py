@@ -1,0 +1,17 @@
+"""tinyllama-1.1b — llama2-arch small [arXiv:2401.02385].
+Port of ``repro/configs/tinyllama_1_1b.py``."""
+from repro_torch.models.common import ModelConfig
+
+CONFIG = ModelConfig(
+    name="tinyllama-1.1b",
+    family="dense",
+    num_layers=22,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=4,
+    head_dim=64,
+    d_ff=5632,
+    vocab_size=32000,
+    rope_theta=10000.0,
+    source="arXiv:2401.02385",
+)

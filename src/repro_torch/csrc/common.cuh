@@ -26,6 +26,23 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& raw, float* out) {
   }
 }
 
+// 4 bf16 values packed in one 8-byte word -> 4 floats.
+__device__ __forceinline__ void bf16x4_to_float(const uint2& raw, float* out) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float2 f = __bfloat1622float2(p[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// The smallest power of two >= n (n >= 1): lanes per key row, so that a
+// row's shuffles stay inside it when hd / EPL is not a power of two.
+__host__ __device__ constexpr int pow2_ceil(int n) {
+  return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2);
+}
+
 // One 32-bit word of 4 int8 values -> 4 floats, exactly and without I2F:
 // x = w ^ 0x80808080 holds b + 128 in each byte; __byte_perm puts byte i
 // under 0x4B0000 (the float 2^23, whose ulp is 1), and subtracting

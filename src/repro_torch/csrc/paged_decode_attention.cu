@@ -50,9 +50,13 @@
 //    cache_len, outside the window or behind a POS_PAD slot — values or
 //    scales — never reaches the math; its score is selected to NEG_INF and
 //    its p to 0 (masks select, never multiply).
-//  * lane layout: each group of LPR = hd/EPL lanes owns one key row, EPL
-//    elements a lane (bf16: 8, one 16-byte load; int8: 16 for G <= 4, else
-//    8), so one read of a K row serves all G query heads (GQA reuse). The
+//  * lane layout: each group of LPR lanes owns one key row, EPL elements a
+//    lane (bf16: 8, one 16-byte load; int8: 16 for G <= 4, else 8; both 4
+//    at G = 16, where 2·G·EPL q and accumulator floats a lane must fit the
+//    registers), so one read of a K row serves all G query heads (GQA
+//    reuse). LPR is hd/EPL rounded up to a power of two: at hd = 112 the
+//    last 2 of 16 lanes (or 1 of 8, 4 of 32) of a row hold no data, load
+//    nothing and add 0, so the xor shuffles stay inside the row. The
 //    G partial dot products are reduce-scattered over the group's lanes
 //    (G - 1 + log2(LPR/G) shuffles instead of G·log2(LPR)), so each lane
 //    runs the online softmax of one query head; the G weights p then reach
@@ -105,16 +109,28 @@ constexpr int kMaxSplits = 512;   // splits of one (b, h)
 constexpr int kMaxBlockSize = 1024;   // exact row -> slot by mul-hi below
 constexpr float kLazy = 8.0f;     // reference-max headroom (natural log)
 
+// The most splits of one (b, h): the last CTA's merge keeps S·G (m, l)
+// pairs in static shared memory, so G = 16 takes half as many.
+__host__ __device__ constexpr int max_splits(int G) {
+  return G > 8 ? kMaxSplits / 2 : kMaxSplits;
+}
+
 template <typename T, int HD, int G>
 struct Cfg {
   static constexpr bool kQuant = std::is_same<T, int8_t>::value;
-  static constexpr int EPL = (kQuant && G <= 4) ? 16 : 8;   // elements/lane
+  // elements a lane loads of a row: 16 bytes where the registers allow;
+  // at G = 16 the q and accumulator registers (2·G·EPL floats) allow 4
+  static constexpr int EPL = G > 8 ? 4 : (kQuant && G <= 4) ? 16 : 8;
   static constexpr int CHUNK = EPL * static_cast<int>(sizeof(T));  // bytes
-  static constexpr int LPR = HD / EPL;          // lanes per key row
+  static constexpr int LPR_HD = HD / EPL;       // lanes holding data
+  // lanes per key row, a power of two so the shuffles stay in the row
+  // (hd = 112: 14 or 7 lanes hold data, the rest load nothing, hold 0)
+  static constexpr int LPR = pow2_ceil(LPR_HD);
   static constexpr int RPW = 32 / LPR;          // rows one warp load covers
   static constexpr int NGROUPS = kWarps * RPW;  // row groups of the CTA
   static constexpr int ROWS = kRows * NGROUPS;  // rows per item
   static constexpr int LPG = LPR / G;           // lanes per query head
+  static_assert(HD % EPL == 0 && LPR <= 32, "whole chunks, one warp a row");
   static_assert(G <= LPR, "the reduce-scatter needs G <= lanes per row");
   // shared memory, one union: the ring while the split runs, then the row
   // groups' partials, then the S splits' (m, l) in the last CTA
@@ -123,7 +139,7 @@ struct Cfg {
                                        : 0;
   static_assert(NGROUPS * G <= kThreads, "one thread per group weight");
   static constexpr int MERGE = (NGROUPS * G * (HD + 4) + G) * 4;
-  static constexpr int SPLITS = 2 * kMaxSplits * G * 4;
+  static constexpr int SPLITS = 2 * max_splits(G) * G * 4;
   static constexpr int UNION_ = (RING + SCALES > MERGE ? RING + SCALES
                                                        : MERGE);
   static constexpr int UNION = UNION_ > SPLITS ? UNION_ : SPLITS;
@@ -146,6 +162,7 @@ struct Params {
 template <int BYTES> struct RawVec;
 template <> struct RawVec<16> { using type = uint4; };
 template <> struct RawVec<8> { using type = uint2; };
+template <> struct RawVec<4> { using type = uint32_t; };
 
 __device__ __forceinline__ void unpack(const uint4& r, float* out,
                                        const __nv_bfloat16*) {
@@ -159,12 +176,34 @@ __device__ __forceinline__ void unpack(const uint2& r, float* out,
                                        const int8_t*) {
   int8x8_to_float(r, out);
 }
+__device__ __forceinline__ void unpack(const uint2& r, float* out,
+                                       const __nv_bfloat16*) {
+  bf16x4_to_float(r, out);
+}
+__device__ __forceinline__ void unpack(const uint32_t& r, float* out,
+                                       const int8_t*) {
+  int8x4_to_float(r, out);
+}
+
+// EPL bf16 elements of q (8-byte loads for EPL 4, else 16-byte ones).
+template <int EPL>
+__device__ __forceinline__ void load_q(const __nv_bfloat16* src,
+                                       float* out) {
+  if constexpr (EPL == 4) {
+    bf16x4_to_float(__ldg(reinterpret_cast<const uint2*>(src)), out);
+  } else {
+#pragma unroll
+    for (int c = 0; c < EPL / 8; ++c) bf16x8_to_float(ldg16(src + c * 8),
+                                                      out + c * 8);
+  }
+}
 
 template <int BYTES>
 __device__ __forceinline__ void copy_row(void* smem, const void* gmem,
                                          bool ok) {
   if constexpr (BYTES == 16) cp_async16_zfill(smem, gmem, ok);
-  else cp_async8_zfill(smem, gmem, ok);
+  else if constexpr (BYTES == 8) cp_async8_zfill(smem, gmem, ok);
+  else cp_async4_zfill(smem, gmem, ok);
 }
 
 // Sum G partial dot products over the LPR lanes of a row: the first
@@ -196,7 +235,7 @@ paged_decode_kernel(const Params p) {
   using C = Cfg<T, HD, G>;
   constexpr bool kQuant = C::kQuant;
   constexpr int EPL = C::EPL, LPR = C::LPR, RPW = C::RPW;
-  constexpr int NGROUPS = C::NGROUPS, LPG = C::LPG;
+  constexpr int NGROUPS = C::NGROUPS, LPG = C::LPG, LPR_HD = C::LPR_HD;
   using Raw = typename RawVec<C::CHUNK>::type;
   constexpr int kSlotsPerThread = kMaxSlots / kThreads;
 
@@ -217,6 +256,8 @@ paged_decode_kernel(const Params p) {
   const int lane = tid % 32;
   const int sub = lane / LPR;            // which row of a warp load
   const int cl = lane % LPR;             // which EPL-element slice of hd
+  const bool has_data = cl < LPR_HD;     // pad lanes of a row load nothing
+  const int cd = has_data ? cl : 0;      // ... and address slice 0
   const int group = warp * RPW + sub;
   const int g_own = cl / LPG;            // this lane's query head
   const size_t bh = static_cast<size_t>(b) * p.Hkv + h;
@@ -244,12 +285,10 @@ paged_decode_kernel(const Params p) {
   float qf[G][EPL];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
+    load_q<EPL>(p.q + (bh * G + g) * HD + cd * EPL, qf[g]);
 #pragma unroll
-    for (int c = 0; c < EPL / 8; ++c)
-      bf16x8_to_float(ldg16(p.q + (bh * G + g) * HD + cl * EPL + c * 8),
-                      qf[g] + c * 8);
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) qf[g][e] *= p.scale;
+    for (int e = 0; e < EPL; ++e) qf[g][e] = has_data ? qf[g][e] * p.scale
+                                                      : 0.f;
   }
 
   // compact the split's live slots (any row unmasked) into shared memory,
@@ -315,9 +354,10 @@ paged_decode_kernel(const Params p) {
           }
           const size_t row = (head_rows + tile) * bs + (ok ? r : 0);
           const int slot = (st * kRows + u) * 2 * kThreads + tid;
-          copy_row<C::CHUNK>(ring + slot, k_pool + row * HD + cl * EPL, ok);
+          const bool ld = ok && has_data;
+          copy_row<C::CHUNK>(ring + slot, k_pool + row * HD + cd * EPL, ld);
           copy_row<C::CHUNK>(ring + slot + kThreads,
-                             v_pool + row * HD + cl * EPL, ok);
+                             v_pool + row * HD + cd * EPL, ld);
           if constexpr (kQuant) {
             cp_async4_zfill(sc_ring + slot, p.k_scale + row, ok);
             cp_async4_zfill(sc_ring + slot + kThreads, p.v_scale + row, ok);
@@ -412,14 +452,16 @@ paged_decode_kernel(const Params p) {
       sm_mtrue[group * G + g_own] = m_true;
       sm_l[group * G + g_own] = l_sum;
     }
+    if (has_data) {
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+      for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int e = 0; e < EPL; e += 4)
-        *reinterpret_cast<float4*>(sm_acc + (group * G + g) * HD + cl * EPL
-                                   + e) =
-            make_float4(acc[g][e], acc[g][e + 1], acc[g][e + 2],
-                        acc[g][e + 3]);
+        for (int e = 0; e < EPL; e += 4)
+          *reinterpret_cast<float4*>(sm_acc + (group * G + g) * HD +
+                                     cl * EPL + e) =
+              make_float4(acc[g][e], acc[g][e + 1], acc[g][e + 2],
+                          acc[g][e + 3]);
+    }
     __syncthreads();
     if (tid < NGROUPS * G) {         // one weight per (group, head)
       const int g = tid % G;
@@ -507,7 +549,7 @@ paged_decode_kernel(const Params p) {
   };
   load_batch(0);
   float* sp_w = reinterpret_cast<float*>(sm_raw);   // [S][G]: m, then weight
-  float* sp_l = sp_w + kMaxSplits * G;              // [S][G]
+  float* sp_l = sp_w + max_splits(G) * G;           // [S][G]
   for (int idx = tid; idx < S * G; idx += kThreads) {
     const float2 ml = __ldcg(reinterpret_cast<const float2*>(ws_part) + idx);
     sp_w[idx] = ml.x;
@@ -585,6 +627,7 @@ cudaError_t dispatch_group(int G, const Params& prm, int B, int splits,
     case 2: return launch<T, HD, 2>(prm, B, splits, stream);
     case 4: return launch<T, HD, 4>(prm, B, splits, stream);
     case 8: return launch<T, HD, 8>(prm, B, splits, stream);
+    case 16: return launch<T, HD, 16>(prm, B, splits, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -597,12 +640,12 @@ int entry(const void* q, const void* k_pool, const void* v_pool,
           int G, int head_dim, int num_blocks, int block_size, int nb,
           int splits, int sliding_window, int attention_sinks,
           float logit_softcap, void* stream) {
-  // the split plan the kernel can hold: S in [1, kMaxSplits], no split
+  // the split plan the kernel can hold: S in [1, max_splits(G)], no split
   // longer than kMaxSlots slots, S <= nb unless the table is empty; a
   // workspace and tickets when S > 1
   const int max_part = nb > 0 ? (nb + splits - 1) / splits : 0;
   if (B > 65535 || Hkv > 65535 ||       // grid.z and grid.y
-      splits < 1 || splits > kMaxSplits || (nb > 0 && splits > nb) ||
+      splits < 1 || splits > max_splits(G) || (nb > 0 && splits > nb) ||
       (nb == 0 && splits != 1) || max_part > kMaxSlots || block_size < 1 ||
       block_size > kMaxBlockSize ||
       (splits > 1 && (workspace == nullptr || tickets == nullptr)))
@@ -622,6 +665,8 @@ int entry(const void* q, const void* k_pool, const void* v_pool,
   switch (head_dim) {
     case 64: return static_cast<int>(dispatch_group<T, 64>(G, prm, B, splits,
                                                            s));
+    case 112: return static_cast<int>(dispatch_group<T, 112>(G, prm, B,
+                                                             splits, s));
     case 128: return static_cast<int>(dispatch_group<T, 128>(G, prm, B,
                                                              splits, s));
     default: return static_cast<int>(cudaErrorInvalidValue);

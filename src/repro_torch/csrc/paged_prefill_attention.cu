@@ -55,6 +55,14 @@
 //    (hd 128; half at hd 64) by the producer's last two warps as the rows
 //    land and the rest by the consumers one tile ahead, while the tensor
 //    cores run the current tile's PV.
+//  * hd = 112 (7 × 16, the K-steps of QKᵀ) runs the tiles and PV at 128:
+//    the tensor maps describe rows of 112, so TMA fills columns 112-127 of
+//    each bf16 box's second panel with zeros; QKᵀ takes 7 K-steps (no pad
+//    column is read), PV's N is 128 and only columns < 112 are written.
+//    An int8 prefix row of 112 bytes converts into columns < 112; the pad
+//    columns of V then hold whatever the stage held, which reaches only
+//    the unwritten O columns (a product never mixes columns). Int8 boxes
+//    of fewer than 8 rows start on 128 bytes each (I8Rows).
 //  * the PV of tile i runs on while the warpgroup waits for tile i + 1 and
 //    issues its QKᵀ; one wait covers both.
 //  * masks select, never multiply, and only where needed: a tile inside
@@ -91,17 +99,27 @@ constexpr int BK = 64;          // keys per tile
 constexpr int kStages = 4;      // K/V ring depth
 constexpr int kPanel = BK * 128;   // one 64-column panel of a 64-row tile
 
-// Shared memory, per stage of the ring: a K tile and a V tile (hd/64
+// The width the tiles and the PV product run at: hd rounded up to whole
+// 64-column panels (hd = 112 runs at 128; TMA fills columns 112-127 of
+// every bf16 box with zeros, and only columns < hd are ever written out).
+__host__ __device__ constexpr int padded_hd(int hd) {
+  return (hd + 63) / 64 * 64;
+}
+
+// Shared memory, per stage of the ring: a K tile and a V tile (HDP/64
 // panels of 64 key rows × 128 B, 128B-swizzled) and, for int8 pools, the
-// tile's int8 prefix rows (K then V, at a row pitch of i8_pitch bytes) as
-// they arrive and its k and v scale vectors (fp32, one per key). Every
-// stage is 1024-aligned.
+// tile's int8 prefix rows (K then V, boxes placed by I8Rows) as they
+// arrive and its k and v scale vectors (fp32, one per key). Every stage
+// is 1024-aligned.
 template <int HD, bool kQuant>
 struct Smem {
-  static constexpr int kTile = HD * 128;          // 64 rows × hd bf16
+  static constexpr int HDP = padded_hd(HD);
+  static constexpr int kTile = HDP * 128;         // 64 rows × HDP bf16
   static constexpr int kV = kTile;                // offsets within a stage
   static constexpr int kI8 = 2 * kTile;           // int8 rows: K, then V
-  static constexpr int kI8Pitch = HD < 128 ? 128 : HD;   // largest pitch
+  // bytes of staging a row at most (I8Rows): V's rows start BK of them
+  // after K's
+  static constexpr int kI8Pitch = HD < 128 ? 128 : HD;
   static constexpr int kKs = kI8 + (kQuant ? 2 * BK * kI8Pitch : 0);
   static constexpr int kVs = kKs + BK * 4;
   static constexpr int kStage = kQuant ? (kVs + BK * 4 + 1023) / 1024 * 1024
@@ -118,11 +136,25 @@ __host__ __device__ __forceinline__ int box_rows(int bs) {
   return (bs & -bs) < BK ? (bs & -bs) : BK;
 }
 
-// Row pitch of the int8 staging area: hd bytes, except that a one-row box
-// of hd = 64 would start off the 128-byte alignment TMA writes need.
-__device__ __forceinline__ int i8_pitch(int hd, int boxr) {
-  return hd * boxr < 128 ? 128 : hd;
-}
+// Where int8 prefix row r of a key tile lands in the staging area: TMA
+// writes a box of boxr rows hd bytes apart, and every box must start on
+// 128 bytes, so box j starts at j·stride with stride = boxr·hd rounded up
+// to 128 (hd = 64 or 128: rows stay evenly spaced; hd = 112 with fewer
+// than 8 rows a box: a gap after each box). At most kI8Pitch bytes a row.
+struct I8Rows {
+  int shift;    // log2(boxr)
+  int mask;     // boxr - 1
+  int stride;   // bytes from one box to the next
+  int hd;
+  __device__ __forceinline__ I8Rows(int hd_, int boxr)
+      : shift(0), mask(boxr - 1), stride((boxr * hd_ + 127) / 128 * 128),
+        hd(hd_) {
+    while ((1 << shift) < boxr) ++shift;     // boxr is a power of two
+  }
+  __device__ __forceinline__ int operator()(int r) const {
+    return (r >> shift) * stride + (r & mask) * hd;
+  }
+};
 
 // Byte offset of 16-byte chunk c (8 bf16 along hd) of row r in a tile of
 // 64-column panels with the 128-byte swizzle (chunk index ^= row % 8).
@@ -277,7 +309,7 @@ __device__ __forceinline__ int pool_row(const int32_t* __restrict__ bt,
 // One thread issues the TMA loads of the key tile starting at k0 into the
 // stage at shared address `st`, completing on `bar`: boxes of `boxr` rows
 // (boxr divides the block size), the prefix through the block table
-// (int8 pools: as int8 rows into the staging area at row pitch `pitch`),
+// (int8 pools: as int8 rows into the staging area, placed by `i8`),
 // then the chunk's own keys; a box past row C of the chunk is zero-filled
 // by the TMA unit.
 template <int HD, bool kQuant>
@@ -285,18 +317,19 @@ __device__ __forceinline__ void issue_tile(
     uint32_t st, int k0, const CUtensorMap* k_pool, const CUtensorMap* v_pool,
     const CUtensorMap* k_chunk, const CUtensorMap* v_chunk,
     const int32_t* __restrict__ bt, int kvh, int num_blocks, int bs,
-    int boxr, int pitch, int P, uint32_t bar) {
+    int boxr, const I8Rows& i8, int P, uint32_t bar) {
   using S = Smem<HD, kQuant>;
   for (int r0 = 0; r0 < BK; r0 += boxr) {
     const int kp = k0 + r0;
     if (kp < P) {
       const int row = pool_row(bt, kvh, num_blocks, bs, kp);
       if constexpr (kQuant) {
-        tma_2d(st + S::kI8 + r0 * pitch, k_pool, 0, row, bar);
-        tma_2d(st + S::kI8 + (BK + r0) * pitch, v_pool, 0, row, bar);
+        tma_2d(st + S::kI8 + i8(r0), k_pool, 0, row, bar);
+        tma_2d(st + S::kI8 + BK * S::kI8Pitch + i8(r0), v_pool, 0, row,
+               bar);
       } else {
 #pragma unroll
-        for (int c = 0; c < HD / 64; ++c) {
+        for (int c = 0; c < S::HDP / 64; ++c) {
           tma_2d(st + c * kPanel + r0 * 128, k_pool, c * 64, row, bar);
           tma_2d(st + S::kV + c * kPanel + r0 * 128, v_pool, c * 64, row,
                  bar);
@@ -304,7 +337,7 @@ __device__ __forceinline__ void issue_tile(
       }
     } else {
 #pragma unroll
-      for (int c = 0; c < HD / 64; ++c) {
+      for (int c = 0; c < S::HDP / 64; ++c) {
         tma_3d(st + c * kPanel + r0 * 128, k_chunk, c * 64, kvh, kp - P, bar);
         tma_3d(st + S::kV + c * kPanel + r0 * 128, v_chunk, c * 64, kvh,
                kp - P, bar);
@@ -352,13 +385,14 @@ __device__ __forceinline__ uint32_t int8x2_to_bf16x2(uint32_t lo7,
 
 // Int8 conversion work per tile, in 16-byte chunks (16 values) of its K
 // rows, then V rows: the producer warpgroup's last two warps take the last
-// 256 (a quarter at hd 128, half at hd 64) as the rows land, off the
-// consumers' critical path; the consumer warpgroups take the rest one tile
-// ahead. A larger producer share was no faster (64 threads, few registers).
+// 256 (a quarter at hd 128, half at hd 64; 384 of 896 at hd 112, so the
+// consumers' share is whole rounds) as the rows land, off the consumers'
+// critical path; the consumer warpgroups take the rest one tile ahead. A
+// larger producer share was no faster (64 threads, few registers).
 template <int HD>
 struct Convert {
   static constexpr int kChunks = 2 * BK * HD / 16;
-  static constexpr int kProd = 256;
+  static constexpr int kProd = 256 + kChunks % 256;
   static constexpr int kCons = kChunks - kProd;
   static_assert(kCons > 0 && kCons % 256 == 0, "whole consumer rounds");
 };
@@ -370,7 +404,7 @@ constexpr int kProdConverters = 64;             // producer warps 2 and 3
 // chunks kFirst + ct + j·kN. Exact: |x| <= 127 fits bf16's significand.
 template <int HD, int kFirst, int kCount, int kN>
 __device__ __forceinline__ void convert_int8(uint8_t* stage, int k0, int P,
-                                             int pitch, int ct) {
+                                             const I8Rows& i8, int ct) {
   constexpr int NC8 = HD / 16;
   using S = Smem<HD, true>;
   const int n_pre = min(max(P - k0, 0), BK);
@@ -382,7 +416,7 @@ __device__ __forceinline__ void convert_int8(uint8_t* stage, int k0, int P,
     const int c = idx % NC8;
     if (r >= n_pre) continue;
     const uint4 raw = *reinterpret_cast<const uint4*>(
-        stage + S::kI8 + (kv * BK + r) * pitch + c * 16);
+        stage + S::kI8 + kv * BK * S::kI8Pitch + i8(r) + c * 16);
     const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
     uint32_t b[8];
 #pragma unroll
@@ -415,8 +449,9 @@ paged_prefill_chunk_kernel(const __grid_constant__ CUtensorMap k_pool,
                            int bs, int nb, int sliding_window, int sinks,
                            float softcap, float scale, int row_tiles) {
   constexpr bool kQuant = std::is_same<T, int8_t>::value;
-  constexpr int NO = HD / 2;            // O accumulator floats per thread
   using S = Smem<HD, kQuant>;
+  constexpr int HDP = S::HDP;           // the PV product's width
+  constexpr int NO = HDP / 2;           // O accumulator floats per thread
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -434,7 +469,7 @@ paged_prefill_chunk_kernel(const __grid_constant__ CUtensorMap k_pool,
   const int lane = tid & 31;
   const int P = nb * bs;
   const int boxr = box_rows(bs);
-  const int pitch = i8_pitch(HD, boxr);
+  const I8Rows i8(HD, boxr);
 
   // Key tiles walked: the causal stop at the CTA's last position; with a
   // window, the tiles holding sinks, then from the first tile inside some
@@ -484,11 +519,11 @@ paged_prefill_chunk_kernel(const __grid_constant__ CUtensorMap k_pool,
         // bf16: the K and V tiles; int8: the prefix rows as int8, the
         // chunk's rows as bf16
         mbar_expect_tx(kQuant ? raw_bar(i) : full(i),
-                       kQuant ? 2 * (n_pre * HD + (BK - n_pre) * HD * 2)
+                       kQuant ? 2 * (n_pre * HD + (BK - n_pre) * HDP * 2)
                               : 2 * S::kTile);
         issue_tile<HD, kQuant>(stage(i), k0, &k_pool, &v_pool, &k_chunk,
                                &v_chunk, block_table, kvh, num_blocks, bs,
-                               boxr, pitch, P,
+                               boxr, i8, P,
                                kQuant ? raw_bar(i) : full(i));
       }
     } else if (kQuant && pt >= 32 && pt < 64) {
@@ -507,7 +542,7 @@ paged_prefill_chunk_kernel(const __grid_constant__ CUtensorMap k_pool,
         mbar_wait(raw_bar(i), (i / kStages) & 1);
         convert_int8<HD, Convert<HD>::kCons, Convert<HD>::kProd,
                      kProdConverters>(gbase + (stage(i) - base), tile_k0(i),
-                                      P, pitch, pt - 64);
+                                      P, i8, pt - 64);
         fence_proxy_async();
         mbar_arrive(full(i));
       }
@@ -569,7 +604,7 @@ paged_prefill_chunk_kernel(const __grid_constant__ CUtensorMap k_pool,
       if (i >= n_iter) return;
       mbar_wait(raw_bar(i), (i / kStages) & 1);
       convert_int8<HD, 0, Convert<HD>::kCons, kConverters>(
-          gbase + (stage(i) - base), tile_k0(i), P, pitch, tid);
+          gbase + (stage(i) - base), tile_k0(i), P, i8, tid);
       fence_proxy_async();
       mbar_arrive(full(i));
     }
@@ -706,8 +741,8 @@ paged_prefill_chunk_kernel(const __grid_constant__ CUtensorMap k_pool,
       for (int a = 0; a < 4; ++a)
         split_bf16(s[8 * kk + 2 * a], s[8 * kk + 2 * a + 1], hi[a], lo[a]);
       const uint64_t dv = desc(st + S::kV + kk * 16 * 128, kPanel, 1024);
-      wgmma_rs<HD, 1>(o, hi, dv);
-      wgmma_rs<HD, 1>(o, lo, dv);
+      wgmma_rs<HDP, 1>(o, hi, dv);
+      wgmma_rs<HDP, 1>(o, lo, dv);
     }
     wgmma_commit();                   // runs on into the next tile
     pending = i;
@@ -862,6 +897,11 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
                            k_chunk, v_chunk, out, C, H, Hkv, num_blocks,
                            block_size, nb, sliding_window, attention_sinks,
                            logit_softcap, s);
+    case 112:
+      return launch<112, T>(q, k_pool, v_pool, k_scale, v_scale,
+                            block_table, k_chunk, v_chunk, out, C, H, Hkv,
+                            num_blocks, block_size, nb, sliding_window,
+                            attention_sinks, logit_softcap, s);
     case 128:
       return launch<128, T>(q, k_pool, v_pool, k_scale, v_scale,
                             block_table, k_chunk, v_chunk, out, C, H, Hkv,
@@ -878,8 +918,8 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
 // Plain C entry points (bound with ctypes). q, k_chunk, v_chunk, out are
 // contiguous bf16 (C, H|Hkv, hd); both launch on `stream` and return
 // cudaGetLastError() as an int (0 = launched); cudaErrorInvalidValue for a
-// head_dim or group size (H / Hkv must divide 64) the kernel does not
-// take. The bf16 entry ignores k_scale / v_scale; the int8 entry needs
+// head_dim (64, 112 or 128) or group size (H / Hkv must divide 64) the
+// kernel does not take. The bf16 entry ignores k_scale / v_scale; the int8 entry needs
 // both.
 extern "C" int paged_prefill_chunk_attention_bf16(
     const void* q, const void* k_pool, const void* v_pool,
@@ -919,7 +959,7 @@ extern "C" int paged_prefill_chunk_geometry(int C, int H, int Hkv,
                                             int* out6) {
   using namespace repro_torch;
   if (Hkv < 1 || H % Hkv || BW % (H / Hkv) ||
-      (head_dim != 64 && head_dim != 128))
+      (head_dim != 64 && head_dim != 112 && head_dim != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   out6[0] = kThreads;
   out6[1] = kConsumers * BW;
@@ -927,6 +967,8 @@ extern "C" int paged_prefill_chunk_geometry(int C, int H, int Hkv,
   out6[3] = kStages;
   out6[4] = head_dim == 64
       ? (int8 ? Smem<64, true>::kBytes : Smem<64, false>::kBytes)
+      : head_dim == 112
+      ? (int8 ? Smem<112, true>::kBytes : Smem<112, false>::kBytes)
       : (int8 ? Smem<128, true>::kBytes : Smem<128, false>::kBytes);
   out6[5] = grid_for(C, H, Hkv).ctas;
   return 0;

@@ -40,27 +40,38 @@ _LIB_NAME = "paged_decode_attention"
 
 # The split-KV plan (kept equal to the constants of the CUDA source): aim at
 # CTAS_PER_SM CTAs on every SM, at most MAX_SPLITS splits of one (sequence,
-# kv head) and at most MAX_SLOTS_PER_SPLIT table slots in one split.
+# kv head) (half as many at G = 16, whose merge keeps twice the (m, l)
+# pairs a split) and at most MAX_SLOTS_PER_SPLIT table slots in one split.
 CTAS_PER_SM = 4
 MAX_SPLITS = 512
 MAX_SLOTS_PER_SPLIT = 512
 MAX_BLOCK_SIZE = 1024
+# the instantiated shapes: head sizes and query heads per kv head
+HEAD_DIMS = (64, 112, 128)
+GROUPS = (1, 2, 4, 8, 16)
 
 
-def plan_splits(B: int, Hkv: int, nb: int, sm_count: int) -> int:
+def max_splits(G: int = 1) -> int:
+    """The most splits of one (sequence, kv head) the kernel holds at
+    group size G (``max_splits`` of the CUDA source)."""
+    return MAX_SPLITS // 2 if G > 8 else MAX_SPLITS
+
+
+def plan_splits(B: int, Hkv: int, nb: int, sm_count: int,
+                G: int = 1) -> int:
     """S, the splits of each (sequence, kv head), from shapes alone (the
     wrapper never reads cache_len or the tables on the host): enough for
     CTAS_PER_SM CTAs a SM, never more than the table's nb slots (no split is
-    empty of slots), and enough that no split holds more than
-    MAX_SLOTS_PER_SPLIT slots."""
+    empty of slots) or :func:`max_splits` at group size G, and enough that
+    no split holds more than MAX_SLOTS_PER_SPLIT slots."""
     if nb <= 0:
         return 1
+    cap = max_splits(G)
     want = -(-CTAS_PER_SM * sm_count // max(B * Hkv, 1))
-    splits = max(1, min(want, nb, MAX_SPLITS),
-                 -(-nb // MAX_SLOTS_PER_SPLIT))
-    if splits > MAX_SPLITS:
+    splits = max(1, min(want, nb, cap), -(-nb // MAX_SLOTS_PER_SPLIT))
+    if splits > cap:
         raise ValueError(f"a table of {nb} slots needs more than "
-                         f"{MAX_SPLITS} splits of {MAX_SLOTS_PER_SPLIT}")
+                         f"{cap} splits of {MAX_SLOTS_PER_SPLIT}")
     return splits
 
 
@@ -71,11 +82,12 @@ def split_ranges(nb: int, splits: int):
             for j in range(splits)]
 
 
-def launch_geometry(B: int, Hkv: int, nb: int, sm_count: int) -> dict:
+def launch_geometry(B: int, Hkv: int, nb: int, sm_count: int,
+                    G: int = 1) -> dict:
     """The kernel's launch for these shapes: grid (x, y, z) = (S, Hkv, B),
     splits fastest; CTAs, threads a CTA, splits and the most table slots
     one split walks."""
-    splits = plan_splits(B, Hkv, nb, sm_count)
+    splits = plan_splits(B, Hkv, nb, sm_count, G)
     return dict(grid=[splits, Hkv, B], ctas=B * Hkv * splits, threads=128,
                 splits=splits, slots_per_split=-(-nb // splits) if nb else 0)
 
@@ -199,9 +211,9 @@ def _check_cuda_operands(q, k_pool, v_pool, block_tables, cache_len,
     if block_positions is not None and \
             block_positions.shape != block_tables.shape:
         raise ValueError("block_positions must match block_tables' shape")
-    if hd not in (64, 128) or G not in (1, 2, 4, 8):
-        raise ValueError(f"kernel instantiated for head_dim in (64, 128) and "
-                         f"group size in (1, 2, 4, 8); got hd={hd}, G={G}")
+    if hd not in HEAD_DIMS or G not in GROUPS:
+        raise ValueError(f"kernel instantiated for head_dim in {HEAD_DIMS} "
+                         f"and group size in {GROUPS}; got hd={hd}, G={G}")
     if not 1 <= k_pool.shape[2] <= MAX_BLOCK_SIZE:
         raise ValueError(f"block size {k_pool.shape[2]} outside the kernel's "
                          f"1..{MAX_BLOCK_SIZE}")
@@ -286,7 +298,7 @@ def _launch(entry, q, k_pool, v_pool, k_scale, v_scale, block_tables,
     nb = block_tables.shape[1]
     dev = q.device
     stream = _cuda.stream_ptr(dev)
-    splits = plan_splits(B, Hkv, nb, _sm_count(dev))
+    splits = plan_splits(B, Hkv, nb, _sm_count(dev), G)
     o = torch.empty_like(q)
     l = torch.empty((B, Hkv, G), dtype=torch.float32, device=dev)
     m = torch.empty_like(l)

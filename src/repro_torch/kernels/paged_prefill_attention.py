@@ -31,6 +31,8 @@ from repro_torch.kernels import _cuda
 NEG_INF = -1e30
 
 _LIB_NAME = "paged_prefill_attention"
+# the instantiated head sizes (any group size dividing 64)
+HEAD_DIMS = (64, 112, 128)
 
 
 def gather_prefix_dense(k_pool, v_pool, block_table):
@@ -128,9 +130,9 @@ def _check_cuda_operands(q, k_pool, v_pool, block_table, k_chunk, v_chunk,
         raise ValueError(f"k_chunk/v_chunk must be {(C, Hkv, hd)}")
     if block_table.dim() != 1:
         raise ValueError("block_table must be (nb,)")
-    if hd not in (64, 128) or 64 % (H // Hkv):
-        raise ValueError(f"kernel instantiated for head_dim in (64, 128) and "
-                         f"group sizes dividing 64; got hd={hd}, "
+    if hd not in HEAD_DIMS or 64 % (H // Hkv):
+        raise ValueError(f"kernel instantiated for head_dim in {HEAD_DIMS} "
+                         f"and group sizes dividing 64; got hd={hd}, "
                          f"G={H // Hkv}")
 
 

@@ -4,6 +4,9 @@ flags and summary lines, minus ``--backend`` (the port has no decode
 backend knob: the device decides) and plus ``--device`` (default
 ``cuda``; ``--device cpu`` runs the kernels' plain twins on the CPU).
 ``--placement moe_offload`` is refused by ``EngineConfig`` (not ported).
+``--arch`` takes every arch of the registry of the dense and vlm
+families; a moe, audio, ssm or hybrid arch exits with the engine's family
+error.
 
   repro-torch-serve --arch llama3-8b --smoke --placement attention_pool \
       --trace azure-conv --requests 16 --device cpu
@@ -131,6 +134,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                  None: args.placement}[args.engine]
     cfg = registry.get_smoke_config(args.arch) if args.smoke \
         else registry.get_config(args.arch)
+    try:     # the engine serves the dense and vlm archs of the registry
+        transformer._check_family(cfg, f"serving --arch {args.arch}")
+    except NotImplementedError as e:
+        ap.error(str(e))
     reqs = traces.generate(args.trace, args.requests, cfg.vocab_size,
                            scale=args.scale, seed=args.seed)
     econf = EngineConfig(

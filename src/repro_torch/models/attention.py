@@ -129,16 +129,20 @@ def blockwise_attention(
 # Single-token decode over a dense head-major cache / the paged pool
 # ---------------------------------------------------------------------------
 def decode_attention_partial(q, k_cache, v_cache, cache_len, *,
+                             k_scale=None, v_scale=None,
                              sliding_window: int = 0,
                              attention_sinks: int = 0,
                              logit_softcap: float = 0.0) -> C.Partial:
     """Partial attention over the cached prefix (reference ``:175``).
 
     q: (B, H, hd) (RoPE applied); caches: HEAD-MAJOR (B, Hkv, S, hd);
-    cache_len: (B,) = number of tokens stored (the new token is NOT there).
-    Window masks are computed w.r.t. total length cache_len + 1. The dense
-    decode kernel on the card, its plain twin on the CPU."""
+    cache_len: (B,) = number of tokens stored (the new token is NOT there);
+    k_scale/v_scale: the fp32 (B, Hkv, S) per-token scales of an int8
+    cache. Window masks are computed w.r.t. total length cache_len + 1.
+    The dense decode kernel (bf16 or int8 entry) on the card, its plain
+    twin on the CPU."""
     return ops.decode_partial(q, k_cache, v_cache, cache_len,
+                              k_scale=k_scale, v_scale=v_scale,
                               sliding_window=sliding_window,
                               attention_sinks=attention_sinks,
                               logit_softcap=logit_softcap)
@@ -147,12 +151,15 @@ def decode_attention_partial(q, k_cache, v_cache, cache_len, *,
 def decode_attention_combine(q, k_cache, v_cache, cache_len, k_new, v_new,
                              *, sliding_window: int = 0,
                              attention_sinks: int = 0,
-                             logit_softcap: float = 0.0) -> torch.Tensor:
+                             logit_softcap: float = 0.0,
+                             k_scale=None, v_scale=None) -> torch.Tensor:
     """Full decode attention = combine(prefix partial, new-token partial)
     (reference ``:378``). k_new/v_new: (B, Hkv, hd) — the current token's
-    keys/values."""
+    keys/values, full precision (an int8 cache quantizes them only when
+    it stores them); k_scale/v_scale: an int8 cache's scales."""
     p_prev = decode_attention_partial(
-        q, k_cache, v_cache, cache_len, sliding_window=sliding_window,
+        q, k_cache, v_cache, cache_len, k_scale=k_scale, v_scale=v_scale,
+        sliding_window=sliding_window,
         attention_sinks=attention_sinks, logit_softcap=logit_softcap)
     p_new = _new_token_partial(q, k_new, v_new, logit_softcap=logit_softcap)
     return C.finalize(C.combine(p_prev, p_new)).to(q.dtype)
@@ -270,11 +277,13 @@ def attention_forward(params, cfg: ModelConfig, x: torch.Tensor,
 
 def attention_decode_step(params, cfg: ModelConfig, x: torch.Tensor,
                           k_cache: torch.Tensor, v_cache: torch.Tensor,
-                          cache_len: torch.Tensor, *, is_local: bool = False):
+                          cache_len: torch.Tensor, *, is_local: bool = False,
+                          k_scale=None, v_scale=None):
     """One-token decode over a dense head-major cache (reference ``:506``).
     x: (B, 1, d); caches (B, Hkv, S, hd); cache_len = tokens ALREADY
-    stored. Returns (y, k_new, v_new) with k_new/v_new (B, Hkv, hd) — the
-    caller owns KV placement (``transformer.apply_decode_updates``)."""
+    stored; k_scale/v_scale: the (B, Hkv, S) scales of an int8 cache.
+    Returns (y, k_new, v_new) with k_new/v_new (B, Hkv, hd) — the caller
+    owns KV placement (``transformer.apply_decode_updates``)."""
     positions = cache_len[:, None]  # new token position, 0-based
     q, k, v = qkv_project(params, cfg, x, positions)
     window = cfg.sliding_window if (is_local or not cfg.local_global) else 0
@@ -282,7 +291,8 @@ def attention_decode_step(params, cfg: ModelConfig, x: torch.Tensor,
         q[:, 0], k_cache, v_cache, cache_len, k[:, 0], v[:, 0],
         sliding_window=int(window),
         attention_sinks=cfg.attention_sinks if window else 0,
-        logit_softcap=cfg.attn_logit_softcap)
+        logit_softcap=cfg.attn_logit_softcap, k_scale=k_scale,
+        v_scale=v_scale)
     y = out_project(params, out[:, None])
     return y, k[:, 0], v[:, 0]
 

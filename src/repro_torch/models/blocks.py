@@ -44,7 +44,8 @@ def dense_block(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     """Returns (x, new_cache_entries). ``mode="decode"`` reads either the
     paged pool in ``cache`` ({"k_pool", "v_pool", "block_tables", "len"},
     plus "k_scale"/"v_scale" for an int8 pool) or a dense head-major cache
-    ({"k", "v", "len"}, (B, Hkv, S, hd)) and returns {"k_new", "v_new"};
+    ({"k", "v", "len"}, (B, Hkv, S, hd), plus "k_scale"/"v_scale"
+    (B, Hkv, S) for an int8 cache) and returns {"k_new", "v_new"};
     ``mode="prefill"`` returns this layer's {"k", "v"} (B, S, Hkv, hd),
     attending over ``paged_prefix`` (and its ``paged_prefix_scales``) when
     given (chunked prefill) or over the head-major ``prefix_kv`` (the
@@ -61,7 +62,8 @@ def dense_block(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
         else:
             attn, k_new, v_new = attention_decode_step(
                 params["attn"], cfg, h, cache["k"], cache["v"], cache["len"],
-                is_local=is_local)
+                is_local=is_local, k_scale=cache.get("k_scale"),
+                v_scale=cache.get("v_scale"))
         new_cache = {"k_new": k_new, "v_new": v_new}
     elif mode in ("prefill", "train"):
         attn, k, v = attention_forward(params["attn"], cfg, h, positions,

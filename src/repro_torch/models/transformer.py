@@ -21,11 +21,17 @@ Port of ``repro/models/transformer.py`` for the dense/vlm stacks, rwkv6
 
 Per-layer parameters are stacked on axis 0 exactly as in the reference
 pytree (zamba2's mamba layers on (n_super, period) axes); a Python loop over
-layers replaces ``lax.scan``. Each function takes ``device`` (default
+layers replaces ``lax.scan``. ``params["layers"]`` may instead be a LIST of
+per-layer trees (zamba2: a list over superblocks of lists of mamba layers,
+and ``params["tail"]`` a list), the reference's listed layout
+(``transformer.py:132``): ``forward``, ``prefill`` and ``decode_step`` then
+return per-layer lists of cache entries, as the reference's
+``_decode_step_listed`` does. Each function takes ``device`` (default
 ``"cuda"``) and moves its integer inputs there; on a machine without a GPU
-a call that does not pass ``device="cpu"`` raises. The dense cache of
-``decode_step`` is bf16/fp32 only (``kv_cache_bits == 8`` raises); the
-paged entry points serve int8 pools.
+a call that does not pass ``device="cpu"`` raises. With ``kv_cache_bits ==
+8`` the dense/vlm cache is int8 with fp32 per-token scales ("k_scale",
+"v_scale", (L, B, Hkv, S)), read by the dense decode kernel's int8 entry;
+the paged entry points serve int8 pools.
 
 The three prefill entry points also run on PADDED operands, the static
 buffers of the engine's compiled prefill programs (``serving/compiled.py``):
@@ -36,13 +42,13 @@ cache's ``len`` counts real rows. Without ``length`` nothing changes.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import blocks, ssm
+from repro_torch.models import blocks, kv_quant, ssm
 from repro_torch.models.common import (ModelConfig, Params, dense_init,
                                        resolve_device, rms_norm, softcap)
 
@@ -63,11 +69,25 @@ def _check_family(cfg: ModelConfig, what: str,
 def _tree_map(fn: Callable, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
-def _layer(layers: Dict, i: int) -> Dict:
-    """Layer ``i``'s parameters out of the stacked tree (views, no copy)."""
+def _is_listed(params: Params) -> bool:
+    return isinstance(params["layers"], (list, tuple))
+
+
+def _per_layer(items, listed: bool):
+    """Per-layer cache entries: the listed layout's list, or stacked."""
+    return list(items) if listed else torch.stack(list(items))
+
+
+def _layer(layers, i: int):
+    """Layer ``i``'s parameters: the list's entry (listed layout), or
+    views into the stacked tree (no copy)."""
+    if isinstance(layers, (list, tuple)):
+        return layers[i]
     return _tree_map(lambda a: a[i], layers)
 
 
@@ -153,9 +173,10 @@ def _leaf_pairs(a: Dict, b: Dict):
 
 def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
                     device) -> Params:
-    """The reference ``init_params`` pytree (stacked layers on axis 0, leaves
-    converted to numpy arrays) as the port's parameters, value for value.
-    bfloat16 leaves cross as their 16-bit patterns."""
+    """The reference ``init_params`` pytree (stacked layers on axis 0, or
+    the listed layout's lists of per-layer trees; leaves converted to numpy
+    arrays) as the port's parameters, value for value and structure for
+    structure. bfloat16 leaves cross as their 16-bit patterns."""
     _check_family(cfg, "params_from_jax", SERVE_FAMILIES)
     dev = resolve_device(device)
 
@@ -285,10 +306,6 @@ def _zamba_stack(params, cfg: ModelConfig, x, positions, *, mode: str):
     return x, attn_caches, mstates, tail_states
 
 
-def _stack_states(states: List[Dict], key: str) -> torch.Tensor:
-    return torch.stack([st[key] for st in states])
-
-
 # ===========================================================================
 # Full-sequence forward
 # ===========================================================================
@@ -312,22 +329,22 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict, *,
 # ===========================================================================
 # KV cache / recurrent state
 # ===========================================================================
-def _check_dense_cache_bits(cfg: ModelConfig) -> None:
-    if cfg.family in DENSE_FAMILIES and cfg.kv_cache_bits == 8:
-        raise NotImplementedError(
-            "int8 dense caches are not ported (the dense decode kernel "
-            "takes no scales); int8 KV is served by the paged pool")
+def _int8_cache(cfg: ModelConfig) -> bool:
+    """The dense/vlm cache is int8 with per-token scales (the reference
+    quantizes only the KV-cache dense stacks)."""
+    return cfg.family in DENSE_FAMILIES and cfg.kv_cache_bits == 8
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device="cuda") -> Dict:
     """Zero-filled decode cache: head-major K/V (L, B, Hkv, max_seq, hd) for
-    the dense family; the rwkv state {"S", "x_tm", "x_cm"} stacked over
-    layers; zamba2's shared-attention K/V (n_super, B, Hkv, max_seq, hd),
-    mamba states "h" (n_super, period, B, H, P, N) fp32 and "conv"
-    (n_super, period, B, K-1, conv_ch), plus "tail_h"/"tail_conv"."""
+    the dense family (int8 with fp32 "k_scale"/"v_scale" (L, B, Hkv,
+    max_seq) when ``kv_cache_bits == 8``); the rwkv state {"S", "x_tm",
+    "x_cm"} stacked over layers; zamba2's shared-attention K/V (n_super, B,
+    Hkv, max_seq, hd), mamba states "h" (n_super, period, B, H, P, N) fp32
+    and "conv" (n_super, period, B, K-1, conv_ch), plus
+    "tail_h"/"tail_conv"."""
     _check_family(cfg, "init_cache", SERVE_FAMILIES)
-    _check_dense_cache_bits(cfg)
     dev = resolve_device(device)
     hd = cfg.resolved_head_dim
     L = cfg.num_layers
@@ -353,9 +370,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
             cache["tail_h"] = torch.zeros((tail, batch, H, P, N), **f32)
             cache["tail_conv"] = torch.zeros((tail, batch, *conv), **model)
     else:
+        kv = dict(dtype=torch.int8, device=dev) if _int8_cache(cfg) \
+            else model
         cache["k"] = torch.zeros((L, batch, cfg.num_kv_heads, max_seq, hd),
-                                 **model)
+                                 **kv)
         cache["v"] = torch.zeros_like(cache["k"])
+        if _int8_cache(cfg):     # per-token, per-kv-head scales (paper §7)
+            cache["k_scale"] = torch.zeros(
+                (L, batch, cfg.num_kv_heads, max_seq), **f32)
+            cache["v_scale"] = torch.zeros_like(cache["k_scale"])
     return cache
 
 
@@ -365,37 +388,50 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 def prefill(params: Params, cfg: ModelConfig, batch: Dict, max_seq: int, *,
             device="cuda", length=None) -> Tuple[torch.Tensor, Dict]:
     """Run a batch of equal-length prompts one-shot, return (last-position
-    logits, cache) with the keys of :func:`init_cache` filled and len = S.
-    Attention is the plain blockwise path; the recurrent layers run the
-    scan kernels on the card, and their final state is the closed form.
-    ``length`` (dense/vlm): (B,) real rows of padded prompts (module
-    docstring)."""
+    logits, cache) with the keys of :func:`init_cache` filled and len = S
+    (listed parameters: per-layer lists, as the reference's listed
+    prefill). An int8 dense cache is quantized per token from the padded
+    head-major K/V, as the reference does. Attention is the plain
+    blockwise path; the recurrent layers run the scan kernels on the card,
+    and their final state is the closed form. ``length`` (dense/vlm): (B,)
+    real rows of padded prompts (module docstring)."""
     _check_family(cfg, "prefill", SERVE_FAMILIES)
-    _check_dense_cache_bits(cfg)
     if length is not None:
         _check_family(cfg, "prefill of padded prompts")
     dev = resolve_device(device)
+    listed = _is_listed(params)
     x, positions, _ = _embed(params, cfg, batch, dev)
     cache: Dict[str, Any] = {}
+
+    def kv_slabs(entries, key):
+        """Per-layer (B, S, Hkv, hd) K or V, head-major and padded to
+        max_seq (an int8 cache: quantized, scales beside)."""
+        slabs = [_pad_seq(c[key].transpose(1, 2), max_seq) for c in entries]
+        if _int8_cache(cfg):
+            slabs, scales = zip(*map(kv_quant.quantize_kv, slabs))
+            cache[f"{key}_scale"] = _per_layer(scales, listed)
+        cache[key] = _per_layer(slabs, listed)
+
     if cfg.family == "ssm":
         x, states = _rwkv_stack(params, cfg, x, mode="prefill")
         for key in ("S", "x_tm", "x_cm"):
-            cache[key] = _stack_states(states, key)
+            cache[key] = _per_layer((st[key] for st in states), listed)
     elif cfg.family == "hybrid":
         x, attn, mstates, tail_states = _zamba_stack(params, cfg, x,
                                                      positions, mode="prefill")
         for key in ("k", "v"):
-            cache[key] = _pad_seq(_hm(_stack_states(attn, key)), max_seq)
+            kv_slabs(attn, key)
         for key in ("h", "conv"):
-            cache[key] = torch.stack([_stack_states(sup, key)
-                                      for sup in mstates])
-        if tail_states:
-            cache["tail_h"] = _stack_states(tail_states, "h")
-            cache["tail_conv"] = _stack_states(tail_states, "conv")
+            cache[key] = _per_layer(
+                (_per_layer((st[key] for st in sup), listed)
+                 for sup in mstates), listed)
+            if tail_states:
+                cache[f"tail_{key}"] = _per_layer(
+                    (st[key] for st in tail_states), listed)
     else:
         x, kv = _dense_stack(params, cfg, x, positions, mode="prefill")
         for key in ("k", "v"):
-            cache[key] = _pad_seq(_hm(_stack_states(kv, key)), max_seq)
+            kv_slabs(kv, key)
     cache["len"] = _cache_len(x, length, 0)
     return _head(params, cfg, _last_rows(x, length)), cache
 
@@ -499,6 +535,9 @@ def decode_step_paged(params: Params, cfg: ModelConfig, tokens,
     stays the memory pool's job (PagedKVCache.write_tokens).
     """
     _check_family(cfg, "paged decode")
+    if _is_listed(params):
+        raise ValueError("paged decode requires stacked layer params "
+                         "(the listed layout serves the dense cache)")
     dev = resolve_device(device)
     tok = _int_tensor(tokens, dev)
     tables = _int_tensor(block_tables, dev)
@@ -529,18 +568,21 @@ def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Dict, *,
 
     cache["len"] = tokens ALREADY stored (the new token is not in the
     cache); attention is combine(prefix partial, new-token partial) per
-    §4.2.2, the prefix partial from the dense decode kernel on the card.
+    §4.2.2, the prefix partial from the dense decode kernel on the card
+    (its int8 entry over an int8 cache, with the scales fused).
     Returns (logits, updates): the refreshed recurrent states, len + 1 and,
     for the attention layers, k_new/v_new (L or n_super, B, Hkv, hd) —
-    KV placement is :func:`apply_decode_updates`' job. The cache's K/V are
-    only read."""
+    KV placement is :func:`apply_decode_updates`' job. The cache's K/V (and
+    scales) are only read. Listed parameters (the reference's
+    ``_decode_step_listed``) read a listed cache and return per-layer
+    lists."""
     _check_family(cfg, "decode_step", SERVE_FAMILIES)
-    _check_dense_cache_bits(cfg)
     dev = resolve_device(device)
+    listed = _is_listed(params)
     cur_len = _int_tensor(cache["len"], dev)
     x = _embed_tokens(params, cfg, _int_tensor(tokens, dev)[:, None])
     updates: Dict[str, Any] = {k: v for k, v in cache.items()
-                               if k not in ("k", "v")}
+                               if k not in ("k", "v", "k_scale", "v_scale")}
     updates["len"] = cur_len + 1
 
     if cfg.family == "ssm":
@@ -551,7 +593,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Dict, *,
                                       mode="decode", state=st)
             states.append(st)
         for key in ("S", "x_tm", "x_cm"):
-            updates[key] = _stack_states(states, key)
+            updates[key] = _per_layer([st[key] for st in states], listed)
     elif cfg.family == "hybrid":
         n_super, period, tail = _zamba_split(cfg)
         k_new, v_new, hs, convs = [], [], [], []
@@ -567,13 +609,15 @@ def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Dict, *,
             for mi in range(period):
                 x, st = blocks.mamba_block(
                     _layer(sup, mi), cfg, x, mode="decode",
-                    state={"h": cache["h"][si, mi],
-                           "conv": cache["conv"][si, mi]})
+                    state={"h": cache["h"][si][mi],
+                           "conv": cache["conv"][si][mi]})
                 states.append(st)
-            hs.append(_stack_states(states, "h"))
-            convs.append(_stack_states(states, "conv"))
-        updates.update(k_new=torch.stack(k_new), v_new=torch.stack(v_new),
-                       h=torch.stack(hs), conv=torch.stack(convs))
+            hs.append(_per_layer([st["h"] for st in states], listed))
+            convs.append(_per_layer([st["conv"] for st in states], listed))
+        updates.update(k_new=_per_layer(k_new, listed),
+                       v_new=_per_layer(v_new, listed),
+                       h=_per_layer(hs, listed),
+                       conv=_per_layer(convs, listed))
         states = []
         for ti in range(tail):
             x, st = blocks.mamba_block(
@@ -582,36 +626,49 @@ def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Dict, *,
                        "conv": cache["tail_conv"][ti]})
             states.append(st)
         if tail:
-            updates["tail_h"] = _stack_states(states, "h")
-            updates["tail_conv"] = _stack_states(states, "conv")
+            for key in ("h", "conv"):
+                updates[f"tail_{key}"] = _per_layer(
+                    [st[key] for st in states], listed)
     else:
         caches = []
         for i in range(cfg.num_layers):
+            lc = {"k": cache["k"][i], "v": cache["v"][i], "len": cur_len}
+            if _int8_cache(cfg):
+                lc.update(k_scale=cache["k_scale"][i],
+                          v_scale=cache["v_scale"][i])
             x, c = blocks.dense_block(
                 _layer(params["layers"], i), cfg, x, mode="decode",
-                cache={"k": cache["k"][i], "v": cache["v"][i],
-                       "len": cur_len}, is_local=_is_local(cfg, i))
+                cache=lc, is_local=_is_local(cfg, i))
             caches.append(c)
-        updates["k_new"] = _stack_states(caches, "k_new")
-        updates["v_new"] = _stack_states(caches, "v_new")
+        updates["k_new"] = _per_layer([c["k_new"] for c in caches], listed)
+        updates["v_new"] = _per_layer([c["v_new"] for c in caches], listed)
     return _head(params, cfg, x[:, 0]), updates
 
 
 def apply_decode_updates(cache: Dict, updates: Dict) -> Dict:
     """Write the step's k_new/v_new into the dense cache at the old length
     and adopt the refreshed recurrent states and len — the placement used by
-    simple generation loops and tests. Unlike the reference (which returns
-    a new cache), the K/V are written IN PLACE into ``cache["k"]`` /
-    ``cache["v"]``, so a step never copies the whole cache; the returned
-    dict holds those same tensors."""
+    simple generation loops and tests. An int8 cache stores the token
+    quantized (``kv_quant.quantize_token``) with its scales. Unlike the
+    reference (which returns a new cache), the K/V (and scales) are written
+    IN PLACE into ``cache["k"]`` / ``cache["v"]``, so a step never copies
+    the whole cache; the returned dict holds those same tensors. Stacked
+    caches only, as in the reference."""
     new_cache = dict(cache)
     if "k_new" in updates:
         B = updates["k_new"].shape[1]
         idx = cache["len"].long()  # position of the token just processed
         b = torch.arange(B, device=idx.device)
         # head-major (L, B, Hkv, S, hd): one S position per sequence
-        cache["k"][:, b, :, idx] = updates["k_new"].transpose(0, 1)
-        cache["v"][:, b, :, idx] = updates["v_new"].transpose(0, 1)
+        kn = updates["k_new"].transpose(0, 1)        # (B, L, Hkv, hd)
+        vn = updates["v_new"].transpose(0, 1)
+        if cache["k"].dtype == torch.int8:
+            kn, kns = kv_quant.quantize_token(kn)
+            vn, vns = kv_quant.quantize_token(vn)
+            cache["k_scale"][:, b, :, idx] = kns
+            cache["v_scale"][:, b, :, idx] = vns
+        cache["k"][:, b, :, idx] = kn
+        cache["v"][:, b, :, idx] = vn
     for key, val in updates.items():
         if key not in ("k_new", "v_new"):
             new_cache[key] = val

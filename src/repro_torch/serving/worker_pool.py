@@ -1,10 +1,12 @@
 """Memory-device worker pool and wire-byte accounting (paper §4.2.2, §3.1).
 Port of ``repro/serving/worker_pool.py`` (``AttentionWorkerPool`` over the
-paged pool, ``TransferLog``, ``expected_transfer_bytes``; the dense
-``attend`` and the MoE ``ExpertWorkerPool`` arrive with their slices).
+paged pool and over a dense cache, ``TransferLog``,
+``expected_transfer_bytes``; the MoE ``ExpertWorkerPool`` arrives with its
+slice).
 
 :class:`AttentionWorkerPool` owns the partitioning and the accounting of
-decode attention over the engine's paged block pool, one of three ways:
+decode attention over the engine's paged block pool (or, in ``attend``,
+over a dense head-major cache: head or request), one of three ways:
 "head" (each worker owns Hkv/n heads of every pool block — Lamina's
 choice), "block" (the pool's block axis is sharded and a sequence's
 round-robin-placed blocks span every worker; the per-worker §4.2.2
@@ -24,6 +26,7 @@ import torch
 from repro_torch.core import combine as C
 from repro_torch.kernels.paged_decode_attention import POS_PAD
 from repro_torch.models.attention import (_new_token_partial,
+                                          decode_attention_combine,
                                           paged_decode_attention_combine,
                                           paged_decode_attention_partial_pos)
 from repro_torch.models.common import ModelConfig
@@ -69,6 +72,16 @@ class AttentionWorkerPool:
                 f"head partition needs kv_heads ({cfg.num_kv_heads}) "
                 f"divisible by workers ({n_workers}) — paper §5")
 
+    def _account(self, q, k_new, v_new, out, enabled: bool) -> None:
+        """Wire bytes of one direct call (reference ``:73``): q and the new
+        token's k/v out, the result back, at the bf16 wire format."""
+        if not enabled:
+            return
+        self.log.q_bytes += q.numel() * BYTES
+        self.log.kv_bytes += (k_new.numel() + v_new.numel()) * BYTES
+        self.log.out_bytes += out.numel() * BYTES
+        self.log.transfers += 2  # QKV out + result back
+
     def log_iteration(self, batch: int) -> None:
         """Shape-derived per-iteration wire accounting (paper §3.1): q out,
         the new token's k/v out, the attention output back, per layer."""
@@ -79,6 +92,62 @@ class AttentionWorkerPool:
         self.log.kv_bytes += 2 * batch * cfg.num_kv_heads * hd * BYTES * L
         self.log.out_bytes += batch * cfg.num_heads * hd * BYTES * L
         self.log.transfers += 2 * L
+
+    def attend(self, q, k_cache, v_cache, cache_len, k_new, v_new, *,
+               sliding_window: int = 0, logit_softcap: float = 0.0,
+               k_scale=None, v_scale=None,
+               account: bool = False) -> torch.Tensor:
+        """Decode attention over a DENSE cache (reference ``:93``).
+
+        q: (B, H, hd); caches HEAD-MAJOR (B, Hkv, S, hd) hold the STORED
+        prefix (cache_len tokens); k_new/v_new (B, Hkv, hd) arrive over the
+        wire. Each worker computes combine(prefix partial, new partial) on
+        its partition — head: kv heads [w·Hkv/n, (w+1)·Hkv/n); request: a
+        contiguous range of the batch — and the outputs concatenate. An
+        int8 cache passes its (B, Hkv, S) scales, split the same way (the
+        dense decode kernel's int8 entry on the card). The reference's
+        ``backend=`` is absent: the device decides. ``per_worker_kv_bytes``
+        grows by the reference's formula (2 · cache elements · 2 bytes of
+        the worker's slice); ``account`` logs the call's wire bytes.
+        Returns (B, H, hd)."""
+        B, H, hd = q.shape
+        Hkv = k_cache.shape[1]
+        kw = dict(sliding_window=sliding_window, logit_softcap=logit_softcap)
+        if self.partition == "head":
+            hk = Hkv // self.n
+            g = H // Hkv
+            qg = q.reshape(B, Hkv, g, hd)
+            outs = []
+            for wid in range(self.n):
+                sl = slice(wid * hk, (wid + 1) * hk)
+                skw = {} if k_scale is None else dict(
+                    k_scale=k_scale[:, sl], v_scale=v_scale[:, sl])
+                o = decode_attention_combine(
+                    qg[:, sl].reshape(B, hk * g, hd), k_cache[:, sl],
+                    v_cache[:, sl], cache_len, k_new[:, sl], v_new[:, sl],
+                    **kw, **skw)
+                outs.append(o.reshape(B, hk, g, hd))
+                self.per_worker_kv_bytes[wid] += \
+                    2 * k_cache[:, sl].numel() * BYTES
+            out = torch.cat(outs, dim=1).reshape(B, H, hd)
+        elif self.partition == "request":
+            outs = []
+            for wid, (lo, hi) in enumerate(request_splits(B, self.n)):
+                if hi == lo:
+                    continue
+                skw = {} if k_scale is None else dict(
+                    k_scale=k_scale[lo:hi], v_scale=v_scale[lo:hi])
+                outs.append(decode_attention_combine(
+                    q[lo:hi], k_cache[lo:hi], v_cache[lo:hi],
+                    cache_len[lo:hi], k_new[lo:hi], v_new[lo:hi], **kw,
+                    **skw))
+                self.per_worker_kv_bytes[wid] += \
+                    2 * k_cache[lo:hi].numel() * BYTES
+            out = torch.cat(outs, dim=0)
+        else:
+            raise ValueError(self.partition)
+        self._account(q, k_new, v_new, out, account)
+        return out
 
     def attend_paged(self, q, k_pool, v_pool, block_tables, cache_len,
                      k_new, v_new, *, sliding_window: int = 0,

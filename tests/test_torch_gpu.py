@@ -373,6 +373,110 @@ def test_cuda_dense_decode_refuses_what_it_does_not_take(cuda):
         da.decode_attention(q, kc[:, :, ::2], kc[:, :, ::2], lens)
 
 
+# The shapes widened for glm4-9b (G = 16) and kimi-k2 (hd = 112): the split
+# decode kernel over bf16 and int8 pools (G = 16 at hd 64, 112 and 128; hd =
+# 112 at every G), NaN in the pad blocks and past every cache_len.
+WIDE_DECODE_CASES = [  # G, hd, bs, nb, window, sinks, softcap, pos_pad, half
+    (16, 128, 16, 128, 0, 0, 0.0, False, False),
+    (16, 128, 16, 96, 300, 4, 30.0, False, True),
+    (16, 64, 16, 64, 0, 0, 0.0, True, False),
+    (16, 64, 8, 90, 77, 3, 0.0, False, False),
+    (16, 112, 16, 128, 0, 0, 50.0, False, False),
+    (8, 112, 16, 96, 0, 0, 0.0, False, True),
+    (4, 112, 12, 50, 100, 4, 0.0, True, False),
+    (2, 112, 1, 700, 33, 2, 0.0, False, False),
+    (1, 112, 32, 20, 0, 0, 0.0, False, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("G,hd,bs,nb,sw,sinks,cap,pos_pad,half",
+                         WIDE_DECODE_CASES)
+def test_cuda_widened_decode_matches_plain(cuda, int8, G, hd, bs, nb, sw,
+                                           sinks, cap, pos_pad, half):
+    test_cuda_split_decode_matches_plain(cuda, int8, G, hd, bs, nb, sw,
+                                         sinks, cap, pos_pad, half)
+
+
+# the chunk kernel at hd = 112 (tiles at 128, TMA zero-fills the last 16
+# columns): every packing up to G = 16, boxes of 1, 2, 4, 8 and 64 rows,
+# masks, the first chunk of a prompt; and G = 16 at hd 64 and 128
+WIDE_PREFILL_CASES = [  # G, hd, C, nb, window, sinks, softcap, block size
+    (16, 112, 100, 5, 0, 0, 0.0, 16), (8, 112, 64, 0, 0, 0, 0.0, 16),
+    (4, 112, 77, 7, 50, 4, 50.0, 16), (1, 112, 300, 11, 100, 4, 30.0, 16),
+    (2, 112, 65, 13, 0, 0, 0.0, 1), (16, 112, 40, 7, 9, 2, 0.0, 2),
+    (4, 112, 100, 9, 0, 0, 0.0, 4), (8, 112, 77, 6, 50, 4, 50.0, 8),
+    (16, 112, 64, 2, 0, 0, 0.0, 64), (16, 128, 300, 6, 90, 0, 0.0, 16),
+    (16, 64, 130, 3, 100, 4, 30.0, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("G,hd,C,nb,sw,sinks,cap,bs", WIDE_PREFILL_CASES)
+def test_cuda_widened_prefill_matches_plain(cuda, int8, G, hd, C, nb, sw,
+                                            sinks, cap, bs):
+    test = test_cuda_int8_prefill_kernel_matches_plain if int8 else \
+        test_cuda_prefill_kernel_matches_plain
+    test(cuda, G, hd, C, nb, sw, sinks, cap, bs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("G,hd,sw,sinks,cap", [(16, 128, 0, 0, 0.0),
+                                               (16, 64, 40, 4, 50.0),
+                                               (8, 112, 0, 0, 0.0),
+                                               (4, 112, 9, 0, 30.0),
+                                               (4, 128, 0, 0, 0.0),
+                                               (1, 64, 0, 0, 0.0),
+                                               (2, 112, 1, 2, 0.0)])
+def test_cuda_dense_decode_widened_and_int8_match_plain(cuda, int8, G, hd,
+                                                        sw, sinks, cap):
+    """The dense kernel's widened shapes and its int8 entry, with NaN
+    values (and NaN scales) in every slot past cache_len, also over a head
+    slice of a wider cache (the head partition's worker reads in place)."""
+    from repro_torch.models.kv_quant import quantize_kv
+
+    rng = np.random.default_rng(G * 7 + hd + int8)
+    B, Hkv, S = 5, 4, 300
+    kc = torch.from_numpy(rng.standard_normal((B, Hkv, S, hd))).to(cuda)
+    vc = torch.from_numpy(rng.standard_normal((B, Hkv, S, hd))).to(cuda)
+    lens = rng.integers(1, S + 1, size=B).astype(np.int32)
+    lens[0], lens[1] = S, 1
+    stale = torch.arange(S, device=cuda)[None] >= \
+        torch.from_numpy(lens).to(cuda)[:, None]
+    stale = stale[:, None].expand(B, Hkv, S)
+    kw = dict(sliding_window=sw, attention_sinks=sinks, logit_softcap=cap)
+    if int8:
+        kc, ks = quantize_kv(kc.float())
+        vc, vs = quantize_kv(vc.float())
+        ks[stale] = float("nan")
+        vs[stale] = float("nan")
+        kw.update(k_scale=ks, v_scale=vs)
+    else:
+        kc, vc = kc.bfloat16(), vc.bfloat16()
+        kc[stale] = float("nan")
+        vc[stale] = float("nan")
+    q = _bf16(rng.standard_normal((B, Hkv, G, hd)), cuda)
+    cl = torch.from_numpy(lens).to(cuda)
+    counter = da.decode_attention_int8 if int8 else da.decode_attention
+    n = counter.launches
+    got = da.decode_attention(q, kc, vc, cl, return_partials=True, **kw)
+    assert counter.launches == n + 1
+    want = da.decode_attention_plain(q, kc, vc, cl, return_partials=True,
+                                     **kw)
+    for a, b, tol in zip(got, want, (8e-3, 1e-3, 1e-3)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=1e-3)
+    sl = slice(1, 3)                        # a strided head slice
+    skw = dict(kw)
+    if int8:
+        skw.update(k_scale=ks[:, sl], v_scale=vs[:, sl])
+    got = da.decode_attention(q[:, sl].contiguous(), kc[:, sl], vc[:, sl],
+                              cl, return_partials=True, **skw)
+    for a, b, tol in zip(got, want, (8e-3, 1e-3, 1e-3)):
+        torch.testing.assert_close(a.float(), b[:, sl].float(), rtol=tol,
+                                   atol=1e-3)
+
+
 def _scan_close(got, want):
     scale = float(want.abs().max())
     torch.testing.assert_close(got, want, rtol=1e-4,

@@ -420,12 +420,21 @@ def test_init_params_and_cache_have_the_reference_structure(arch):
 
 
 def test_entry_points_refuse_what_is_not_ported():
+    # int8 dense caches are served since the dense decode kernel's int8
+    # entry (tests/test_torch_dense_int8.py); as in the reference, only
+    # the KV-cache dense stacks quantize (zamba2's shared attention keeps
+    # the model dtype)
     cfg = treg.get_smoke_config("llama3-8b", kv_cache_bits=8)
-    with pytest.raises(NotImplementedError, match="int8 dense caches"):
-        ttf.init_cache(cfg, 2, 8, device="cpu")
+    cache = ttf.init_cache(cfg, 2, 8, device="cpu")
+    assert cache["k"].dtype == torch.int8 and "k_scale" in cache
     params = ttf.init_params(0, cfg.replace(kv_cache_bits=16), device="cpu")
-    with pytest.raises(NotImplementedError, match="int8 dense caches"):
-        ttf.prefill(params, cfg, {"tokens": [[1, 2]]}, 4, device="cpu")
+    _, cache = ttf.prefill(params, cfg, {"tokens": [[1, 2]]}, 4,
+                           device="cpu")
+    assert cache["v"].dtype == torch.int8 and "v_scale" in cache
+    zcache = ttf.init_cache(treg.get_smoke_config("zamba2-1.2b",
+                                                  kv_cache_bits=8), 1, 4,
+                            device="cpu")
+    assert zcache["k"].dtype == torch.float32 and "k_scale" not in zcache
     for fam in ("moe", "audio"):
         other = ModelConfig(family=fam)
         for fn in (lambda: ttf.init_params(0, other, device="cpu"),

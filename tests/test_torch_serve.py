@@ -90,3 +90,27 @@ def test_serve_cli_refuses_what_the_port_lacks(capsys):
     with pytest.raises(SystemExit):        # no --backend knob
         serve.main(COMMON + ["--backend", "pallas", "--device", "cpu"])
     capsys.readouterr()
+
+
+@pytest.mark.parametrize("extra", [["--engine", "vllm"],
+                                   ["--engine", "lamina", "--kv-dtype",
+                                    "int8"]], ids=["vllm", "lamina-int8"])
+def test_serve_cli_glm4_9b_prints_the_reference_lines(extra, capsys,
+                                                      monkeypatch):
+    """``--arch glm4-9b --smoke``, one of the archs this slice adds to the
+    port's registry, line for line against the JAX CLI."""
+    argv = ["--arch", "glm4-9b", "--smoke", "--requests", "4"] + extra
+    jrows = _parse(_run_jax(argv, capsys, monkeypatch))
+    trows = _parse(_run_port(argv, capsys))
+    assert [h for h, _ in trows] == [h for h, _ in jrows]
+    assert _untimed(trows) == _untimed(jrows)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "kimi-k2-1t-a32b",
+                                  "seamless-m4t-medium", "rwkv6-7b"])
+def test_serve_cli_exits_with_the_family_error(arch, capsys):
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+    assert exc.value.code == 2
+    assert "is ported for the families ('dense', 'vlm')" in \
+        capsys.readouterr().err
