@@ -74,8 +74,11 @@ Phases (any failure exits non-zero and prints no result line):
      G = 16 at 2K and 16K, G = 16 at hd = 64, kimi-k2's hd = 112, a
      windowed hd = 112) in bf16 and through its int8 entry (also at
      llama3-8b's shape), each int8 case also held against the bf16 twin
-     on the unquantized cache (cosine); then every instantiation of the
-     three attention kernels (dtype × hd × G) once at a small shape;
+     on the unquantized cache (cosine), each with its split-KV launch;
+     the ``dense_design`` line (the launch and CTAs an SM at glm4-9b's 2K
+     and 16K shapes, the HMMA count of the library's SASS, registers and
+     spill per instantiation); then every instantiation of the three
+     attention kernels (dtype × hd × G) once at a small shape;
   8. end to end through transformer.prefill -> 32 x (decode_step +
      apply_decode_updates): zamba2-1.2b, then rwkv6-7b, at full width and
      depth (random bf16 weights from seed 0, 8 prompts of 2048 tokens):
@@ -134,7 +137,12 @@ Phases (any failure exits non-zero and prints no result line):
      ``decode_step`` -> ``apply_decode_updates`` over an int8 dense cache
      with the first 4 layers: cosine >= 0.999 to the bf16 forward and the
      same argmax; the listed layout's steps = the stacked ones bit for
-     bit;
+     bit; then ``decode_step`` at full depth (40 layers) over a bf16 and
+     an int8 dense cache of B=8 sequences of 1-2048 tokens, timed: step
+     wall p50 over 10 steps, device-busy ms and idle share of a profiled
+     window, the dense kernel's device ms a step (``dense_step_timing``;
+     ``python3 chip_smoke.py --dense-step OTHER/src`` runs this step alone
+     on another checkout's port, e.g. a parent commit's);
  15. llama3-70b at full width and 8 of 80 layers through LLMEngine,
      attention_pool head over 4 workers on an int8 pool; pixtral-12b at
      full width and 8 layers through ``prefill`` with 1024 frontend
@@ -375,6 +383,7 @@ def quantize_pool(torch, pool):
 def decode_case(torch, pda, timer, *, B, Hkv, G, hd, bs, lens, seed,
                 int8=False, sliding_window=0, sinks=0, softcap=0.0,
                 pos_pad=False, library=True):
+    from repro_torch.kernels import _cuda
     gen = torch.Generator(device=DEV).manual_seed(seed)
     nbs = [-(-n // bs) for n in lens]
     nb = max(nbs)
@@ -487,7 +496,7 @@ def decode_case(torch, pda, timer, *, B, Hkv, G, hd, bs, lens, seed,
                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                rows=rows, **timing,
                launch=pda.launch_geometry(B, Hkv, nb,
-                                          pda._sm_count(q.device), G))
+                                          _cuda.sm_count(q.device), G))
     return out
 
 
@@ -2044,6 +2053,7 @@ def dense_decode_case(torch, da, timer, *, B, Hkv, G, hd, lens, S, seed,
     slots past each cache_len hold NaN (NaN scales too, for an int8
     cache); o alone and the (o, l, m) triple. The int8 entry is also held
     against the bf16 twin on the unquantized cache (cosine)."""
+    from repro_torch.kernels import _cuda
     gen = torch.Generator(device=DEV).manual_seed(seed)
     shape = (B, Hkv, S, hd)
     k = torch.randn(shape, generator=gen, device=DEV).bfloat16()
@@ -2130,8 +2140,36 @@ def dense_decode_case(torch, da, timer, *, B, Hkv, G, hd, lens, S, seed,
                       library_host_us=timer.host_us(library))
         del kd, vd
     out.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-               **timing)
+               **timing, launch=da.launch_geometry(
+                   B, Hkv, S, _cuda.sm_count(q.device), G))
     return out
+
+
+# the dense kernel's two designs, by the mangled names of their kernels
+DENSE_MARKERS = [("dense_tc_kernelI", ("hd", "G")),
+                 ("dense_lanes_kernelI", ("hd", "G"))]
+
+
+def dense_design(torch, da, _cuda):
+    """The dense kernel's split-KV design at glm4-9b's decode shapes (B=8,
+    Hkv=2, G=16, hd=128 at 2K and 16K): its launch geometry and the CTAs
+    an SM holds, bf16 and int8; the HMMA count of the library's SASS
+    (raises if there is none: the tensor-core design is not in the build);
+    registers, shared memory and spill of every instantiation."""
+    sm = _cuda.sm_count(torch.device(DEV))
+    launch = {}
+    for name, S in (("glm4-9b 2K", 2048), ("glm4-9b 16K", 16384)):
+        launch[name] = dict(**da.launch_geometry(8, 2, S, sm, 16),
+                            ctas_per_sm={
+                                t: da.ctas_per_sm(t == "int8", 128, 16)
+                                for t in ("bf16", "int8")})
+    hmma = sass_count(da._LIB_NAME, "HMMA")
+    if not hmma:
+        raise AssertionError("the decode_attention library holds no HMMA")
+    ptxas = [f"{marker[:-1]} {row}" for marker, names in DENSE_MARKERS
+             for row in ptxas_summary(_cuda.BUILD_LOG.get(da._LIB_NAME, ""),
+                                      marker, names)]
+    return dict(launch=launch, sm_count=sm, hmma=hmma, ptxas=ptxas)
 
 
 def instantiation_sweep(torch, pda, da, ppa, timer):
@@ -2749,6 +2787,106 @@ def dense_cache_e2e(torch, np, transformer, cfg, params, counters):
         for p in ("head", "request"))
 
 
+def dense_step_timing(torch, np, transformer, cfg, params, counters,
+                      n_steps=10):
+    """Phase 14's timed dense-cache decode step: ``decode_step`` of the
+    model in ``params`` (glm4-9b at full depth) over a bf16 and an int8
+    dense cache of B = 8 sequences whose lengths are drawn in 1-2048
+    (``default_rng(17)``), random K/V (the int8 cache as ``quantize_kv``
+    stores them). Each step reads the same cache (its updates are not
+    applied). Reports the step's wall p50 over ``n_steps`` steps, one
+    step's launches (one dense launch a layer, gated), finite logits
+    (gated), and a profiled window of 3 steps: device-busy ms, idle share
+    and the dense kernel's device ms a step."""
+    from repro_torch.models.kv_quant import quantize_kv
+
+    B, max_seq = 8, 2048
+    lens = np.random.default_rng(17).integers(1, max_seq + 1, size=B)
+    tokens = np.random.default_rng(18).integers(0, cfg.vocab_size,
+                                                size=B).tolist()
+    out = {"lens": lens.tolist()}
+    for tag in ("bf16", "int8"):
+        c = cfg.replace(kv_cache_bits=8) if tag == "int8" else cfg
+        cache = transformer.init_cache(c, B, max_seq, device=DEV)
+        gen = torch.Generator(device=DEV).manual_seed(19)
+        for i in range(c.num_layers):        # a layer at a time
+            for key in ("k", "v"):
+                x = torch.randn(cache[key].shape[1:], generator=gen,
+                                device=DEV)
+                if tag == "int8":
+                    cache[key][i], cache[f"{key}_scale"][i] = quantize_kv(x)
+                else:
+                    cache[key][i] = x
+        cache["len"] = torch.tensor(lens, dtype=torch.int32, device=DEV)
+        cache_gib = sum(t.numel() * t.element_size() for k, t in
+                        cache.items() if k != "len") / 2**30
+        kernel = "decode_attention_int8" if tag == "int8" \
+            else "decode_attention"
+
+        def step():
+            return transformer.decode_step(params, c, tokens, cache,
+                                           device=DEV)
+        with torch.inference_mode():
+            counters.reset()
+            logits, _ = step()
+            sync(torch)
+            launches = {k: n for k, n in counters.read().items() if n}
+            gate(launches == {kernel: c.num_layers},
+                 f"timed dense step {tag}: launches {launches}")
+            gate(bool(torch.isfinite(logits).all()),
+                 f"timed dense step {tag}: non-finite logits")
+            walls = []
+            for _ in range(n_steps):
+                sync(torch)
+                t0 = time.perf_counter()
+                step()
+                sync(torch)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            prof = profile_window(torch, step, 3, B, kernels=("dense_",))
+        prof["dense_kernel_ms"] = prof.pop("dense__ms")
+        out[tag] = dict(step_ms_p50=sorted(walls)[n_steps // 2],
+                        step_ms=[round(w, 3) for w in walls],
+                        launches=launches, cache_gib=cache_gib, **prof)
+        log(f"timed dense-cache step {tag}, {cfg.name} L={c.num_layers} "
+            f"B={B}: {json.dumps(out[tag])}")
+        del cache, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def dense_step_main(src) -> int:
+    """``chip_smoke.py --dense-step SRC``: phase 14's timed dense-cache
+    step alone, on the ``repro_torch`` of the checkout whose ``src/`` is
+    SRC (a parent commit unpacked with ``git archive``), with glm4-9b's
+    weights of its own: the same figures from two trees on one card."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import repro_torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.kernels import rwkv6_scan as rwkv
+    from repro_torch.kernels import ssm_scan as ssm
+    from repro_torch.models import transformer
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    log(smi.stdout.strip().splitlines()[0])
+    log(f"repro_torch from {Path(repro_torch.__file__).parent}")
+    cfg, params = load_model(torch, registry, transformer, "glm4-9b")
+    out = dense_step_timing(torch, np, transformer, cfg, params,
+                            Launches(pda, ppa, da, ssm, rwkv))
+    log(json.dumps({"dense_step": out, "src": str(src)}))
+    if FAILED:
+        raise AssertionError(f"{len(FAILED)} gate(s) failed: {FAILED}")
+    return 0
+
+
 def other_dense_e2e(torch, np, registry, transformer, counters):
     """Phase 15: llama3-70b (the paper's model) at full width and 8 of 80
     layers through LLMEngine, attention_pool head over 4 workers (2 kv
@@ -2917,13 +3055,15 @@ def main() -> int:
                          ssm._LIB_NAME, rwkv._LIB_NAME])
     log(f"kernels built in {time.perf_counter() - t0:.1f} s wall "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})")
-    per_instance = {pda._LIB_NAME: ("paged_decode_kernelI", ("hd", "G")),
-                    ssm._LIB_NAME: ("ssm_scan_kernelI", ("N", "W")),
-                    rwkv._LIB_NAME: ("rwkv6_scan_kernelI", ("P", "W"))}
+    per_instance = {pda._LIB_NAME: [("paged_decode_kernelI", ("hd", "G"))],
+                    da._LIB_NAME: DENSE_MARKERS,
+                    ssm._LIB_NAME: [("ssm_scan_kernelI", ("N", "W"))],
+                    rwkv._LIB_NAME: [("rwkv6_scan_kernelI", ("P", "W"))]}
     for name, text in _cuda.BUILD_LOG.items():
         if name in per_instance:       # one line per instantiation
-            for row in ptxas_summary(text, *per_instance[name]):
-                log(f"  ptxas {name}: {row}")
+            for marker, names in per_instance[name]:
+                for row in ptxas_summary(text, marker, names):
+                    log(f"  ptxas {name} {marker[:-1]}: {row}")
             continue
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -3081,6 +3221,8 @@ def main() -> int:
             log(f"dense decode {tag} {name}: {json.dumps(r)}")
     new["decode_attention_int8"] = wide[("dense", "int8",
                                          "glm4-9b B=8 Hkv=2 G=16 hd=128")]
+    log(f"dense decode, split-KV design: "
+        f"{json.dumps(dense_design(torch, da, _cuda))}")
     sweep = instantiation_sweep(torch, pda, da, ppa, timer)
     log(f"every instantiation vs its plain twin: {json.dumps(sweep)}")
     torch.cuda.empty_cache()
@@ -3189,6 +3331,8 @@ def main() -> int:
     t0 = time.perf_counter()
     dense, n_int8_dense = dense_cache_e2e(torch, np, transformer, gcfg,
                                           gparams, counters)
+    dense["timed_step"] = dense_step_timing(torch, np, transformer, gcfg,
+                                            gparams, counters)
     del gparams
     release(torch)
     log(f"dense-cache phase done in {time.perf_counter() - t0:.1f} s")
@@ -3243,6 +3387,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if len(sys.argv) == 3 and sys.argv[1] == "--dense-step":
+            sys.exit(dense_step_main(sys.argv[2]))
         sys.exit(main())
     except Exception:                       # report, no result line
         traceback.print_exc()

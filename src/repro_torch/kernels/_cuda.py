@@ -9,6 +9,7 @@ Nothing here runs at import time: the CPU tests import every module.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -101,6 +102,79 @@ def stream_ptr(device) -> int:
     """The raw ``cudaStream_t`` of the current stream on ``device``, read
     through torch's accessor for it (a tenth of a microsecond; building a
     ``torch.cuda.Stream`` object takes several)."""
-    index = device.index
-    return torch._C._cuda_getCurrentRawStream(
-        torch.cuda.current_device() if index is None else index)
+    return torch._C._cuda_getCurrentRawStream(_index(device))
+
+
+_SM_COUNT: Dict[int, int] = {}     # device index -> SM count
+_TICKETS: Dict[tuple, torch.Tensor] = {}   # (device index, stream) -> tickets
+
+
+def _index(device) -> int:
+    """The ordinal of a torch CUDA device ("cuda" is the current one)."""
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
+def sm_count(device) -> int:
+    """The SM count of ``device`` (a torch device), read once."""
+    index = _index(device)
+    n = _SM_COUNT.get(index)
+    if n is None:
+        n = _SM_COUNT[index] = \
+            torch.cuda.get_device_properties(index).multi_processor_count
+    return n
+
+
+def tickets(device, stream: int, n: int) -> torch.Tensor:
+    """The merge tickets of (device, stream) that the split-KV decode
+    kernels take, one per (sequence, kv head), allocated zeroed once and
+    grown when a call needs more. Each kernel leaves every ticket it uses
+    at 0 and launches on one stream run in order, so the kernels of a
+    stream share the array; another stream gets its own. A stream being
+    captured into a CUDA graph must have its tickets set up before the
+    capture (:func:`private_tickets`)."""
+    key = (_index(device), stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"a split-KV decode kernel under CUDA graph capture needs "
+                f"{n} merge tickets set up before the capture "
+                f"(private_tickets)")
+        t = _TICKETS[key] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                        device=device)
+    return t
+
+
+def split_scratch(device, stream: int, pairs: int, splits: int,
+                  floats_per_split: int):
+    """(workspace, tickets) of a split-KV decode launch over ``pairs``
+    (sequence, kv head) pairs, or (None, None) for one split: an fp32
+    workspace of ``floats_per_split`` per split of every pair (each
+    split's (acc, m, l) partial) from the caching allocator, and the
+    stream's tickets (:func:`tickets`)."""
+    if splits == 1:
+        return None, None
+    ws = torch.empty(pairs * splits * floats_per_split, dtype=torch.float32,
+                     device=device)
+    return ws, tickets(device, stream, pairs)
+
+
+@contextlib.contextmanager
+def private_tickets(device, stream: int, n: int):
+    """Merge tickets owned by one CUDA graph: a zeroed array of at least
+    ``n`` allocated now, before the graph is captured on ``stream``, and
+    handed to every launch captured there; yields it (the graph keeps it
+    alive). Its kernels reset each ticket they use, so every replay finds
+    them zero; no eager call on another stream shares the array."""
+    key = (_index(device), stream)
+    prev = _TICKETS.get(key)
+    t = _TICKETS[key] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                    device=device)
+    try:
+        yield t
+    finally:
+        if prev is None:
+            _TICKETS.pop(key, None)
+        else:
+            _TICKETS[key] = prev

@@ -20,6 +20,15 @@ scale on the scores before the softcap, v scale on p before PV).
 runs the plain twin, a CUDA tensor launches the kernel or raises. There is
 no other switch and no fallback. Each wrapper counts its own kernel's
 launches (``.launches``).
+
+The kernel splits each sequence's cache rows over S CTAs
+(:func:`plan_splits`, from shapes and the SM count only, so a call never
+waits for the card and a CUDA graph can capture it) and merges the
+splits' partials in the same launch: the wrapper hands it a workspace from
+the caching allocator and the stream's merge tickets
+(``_cuda.tickets``; a captured graph's own, ``_cuda.private_tickets``).
+At G >= TENSOR_CORE_MIN_G the G query heads of a kv head run on the tensor
+cores (mma.sync), below it on the CUDA-core lanes.
 """
 from __future__ import annotations
 
@@ -35,6 +44,62 @@ _LIB_NAME = "decode_attention"
 # the instantiated shapes: head sizes and query heads per kv head
 HEAD_DIMS = (64, 112, 128)
 GROUPS = (1, 2, 4, 8, 16)
+
+# The split-KV plan (kept equal to the constants of the CUDA source): aim at
+# CTAS_PER_SM CTAs on every SM, splits of whole SPLIT_UNIT-row units of the
+# cache, at most MAX_SPLITS splits of one (sequence, kv head) (half as many
+# at G = 16, whose merge keeps twice the (m, l) pairs a split). Once the
+# (sequence, kv head) pairs alone give every SM a CTA, the cache is not
+# split: a split then adds only the merge's chain (the last CTA's ticket
+# and its reads of the partials), which timed slower on an H100 at
+# zamba2's B = 8, Hkv = 32.
+CTAS_PER_SM = 2
+SPLIT_UNIT = 16
+MAX_SPLITS = 512
+# the least group size whose query heads run on the tensor cores
+TENSOR_CORE_MIN_G = 8
+
+
+def max_splits(G: int = 1) -> int:
+    """The most splits of one (sequence, kv head) the kernel holds at
+    group size G (``max_splits`` of the CUDA source)."""
+    return MAX_SPLITS // 2 if G > 8 else MAX_SPLITS
+
+
+def plan_splits(B: int, Hkv: int, S: int, sm_count: int, G: int = 1) -> int:
+    """The splits of each (sequence, kv head) of a cache of S rows, from
+    shapes alone (the wrapper never reads cache_len on the host): one where
+    the B·Hkv pairs already give every SM a CTA, else enough for
+    CTAS_PER_SM CTAs a SM, never more than the cache's SPLIT_UNIT-row units
+    (no split is empty of rows) or :func:`max_splits` at group size G."""
+    units = -(-S // SPLIT_UNIT)
+    if units <= 0 or B * Hkv >= sm_count:
+        return 1
+    want = -(-CTAS_PER_SM * sm_count // max(B * Hkv, 1))
+    return max(1, min(want, units, max_splits(G)))
+
+
+def split_ranges(S: int, splits: int):
+    """Cache rows [lo, hi) of each split, as the kernel cuts them: split j
+    takes the units [j·U // splits, (j+1)·U // splits), U = ceil(S / 16)."""
+    units = -(-S // SPLIT_UNIT)
+    return [(min(j * units // splits * SPLIT_UNIT, S),
+             min((j + 1) * units // splits * SPLIT_UNIT, S))
+            for j in range(splits)]
+
+
+def launch_geometry(B: int, Hkv: int, S: int, sm_count: int,
+                    G: int = 1) -> dict:
+    """The kernel's launch for these shapes: grid (x, y, z) = (splits, Hkv,
+    B), splits fastest; CTAs, threads a CTA, the most cache rows one split
+    walks, and which design runs (tensor cores or CUDA-core lanes)."""
+    splits = plan_splits(B, Hkv, S, sm_count, G)
+    return dict(grid=[splits, Hkv, B], ctas=B * Hkv * splits, threads=128,
+                splits=splits,
+                rows_per_split=max((hi - lo for lo, hi in
+                                    split_ranges(S, splits)), default=0),
+                design="mma.sync m16n8k16" if G >= TENSOR_CORE_MIN_G
+                else "cuda-core lanes")
 
 
 def decode_attention_plain(q, k_cache, v_cache, cache_len, *,
@@ -147,17 +212,23 @@ def _launch(entry, q, k_cache, v_cache, k_scale, v_scale, cache_len, *,
     _check_cuda_operands(q, k_cache, v_cache, cache_len, k_scale, v_scale)
     B, Hkv, G, hd = q.shape
     S = k_cache.shape[2]
+    dev = q.device
+    stream = _cuda.stream_ptr(dev)
+    splits = plan_splits(B, Hkv, S, _cuda.sm_count(dev), G)
     o = torch.empty_like(q)
-    l = torch.empty((B, Hkv, G), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, Hkv, G), dtype=torch.float32, device=dev)
     m = torch.empty_like(l)
+    ws, tickets = _cuda.split_scratch(dev, stream, B * Hkv, splits,
+                                      G * (hd + 2))
     scales = () if k_scale is None else (k_scale.data_ptr(),
                                          v_scale.data_ptr())
     err = _kernel_fn(entry)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *scales,
-        cache_len.data_ptr(), o.data_ptr(), l.data_ptr(), m.data_ptr(), B,
-        Hkv, G, hd, S, k_cache.stride(0), int(sliding_window),
-        int(attention_sinks), float(logit_softcap),
-        _cuda.stream_ptr(q.device))
+        cache_len.data_ptr(), o.data_ptr(), l.data_ptr(), m.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), B, Hkv, G, hd, S,
+        k_cache.stride(0), splits, int(sliding_window),
+        int(attention_sinks), float(logit_softcap), stream)
     _cuda.check(err, entry)
     if return_partials:
         return o, l, m
@@ -213,12 +284,22 @@ def _check_cuda_operands(q, k_cache, v_cache, cache_len, k_scale=None,
                          f"and group size in {GROUPS}; got hd={hd}, G={G}")
 
 
+def ctas_per_sm(int8: bool, head_dim: int, G: int) -> int:
+    """CTAs of the kernel for this cache dtype, head size and group size
+    that one SM of the current device holds at once (CUDA's occupancy of
+    the instantiation); builds the library on first use."""
+    fn = _cuda.load(_LIB_NAME).decode_attention_ctas_per_sm
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(int(int8), head_dim, G)
+
+
 def _kernel_fn(entry: str):
     fn = getattr(_cuda.load(_LIB_NAME), entry)
     if fn.argtypes is None:
-        n_ptr = 9 if entry.endswith("int8") else 7
+        n_ptr = 11 if entry.endswith("int8") else 9
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + \
-            [ctypes.c_longlong] + [ctypes.c_int] * 2 + \
+            [ctypes.c_longlong] + [ctypes.c_int] * 3 + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn

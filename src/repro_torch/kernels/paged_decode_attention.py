@@ -13,7 +13,7 @@ The kernel splits each sequence's table over S CTAs (:func:`plan_splits`,
 from shapes and the SM count only, so a call never waits for the card) and
 merges the splits' partials in the same launch: the wrapper hands it a
 workspace from the caching allocator and the stream's merge tickets (a
-captured CUDA graph's own, :func:`private_tickets`).
+captured CUDA graph's own, ``_cuda.private_tickets``).
 
 :func:`paged_decode_attention` dispatches on the device of ``q``: a CPU
 tensor runs the plain twin, a CUDA tensor launches the kernel or raises.
@@ -22,7 +22,6 @@ kernel's launches (``.launches``).
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import math
 
@@ -298,17 +297,12 @@ def _launch(entry, q, k_pool, v_pool, k_scale, v_scale, block_tables,
     nb = block_tables.shape[1]
     dev = q.device
     stream = _cuda.stream_ptr(dev)
-    splits = plan_splits(B, Hkv, nb, _sm_count(dev), G)
+    splits = plan_splits(B, Hkv, nb, _cuda.sm_count(dev), G)
     o = torch.empty_like(q)
     l = torch.empty((B, Hkv, G), dtype=torch.float32, device=dev)
     m = torch.empty_like(l)
-    ws = tickets = None
-    if splits > 1:
-        # each split's fp32 (acc, m, l) partial; the tickets stay 0 between
-        # calls (the merging CTA resets its own)
-        ws = torch.empty(B * Hkv * splits * G * (hd + 2), dtype=torch.float32,
-                         device=dev)
-        tickets = _tickets(dev, stream, B * Hkv)
+    ws, tickets = _cuda.split_scratch(dev, stream, B * Hkv, splits,
+                                      G * (hd + 2))
     fn = _kernel_fn(entry)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              None if k_scale is None else k_scale.data_ptr(),
@@ -324,58 +318,6 @@ def _launch(entry, q, k_pool, v_pool, k_scale, v_scale, block_tables,
     if return_partials:
         return o, l, m
     return o
-
-
-_SM_COUNT = {}     # device index -> SM count
-_TICKETS = {}      # (device index, stream) -> int32 tickets, all 0
-
-
-def _sm_count(device) -> int:
-    index = torch.cuda.current_device() if device.index is None \
-        else device.index
-    n = _SM_COUNT.get(index)
-    if n is None:
-        n = _SM_COUNT[index] = \
-            torch.cuda.get_device_properties(index).multi_processor_count
-    return n
-
-
-def _tickets(device, stream: int, n: int) -> torch.Tensor:
-    """The merge tickets of (device, stream), one per (sequence, kv head),
-    allocated zeroed once and grown when a call needs more. Launches on one
-    stream run in order, so they share the array; another stream gets its
-    own. A stream being captured into a CUDA graph must have its tickets
-    set up before the capture (:func:`private_tickets`)."""
-    key = (device.index, stream)
-    t = _TICKETS.get(key)
-    if t is None or t.numel() < n:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                f"paged decode under CUDA graph capture needs {n} merge "
-                f"tickets set up before the capture (private_tickets)")
-        t = _TICKETS[key] = torch.zeros(max(n, 256), dtype=torch.int32,
-                                        device=device)
-    return t
-
-
-@contextlib.contextmanager
-def private_tickets(device, stream: int, n: int):
-    """Merge tickets owned by one CUDA graph: a zeroed array of at least
-    ``n`` allocated now, before the graph is captured on ``stream``, and
-    handed to every launch captured there; yields it (the graph keeps it
-    alive). Its kernels reset each ticket they use, so every replay finds
-    them zero; no eager call on another stream shares the array."""
-    key = (device.index, stream)
-    prev = _TICKETS.get(key)
-    t = _TICKETS[key] = torch.zeros(max(n, 256), dtype=torch.int32,
-                                    device=device)
-    try:
-        yield t
-    finally:
-        if prev is None:
-            _TICKETS.pop(key, None)
-        else:
-            _TICKETS[key] = prev
 
 
 def _kernel_fn(entry: str):

@@ -53,9 +53,9 @@ Outputs are valid until the next call.
 
 Launch counters: the kernel wrappers count in Python, which a replay does
 not run, so each graph records the launches counted while it was captured
-(:class:`LaunchDeltas`) and every replay adds them. The paged decode
-kernel's merge tickets of a captured graph are its own array, allocated
-before the capture (``paged_decode_attention.private_tickets``).
+(:class:`LaunchDeltas`) and every replay adds them. The split-KV decode
+kernels' merge tickets of a captured graph are its own array, allocated
+before the capture (``kernels._cuda.private_tickets``).
 """
 from __future__ import annotations
 
@@ -68,6 +68,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import _cuda
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import paged_decode_attention as _pda
 from repro_torch.kernels import paged_prefill_attention as _ppa
@@ -86,7 +87,7 @@ PAD_TOKEN = 0            # the token id of pad rows
 COUNTED = (_pda.paged_decode_attention, _pda.paged_decode_attention_int8,
            _ppa.paged_prefill_chunk_attention,
            _ppa.paged_prefill_chunk_attention_int8, _da.decode_attention,
-           _ssm.ssm_scan, _rwkv.rwkv6_scan)
+           _da.decode_attention_int8, _ssm.ssm_scan, _rwkv.rwkv6_scan)
 
 
 def _pow2_at_least(n: int, floor: int) -> int:
@@ -283,7 +284,7 @@ class GraphCache:
         entry.graph = torch.cuda.CUDAGraph()
         side = self._stream
         side.wait_stream(torch.cuda.current_stream(self.device))
-        own = _pda.private_tickets(self.device, side.cuda_stream, tickets) \
+        own = _cuda.private_tickets(self.device, side.cuda_stream, tickets) \
             if tickets else contextlib.nullcontext()
         with torch.cuda.stream(side), own as ticket_array, \
                 entry.launches.record():

@@ -160,7 +160,7 @@ def test_decode_extra_args_host_side_matches_reference(llama, partition,
 
 def test_replay_launch_accounting_adds_what_an_eager_step_adds():
     fn, fn8 = pda.paged_decode_attention, pda.paged_decode_attention_int8
-    assert fn in COUNTED and fn8 in COUNTED and len(set(COUNTED)) == 7
+    assert fn in COUNTED and fn8 in COUNTED and len(set(COUNTED)) == 8
 
     def step():        # stands in for a 3-layer step, 2 workers a layer
         fn8.launches += 3 * 2

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import _cuda
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import paged_prefill_attention as ppa
@@ -152,7 +153,7 @@ def test_cuda_split_decode_matches_plain(cuda, int8, G, hd, bs, nb, sw,
             kw.update(k_scale=ks[sl], v_scale=vs[sl])
     args = (_bf16(q, cuda), kpool, vpool, torch.from_numpy(bt).to(cuda),
             torch.from_numpy(lens).to(cuda))
-    geo = pda.launch_geometry(4, kpool.shape[0], nb, pda._sm_count(cuda))
+    geo = pda.launch_geometry(4, kpool.shape[0], nb, _cuda.sm_count(cuda))
     assert geo["splits"] > 1
     want = pda.paged_decode_attention_plain(*args, **kw)
     for _ in range(2):      # a second call: the merge tickets were reset
@@ -475,6 +476,133 @@ def test_cuda_dense_decode_widened_and_int8_match_plain(cuda, int8, G, hd,
     for a, b, tol in zip(got, want, (8e-3, 1e-3, 1e-3)):
         torch.testing.assert_close(a.float(), b[:, sl].float(), rtol=tol,
                                    atol=1e-3)
+
+
+# The dense kernel's split-KV grid (grid (splits, Hkv, B), the last CTA of
+# each (b, h) merging the partials): one split, the most splits (one
+# 16-row unit each), the G = 16 cap of 256 splits and G = 8's 512, windows
+# that mask whole splits, NaN values and NaN scales past every cache_len.
+def _dense_inputs(cuda, seed, B, Hkv, G, hd, S, lens, int8):
+    from repro_torch.models.kv_quant import quantize_kv
+
+    rng = np.random.default_rng(seed)
+    kc = torch.from_numpy(rng.standard_normal((B, Hkv, S, hd))).to(cuda)
+    vc = torch.from_numpy(rng.standard_normal((B, Hkv, S, hd))).to(cuda)
+    cl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    stale = torch.arange(S, device=cuda)[None] >= cl[:, None]
+    stale = stale[:, None].expand(B, Hkv, S)
+    scales = {}
+    if int8:
+        kc, ks = quantize_kv(kc.float())
+        vc, vs = quantize_kv(vc.float())
+        ks[stale] = float("nan")
+        vs[stale] = float("nan")
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        kc, vc = kc.bfloat16(), vc.bfloat16()
+        kc[stale] = float("nan")
+        vc[stale] = float("nan")
+    q = _bf16(rng.standard_normal((B, Hkv, G, hd)), cuda)
+    return q, kc, vc, cl, scales
+
+
+DENSE_SPLIT_CASES = [  # G, hd, B, Hkv, S, lens, window, sinks, cap, splits
+    (16, 128, 2, 1, 300, [300, 137], 0, 0, 0.0, "one"),
+    (16, 128, 2, 1, 300, [300, 137], 0, 0, 0.0, "most"),
+    (16, 64, 1, 1, 4200, [4111], 0, 0, 0.0, "plan"),      # the G = 16 cap
+    (8, 112, 1, 1, 8200, [8200], 0, 0, 30.0, "plan"),     # 2 CTAs a SM
+    (4, 128, 3, 2, 1000, [1000, 0, 613], 100, 4, 0.0, "plan"),
+    (1, 64, 3, 2, 500, [500, 333, 1], 64, 0, 30.0, "most"),
+    (2, 112, 2, 2, 777, [777, 20], 0, 0, 50.0, "one"),
+    (16, 112, 2, 2, 2000, [2000, 1500], 300, 3, 0.0, "plan")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("G,hd,B,Hkv,S,lens,sw,sinks,cap,splits",
+                         DENSE_SPLIT_CASES)
+def test_cuda_dense_split_decode_matches_plain(cuda, monkeypatch, int8, G, hd,
+                                               B, Hkv, S, lens, sw, sinks,
+                                               cap, splits):
+    q, kc, vc, cl, scales = _dense_inputs(cuda, S + G + hd, B, Hkv, G, hd, S,
+                                          lens, int8)
+    units = -(-S // da.SPLIT_UNIT)
+    if splits != "plan":
+        monkeypatch.setattr(da, "plan_splits", lambda *a, **k:
+                            1 if splits == "one" else units)
+    n_splits = da.plan_splits(B, Hkv, S, _cuda.sm_count(cuda), G)
+    if (G, S) == (16, 4200):
+        assert n_splits == da.max_splits(16) == 256
+    if (G, S) == (8, 8200):
+        assert n_splits == da.CTAS_PER_SM * _cuda.sm_count(cuda)
+    kw = dict(sliding_window=sw, attention_sinks=sinks, logit_softcap=cap,
+              **scales)
+    counter = da.decode_attention_int8 if int8 else da.decode_attention
+    other = da.decode_attention if int8 else da.decode_attention_int8
+    n, n_other = counter.launches, other.launches
+    got = da.decode_attention(q, kc, vc, cl, return_partials=True, **kw)
+    o = da.decode_attention(q, kc, vc, cl, **kw)
+    assert counter.launches == n + 2 and other.launches == n_other
+    want = da.decode_attention_plain(q, kc, vc, cl, return_partials=True,
+                                     **kw)
+    assert bool(torch.isfinite(got[0]).all())
+    torch.testing.assert_close(o.float(), want[0].float(), rtol=8e-3,
+                               atol=1e-3)
+    for a, b, tol in zip(got, want, (8e-3, 1e-3, 1e-3)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("hd,G", [(64, 16), (112, 8), (128, 4), (128, 16)])
+def test_cuda_dense_split_decode_reads_a_head_slice(cuda, int8, hd, G):
+    """attend's head partition hands each worker a strided slice of the
+    kv heads (sequences stride(0) apart); the split kernel reads it in
+    place and equals the twin on the full cache's heads."""
+    B, Hkv, S = 3, 4, 700
+    q, kc, vc, cl, scales = _dense_inputs(cuda, hd + G, B, Hkv, G, hd, S,
+                                          [700, 401, 0], int8)
+    want = da.decode_attention_plain(q, kc, vc, cl, return_partials=True,
+                                     **scales)
+    sl = slice(2, 4)
+    part = {k: v[:, sl] for k, v in scales.items()}
+    assert not kc[:, sl].is_contiguous()
+    got = da.decode_attention(q[:, sl].contiguous(), kc[:, sl], vc[:, sl],
+                              cl, return_partials=True, **part)
+    assert da.plan_splits(B, 2, S, _cuda.sm_count(cuda), G) > 1
+    for a, b, tol in zip(got, want, (8e-3, 1e-3, 1e-3)):
+        torch.testing.assert_close(a.float(), b[:, sl].float(), rtol=tol,
+                                   atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8,G,hd", [(False, 16, 128), (True, 16, 128),
+                                       (False, 4, 64), (True, 8, 112)])
+def test_cuda_dense_decode_graph_replay_equals_eager(cuda, int8, G, hd):
+    """A CUDA graph of the split kernel, captured with tickets of its own,
+    replays bit for bit equal to the eager call (the last CTA merges the
+    splits in split order, whichever CTA it is), twice in a row, and leaves
+    its tickets at 0."""
+    B, Hkv, S = 4, 2, 3000
+    q, kc, vc, cl, scales = _dense_inputs(cuda, 7 + G, B, Hkv, G, hd, S,
+                                          [3000, 1234, 5, 0], int8)
+    kw = dict(return_partials=True, **scales)
+    assert da.plan_splits(B, Hkv, S, _cuda.sm_count(cuda), G) > 1
+    eager = [t.clone() for t in da.decode_attention(q, kc, vc, cl, **kw)]
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    graph = torch.cuda.CUDAGraph()
+    with _cuda.private_tickets(cuda, side.cuda_stream, B * Hkv) as tickets:
+        with torch.cuda.graph(graph, stream=side):
+            out = da.decode_attention(q, kc, vc, cl, **kw)
+    for _ in range(2):
+        for t in out:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, eager):
+            assert torch.equal(a, b)
+    assert int(tickets.abs().sum()) == 0
 
 
 def _scan_close(got, want):
