@@ -16,8 +16,9 @@ Phases (any failure exits non-zero and prints no result line):
      call (kernel and SDPA) and the launch grid; ptxas' registers and
      spill of every instantiation are logged with the build; then the
      widened shapes: glm4-9b's G = 16 (main context and 16K), G = 16 at
-     hd = 64, kimi-k2's hd = 112 (G = 8 and 4), G = 16 at hd = 112 with
-     window + sinks + softcap, POS_PAD at G = 16;
+     hd = 64, kimi-k2's hd = 112 (G = 8 and 4), qwen3-moe's Hkv = 4 at
+     G = 8, G = 16 at hd = 112 with window + sinks + softcap, POS_PAD at
+     G = 16;
   3. paged chunk-prefill kernels vs their plain twin, bf16 and int8 (C=512
      at P=0 and P=1536, C=300 at P=1024, a gemma2-shaped masked case),
      with NaN values (bf16) or NaN scales (int8) in the pool blocks the
@@ -151,8 +152,39 @@ Phases (any failure exits non-zero and prints no result line):
  16. greedy speculative decoding: llama3-8b at full width and 4 layers as
      the target, its first layer as the draft: the tokens equal plain
      greedy decoding up to a bf16 near-tie; ``SpecStats``;
- 17. one JSON line describing every ported kernel, then the result line.
-     A failed gate of phases 4, 5, 10, 11 and 13-16 is reported where it
+ 17. the moe family through LLMEngine (``moe_e2e``): qwen3-moe-30b-a3b at
+     full width and depth (48 layers, 128 experts top-8, 32 / 4 heads:
+     G = 8; random bf16 weights from seed 0, capacity factor 1.25), 8
+     requests of 128-2048 prompt tokens (lengths the routing groups
+     divide) and 32 greedy tokens: (a) homogeneous bf16, (b) moe_offload
+     with attention head × 2 and experts on 2 workers over an int8 pool.
+     Prompts run one-shot (no chunk launch, ``prefill_chunks_run == 0``);
+     decode launches per step; (b)'s streams equal (a)'s up to a bf16
+     near-tie; (b)'s attention wire log = the §3.1 formula and its expert
+     wire log = ``transfer_bytes_moe`` per decode token; at a B=8 state a
+     replayed MoE decode step = its eager step bit for bit
+     (``compiled_gates``) and every MoE layer's output on the card vs the
+     CPU at cosine >= 0.999; the one-shot program at 200 and 1536 tokens
+     (eager, no graph) = the unpadded eager prefill bit for bit; a
+     profiled decode window (device busy against the expert weights' byte
+     floor); the dense-cache ``prefill`` -> 2 ``decode_step`` s over a
+     bf16 and an int8 cache (row 5 launches L a step; logits vs the plain
+     twin's step at cosine >= 0.999); how often a moe prompt length
+     recurs in the traces (host arithmetic). (c) kimi-k2 at
+     full width (d 7168, 384 experts, 64 / 8 heads, hd = 112) and 1 of 61
+     layers, homogeneous bf16, 4 requests of 16 tokens: launches, finished
+     streams;
+ 18. gemma2-27b at full width and depth (46 layers; local window 4096 /
+     global layers, softcaps, post-norms, tied embeddings) through
+     LLMEngine with chunked prefill, 8 requests of 300-2000 tokens and one
+     of 6144, 32 new: (a) homogeneous bf16, then, on its warmed engine at
+     a decode state of the 6144-token request, the decode and chunk
+     attention over the real pool against their plain twins for a local
+     and a global layer (the window bites); (b) attention_pool head × 2
+     over an int8 pool: launches, the TransferLog, (b)'s streams against
+     (a)'s up to a bf16 near-tie;
+ 19. one JSON line describing every ported kernel, then the result line.
+     A failed gate of phases 4, 5, 10, 11 and 13-18 is reported where it
      happens and fails the run after the last phase. No two full-width
      models are alive at once.
 
@@ -1654,6 +1686,16 @@ def stream_divergences(reqs, ref_tokens, tops):
     return out
 
 
+def stream_gate(what, reqs, ref_tokens, tops):
+    """Greedy streams against ``ref_tokens``: every request that leaves
+    them does so at a bf16 near-tie of this run's logits."""
+    diverged = stream_divergences(reqs, ref_tokens, tops)
+    gate(all(d["reference_token_gap_bf16_ulps"] <= NEAR_TIE_ULPS
+             for d in diverged), f"{what}: greedy streams leave the "
+         f"reference's away from a bf16 near-tie: {diverged}")
+    return dict(streams_equal=len(reqs) - len(diverged), diverged=diverged)
+
+
 def engine_graphs(eng):
     """Graphs captured and replayed per compiled program of one engine."""
     progs = dict(eng.compiled_prefill.programs(), decode=eng.compiled)
@@ -2595,14 +2637,10 @@ def glm4_e2e(torch, np, registry, transformer, counters):
     eng, reqs, launches, summ = engine_run(torch, cfg, params, econf,
                                            prompts, counters, tops=tops)
     launch_gate(launches, eng, L, 4, False, "glm4-9b (c) block x4 bf16")
-    diverged = stream_divergences(reqs, ref_tokens, tops)
-    gate(all(d["reference_token_gap_bf16_ulps"] <= NEAR_TIE_ULPS
-             for d in diverged), f"glm4-9b (c): greedy streams leave (a)'s "
-         f"away from a bf16 near-tie: {diverged}")
+    streams = stream_gate("glm4-9b (c) vs (a)", reqs, ref_tokens, tops)
     tlog = transfer_log_check(cfg, eng, prompts, "bf16")
     gate(tlog["ok"], f"glm4-9b (c): TransferLog {tlog} != the §3.1 formulas")
-    summ.update(streams_equal=len(reqs) - len(diverged), diverged=diverged,
-                transfer_log=tlog, kv_shards=eng.kv.n_shards,
+    summ.update(**streams, transfer_log=tlog, kv_shards=eng.kv.n_shards,
                 per_worker_kv_bytes=eng.pool.per_worker_kv_bytes)
     out["c_block4_bf16"] = summ
     log(f"glm4-9b (c) attention_pool block x4 bf16: {json.dumps(summ)}")
@@ -3025,6 +3063,451 @@ def speculative_e2e(torch, np, registry, transformer):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# phases 17-18: the moe family (qwen3-moe, kimi-k2) and gemma2-27b
+# ---------------------------------------------------------------------------
+# qwen3's prompt lengths: at most 256 or multiples of 256, the lengths whose
+# routing groups divide them (moe_forward refuses the rest, as the
+# reference asserts)
+MOE_PROMPT_LENGTHS = (128, 200, 256, 512, 768, 1024, 1536, 2048)
+
+
+def moe_transfer_check(cfg, eng):
+    """The moe_offload engine's two wire logs after a run without chunks:
+    the attention pool's against the §3.1 formula
+    (``expected_transfer_bytes`` of the decode tokens, 2·L transfers a
+    step) and the expert pool's against ``transfer_bytes_moe`` of the
+    decode tokens (2·L transfers a step)."""
+    from repro_torch.serving import (expected_transfer_bytes,
+                                     transfer_bytes_moe)
+
+    st = eng.stats
+    tokens, L = st.tokens_generated, cfg.num_layers
+    alog, elog = eng.transfer_log, eng.expert_pool.log
+    got = dict(attention_bytes=alog.total,
+               attention_transfers=alog.transfers,
+               expert_bytes=elog.total, expert_transfers=elog.transfers)
+    want = dict(attention_bytes=expected_transfer_bytes(cfg, tokens),
+                attention_transfers=2 * L * st.steps,
+                expert_bytes=transfer_bytes_moe(cfg, tokens),
+                expert_transfers=2 * L * st.steps)
+    return dict(got, decode_tokens=tokens, ok=got == want)
+
+
+def eager_step(torch, pl, params, kv, ids, tokens):
+    """The placement's decode step run eagerly at the engine's state."""
+    import numpy as np
+
+    from repro_torch.serving.placement import device_operands
+
+    scales = {} if kv.k_scale is None else dict(k_scale_pool=kv.k_scale,
+                                                v_scale_pool=kv.v_scale)
+    tables, lens = kv.block_table_batch(ids)
+    extra = pl.decode_extra_args(kv, ids)
+    tk, tb, ln = device_operands([np.asarray(tokens, np.int32), tables,
+                                  lens], DEV)
+    return pl.decode_fn()(params, tk, kv.k_pool, kv.v_pool, tb, ln,
+                          *device_operands(extra, DEV), **scales)
+
+
+def moe_layers_vs_cpu(torch, cfg, params, step):
+    """Each MoE layer's output on the card against the CPU at one decode
+    state: ``step()`` runs one eager decode step with every
+    ``moe_forward`` call's input and output recorded; each layer's input
+    then runs through ``moe_forward`` on the CPU with that layer's
+    weights (bf16 both). Returns the cosine of every layer."""
+    from repro_torch.models import blocks, moe
+
+    seen = []
+    orig = blocks.moe_forward
+
+    def recorded(p, c, x, group_size=256):
+        y, aux = orig(p, c, x, group_size)
+        seen.append((x.cpu(), y.cpu()))
+        return y, aux
+
+    blocks.moe_forward = recorded
+    try:
+        step()
+    finally:
+        blocks.moe_forward = orig
+    if len(seen) != cfg.num_layers:
+        raise AssertionError(f"{len(seen)} MoE calls in a step of "
+                             f"{cfg.num_layers} layers")
+    cos = []
+    for i, (x, y) in enumerate(seen):
+        layer = {k: v[i].cpu() for k, v in params["layers"]["moe"].items()}
+        yc, _ = moe.moe_forward(layer, cfg, x)
+        cos.append(cosine(y, yc))
+    return cos
+
+
+def moe_prefill_gates(torch, cfg, params, kv, counters, lengths, seed=19):
+    """A fresh ``CompiledPrefill`` of a moe model: its one-shot program at
+    each length runs eagerly at the exact length (no pad row joins a
+    routing group) and captures no graph; three calls against the eager
+    unpadded prefill, bit for bit; no attention-kernel launch. Reports
+    the program's wall at each length: the prefill share of a moe
+    prompt's TTFT, whether or not its length was seen before."""
+    import numpy as np
+
+    from repro_torch.models import transformer
+    from repro_torch.serving.compiled import CompiledPrefill
+
+    comp = CompiledPrefill(cfg, params, kv, DEV, None)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for S in lengths:
+        toks = rng.integers(0, cfg.vocab_size, size=S).tolist()
+
+        def eager():
+            logits, cache = transformer.prefill(
+                params, cfg, {"tokens": [toks]}, max_seq=S, device=DEV)
+            return logits, cache["k"][:, 0], cache["v"][:, 0]
+
+        want = [t.clone() for t in eager()]
+        counters.reset()
+        got = [[t.clone() for t in comp.run_oneshot(toks)]
+               for _ in range(3)]
+        sync(torch)
+        launched = {k: n for k, n in counters.read().items() if n}
+        bitwise = all(torch.equal(g, w) for call in got
+                      for g, w in zip(call, want))
+        gate(bitwise and not launched and got[0][1].shape[2] == S,
+             f"moe one-shot S={S}: program vs unpadded eager bitwise "
+             f"{bitwise}, launches {launched}, K/V rows "
+             f"{got[0][1].shape[2]}")
+        out[f"S{S}"] = dict(bitwise=bitwise, program_ms=median_wall(
+            torch, lambda: comp.run_oneshot(toks), n=3))
+    out["graphs"] = compiled_stats(comp.oneshot)
+    gate(comp.oneshot.captures == 0,
+         f"moe one-shot: {comp.oneshot.captures} graphs captured")
+    del comp
+    return out
+
+
+def length_recurrence(window, n=1000, seed=0):
+    """How often a moe prompt's exact length recurs within the last
+    ``window`` distinct lengths (a graph cache of that many graphs, least
+    recently used out), over the prompts of each of the port's traces
+    (``data/traces.py``, seed ``seed``, ``n`` requests) that a moe model
+    takes: at most 256 tokens or a multiple of 256. Host arithmetic; at
+    the serve CLI's default length scale (0.02), 0.1 and the traces' own
+    (1.0). Returns {trace: {scale: [servable prompts, recurring share]}}."""
+    import collections
+
+    import numpy as np
+
+    from repro_torch.data import traces
+
+    out = {}
+    for name, spec in traces.TRACES.items():
+        out[name] = {}
+        for scale in (0.02, 0.1, 1.0):
+            lengths = traces._lognormal_lengths(
+                np.random.default_rng(seed),
+                max(spec.mean_prompt * scale, 2), n, lo=2)
+            seen, hits, kept = collections.OrderedDict(), 0, 0
+            for S in lengths.tolist():
+                if S > 256 and S % 256:
+                    continue
+                kept += 1
+                if S in seen:
+                    hits += 1
+                    seen.move_to_end(S)
+                    continue
+                seen[S] = None
+                if len(seen) > window:
+                    seen.popitem(last=False)
+            out[name][str(scale)] = [kept, hits / kept if kept else None]
+    return out
+
+
+def moe_dense_step(torch, np, transformer, cfg, params, counters, B=4,
+                   S=256):
+    """The MoE dense-cache serve step at the model's full depth:
+    ``prefill`` of B prompts of S tokens (B·S a multiple of the 256-token
+    routing group) into a dense cache, then two ``decode_step`` s with
+    ``apply_decode_updates`` between, over a bf16 and an int8 cache. The
+    counts are reset just before each cache's prefill and read after its
+    second step: the dense kernel (row 5) launches once a layer a step.
+    Each step's logits against the same step with the kernel's plain twin
+    in its place on the card, at row cosine >= MIN_COSINE."""
+    from repro_torch.kernels import decode_attention as da
+
+    L = cfg.num_layers
+    toks = np.random.default_rng(23).integers(0, cfg.vocab_size,
+                                              size=(B, S + 2)).tolist()
+    out = {}
+    for tag, c in (("bf16", cfg), ("int8", cfg.replace(kv_cache_bits=8))):
+        kernel = "decode_attention_int8" if tag == "int8" else \
+            "decode_attention"
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            counters.reset()
+            _, cache = transformer.prefill(
+                params, c, {"tokens": [t[:S] for t in toks]},
+                max_seq=S + 2, device=DEV)
+            lg1, upd = transformer.decode_step(
+                params, c, [t[S] for t in toks], cache, device=DEV)
+            cache2 = transformer.apply_decode_updates(cache, upd)
+            lg2, _ = transformer.decode_step(
+                params, c, [t[S + 1] for t in toks], cache2, device=DEV)
+            sync(torch)
+            launches = {k: n for k, n in counters.read().items() if n}
+            # the plain twin on the same caches: the step reads a cache
+            # only below its length, so the row step 1 wrote is masked
+            orig = da.decode_attention
+            da.decode_attention = da.decode_attention_plain
+            try:
+                pl1, _ = transformer.decode_step(
+                    params, c, [t[S] for t in toks], cache, device=DEV)
+                pl2, _ = transformer.decode_step(
+                    params, c, [t[S + 1] for t in toks], cache2, device=DEV)
+            finally:
+                da.decode_attention = orig
+        cos = [min(cosine(a[i], b[i]) for i in range(B))
+               for a, b in ((lg1, pl1), (lg2, pl2))]
+        finite = bool(torch.isfinite(lg1).all() and torch.isfinite(lg2).all())
+        res = dict(launches=launches, min_row_cosine_vs_plain=cos,
+                   same_argmax=bool((lg2.argmax(-1) == pl2.argmax(-1)).all()),
+                   finite=finite, wall_s=time.perf_counter() - t0)
+        gate(launches == {kernel: 2 * L}, f"qwen3-moe dense-cache {tag} "
+             f"step: launches {launches} != {{{kernel}: {2 * L}}}")
+        gate(finite and min(cos) >= MIN_COSINE, f"qwen3-moe dense-cache "
+             f"{tag} step vs its plain twin: cosine {cos}, finite {finite}")
+        out[tag] = res
+        log(f"qwen3-moe dense-cache {tag} step, {L} layers, B={B} S={S}: "
+            f"{json.dumps(res)}")
+        del cache, cache2, upd
+    return out
+
+
+def moe_e2e(torch, np, registry, transformer, counters):
+    """Phase 17: (a)-(b) qwen3-moe-30b-a3b at full width and depth (48
+    layers, 128 experts top-8, d 2048, 32 / 4 heads of 128: G = 8;
+    random bf16 weights from seed 0, capacity factor 1.25) through
+    LLMEngine with compiled graphs, 8 requests of 32 greedy tokens:
+    (a) homogeneous bf16, (b) moe_offload (attention head × 2, experts on
+    2 workers) over an int8 pool. Prompts run one-shot (no chunk). Then
+    (c) kimi-k2-1t-a32b at full width (d 7168, 384 experts, 64 heads over
+    8 kv heads, hd = 112) and 1 of 61 layers, homogeneous bf16, 4
+    requests of 16 tokens."""
+    from repro_torch.serving import EngineConfig, make_placement
+    from repro_torch.serving.compiled import MAX_GRAPHS
+
+    cfg, params = load_model(torch, registry, transformer,
+                             "qwen3-moe-30b-a3b")
+    L = cfg.num_layers
+    prng = np.random.default_rng(0)
+    plens = prng.choice(MOE_PROMPT_LENGTHS, size=8)
+    prompts = [prng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in plens]
+    base = EngineConfig(block_size=16, num_blocks=1280, max_batch=8,
+                        prefill_chunk_tokens=512)
+    moe = params["layers"]["moe"]
+    expert_bytes = sum(tree_bytes(moe[k]) for k in ("w_gate", "w_up",
+                                                    "w_down"))
+    out = {"prompt_lengths": plens.tolist(), "parameters": n_params(params),
+           "weight_bytes": tree_bytes(params), "expert_bytes": expert_bytes,
+           "expert_byte_floor_ms": expert_bytes / HBM_BYTES_PER_S * 1e3,
+           "weight_byte_floor_ms": tree_bytes(params) / HBM_BYTES_PER_S *
+           1e3, "capacity_factor": cfg.capacity_factor}
+    log(f"qwen3-moe: prompt lengths {plens.tolist()}; a decode step reads "
+        f"{expert_bytes / 1e9:.2f} GB of expert weights: "
+        f"{out['expert_byte_floor_ms']:.2f} ms at 3.35 TB/s (all weights "
+        f"{out['weight_byte_floor_ms']:.2f} ms)")
+
+    t0 = time.perf_counter()
+    tops_a = {}
+    eng, reqs, launches, summ = engine_run(torch, cfg, params, base, prompts,
+                                           counters, tops=tops_a)
+    launch_gate(launches, eng, L, 1, False, "qwen3-moe (a) homogeneous bf16")
+    gate(eng.stats.prefill_chunks_run == 0 and eng._chunk_tokens is None,
+         f"qwen3-moe (a): {eng.stats.prefill_chunks_run} chunks ran")
+    ref_tokens = [list(r.output) for r in reqs]
+    pl = make_placement(cfg, base, torch.device(DEV))
+
+    def at_state(wave):
+        ids = [r.rid for r in wave]
+        toks = [r.output[-1] for r in wave]
+        gates = compiled_gates(torch, pl, params, eng.kv, ids, toks,
+                               counters, "paged_decode_attention", L)
+        cos = moe_layers_vs_cpu(torch, cfg, params, lambda: eager_step(
+            torch, pl, params, eng.kv, ids, toks))
+        gate(min(cos) >= MIN_COSINE, f"qwen3-moe: a MoE layer on the card "
+             f"vs the CPU at cosine {min(cos)} < {MIN_COSINE}")
+        return dict(compiled_gates=gates, moe_layer_cosine_min=min(cos),
+                    moe_layer_cosine_mean=sum(cos) / len(cos))
+
+    prof, state = profile_decode(torch, eng, prompts, at_state=at_state)
+    summ.update(profile=prof, **state,
+                device_busy_over_expert_floor=prof["device_busy_ms"] /
+                out["expert_byte_floor_ms"],
+                prefill_gates=moe_prefill_gates(
+                    torch, cfg, params, eng.kv, counters, (200, 1536)))
+    summ["wall_s_phase"] = time.perf_counter() - t0
+    out["a_homogeneous_bf16"] = summ
+    log(f"qwen3-moe (a) homogeneous bf16: {json.dumps(summ)}")
+    del eng, reqs
+    release(torch)
+
+    t0 = time.perf_counter()
+    econf = base.replace(placement="moe_offload", partition="head",
+                         attention_workers=2, expert_workers=2,
+                         kv_dtype="int8")
+    tops_b = {}
+    eng, reqs, launches, summ = engine_run(torch, cfg, params, econf,
+                                           prompts, counters, tops=tops_b)
+    launch_gate(launches, eng, L, 2, True, "qwen3-moe (b) moe_offload int8")
+    gate(eng.stats.prefill_chunks_run == 0,
+         f"qwen3-moe (b): {eng.stats.prefill_chunks_run} chunks ran")
+    tlog = moe_transfer_check(cfg, eng)
+    gate(tlog["ok"], f"qwen3-moe (b): wire logs {tlog} != the §3.1 and "
+         f"transfer_bytes_moe formulas")
+    summ.update(transfer_logs=tlog,
+                per_worker_kv_bytes=eng.pool.per_worker_kv_bytes,
+                **stream_gate("qwen3-moe (b) vs (a)", reqs, ref_tokens,
+                              tops_b))
+    summ["wall_s_phase"] = time.perf_counter() - t0
+    out["b_moe_offload_head2_int8"] = summ
+    log(f"qwen3-moe (b) moe_offload head x2 int8: {json.dumps(summ)}")
+    del eng, reqs
+    release(torch)
+    out["dense_cache_step"] = moe_dense_step(torch, np, transformer, cfg,
+                                             params, counters)
+    out["length_recurrence"] = length_recurrence(MAX_GRAPHS)
+    log(f"moe prompt lengths recurring within {MAX_GRAPHS} graphs: "
+        f"{json.dumps(out['length_recurrence'])}")
+    del params, moe
+    release(torch)
+
+    t0 = time.perf_counter()
+    kcfg, kparams = load_model(torch, registry, transformer,
+                               "kimi-k2-1t-a32b", num_layers=1)
+    kprng = np.random.default_rng(1)
+    klens = kprng.choice(MOE_PROMPT_LENGTHS[:4], size=4)
+    kprompts = [kprng.integers(0, kcfg.vocab_size, size=int(n)).tolist()
+                for n in klens]
+    eng, reqs, launches, summ = engine_run(
+        torch, kcfg, kparams, EngineConfig(block_size=16, num_blocks=256,
+                                           max_batch=4), kprompts,
+        counters, new=16)
+    # the engine refuses to sample from non-finite logits: finished
+    # streams are finite ones
+    launch_gate(launches, eng, 1, 1, False, "kimi-k2 (c) 1 layer, hd 112")
+    summ.update(prompt_lengths=klens.tolist(), parameters=n_params(kparams),
+                head_dim=kcfg.resolved_head_dim,
+                wall_s_phase=time.perf_counter() - t0)
+    out["c_kimi_k2_1_layer"] = summ
+    log(f"kimi-k2, 1 of 61 layers, homogeneous bf16: {json.dumps(summ)}")
+    del eng, reqs, kparams
+    release(torch)
+    return out
+
+
+def gemma2_e2e(torch, np, registry, transformer, counters):
+    """Phase 18: gemma2-27b at full width and depth (46 layers, alternating
+    local (window 4096) and global layers, attention and final logit
+    softcaps, post-norms, tied embeddings; random bf16 weights from seed 0)
+    through LLMEngine with compiled graphs and chunked prefill, 8 requests
+    of 300-2000 prompt tokens and one of 6144, 32 new each: (a)
+    homogeneous bf16, (b) attention_pool head over 2 workers on an int8
+    pool. At one decode state of the 6144-token request on (a)'s warmed
+    engine, the decode and chunk attention over the real pool against
+    their plain twins for a local and a global layer."""
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.serving import EngineConfig, State
+
+    cfg, params = load_model(torch, registry, transformer, "gemma2-27b")
+    L, hd, sw = cfg.num_layers, cfg.resolved_head_dim, cfg.sliding_window
+    prng = np.random.default_rng(18)
+    plens = prng.integers(300, 2001, size=8).tolist() + [6144]
+    prompts = [prng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in plens]
+    base = EngineConfig(block_size=16, num_blocks=1280, max_batch=9,
+                        prefill_chunk_tokens=512)
+    out = {"prompt_lengths": plens, "parameters": n_params(params)}
+
+    t0 = time.perf_counter()
+    eng, reqs, launches, summ = engine_run(torch, cfg, params, base, prompts,
+                                           counters)
+    launch_gate(launches, eng, L, 1, False, "gemma2-27b (a) homogeneous bf16")
+    ref_tokens = [list(r.output) for r in reqs]
+    # the long request again on the warmed engine, paused after 4 tokens
+    req, = make_requests([prompts[-1]], 8)
+    eng.submit([req])
+    while len(req.output) < 4:
+        eng.step()
+    tables, lens = eng.kv.block_table_batch([req.rid])
+    tbl = torch.as_tensor(tables, device=DEV)
+    clen = torch.as_tensor(lens, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(18)
+    P, C = 320 * 16, 512                   # a chunk at [5120, 5632)
+    table = eng.kv.gather_prefix_indices(req.rid, P)
+    twins = {}
+    for layer in (0, 1):                   # local, then global
+        local = layer % 2 == 0
+        pools = (eng.kv.k_pool[layer], eng.kv.v_pool[layer])
+        q = torch.randn((1, cfg.num_kv_heads, cfg.gqa_group, hd),
+                        generator=gen, device=DEV).bfloat16()
+        # the kernel's window: the serving window less the incoming token
+        kw = dict(sliding_window=sw - 1 if local else 0,
+                  logit_softcap=cfg.attn_logit_softcap, return_partials=True)
+        o, l_, m = pda.paged_decode_attention(q, *pools, tbl, clen, **kw)
+        po, pl_, pm = pda.paged_decode_attention_plain(q, *pools, tbl, clen,
+                                                       **kw)
+        dec = check_close(f"gemma2 layer {layer} decode o", o, po)
+        check_close(f"gemma2 layer {layer} decode l", l_, pl_, rtol=1e-3,
+                    atol=1e-6)
+        check_close(f"gemma2 layer {layer} decode m", m, pm, rtol=0.0,
+                    atol=1e-3)
+        qc = torch.randn((C, cfg.num_heads, hd), generator=gen,
+                         device=DEV).bfloat16()
+        kc = torch.randn((C, cfg.num_kv_heads, hd), generator=gen,
+                         device=DEV).bfloat16()
+        vc = torch.randn_like(kc)
+        ckw = dict(sliding_window=sw if local else 0,
+                   logit_softcap=cfg.attn_logit_softcap)
+        got = ppa.paged_prefill_chunk_attention(qc, *pools, table, kc, vc,
+                                                **ckw)
+        want = ppa.paged_prefill_chunk_attention_plain(qc, *pools, table, kc,
+                                                       vc, **ckw)
+        twins[f"layer{layer}_{'local' if local else 'global'}"] = dict(
+            cache_len=int(lens[0]), decode_max_abs_err=dec,
+            chunk_P=P, chunk_max_abs_err=check_close(
+                f"gemma2 layer {layer} chunk", got, want))
+    eng.cancel_all()
+    summ.update(twins_at_6144=twins, wall_s_phase=time.perf_counter() - t0)
+    out["a_homogeneous_bf16"] = summ
+    log(f"gemma2-27b (a) homogeneous bf16: {json.dumps(summ)}")
+    del eng, reqs, req
+    release(torch)
+
+    t0 = time.perf_counter()
+    econf = base.replace(placement="attention_pool", partition="head",
+                         attention_workers=2, kv_dtype="int8")
+    tops = {}
+    eng, reqs, launches, summ = engine_run(torch, cfg, params, econf,
+                                           prompts, counters, tops=tops)
+    launch_gate(launches, eng, L, 2, True, "gemma2-27b (b) head x2 int8")
+    gate(all(r.state == State.FINISHED for r in reqs),
+         "gemma2-27b (b): a request did not finish")
+    tlog = transfer_log_check(cfg, eng, prompts, "int8")
+    gate(tlog["ok"], f"gemma2-27b (b): TransferLog {tlog} != the §3.1 "
+         f"formulas")
+    summ.update(transfer_log=tlog,
+                **stream_gate("gemma2-27b (b) vs (a)", reqs, ref_tokens,
+                              tops),
+                wall_s_phase=time.perf_counter() - t0)
+    out["b_head2_int8"] = summ
+    log(f"gemma2-27b (b) attention_pool head x2 int8: {json.dumps(summ)}")
+    del eng, reqs, params
+    release(torch)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3127,6 +3610,8 @@ def main() -> int:
                                               lens=lens)),
                 ("kimi-k2 B=8 Hkv=8 G=8 hd=112", dict(
                     B=8, Hkv=8, G=8, hd=112, lens=lens)),
+                ("qwen3-moe B=8 Hkv=4 G=8 hd=128", dict(
+                    B=8, Hkv=4, G=8, hd=128, lens=lens)),
                 ("G=4 hd=112 B=8 Hkv=8", dict(B=8, Hkv=8, G=4, hd=112,
                                               lens=lens, library=False)),
                 ("G=16 hd=112 window=8191 sinks=4 softcap=30", dict(
@@ -3343,6 +3828,15 @@ def main() -> int:
     # phase 16: speculative decoding
     spec = speculative_e2e(torch, np, registry, transformer)
     log(f"phases 13-16 done at {time.perf_counter() - t_start:.1f} s")
+    # phase 17: the moe family (qwen3-moe at full depth, kimi-k2 at 1 layer)
+    t0 = time.perf_counter()
+    moe = moe_e2e(torch, np, registry, transformer, counters)
+    log(f"moe phase done in {time.perf_counter() - t0:.1f} s")
+    # phase 18: gemma2-27b at full width and depth
+    t0 = time.perf_counter()
+    gemma2 = gemma2_e2e(torch, np, registry, transformer, counters)
+    log(f"gemma2-27b phase done in {time.perf_counter() - t0:.1f} s; "
+        f"phases 17-18 done at {time.perf_counter() - t_start:.1f} s")
 
     stats = {"paged_decode_attention": dec["bf16"],
              "paged_prefill_chunk_attention": pre[("bf16", 1536, 512)],
@@ -3372,7 +3866,8 @@ def main() -> int:
                                 "zamba2": zamba, "rwkv6": rwkv6,
                                 "card_vs_cpu": versus, "glm4_9b": glm4,
                                 "dense_cache": dense, "other_dense": others,
-                                "speculative": spec,
+                                "speculative": spec, "moe": moe,
+                                "gemma2_27b": gemma2,
                                 "widened_kernel_cases": {
                                     " / ".join(k): v
                                     for k, v in wide.items()}}}))

@@ -1,7 +1,6 @@
 """kimi-k2-1t-a32b — trillion-parameter MoE, 384 experts top-8 (paper-table
 scale entry) [arXiv:2501.kimi2]. Port of
-``repro/configs/kimi_k2_1t_a32b.py``: data only, the port does not serve
-family ``moe`` yet."""
+``repro/configs/kimi_k2_1t_a32b.py``."""
 from repro_torch.models.common import ModelConfig
 
 CONFIG = ModelConfig(

@@ -1,6 +1,5 @@
 """qwen3-moe-30b-a3b — MoE, 128 experts top-8 [hf:Qwen/Qwen3-30B-A3B].
-Port of ``repro/configs/qwen3_moe_30b_a3b.py``: data only, the port does
-not serve family ``moe`` yet."""
+Port of ``repro/configs/qwen3_moe_30b_a3b.py``."""
 from repro_torch.models.common import ModelConfig
 
 CONFIG = ModelConfig(

@@ -1,7 +1,7 @@
 """Architecture registry: ``arch`` id resolution, smoke variants, and
 per-arch input-shape applicability. Port of ``repro/configs/registry.py``
-(all 11 archs; the port serves the dense, vlm, ssm and hybrid families,
-and holds the moe and audio configs as data)."""
+(all 11 archs; the port serves the dense, vlm, moe, ssm and hybrid
+families, and holds the audio config as data)."""
 from __future__ import annotations
 
 import importlib

@@ -3,10 +3,10 @@ cluster, on a synthetic trace. Port of ``repro/launch/serve.py``: the same
 flags and summary lines, minus ``--backend`` (the port has no decode
 backend knob: the device decides) and plus ``--device`` (default
 ``cuda``; ``--device cpu`` runs the kernels' plain twins on the CPU).
-``--placement moe_offload`` is refused by ``EngineConfig`` (not ported).
-``--arch`` takes every arch of the registry of the dense and vlm
-families; a moe, audio, ssm or hybrid arch exits with the engine's family
-error.
+``--arch`` takes every arch of the registry of the dense, vlm and moe
+families (``--placement moe_offload`` with ``--expert-workers`` puts a moe
+model's experts on their own pool and prints its transfer line); an
+audio, ssm or hybrid arch exits with the engine's family error.
 
   repro-torch-serve --arch llama3-8b --smoke --placement attention_pool \
       --trace azure-conv --requests 16 --device cpu
@@ -134,7 +134,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                  None: args.placement}[args.engine]
     cfg = registry.get_smoke_config(args.arch) if args.smoke \
         else registry.get_config(args.arch)
-    try:     # the engine serves the dense and vlm archs of the registry
+    try:     # the engine serves the KV-cache archs of the registry
         transformer._check_family(cfg, f"serving --arch {args.arch}")
     except NotImplementedError as e:
         ap.error(str(e))
@@ -218,6 +218,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
               f"(q={log.q_bytes} kv={log.kv_bytes} out={log.out_bytes})")
         print(f"pool partition={args.partition} per_worker_kv_bytes="
               f"{eng.pool.per_worker_kv_bytes}")
+    if eng.expert_pool is not None:
+        elog = eng.expert_pool.log
+        print(f"expert pool transfers={elog.transfers} bytes={elog.total}")
 
 
 def _run_disagg(args, cfg, params, econf, reqs, injector) -> None:

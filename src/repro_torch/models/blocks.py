@@ -1,7 +1,8 @@
 """Transformer blocks. Port of ``repro/models/blocks.py`` for the dense
 family (llama / gemma2 / vlm stacks: pre-norm attention + SwiGLU FFN, with
-gemma2's post-norms), the RWKV6 block (rwkv6) and the Mamba2 block
-(zamba2's backbone). ``mode`` is "train" (full sequence, no cache),
+gemma2's post-norms; the moe family's blocks put ``models/moe.py`` in the
+FFN's place), the RWKV6 block (rwkv6) and the Mamba2 block (zamba2's
+backbone). ``mode`` is "train" (full sequence, no cache),
 "prefill" (full sequence, returns the cache or state) or "decode" (one
 token)."""
 from __future__ import annotations
@@ -16,16 +17,21 @@ from repro_torch.models.attention import (attention_decode_step,
                                           attention_forward, init_attention)
 from repro_torch.models.common import ModelConfig, rms_norm
 from repro_torch.models.ffn import ffn_forward, init_ffn
+from repro_torch.models.moe import init_moe, moe_forward
 
 
-def init_dense_block(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
+def init_dense_block(gen: torch.Generator, cfg: ModelConfig, device,
+                     use_moe: bool = False) -> Dict:
     zeros = dict(dtype=cfg.dtype, device=device)
     p = {
         "norm1": torch.zeros((cfg.d_model,), **zeros),
         "norm2": torch.zeros((cfg.d_model,), **zeros),
         "attn": init_attention(gen, cfg, device),
-        "ffn": init_ffn(gen, cfg, device),
     }
+    if use_moe:
+        p["moe"] = init_moe(gen, cfg, device)
+    else:
+        p["ffn"] = init_ffn(gen, cfg, device)
     if cfg.post_norms:
         p["norm_post_attn"] = torch.zeros((cfg.d_model,), **zeros)
         p["norm_post_ffn"] = torch.zeros((cfg.d_model,), **zeros)
@@ -35,6 +41,7 @@ def init_dense_block(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
 def dense_block(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
                 mode: str, positions: Optional[torch.Tensor] = None,
                 cache: Optional[Dict] = None, is_local: bool = False,
+                moe_group_size: int = 256,
                 prefix_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 paged_prefix: Optional[Tuple[torch.Tensor, torch.Tensor,
                                              torch.Tensor]] = None,
@@ -50,7 +57,9 @@ def dense_block(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     attending over ``paged_prefix`` (and its ``paged_prefix_scales``) when
     given (chunked prefill) or over the head-major ``prefix_kv`` (the
     suffix prefill; see ``attention_forward``); ``mode="train"``
-    returns no cache."""
+    returns no cache. A moe block's FFN is ``moe_forward`` over routing
+    groups of ``moe_group_size`` tokens; its aux loss serves training
+    (not ported) and is dropped."""
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
     new_cache: Dict = {}
     if mode == "decode":
@@ -81,7 +90,10 @@ def dense_block(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     x = x + attn
 
     h = rms_norm(x, params["norm2"], cfg.norm_eps)
-    f = ffn_forward(params["ffn"], h)
+    if "moe" in params:
+        f, _ = moe_forward(params["moe"], cfg, h, group_size=moe_group_size)
+    else:
+        f = ffn_forward(params["ffn"], h)
     if cfg.post_norms:
         f = rms_norm(f, params["norm_post_ffn"], cfg.norm_eps)
     return x + f, new_cache

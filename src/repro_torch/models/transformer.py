@@ -1,5 +1,5 @@
 """Model assembly: embedding -> layer stack -> head.
-Port of ``repro/models/transformer.py`` for the dense/vlm stacks, rwkv6
+Port of ``repro/models/transformer.py`` for the dense/vlm/moe stacks, rwkv6
 (family ``ssm``) and zamba2 (family ``hybrid``):
 
     init_params(seed, cfg, device=...)                      -> params
@@ -9,12 +9,12 @@ Port of ``repro/models/transformer.py`` for the dense/vlm stacks, rwkv6
     prefill(params, cfg, batch, max_seq, device=..., length=None)
                                                             -> (logits, cache)
     prefill_suffix(params, cfg, batch, k_prefix, v_prefix, device=...,
-                   length=None)                             (dense/vlm)
+                   length=None)                             (dense/vlm/moe)
     decode_step(params, cfg, tokens, cache, device=...)     -> (logits, updates)
     apply_decode_updates(cache, updates)                    -> cache
     prefill_chunk(params, cfg, batch, k_pool, v_pool, prefix_blocks, ...,
                   k_scale_pool=None, v_scale_pool=None, length=None)
-                                                            (dense/vlm)
+                                                            (dense/vlm/moe)
     decode_step_paged(params, cfg, tokens, k_pool, v_pool, block_tables,
                       cache_len, ..., k_scale_pool=None,
                       v_scale_pool=None)                    -> (logits, updates)
@@ -38,11 +38,18 @@ buffers of the engine's compiled prefill programs (``serving/compiled.py``):
 ``length`` is then a (B,) int device tensor of real rows, pad tokens sit
 after them (causal masking keeps them out of every real row's attention),
 the logits are the last real row's, picked by a device index, and the
-cache's ``len`` counts real rows. Without ``length`` nothing changes.
+cache's ``len`` counts real rows. Without ``length`` nothing changes. A
+moe model refuses padded operands: pad rows would join its routing groups
+and change the experts' capacity (``models/moe.py``), so its programs run
+at exact lengths. ``decode_step`` and ``decode_step_paged`` take the
+reference's ``moe_group_size``; the prefill entry points route in groups
+of 256 tokens, as the reference's do.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Tuple
+
+import functools
 
 import numpy as np
 import torch
@@ -52,9 +59,10 @@ from repro_torch.models import blocks, kv_quant, ssm
 from repro_torch.models.common import (ModelConfig, Params, dense_init,
                                        resolve_device, rms_norm, softcap)
 
-DENSE_FAMILIES = ("dense", "vlm")
+# the KV-cache stacks: the paged entry points and LLMEngine serve these
+DENSE_FAMILIES = ("dense", "vlm", "moe")
 # families the dense-cache entry points (forward, prefill, decode_step)
-# serve; the paged entry points and LLMEngine serve DENSE_FAMILIES only
+# serve
 SERVE_FAMILIES = DENSE_FAMILIES + ("ssm", "hybrid")
 
 
@@ -93,6 +101,14 @@ def _layer(layers, i: int):
 
 def _is_local(cfg: ModelConfig, i: int) -> bool:
     return cfg.local_global and i % 2 == 0
+
+
+def _check_unpadded(cfg: ModelConfig, length) -> None:
+    """A moe model refuses padded prefill operands (module docstring)."""
+    if length is not None and cfg.family == "moe":
+        raise ValueError("a moe model's prefill takes no padded operands: "
+                         "pad rows would join its routing groups and change "
+                         "the experts' capacity")
 
 
 def _int_tensor(x, device) -> torch.Tensor:
@@ -140,17 +156,22 @@ def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> Params:
                                            blocks.init_mamba_block)
         params["shared_attn"] = blocks.init_dense_block(gen, cfg, dev)
     else:
-        params["layers"] = _stacked_init(gen, cfg, dev, (cfg.num_layers,),
-                                         blocks.init_dense_block)
+        params["layers"] = _stacked_init(
+            gen, cfg, dev, (cfg.num_layers,),
+            functools.partial(blocks.init_dense_block,
+                              use_moe=cfg.family == "moe"))
     return params
 
 
 def _stacked_init(gen, cfg: ModelConfig, dev, lead: Tuple[int, ...],
                   init_fn) -> Dict:
     """Stack ``prod(lead)`` layers drawn by ``init_fn`` on the ``lead``
-    axes, drawing and copying one layer at a time."""
+    axes, drawing and copying one layer at a time (one layer is viewed
+    with its lead axes, not copied)."""
     n = int(np.prod(lead))
     blk = init_fn(gen, cfg, dev)
+    if n == 1:
+        return _tree_map(lambda a: a.view(*lead, *a.shape), blk)
     layers = _tree_map(lambda a: torch.empty((*lead, *a.shape),
                                              dtype=a.dtype, device=dev), blk)
     flat = _tree_map(lambda a: a.view(n, *a.shape[len(lead):]), layers)
@@ -261,13 +282,15 @@ def _pad_seq(kv: torch.Tensor, max_seq: int) -> torch.Tensor:
 # ===========================================================================
 # Layer stacks (full sequence: mode "train" or "prefill")
 # ===========================================================================
-def _dense_stack(params, cfg: ModelConfig, x, positions, *, mode: str):
+def _dense_stack(params, cfg: ModelConfig, x, positions, *, mode: str,
+                 moe_group_size: int = 256):
     """Returns (x, [per-layer {"k", "v"}] when prefilling)."""
     caches = []
     for i in range(cfg.num_layers):
         x, c = blocks.dense_block(_layer(params["layers"], i), cfg, x,
                                   mode=mode, positions=positions,
-                                  is_local=_is_local(cfg, i))
+                                  is_local=_is_local(cfg, i),
+                                  moe_group_size=moe_group_size)
         caches.append(c)
     return x, caches
 
@@ -312,7 +335,7 @@ def _zamba_stack(params, cfg: ModelConfig, x, positions, *, mode: str):
 def forward(params: Params, cfg: ModelConfig, batch: Dict, *,
             device="cuda") -> torch.Tensor:
     """Full-sequence logits (B, S, vocab). The reference also returns the
-    MoE router's aux loss, which these families do not have."""
+    MoE router's aux loss, which only training (not ported) reads."""
     _check_family(cfg, "forward", SERVE_FAMILIES)
     dev = resolve_device(device)
     x, positions, n_front = _embed(params, cfg, batch, dev)
@@ -398,6 +421,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict, max_seq: int, *,
     _check_family(cfg, "prefill", SERVE_FAMILIES)
     if length is not None:
         _check_family(cfg, "prefill of padded prompts")
+        _check_unpadded(cfg, length)
     dev = resolve_device(device)
     listed = _is_listed(params)
     x, positions, _ = _embed(params, cfg, batch, dev)
@@ -455,6 +479,7 @@ def prefill_suffix(params: Params, cfg: ModelConfig, batch: Dict,
         raise ValueError("prefix-cached prefill serves KV-cache dense "
                          f"stacks; got family={cfg.family}")
     _check_family(cfg, "prefix-cached prefill")
+    _check_unpadded(cfg, length)
     dev = resolve_device(device)
     P = k_prefix.shape[3]
     x, positions, _ = _embed(params, cfg, batch, dev)
@@ -491,6 +516,7 @@ def prefill_chunk(params: Params, cfg: ModelConfig, batch: Dict,
     a padded chunk (module docstring). P comes from the table's shape, the
     chunk kernel's host scalar."""
     _check_family(cfg, "chunked paged prefill")
+    _check_unpadded(cfg, length)
     dev = resolve_device(device)
     tokens = _int_tensor(batch["tokens"], dev)
     if tokens.shape[0] != 1:
@@ -522,7 +548,7 @@ def prefill_chunk(params: Params, cfg: ModelConfig, batch: Dict,
 def decode_step_paged(params: Params, cfg: ModelConfig, tokens,
                       k_pool: torch.Tensor, v_pool: torch.Tensor,
                       block_tables, cache_len, *, k_scale_pool=None,
-                      v_scale_pool=None,
+                      v_scale_pool=None, moe_group_size: int = 256,
                       device="cuda") -> Tuple[torch.Tensor, Dict]:
     """One decoding iteration straight over the paged KV block pool (the
     paged decode kernel on the card, no per-step dense gather).
@@ -551,7 +577,8 @@ def decode_step_paged(params: Params, cfg: ModelConfig, tokens,
             lc.update(k_scale=k_scale_pool[i], v_scale=v_scale_pool[i])
         x, c = blocks.dense_block(_layer(params["layers"], i), cfg, x,
                                   mode="decode", cache=lc,
-                                  is_local=_is_local(cfg, i))
+                                  is_local=_is_local(cfg, i),
+                                  moe_group_size=moe_group_size)
         ks.append(c["k_new"])
         vs.append(c["v_new"])
     updates = {"k_new": torch.stack(ks), "v_new": torch.stack(vs),
@@ -563,6 +590,7 @@ def decode_step_paged(params: Params, cfg: ModelConfig, tokens,
 # Decode step over a dense cache / recurrent state
 # ===========================================================================
 def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Dict, *,
+                moe_group_size: int = 256,
                 device="cuda") -> Tuple[torch.Tensor, Dict]:
     """One decoding iteration. tokens: (B,) int — the freshly sampled token.
 
@@ -638,7 +666,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Dict, *,
                           v_scale=cache["v_scale"][i])
             x, c = blocks.dense_block(
                 _layer(params["layers"], i), cfg, x, mode="decode",
-                cache=lc, is_local=_is_local(cfg, i))
+                cache=lc, is_local=_is_local(cfg, i),
+                moe_group_size=moe_group_size)
             caches.append(c)
         updates["k_new"] = _per_layer([c["k_new"] for c in caches], listed)
         updates["v_new"] = _per_layer([c["v_new"] for c in caches], listed)

@@ -32,8 +32,10 @@ from repro_torch.serving.scheduler import (ChunkedPrefillPolicy, FCFSPolicy,
                                            RequestScheduler, SchedulingPolicy,
                                            make_policy)
 from repro_torch.serving.stats import EngineStats
-from repro_torch.serving.worker_pool import (AttentionWorkerPool, TransferLog,
-                                             expected_transfer_bytes)
+from repro_torch.serving.worker_pool import (AttentionWorkerPool,
+                                             ExpertWorkerPool, TransferLog,
+                                             expected_transfer_bytes,
+                                             transfer_bytes_moe)
 
 __all__ = [
     "EngineConfig", "DisaggConfig", "EngineStats", "FaultEvent",
@@ -45,5 +47,6 @@ __all__ = [
     "request_generator", "request_seed", "sample_per_request",
     "ChunkedPrefillPolicy", "FCFSPolicy", "PreemptingPolicy", "PrefixIndex",
     "RequestScheduler", "SchedulingPolicy", "make_policy",
-    "AttentionWorkerPool", "TransferLog", "expected_transfer_bytes",
+    "AttentionWorkerPool", "ExpertWorkerPool", "TransferLog",
+    "expected_transfer_bytes", "transfer_bytes_moe",
 ]

@@ -22,7 +22,11 @@ way (cap: the blocks of one shard) with ``POS_PAD`` positions.
   later prompts reuse the graphs (the reference's argument,
   ``llm_engine.py:245``). Only a prompt's final, partial chunk is padded,
   to :func:`chunk_bucket`;
-* the one-shot prefill, keyed by :func:`prefill_bucket` of S;
+* the one-shot prefill, keyed by :func:`prefill_bucket` of S; a moe
+  model's runs eagerly and unpadded: pad rows would join its routing
+  groups and change the experts' capacity (``models/moe.py``), and a
+  graph per exact length pays off only where lengths recur, which the
+  traces' log-normal prompt lengths rarely do;
 * the suffix prefill, keyed by (P exact, suffix bucket), with the prefix
   gather (and int8 dequantization) inside the graph
   (``kvcache.gather_blocks``), as the reference fuses it.
@@ -384,7 +388,11 @@ class CompiledPrefill:
         return self.chunk.run((Cb, len(blocks)), ops, self._chunk)
 
     def run_oneshot(self, tokens: Sequence[int]):
-        """The one-shot prefill of ``tokens``."""
+        """The one-shot prefill of ``tokens`` (a moe model's eagerly, at
+        its exact length)."""
+        if self.cfg.family == "moe":
+            return self._oneshot(torch.as_tensor(tokens, dtype=torch.int32,
+                                                 device=self.device))
         Sb = prefill_bucket(len(tokens))
         ops = (pad_tokens(tokens, Sb), np.asarray([len(tokens)], np.int32))
         return self.oneshot.run((Sb,), ops, self._oneshot)
@@ -406,7 +414,7 @@ class CompiledPrefill:
             **self._scales())
         return logits, cache["k"][:, 0], cache["v"][:, 0]
 
-    def _oneshot(self, tokens, length):
+    def _oneshot(self, tokens, length=None):
         logits, cache = transformer.prefill(
             self._params, self.cfg, {"tokens": tokens[None]},
             max_seq=tokens.shape[0], device=self.device, length=length)

@@ -6,8 +6,7 @@ and ``DisaggConfig`` at ``:192``).
 The fields and validation are the reference's, minus ``decode_backend``:
 the port has no backend knob — the device of the KV pool decides whether
 the paged attention runs the CUDA kernels (a GPU pool) or their plain
-PyTorch twins (a CPU pool). The placement a later slice ports
-(``"moe_offload"``) is refused with a clear error.
+PyTorch twins (a CPU pool).
 """
 from __future__ import annotations
 
@@ -18,7 +17,6 @@ PLACEMENTS = ("homogeneous", "attention_pool", "moe_offload")
 PARTITIONS = ("head", "request", "block")
 SCHEDULERS = ("fcfs", "preempt")
 KV_DTYPES = ("bf16", "int8")
-PORTED_PLACEMENTS = ("homogeneous", "attention_pool")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,10 +67,6 @@ class EngineConfig:
         if self.placement not in PLACEMENTS:
             raise ValueError(f"placement must be one of {PLACEMENTS}; "
                              f"got {self.placement!r}")
-        if self.placement not in PORTED_PLACEMENTS:
-            raise NotImplementedError(
-                f"placement {self.placement!r} is not ported yet; the port "
-                f"serves {PORTED_PLACEMENTS}")
         if self.partition not in PARTITIONS:
             raise ValueError(f"partition must be one of {PARTITIONS}; "
                              f"got {self.partition!r}")

@@ -1,6 +1,7 @@
 """LLMEngine — the streaming serving facade.
-Port of ``repro/serving/llm_engine.py`` for the homogeneous and
-attention-pool placements, over bf16 or int8 pools.
+Port of ``repro/serving/llm_engine.py``: the homogeneous, attention-pool
+and moe-offload placements, over bf16 or int8 pools, for the dense, vlm
+and moe families.
 
 The request lifecycle is streaming: :meth:`LLMEngine.submit` returns a
 :class:`RequestHandle` per request whose iterator drives the engine and
@@ -23,6 +24,13 @@ suffix prefill by (prefix blocks, suffix bucket); the CPU runs them all
 eagerly on unpadded operands. A shared prompt prefix is skipped by
 one-shot prefill too: only the suffix runs (``transformer.prefill_suffix``
 over the prefix gathered from the pool).
+
+A moe model routes its tokens in capacity-limited groups, so a chunk
+boundary, a skipped prefix or pad rows would change which tokens its
+experts drop. As in the reference, its prompts run one-shot (the
+``prefill_chunk_tokens`` knob is accepted and runs no chunk) and a shared
+prefix shares pool memory but is recomputed; on the card its one-shot
+program is keyed by the exact prompt length (``serving/compiled.py``).
 
 Sampling honours ``SamplingParams.seed``: token ``i`` of a request is drawn
 from a generator seeded by (its seed, i) alone (``serving/sampler.py``).
@@ -151,8 +159,8 @@ class LLMEngine:
         always live."""
         if cfg.family not in transformer.DENSE_FAMILIES:
             raise NotImplementedError(
-                f"the port's engine serves {transformer.DENSE_FAMILIES} "
-                f"models so far; got family={cfg.family}")
+                f"the port's engine serves the KV-cache families "
+                f"{transformer.DENSE_FAMILIES}; got family={cfg.family}")
         econf = engine_config or EngineConfig()
         if overrides:
             econf = econf.replace(**overrides)
@@ -165,7 +173,10 @@ class LLMEngine:
                                kv_dtype=econf.kv_dtype, device=self.device)
         self.placement: PlacementStrategy = make_placement(cfg, econf,
                                                            self.device)
-        self._chunk_tokens = econf.prefill_chunk_tokens
+        # a chunk boundary changes MoE routing groups: moe prompts run
+        # one-shot (the knob is accepted and has no effect)
+        self._chunk_tokens = (econf.prefill_chunk_tokens
+                              if cfg.family != "moe" else None)
         self.policy = make_policy(econf.scheduler,
                                   prefill_chunk_tokens=self._chunk_tokens)
         self.sched = RequestScheduler(self.kv, econf.max_batch, self.policy,
@@ -188,8 +199,10 @@ class LLMEngine:
             self.compiled_prefill = CompiledPrefill(
                 cfg, params, self.kv, self.device, self._chunk_tokens,
                 pool=pool)
-        # suffix-only prefill is exact for every family the engine serves
-        # (the reference recomputes MoE prompts, which the port lacks)
+        # prefill compute is skipped only where the suffix-only prefill
+        # equals the full one: MoE capacity dispatch couples a routing
+        # group's tokens, so a moe model shares pool memory but recomputes
+        # the full prompt, writing only the unshared suffix
         self._skip_prefill_compute = cfg.family != "moe"
         # fault tolerance: the per-shard health machine (always live) plus
         # the optional injector; _recovering maps a shard-death victim to
@@ -252,6 +265,11 @@ class LLMEngine:
     def pool(self):
         """The attention worker pool (None for homogeneous placement)."""
         return self.placement.pool
+
+    @property
+    def expert_pool(self):
+        """The expert worker pool (moe_offload placement only)."""
+        return self.placement.expert_pool
 
     @property
     def transfer_log(self):

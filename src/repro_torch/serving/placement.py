@@ -1,8 +1,8 @@
 """Placement strategies — where each operator of the decode step runs.
 Port of ``repro/serving/placement.py`` (``PlacementStrategy``,
-``HomogeneousPlacement``, ``sliced_decode_step`` and
-``AttentionPoolPlacement``; the MoE-offload placement arrives with
-``models/moe.py``).
+``HomogeneousPlacement``, ``sliced_decode_step``,
+``AttentionPoolPlacement`` and ``MoEOffloadPlacement``, the paper's §7
+offload of the routed expert FFNs).
 
 Each strategy builds the one-iteration decode step over the paged pool
 (:meth:`PlacementStrategy.decode_fn`), supplies its per-iteration host
@@ -23,20 +23,25 @@ from repro_torch.models import transformer
 from repro_torch.models.attention import out_project, qkv_project
 from repro_torch.models.common import ModelConfig, resolve_device, rms_norm
 from repro_torch.models.ffn import ffn_forward
+from repro_torch.models.moe import moe_forward
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.kvcache import PagedKVCache
 from repro_torch.serving.worker_pool import (BYTES, AttentionWorkerPool,
-                                             TransferLog, request_splits)
+                                             ExpertWorkerPool, TransferLog,
+                                             request_splits)
 
 
 def sliced_decode_step(cfg: ModelConfig, pool: AttentionWorkerPool,
                        params, tokens, k_pool, v_pool, block_tables, lens,
                        shard_tables=None, shard_positions=None, *,
+                       expert_pool: Optional[ExpertWorkerPool] = None,
                        k_scale_pool=None, v_scale_pool=None,
                        device="cuda"):
     """One disaggregated decode iteration: model slice 0 (norm1 + QKV) on
     the model worker, attention on the worker pool (which reads the paged
-    pool in place), model slice 1 (o-proj + FFN) back on the model worker.
+    pool in place), model slice 1 (o-proj + FFN) back on the model worker;
+    with ``expert_pool`` (paper §7) a moe layer's routed expert FFNs run
+    on the expert workers instead.
 
     tokens (B,); k_pool/v_pool HEAD-MAJOR (L, Hkv, num_blocks, bs, hd);
     block_tables (B, nb); lens (B,) stored tokens; shard_tables /
@@ -73,7 +78,15 @@ def sliced_decode_step(cfg: ModelConfig, pool: AttentionWorkerPool,
         if cfg.post_norms:
             attn_out = rms_norm(attn_out, p["norm_post_attn"], cfg.norm_eps)
         x = x + attn_out
-        f = ffn_forward(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps))
+        h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+        if "moe" in p:
+            if expert_pool is not None:
+                # router on the model worker, routed FFNs on the experts
+                f = expert_pool.run_experts(p["moe"], h2)
+            else:
+                f, _ = moe_forward(p["moe"], cfg, h2)
+        else:
+            f = ffn_forward(p["ffn"], h2)
         if cfg.post_norms:
             f = rms_norm(f, p["norm_post_ffn"], cfg.norm_eps)
         x = x + f
@@ -116,6 +129,10 @@ class PlacementStrategy:
 
     @property
     def pool(self) -> Optional[AttentionWorkerPool]:
+        return None
+
+    @property
+    def expert_pool(self) -> Optional[ExpertWorkerPool]:
         return None
 
     @property
@@ -165,8 +182,8 @@ class AttentionPoolPlacement(PlacementStrategy):
             return sliced_decode_step(
                 cfg, pool, params, tokens, k_pool, v_pool, block_tables,
                 lens, shard_tables, shard_positions,
-                k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool,
-                device=device)
+                expert_pool=self.expert_pool, k_scale_pool=k_scale_pool,
+                v_scale_pool=v_scale_pool, device=device)
         return step
 
     def decode_extra_args(self, kv: PagedKVCache,
@@ -208,6 +225,27 @@ class AttentionPoolPlacement(PlacementStrategy):
         self._pool.log.transfers += cfg.num_layers
 
 
+class MoEOffloadPlacement(AttentionPoolPlacement):
+    """Paper §7: attention AND the routed expert FFNs on worker pools."""
+
+    name = "moe_offload"
+
+    def __init__(self, cfg: ModelConfig, econf: EngineConfig, device):
+        if cfg.family != "moe":
+            raise ValueError("moe_offload placement needs a MoE config; "
+                             f"got family={cfg.family}")
+        super().__init__(cfg, econf, device)
+        self._expert_pool = ExpertWorkerPool(cfg, econf.expert_workers)
+
+    @property
+    def expert_pool(self) -> ExpertWorkerPool:
+        return self._expert_pool
+
+    def log_step(self, batch: int) -> None:
+        super().log_step(batch)
+        self._expert_pool.log_iteration(batch)
+
+
 def device_operands(arrays: Sequence[np.ndarray], device) -> Tuple:
     """Host int32 operands as tensors on ``device`` — the eager step's
     inputs."""
@@ -216,7 +254,8 @@ def device_operands(arrays: Sequence[np.ndarray], device) -> Tuple:
 
 
 _PLACEMENTS = {"homogeneous": HomogeneousPlacement,
-               "attention_pool": AttentionPoolPlacement}
+               "attention_pool": AttentionPoolPlacement,
+               "moe_offload": MoEOffloadPlacement}
 
 
 def make_placement(cfg: ModelConfig, econf: EngineConfig,

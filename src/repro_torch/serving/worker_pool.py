@@ -1,8 +1,8 @@
 """Memory-device worker pool and wire-byte accounting (paper §4.2.2, §3.1).
 Port of ``repro/serving/worker_pool.py`` (``AttentionWorkerPool`` over the
 paged pool and over a dense cache, ``TransferLog``,
-``expected_transfer_bytes``; the MoE ``ExpertWorkerPool`` arrives with its
-slice).
+``expected_transfer_bytes``, and the MoE side: ``transfer_bytes_moe`` and
+``ExpertWorkerPool``; ``min_bandwidth_moe`` waits for the cost model).
 
 :class:`AttentionWorkerPool` owns the partitioning and the accounting of
 decode attention over the engine's paged block pool (or, in ``attend``,
@@ -14,11 +14,15 @@ partials merge exactly by the combine identity) or "request" (the batch is
 split, the load-imbalance baseline). No partition copies or densifies the
 pool: each worker reads its part of the layer's pool in place. The workers
 run in process on the one card, one kernel launch each.
+
+:class:`ExpertWorkerPool` is the paper's §7 expert side: the routed
+expert FFNs of a moe model run on memory-device workers, and the wire
+carries each token's activations out and the experts' outputs back.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -30,6 +34,7 @@ from repro_torch.models.attention import (_new_token_partial,
                                           paged_decode_attention_combine,
                                           paged_decode_attention_partial_pos)
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.moe import moe_forward
 
 BYTES = 2  # bf16/fp16 wire format (paper Table 2 "e")
 
@@ -265,3 +270,44 @@ def expected_transfer_bytes(cfg: ModelConfig, batch: int) -> int:
     """Paper §3.1: (2 + 2/G)·e·d_q·B·L wire bytes per iteration."""
     G = cfg.gqa_group
     return int((2 + 2 / G) * BYTES * cfg.q_dim * batch * cfg.num_layers)
+
+
+def transfer_bytes_moe(cfg: ModelConfig, batch: int) -> int:
+    """Per-iteration wire bytes for expert offloading: token activations to
+    the pool and expert outputs back, per MoE layer."""
+    return int(2 * BYTES * cfg.d_model * batch * cfg.num_layers)
+
+
+class ExpertWorkerPool:
+    """The memory-device pool that owns the expert weights and their FFN
+    compute (paper §7)."""
+
+    def __init__(self, cfg: ModelConfig, n_workers: int = 2):
+        if cfg.num_experts % max(n_workers, 1):
+            raise ValueError(
+                f"expert partition needs num_experts ({cfg.num_experts}) "
+                f"divisible by workers ({n_workers})")
+        self.cfg = cfg
+        self.n = n_workers
+        self.log = TransferLog()
+        self.per_worker_tokens = [0] * n_workers
+
+    def run_experts(self, moe_params: Dict, x: torch.Tensor,
+                    account: bool = False) -> torch.Tensor:
+        """x: (B, S, d) routed-token activations arriving over the wire.
+        The experts run as one ``moe_forward`` call, as in the reference
+        (each worker's expert shard adds its disjoint share of every
+        token's output). ``account`` logs this call's wire bytes; the
+        engine's step logs analytically instead (:meth:`log_iteration`)."""
+        y, _ = moe_forward(moe_params, self.cfg, x)
+        if account:
+            self.log.q_bytes += x.numel() * BYTES       # activations out
+            self.log.out_bytes += y.numel() * BYTES     # expert outputs back
+            self.log.transfers += 2
+        return y
+
+    def log_iteration(self, batch: int) -> None:
+        d, L = self.cfg.d_model, self.cfg.num_layers
+        self.log.q_bytes += batch * d * BYTES * L
+        self.log.out_bytes += batch * d * BYTES * L
+        self.log.transfers += 2 * L

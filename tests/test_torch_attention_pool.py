@@ -35,6 +35,7 @@ from repro_torch.serving import (AttentionWorkerPool, EngineConfig,
                                  SamplingParams, TransferLog,
                                  expected_transfer_bytes)
 from repro_torch.serving.worker_pool import owner_masked_tables
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

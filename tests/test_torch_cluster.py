@@ -34,6 +34,7 @@ from repro_torch.serving import (DisaggConfig, EngineConfig, LLMEngine,
                                  Request, SamplingParams)
 from repro_torch.serving.cluster import (DisaggCluster, fnv1a_tokens,
                                          prefix_route_key)
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LATENCY_KEYS = ("handoff_p50_s", "handoff_p90_s", "handoff_p99_s")
 

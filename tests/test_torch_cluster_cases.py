@@ -18,6 +18,7 @@ from repro_torch.serving import (DisaggConfig, EngineConfig, FaultInjector,
 from repro_torch.serving.cluster import (DecodeEngine, DisaggCluster,
                                          HandoffError, PrefillEngine,
                                          prefix_route_key)
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

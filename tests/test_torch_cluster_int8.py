@@ -8,6 +8,7 @@ import pytest
 
 from test_torch_cluster import held_to_jax_cluster
 from test_torch_cluster import llama  # noqa: F401  (the fixture)
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("partition", ["head", "request", "block"])

@@ -42,6 +42,7 @@ from repro_torch.serving.compiled import (COUNTED, CompiledDecodeStep,
                                           LaunchDeltas, pad_operands,
                                           width_bucket)
 from repro_torch.serving.placement import device_operands
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)     # fp32 smoke logits and K/V
 

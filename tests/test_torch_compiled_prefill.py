@@ -41,6 +41,7 @@ from repro_torch.serving import (EngineConfig, LLMEngine, PagedKVCache,
                                  Request, SamplingParams)
 from repro_torch.serving import compiled as C
 from repro_torch.serving.kvcache import gather_blocks
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-4      # fp32 logits and K/V: padded rows change GEMM shapes
 

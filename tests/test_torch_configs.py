@@ -14,6 +14,7 @@ import torch
 from repro.configs import base as jbase
 from repro.configs import registry as jreg
 from repro_torch.configs import registry as treg
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = jreg.list_archs()
 _DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}

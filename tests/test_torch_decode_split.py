@@ -26,6 +26,7 @@ from repro.kernels.paged_decode_attention import \
     paged_decode_attention as j_paged_decode_kernel
 from repro_torch.core import combine as tC
 from repro_torch.kernels import paged_decode_attention as pda
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SM = 132                     # the H100's SM count

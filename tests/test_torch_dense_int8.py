@@ -31,6 +31,7 @@ from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import ops as tops
 from repro_torch.models import kv_quant
 from repro_torch.models import transformer as ttf
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-4
 KTOL = dict(rtol=2e-5, atol=2e-5)

@@ -35,6 +35,7 @@ from repro.kernels.decode_attention import \
 from repro.models.attention import decode_attention_partial_jnp
 from repro_torch.core import combine as tC
 from repro_torch.kernels import decode_attention as da
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SM = 132                     # the H100's SM count

@@ -29,6 +29,7 @@ from repro_torch.serving import (EngineConfig, LLMEngine, PagedKVCache,
                                  PoolExhausted, Request, SamplingParams,
                                  State, request_generator,
                                  sample_per_request)
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")
@@ -185,7 +186,7 @@ def test_engine_streams_tokens_and_events(setup):
 
 
 @pytest.mark.parametrize("bad,exc", [
-    (dict(placement="moe_offload"), NotImplementedError),
+    (dict(placement="moe_offload", expert_workers=0), ValueError),
     (dict(placement="attention_pool", partition="block", attention_workers=2,
           kv_shards=4), ValueError),
     (dict(kv_shards=3), ValueError),         # 256 blocks do not split in 3

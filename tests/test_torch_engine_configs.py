@@ -24,6 +24,7 @@ from repro_torch.configs import registry as treg
 from repro_torch.models import transformer as ttf
 from repro_torch.serving import (EngineConfig, LLMEngine, Request,
                                  SamplingParams)
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = {"glm4-9b": {"num_heads": 32, "num_kv_heads": 2},
          "pixtral-12b": {}, "tinyllama-1.1b": {}, "llama3-70b": {}}

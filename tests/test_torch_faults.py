@@ -50,6 +50,7 @@ from repro_torch.serving import (CorruptedLogitsError, EngineConfig,
                                  SchedulingStalled, ShardHealthTracker)
 from repro_torch.serving.faults import DEAD, HEALTHY, SUSPECT
 from repro_torch.serving.kvcache import gather_blocks
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 COUNTERS = ("shard_failures", "shard_rejoins", "requests_recovered",
             "fault_retries", "preemptions", "transient_faults_recovered",

@@ -1162,3 +1162,149 @@ def test_cuda_cluster_greedy_tokens_equal_the_single_engine(cuda, kv_dtype):
                for g in rep.decode.compiled_prefill.programs().values())
     assert rep.decode.compiled.replays > 0
     assert rep.decode.stats.handoffs_completed == len(prompts)
+
+
+# ---------------------------------------------------------------------------
+# the moe family on the card (models/moe.py, the moe_offload placement)
+# ---------------------------------------------------------------------------
+def _moe_bf16(dev, **kw):
+    from repro_torch.configs import registry as treg
+    from repro_torch.models import transformer as ttf
+    cfg = treg.get_smoke_config("qwen3-moe-30b-a3b", dtype=torch.bfloat16,
+                                **kw)
+    return cfg, ttf.init_params(0, cfg, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,cf", [(1, 5, 1.25), (1, 512, 0.5), (8, 1, 1.25),
+                                    (2, 256, 64.0)])
+def test_cuda_moe_forward_matches_the_cpu(cuda, B, S, cf):
+    """moe_forward on the card against the CPU on the same bf16 inputs and
+    weights (drops included: the routing's fp32 sums may round apart, so
+    outputs agree within 2 bf16 ulps plus 1e-2 of the output's scale)."""
+    from repro_torch.models import moe as tmoe
+    cfg, params = _moe_bf16(cuda, capacity_factor=cf)
+    moe = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    g = torch.Generator(device=cuda).manual_seed(B * S)
+    x = torch.randn((B, S, cfg.d_model), generator=g,
+                    device=cuda).bfloat16()
+    y, aux = tmoe.moe_forward(moe, cfg, x)
+    yc, auxc = tmoe.moe_forward({k: v.cpu() for k, v in moe.items()}, cfg,
+                                x.cpu())
+    scale = float(yc.float().abs().max())
+    torch.testing.assert_close(y.cpu().float(), yc.float(), rtol=8e-3,
+                               atol=1e-2 * scale)
+    torch.testing.assert_close(aux.cpu(), auxc, rtol=1e-4, atol=1e-5)
+
+
+def _moe_engine_state(dev, econf_kw):
+    from repro_torch.serving import (EngineConfig, LLMEngine, Request,
+                                     SamplingParams, State)
+    cfg, params = _moe_bf16(dev)
+    econf = EngineConfig(max_batch=4, block_size=4, num_blocks=64,
+                         **econf_kw)
+    eng = LLMEngine(cfg, params, econf, device=dev)
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, size=n).tolist(),
+                    params=SamplingParams(max_new_tokens=16))
+            for n in (21, 12, 9)]
+    eng.submit(reqs)
+    while not all(r.state == State.RUNNING and r.output for r in reqs):
+        eng.step()
+    return cfg, params, econf, eng, reqs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("econf_kw", [
+    dict(), dict(placement="moe_offload", attention_workers=2,
+                 expert_workers=2, kv_dtype="int8")],
+    ids=["homogeneous", "moe_offload-int8"])
+def test_cuda_moe_decode_replay_equals_eager(cuda, econf_kw):
+    """A captured MoE decode step (router, sort, dispatch, the expert
+    einsums) replays equal to its eager call at the same operands, bit for
+    bit, twice in a row."""
+    from repro_torch.serving import make_placement
+    from repro_torch.serving.compiled import CompiledDecodeStep, pad_operands
+    cfg, params, econf, eng, reqs = _moe_engine_state(cuda, econf_kw)
+    kv = eng.kv
+    pl = make_placement(cfg, econf, cuda)
+    comp = CompiledDecodeStep(pl.decode_fn(), params, kv.k_pool, kv.v_pool,
+                              kv.k_scale, kv.v_scale, cuda,
+                              n_shards=kv.n_shards)
+    ids = [r.rid for r in reqs]
+    tokens = [r.output[-1] for r in reqs]
+    tables, lens = kv.block_table_batch(ids)
+    extra = pl.decode_extra_args(kv, ids)
+    padded, pextra = pad_operands(tables, extra, kv.num_blocks,
+                                  kv.blocks_per_shard)
+    want = _snap(_eager(pl, params, kv, cuda, tokens, padded, lens, pextra))
+    calls = [_snap(comp(tokens, tables, lens, *extra)) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert (comp.captures, comp.replays) == (1, 2)
+    for got in calls:
+        _bitwise(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [5, 37, 512])
+def test_cuda_moe_oneshot_program_equals_the_unpadded_eager_call(cuda, S):
+    """The compiled one-shot program of a moe model runs eagerly at the
+    exact length (no pad row joins a routing group) and captures no
+    graph: every call equals the eager unpadded prefill bit for bit."""
+    from repro_torch.models import transformer as ttf
+    from repro_torch.serving import PagedKVCache
+    from repro_torch.serving.compiled import CompiledPrefill
+    cfg, params = _moe_bf16(cuda)
+    kv = PagedKVCache(cfg, 128, 4, device=cuda)
+    comp = CompiledPrefill(cfg, params, kv, cuda, None)
+    toks = np.random.default_rng(S).integers(0, cfg.vocab_size,
+                                             size=S).tolist()
+    lu, cu = ttf.prefill(params, cfg, {"tokens": [toks]}, max_seq=S,
+                         device=cuda)
+    want = [lu.clone(), cu["k"][:, 0].clone(), cu["v"][:, 0].clone()]
+    for _ in range(3):
+        got = [t.clone() for t in comp.run_oneshot(toks)]
+        _bitwise(got, want)
+    assert (comp.oneshot.captures, comp.oneshot.replays) == (0, 0)
+    assert got[1].shape[2] == S
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_cuda_moe_offload_engine_launch_accounting(cuda, kv_dtype):
+    """The moe_offload engine on the card: no chunk launches (moe prompts
+    run one-shot), 2 workers' decode launches a layer a step, through
+    graph replays; every request finishes; the expert pool logs
+    transfer_bytes_moe a token."""
+    from repro_torch.serving import (EngineConfig, LLMEngine, Request,
+                                     SamplingParams, transfer_bytes_moe)
+    cfg, params = _moe_bf16(cuda)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (21, 12, 9)]
+    dec = pda.paged_decode_attention_int8 if kv_dtype == "int8" else \
+        pda.paged_decode_attention
+    chunk = (ppa.paged_prefill_chunk_attention,
+             ppa.paged_prefill_chunk_attention_int8)
+    for placement in ("homogeneous", "moe_offload"):
+        econf = EngineConfig(max_batch=4, block_size=4, num_blocks=64,
+                             kv_dtype=kv_dtype, placement=placement,
+                             attention_workers=2, expert_workers=2,
+                             prefill_chunk_tokens=8)
+        eng = LLMEngine(cfg, params, econf, device=cuda)
+        reqs = [Request(prompt=list(x), params=SamplingParams(
+            max_new_tokens=12)) for x in prompts]
+        n0, c0 = dec.launches, [f.launches for f in chunk]
+        eng.submit(reqs)
+        eng.run()
+        torch.cuda.synchronize()
+        assert all(len(r.output) == 12 for r in reqs)
+        st = eng.stats
+        assert st.prefill_chunks_run == 0
+        assert [f.launches for f in chunk] == c0
+        workers = 2 if placement == "moe_offload" else 1
+        assert dec.launches - n0 == cfg.num_layers * st.steps * workers
+        assert eng.compiled.replays > 0
+        if placement == "moe_offload":
+            assert eng.expert_pool.log.total == \
+                transfer_bytes_moe(cfg, 1) * st.tokens_generated

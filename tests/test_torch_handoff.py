@@ -27,6 +27,7 @@ from repro.serving import PoolExhausted as JPoolExhausted
 from repro.serving.kvcache import PagedKVCache as JPagedKVCache
 from repro_torch.configs import registry as treg
 from repro_torch.serving import KVHandoffPayload, PagedKVCache, PoolExhausted
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 INT_OF = {1: (np.int8, torch.int8), 2: (np.int16, torch.int16),
           4: (np.int32, torch.int32)}

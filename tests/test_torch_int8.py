@@ -43,6 +43,7 @@ from repro_torch.models import kv_quant as tkq
 from repro_torch.models import transformer as ttf
 from repro_torch.serving import (EngineConfig, LLMEngine, PagedKVCache,
                                  Request, SamplingParams)
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 

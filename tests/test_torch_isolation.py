@@ -10,6 +10,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -83,6 +84,16 @@ def test_default_device_entry_points_raise_without_a_gpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "llama3-8b", "--smoke", "--mode", "router",
                     "--requests", "2"])
+    # the moe family and the moe_offload placement
+    mcfg = registry.get_smoke_config("qwen3-moe-30b-a3b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_params(0, mcfg)
+    mparams = transformer.init_params(0, mcfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLMEngine(mcfg, mparams, placement="moe_offload")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--placement",
+                    "moe_offload", "--requests", "2"])
 
 
 def test_init_params_on_cpu_is_seeded_and_follows_the_init_rules():

@@ -30,6 +30,7 @@ from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import paged_prefill_attention as ppa
 from repro_torch.kernels import ref as tref
 from repro_torch.models import attention as tattn
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 

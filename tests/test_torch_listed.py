@@ -18,6 +18,7 @@ from repro.configs import registry as jreg
 from repro.models import transformer as jtf
 from repro_torch.configs import registry as treg
 from repro_torch.models import transformer as ttf
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-4
 CASES = {"llama3-8b": ("llama3-8b", {"num_kv_heads": 2}),

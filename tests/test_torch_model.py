@@ -21,6 +21,7 @@ from repro_torch.configs import registry as treg
 from repro_torch.models import common as tcommon
 from repro_torch.models import transformer as ttf
 from repro_torch.serving.kvcache import PagedKVCache as TPagedKVCache
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-4      # fp32 logits, reordered sums (see module docstring)
 ARCHS = [("llama3-8b", {}), ("llama3-8b", {"num_kv_heads": 2}),

@@ -34,6 +34,7 @@ from repro_torch.models import transformer as ttf
 from repro_torch.serving import (EngineConfig, LLMEngine, PagedKVCache,
                                  Request, RequestScheduler, SamplingParams,
                                  State)
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-4      # fp32 logits and K/V, reordered sums
 

@@ -50,6 +50,7 @@ from repro_torch.kernels import ssm_scan as tssm
 from repro_torch.models import ssm as tssm_mod
 from repro_torch.models import transformer as ttf
 from repro_torch.models.common import ModelConfig
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 KTOL = 1e-5      # fp32 kernel twins vs oracles / Pallas (reordered sums)
 ATOL = 1e-4      # fp32 logits and states through a few layers
@@ -435,14 +436,21 @@ def test_entry_points_refuse_what_is_not_ported():
                                                   kv_cache_bits=8), 1, 4,
                             device="cpu")
     assert zcache["k"].dtype == torch.float32 and "k_scale" not in zcache
-    for fam in ("moe", "audio"):
-        other = ModelConfig(family=fam)
-        for fn in (lambda: ttf.init_params(0, other, device="cpu"),
-                   lambda: ttf.init_cache(other, 1, 4, device="cpu"),
-                   lambda: ttf.forward({}, other, {"tokens": [[1]]},
-                                       device="cpu")):
-            with pytest.raises(NotImplementedError):
-                fn()
+    other = ModelConfig(family="audio")
+    for fn in (lambda: ttf.init_params(0, other, device="cpu"),
+               lambda: ttf.init_cache(other, 1, 4, device="cpu"),
+               lambda: ttf.forward({}, other, {"tokens": [[1]]},
+                                   device="cpu")):
+        with pytest.raises(NotImplementedError):
+            fn()
+    # the moe family is served since its slice (tests/test_torch_moe.py)
+    mcfg = treg.get_smoke_config("qwen3-moe-30b-a3b")
+    mp = ttf.init_params(0, mcfg, device="cpu")
+    assert "moe" in mp["layers"] and "ffn" not in mp["layers"]
+    assert ttf.init_cache(mcfg, 1, 4, device="cpu")["k"].shape[0] == \
+        mcfg.num_layers
+    assert ttf.forward(mp, mcfg, {"tokens": [[1, 2]]},
+                       device="cpu").shape == (1, 2, mcfg.vocab_size)
     # LLMEngine and the paged entry points keep serving KV stacks only
     from repro_torch.serving import LLMEngine
     zcfg = treg.get_smoke_config("zamba2-1.2b")

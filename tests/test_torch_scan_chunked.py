@@ -28,6 +28,7 @@ from repro.kernels import ssm_scan as jssm
 from repro_torch.kernels import rwkv6_scan as trw
 from repro_torch.kernels import ssm_scan as tssm
 from repro_torch.models import ssm as tssm_mod
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 KTOL = 1e-5      # as tests/test_torch_recurrent.py: fp32, reordered sums
 L = tssm.CHUNK

@@ -16,6 +16,7 @@ from repro.data import traces as jtraces
 from repro.launch import serve as jserve
 from repro_torch.data import traces
 from repro_torch.launch import serve
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # values that are wall-clock measurements, not counts
 TIMED = {"throughput", "mean_tbt", "p50", "p90", "p99"}
@@ -84,7 +85,8 @@ def test_traces_match_the_reference():
 
 
 def test_serve_cli_refuses_what_the_port_lacks(capsys):
-    with pytest.raises(NotImplementedError, match="moe_offload"):
+    # moe_offload on a dense arch: the placement's error, as the reference
+    with pytest.raises(ValueError, match="MoE"):
         serve.main(COMMON + ["--placement", "moe_offload", "--device",
                              "cpu"])
     with pytest.raises(SystemExit):        # no --backend knob
@@ -106,11 +108,28 @@ def test_serve_cli_glm4_9b_prints_the_reference_lines(extra, capsys,
     assert _untimed(trows) == _untimed(jrows)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "kimi-k2-1t-a32b",
-                                  "seamless-m4t-medium", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "rwkv6-7b"])
 def test_serve_cli_exits_with_the_family_error(arch, capsys):
     with pytest.raises(SystemExit) as exc:
         serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
     assert exc.value.code == 2
-    assert "is ported for the families ('dense', 'vlm')" in \
+    assert "is ported for the families ('dense', 'vlm', 'moe')" in \
         capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra", [["--engine", "vllm"],
+                                   ["--placement", "moe_offload",
+                                    "--kv-dtype", "int8"]],
+                         ids=["vllm", "moe_offload-int8"])
+def test_serve_cli_qwen3_moe_prints_the_reference_lines(extra, capsys,
+                                                        monkeypatch):
+    """``--arch qwen3-moe-30b-a3b --smoke`` line for line against the JAX
+    CLI; ``moe_offload`` adds the expert pool's transfer line."""
+    argv = ["--arch", "qwen3-moe-30b-a3b", "--smoke", "--requests", "4"] + \
+        extra
+    jrows = _parse(_run_jax(argv, capsys, monkeypatch))
+    trows = _parse(_run_port(argv, capsys))
+    assert [h for h, _ in trows] == [h for h, _ in jrows]
+    assert _untimed(trows) == _untimed(jrows)
+    heads = [h for h, _ in trows]
+    assert ("expert" in heads) == ("moe_offload" in extra)

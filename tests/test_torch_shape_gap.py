@@ -27,6 +27,7 @@ from repro.kernels.paged_prefill_attention import \
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import paged_prefill_attention as ppa
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 

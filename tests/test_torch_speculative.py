@@ -19,6 +19,7 @@ from repro_torch.configs import registry as treg
 from repro_torch.models import transformer as ttf
 from repro_torch.serving.speculative import (SpecStats, greedy_generate,
                                              speculative_generate)
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DRAFT = dict(num_layers=1, d_model=128, d_ff=256)
 

@@ -24,6 +24,7 @@ from repro.models import attention as jattn
 from repro.serving.worker_pool import AttentionWorkerPool as JPool
 from repro_torch.configs import registry as treg
 from repro_torch.serving import AttentionWorkerPool, TransferLog
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 SHAPES = {"llama3-8b": ("llama3-8b", dict(num_kv_heads=2)),
