@@ -183,8 +183,36 @@ Phases (any failure exits non-zero and prints no result line):
      and a global layer (the window bites); (b) attention_pool head × 2
      over an int8 pool: launches, the TransferLog, (b)'s streams against
      (a)'s up to a bf16 near-tie;
- 19. one JSON line describing every ported kernel, then the result line.
-     A failed gate of phases 4, 5, 10, 11 and 13-18 is reported where it
+ 19. seamless-m4t-medium at full width and depth (``audio_e2e``: 12
+     encoder and 12 decoder layers, d 1024, 16 / 16 heads of 64, d_ff
+     4096, vocab 256206; random bf16 weights from seed 0): B=8 stub frame
+     sequences of S_enc = 512, then 2048 rows, decoder prompts of 8
+     tokens, ``prefill`` then 64 greedy ``decode_step`` +
+     ``apply_decode_updates``: row 5 launches 24 times a step (12 self,
+     12 cross over every encoder row) and none in the prefill; each
+     step's logits against the same step with row 5's plain twin (cosine
+     >= 0.999, the same argmax or a NEAR_TIE_ULPS tie); the listed
+     layout's first step = the stacked one bit for bit; prefill wall,
+     step wall p50, a profiled window, peak memory, cross-KV bytes; row 5
+     at the cross shape (B=8, Hkv=16, G=1, hd=64, 2048 rows) against its
+     twin, timed unheld and held beside SDPA on the same cache and its
+     bound; the card against the CPU at 2 + 2 layers;
+ 20. the analytic core (``analytic_e2e``): (a) llama3-8b's block (full
+     width, fp32 weights from seed 0) as the converter's graph at batch
+     8, split at its attention (= the CPU port's slices, programs, sends,
+     cut bytes 8·4096·2), run sliced with an attention callback that
+     appends the step's k/v to a dense bf16 cache of 2047 tokens and
+     launches row 5: residual2 = the unsliced order bit for bit, the
+     callback's output vs the plain twin (cosine); (b) ``run_rotational``
+     over 4 batches of 8: each = its direct run bit for bit, replica =
+     (j + k) mod 3; (c) printed, not gated: ``mtime`` / ``atime`` on
+     ``h100`` at efficiency 1.0 for llama3-8b at B=8 and phase 4's mean
+     prompt length beside phase 4's profiled GEMM, decode-kernel and
+     busy time a step; llama3-70b's ``minimum_bandwidth``,
+     ``estimate_vllm`` and ``estimate_lamina`` at DOP (2, 4); qwen3-moe's
+     ``min_bandwidth_moe`` at (128, 8192);
+ 21. one JSON line describing every ported kernel, then the result line.
+     A failed gate of phases 4, 5, 10, 11 and 13-20 is reported where it
      happens and fails the run after the last phase. No two full-width
      models are alive at once.
 
@@ -2053,12 +2081,17 @@ def profile_decode(torch, eng, prompts, n_steps=3, at_state=None):
     return prof, out
 
 
+# cuBLAS / CUTLASS matmul kernels by name (a profile's ``gemm_ms``)
+GEMM_MARKERS = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
+
+
 def profile_window(torch, step, n_steps, batch,
                    kernels=("paged_decode_kernel",)):
     """Run ``step()`` ``n_steps`` times under torch.profiler. Reports host
     wall per step, device-busy time per step (sum of kernel self time), the
     idle share, the top kernels, and per step the device time of the
-    kernels whose names hold each of ``kernels`` (``<name>_ms``)."""
+    kernels whose names hold each of ``kernels`` (``<name>_ms``) and of
+    the matmul kernels (``gemm_ms``, by ``GEMM_MARKERS``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2082,6 +2115,8 @@ def profile_window(torch, step, n_steps, batch,
                 device_busy_ms=busy,
                 **{f"{name}_ms": sum(t for k, t in dev if name in k)
                    for name in kernels},
+                gemm_ms=sum(t for k, t in dev
+                            if any(m in k.lower() for m in GEMM_MARKERS)),
                 idle_share=1 - busy / step_ms if step_ms else None,
                 top_kernels_ms={k[:60]: round(v, 3) for k, v in top})
 
@@ -2373,11 +2408,13 @@ def tree_bytes(tree):
     return tree.numel() * tree.element_size()
 
 
-def generate(transformer, cfg, params, tokens, n_steps, max_seq, device):
-    """prefill, then ``n_steps`` greedy decode_step + apply_decode_updates.
-    Returns (per-step logits list (prefill's first), cache)."""
-    logits, cache = transformer.prefill(params, cfg, {"tokens": tokens},
-                                        max_seq, device=device)
+def generate(transformer, cfg, params, batch, n_steps, max_seq, device):
+    """prefill of ``batch`` ({"tokens"}, and "frames" for an
+    encoder-decoder), then ``n_steps`` greedy decode_step +
+    apply_decode_updates. Returns (per-step logits list (prefill's first),
+    cache)."""
+    logits, cache = transformer.prefill(params, cfg, batch, max_seq,
+                                        device=device)
     out = [logits]
     for _ in range(n_steps):
         logits, upd = transformer.decode_step(
@@ -2404,7 +2441,8 @@ def recurrent_e2e(torch, np, transformer, cfg, counters, want_launches):
                                                size=(B, S)).tolist()
     max_seq = S + n_new + 3
     # warm-up (library handles, allocator) on a short prompt, not counted
-    generate(transformer, cfg, params, [t[:64] for t in tokens[:2]], 2,
+    generate(transformer, cfg, params, {"tokens": [t[:64] for t in
+                                            tokens[:2]]}, 2,
              64 + 2, DEV)
     sync(torch)
     torch.cuda.reset_peak_memory_stats()
@@ -2467,23 +2505,27 @@ def recurrent_e2e(torch, np, transformer, cfg, counters, want_launches):
     return launches, result
 
 
-def card_vs_cpu(torch, np, transformer, cfg, counters):
+def card_vs_cpu(torch, np, transformer, cfg, counters, S=128, frames=0):
     """Phase 9: the same calls on the card and on the CPU (the plain twins)
-    at full width and reduced depth, same bf16 weights: B=2, S=128, then 4
+    at full width and reduced depth, same bf16 weights: B=2, S tokens
+    (after ``frames`` stub frame rows of an encoder-decoder), then 4
     greedy decode steps fed the card's tokens. Every step's logits must
     agree by row cosine."""
-    B, S, n_new = 2, 128, 4
+    B, n_new = 2, 4
     params = transformer.init_params(1, cfg, device=DEV)
     cpu_params = transformer._tree_map(lambda a: a.cpu(), params)
-    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
-                                               size=(B, S)).tolist()
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, size=(B, S)).tolist()}
+    if frames:
+        batch["frames"] = rng.standard_normal(
+            (B, frames, cfg.d_model)).astype(np.float32)
     counters.reset()
-    gpu, gcache = generate(transformer, cfg, params, tokens, n_new,
+    gpu, gcache = generate(transformer, cfg, params, batch, n_new,
                            S + n_new, DEV)
     launches = {k: n for k, n in counters.read().items() if n}
     # the CPU decodes the card's greedy tokens, so both see the same inputs
-    logits, cache = transformer.prefill(cpu_params, cfg, {"tokens": tokens},
-                                        S + n_new, device="cpu")
+    logits, cache = transformer.prefill(cpu_params, cfg, batch, S + n_new,
+                                        device="cpu")
     cpu = [logits]
     for lg in gpu[:-1]:
         logits, upd = transformer.decode_step(
@@ -3508,6 +3550,320 @@ def gemma2_e2e(torch, np, registry, transformer, counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the audio family (seamless-m4t-medium) end to end
+# ---------------------------------------------------------------------------
+AUDIO_ENC_LENGTHS = (512, 2048)
+
+
+def audio_run(torch, np, transformer, cfg, params, counters, S_enc, B=8,
+              prompt=8, n_new=64):
+    """One seamless run at full width and depth: B stub frame sequences of
+    S_enc rows (bf16, seeded on the card) and decoder prompts of ``prompt``
+    tokens, ``prefill`` then ``n_new`` greedy steps. Every step: row 5
+    launches 2 L times (self and cross, counted around the step alone);
+    its logits against the same step with row 5's plain twin on the same
+    cache (cosine >= MIN_COSINE, the same argmax or a NEAR_TIE_ULPS tie);
+    at the first step the listed layout's step = the stacked one bit for
+    bit. Then a profiled window of 3 steps."""
+    from repro_torch.kernels import decode_attention as da
+
+    L = cfg.num_layers
+    gen = torch.Generator(device=DEV).manual_seed(S_enc)
+    frames = torch.randn((B, S_enc, cfg.d_model), generator=gen,
+                         device=DEV).bfloat16()
+    tokens = np.random.default_rng(S_enc).integers(
+        0, cfg.vocab_size, size=(B, prompt)).tolist()
+    batch = {"frames": frames, "tokens": tokens}
+    max_seq = prompt + n_new + 4
+    listed = dict(params)
+    listed["layers"] = [transformer._layer(params["layers"], i)
+                        for i in range(L)]
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(params, cfg, batch, max_seq,
+                                        device=DEV)
+    sync(torch)
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = {k: n for k, n in counters.read().items() if n}
+    gate(not prefill_launches, f"seamless S_enc={S_enc} prefill launched "
+         f"{prefill_launches} (its attention is the plain blockwise path)")
+    cross_bytes = tree_bytes({k: cache[k] for k in ("ck", "cv")})
+    want = {"decode_attention": 2 * L}
+    step_ms, cos, launch_bad, ties, listed_equal = [], [], [], [], None
+    for step in range(n_new):
+        tok = logits.argmax(-1).int()
+        sync(torch)
+        counters.reset()
+        t1 = time.perf_counter()
+        logits, upd = transformer.decode_step(params, cfg, tok, cache,
+                                              device=DEV)
+        sync(torch)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        got = {k: n for k, n in counters.read().items() if n}
+        if got != want:
+            launch_bad.append((step, got))
+        orig = da.decode_attention
+        da.decode_attention = da.decode_attention_plain
+        try:
+            plain, _ = transformer.decode_step(params, cfg, tok, cache,
+                                               device=DEV)
+        finally:
+            da.decode_attention = orig
+        cos.append(min(cosine(logits[i], plain[i]) for i in range(B)))
+        for i in range(B):
+            t = int(logits[i].argmax())
+            if t != int(plain[i].argmax()):
+                ties.append((step, i, gap_ulps(plain[i], t)))
+        if step == 0:
+            lcache = {k: v if k == "len" else list(v)
+                      for k, v in cache.items()}
+            llg, lupd = transformer.decode_step(listed, cfg, tok, lcache,
+                                                device=DEV)
+            listed_equal = bool(torch.equal(llg, logits) and all(
+                torch.equal(torch.stack(lupd[k]), upd[k])
+                for k in ("k_new", "v_new")))
+            del lcache, llg, lupd
+        cache = transformer.apply_decode_updates(cache, upd)
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(logits.float()).all())
+    gate(not launch_bad, f"seamless S_enc={S_enc}: steps whose row-5 "
+         f"launches != {want}: {launch_bad[:4]}")
+    gate(min(cos) >= MIN_COSINE and finite, f"seamless S_enc={S_enc}: "
+         f"step logits vs the plain twin's min cosine {min(cos)}, finite "
+         f"{finite}")
+    gate(all(g <= NEAR_TIE_ULPS for _, _, g in ties), f"seamless "
+         f"S_enc={S_enc}: argmax left the plain twin's away from a tie: "
+         f"{ties[:4]}")
+    gate(listed_equal, f"seamless S_enc={S_enc}: the listed step differs "
+         f"from the stacked one")
+    gate(int(cache["len"].min()) == prompt + n_new, f"seamless cache len "
+         f"{cache['len'].tolist()}")
+
+    def step():
+        nonlocal logits, cache
+        logits, upd = transformer.decode_step(
+            params, cfg, logits.argmax(-1).int(), cache, device=DEV)
+        cache = transformer.apply_decode_updates(cache, upd)
+
+    prof = profile_window(torch, step, 3, B, kernels=("dense_lanes_kernel",))
+    res = dict(batch=B, S_enc=S_enc, prompt_tokens=prompt, new_tokens=n_new,
+               prefill_s=prefill_s,
+               decode_step_ms_p50=sorted(step_ms)[len(step_ms) // 2],
+               decode_step_ms_first=[round(t, 2) for t in step_ms[:4]],
+               decode_tok_s=B * n_new / (sum(step_ms) / 1e3),
+               row5_launches_per_step=2 * L, min_cosine_vs_plain=min(cos),
+               argmax_ties=ties, listed_equals_stacked=listed_equal,
+               peak_gib=peak / 2**30, cross_kv_bytes=cross_bytes,
+               cross_kv_shape=list(cache["ck"].shape), profile=prof)
+    log(f"seamless S_enc={S_enc}: {json.dumps(res)}")
+    del cache, logits, frames
+    release(torch)
+    return res
+
+
+def audio_e2e(torch, np, registry, transformer, counters):
+    """Phase 19: seamless-m4t-medium at full width and depth (12 encoder
+    and 12 decoder layers, d 1024, 16 / 16 heads of 64, d_ff 4096, vocab
+    256206; random bf16 weights from seed 0): ``audio_run`` at S_enc = 512
+    and 2048; row 5 at the cross shape (B=8, Hkv=16, G=1, hd=64, 2048 live
+    rows) against its twin, timed beside SDPA on the same cache and its
+    bound; the card against the CPU at 2 + 2 layers (``card_vs_cpu``)."""
+    from repro_torch.core import costmodel as cm
+    from repro_torch.kernels import decode_attention as da
+
+    t0 = time.perf_counter()
+    cfg, params = load_model(torch, registry, transformer,
+                             "seamless-m4t-medium")
+    out = dict(params_cost_model=cm.param_count(cfg),
+               params=n_params(params),
+               weights_gib=tree_bytes(params) / 2**30)
+    # warm-up (library handles, allocator) at a short input, not counted
+    generate(transformer, cfg, params, {
+        "frames": torch.zeros((2, 64, cfg.d_model), device=DEV),
+        "tokens": [[1, 2], [3, 4]]}, 2, 6, DEV)
+    for S_enc in AUDIO_ENC_LENGTHS:
+        out[f"S_enc_{S_enc}"] = audio_run(torch, np, transformer, cfg,
+                                          params, counters, S_enc)
+    del params
+    release(torch)
+    timer = Timer(torch)
+    out["row5_cross_shape"] = dense_decode_case(
+        torch, da, timer, B=8, Hkv=16, G=1, hd=64, lens=[2048] * 8, S=2048,
+        seed=40)
+    log(f"dense decode seamless cross B=8 Hkv=16 G=1 hd=64 S_enc=2048: "
+        f"{json.dumps(out['row5_cross_shape'])}")
+    del timer
+    release(torch)
+    out["card_vs_cpu"] = card_vs_cpu(
+        torch, np, transformer, cfg.replace(num_layers=2, encoder_layers=2),
+        counters, S=8, frames=64)
+    release(torch)
+    out["wall_s_phase"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the analytic core on the card
+# ---------------------------------------------------------------------------
+def converter_attention(torch, da, cfg, kc, vc):
+    """The converter's attention callback over a dense bf16 cache (B, Hkv,
+    S, hd) holding S - 1 tokens: it writes the step's k/v at row S - 1 and
+    launches row 5 over all S rows (a decode step's attention). Returns
+    (callback, the (q, o) of each call, cache_len)."""
+    B, Hkv, S, hd = kc.shape
+    G = cfg.gqa_group
+    lens = torch.full((B,), S, dtype=torch.int32, device=DEV)
+    calls = []
+
+    def attn_fn(name, env):
+        kc[:, :, S - 1] = env["k_proj"].bfloat16()
+        vc[:, :, S - 1] = env["v_proj"].bfloat16()
+        q = env["q_proj"].bfloat16().reshape(B, Hkv, G, hd)
+        o = da.decode_attention(q, kc, vc, lens)
+        calls.append((q, o))
+        return o.float().reshape(B, Hkv * G, hd)
+    return attn_fn, calls, lens
+
+
+def unsliced(graph, inputs, attn_fn):
+    """Every op of ``graph`` in graph order, attention inline (the order
+    the converter's slices must reproduce)."""
+    env = dict(inputs)
+    for name in graph.order:
+        op = graph.ops[name]
+        if op.kind == "attention":
+            env[name] = attn_fn(name, env)
+        elif op.kind != "input":
+            env[name] = op.fn(*[env[i] for i in op.inputs])
+    return env
+
+
+def analytic_e2e(torch, np, registry, counters, profile, mean_ctx):
+    """Phase 20: (a) the converter on the card: llama3-8b's block (d 4096,
+    32 / 8 heads of 128, d_ff 14336; fp32 weights from seed 0) as a graph
+    at batch 8, split at its attention (slices, programs, sends and cut
+    bytes = the CPU port's), run sliced with row 5 as the attention (a
+    dense bf16 cache of 2047 tokens plus the step's): residual2 = the
+    unsliced order bit for bit, the callback's output vs the plain twin;
+    (b) ``run_rotational`` over 4 batches of 8: each = its direct run bit
+    for bit, replica = (j + k) mod 3; (c) the cost model on ``h100``
+    beside phase 4's measured step (printed, not gated)."""
+    from repro_torch.core import converter, pipeline
+    from repro_torch.core import costmodel as cm
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import blocks
+    from repro_torch.serving.worker_pool import min_bandwidth_moe
+
+    t0 = time.perf_counter()
+    cfg = registry.get_config("llama3-8b")
+    B, S, hd = 8, 2048, cfg.resolved_head_dim
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    w = blocks.init_dense_block(gen, cfg.replace(dtype=torch.float32), DEV)
+    g = converter.build_block_graph(cfg, weights=w, batch=B, device=DEV)
+    sp = converter.split_at_attention(g)
+    ref = converter.split_at_attention(converter.build_block_graph(
+        cfg, batch=B, device="cpu"))
+
+    def shape_of(prog):
+        return [(sl.program, sl.context_in, sl.context_out, sl.sends,
+                 sl.recv_attn) for sl in prog.slices]
+    gate(shape_of(sp) == shape_of(ref) and sp.cut_bytes == ref.cut_bytes ==
+         [B * cfg.d_model * 2], f"converter on the card: slices or cut "
+         f"bytes {sp.cut_bytes} differ from the CPU port's")
+    kc = torch.randn((B, cfg.num_kv_heads, S, hd), generator=gen,
+                     device=DEV).bfloat16()
+    vc = torch.randn((B, cfg.num_kv_heads, S, hd), generator=gen,
+                     device=DEV).bfloat16()
+    attn_fn, calls, lens = converter_attention(torch, da, cfg, kc, vc)
+    x = {"x": torch.randn((B, cfg.d_model), generator=gen, device=DEV)}
+    sp.run(x, attn_fn)                       # warm-up (cuBLAS handles)
+    sync(torch)
+    counters.reset()
+    t1 = time.perf_counter()
+    trace = []
+    env = sp.run(x, attn_fn, trace=trace)
+    sync(torch)
+    sliced_ms = (time.perf_counter() - t1) * 1e3
+    launches = {k: n for k, n in counters.read().items() if n}
+    direct = unsliced(g, x, attn_fn)
+    sync(torch)
+    bit = all(torch.equal(env[n], direct[n]) for n in g.order)
+    q, o = calls[1]
+    plain = da.decode_attention_plain(q, kc, vc, lens)
+    conv = dict(slices=len(sp.slices), cut_bytes=sp.cut_bytes,
+                programs=[sl.program for sl in sp.slices],
+                sends=sp.slices[0].sends, trace=trace,
+                launches=launches, sliced_wall_ms=sliced_ms,
+                residual2_equal=bit, callback_cosine_vs_plain=cosine(o, plain),
+                callback_max_abs_err=float((o.float() - plain.float())
+                                           .abs().max()))
+    gate(launches == {"decode_attention": 1}, f"converter sliced run "
+         f"launches {launches} != {{decode_attention: 1}}")
+    gate(bit, "converter on the card: sliced != unsliced bit for bit")
+    gate(conv["callback_cosine_vs_plain"] >= MIN_COSINE, f"converter "
+         f"callback vs row 5's plain twin cosine "
+         f"{conv['callback_cosine_vs_plain']}")
+    log(f"converter llama3-8b block B={B} on the card: {json.dumps(conv)}")
+    # (b) rotational staggered pipelining over 4 batches
+    n = 4
+    xs = [{"x": torch.randn((B, cfg.d_model), generator=gen, device=DEV)}
+          for _ in range(n)]
+    directs = [sp.run(xj, attn_fn)["residual2"] for xj in xs]
+    sync(torch)
+    counters.reset()
+    envs, rlog = pipeline.run_rotational(
+        [sp] * n, xs, lambda j, name, env: attn_fn(name, env))
+    sync(torch)
+    rot_launches = {k: n_ for k, n_ in counters.read().items() if n_}
+    rot = dict(batches=n, log=rlog, launches=rot_launches,
+               equal_direct=[bool(torch.equal(e["residual2"], d))
+                             for e, d in zip(envs, directs)],
+               schedule=pipeline.validate(pipeline.rotational_schedule(
+                   n, len(sp.slices))),
+               throughput_speedup=pipeline.throughput_speedup(n))
+    gate(all(rot["equal_direct"]), f"run_rotational != direct runs: "
+         f"{rot['equal_direct']}")
+    gate(len(rlog) == n * len(sp.slices) and
+         all(r == (j + k) % (n - 1) for j, k, r in rlog),
+         f"rotation law broken: {rlog}")
+    gate(rot_launches == {"decode_attention": n}, f"rotational launches "
+         f"{rot_launches}")
+    log(f"rotational pipeline, 4 batches of {B}: {json.dumps(rot)}")
+    del w, g, sp, kc, vc, calls, env, direct, envs, directs
+    release(torch)
+    # (c) the cost model on the card's constants beside phase 4's step
+    h100, h20 = cm.HARDWARE["h100"], cm.HARDWARE["h20"]
+    l70 = registry.get_config("llama3-70b")
+    qwen = registry.get_config("qwen3-moe-30b-a3b")
+    lam = cm.estimate_lamina(l70, 4096, h100, h20, (2, 4))
+    cost = dict(
+        llama3_8b_B8=dict(
+            context=mean_ctx,
+            mtime_ms=cm.mtime(cfg, 8, h100, efficiency=1.0) * 1e3,
+            atime_ms=cm.atime(cfg, 8, mean_ctx, h100, efficiency=1.0) * 1e3,
+            mfu_nonattention=cm.mfu_nonattention(cfg, 8, h100),
+            measured_gemm_ms=profile.get("gemm_ms"),
+            measured_decode_kernel_ms=profile.get("paged_decode_kernel_ms"),
+            measured_device_busy_ms=profile.get("device_busy_ms"),
+            measured_step_ms=profile.get("step_ms_unprofiled")),
+        llama3_70b=dict(
+            minimum_bandwidth_gbs={B_: cm.minimum_bandwidth(
+                l70, B_, 4096, h100, h20, dop=(2, 4)) / 1e9
+                for B_ in (32, 100, 300, lam.batch)},
+            vllm_4xh100=dataclasses.asdict(cm.estimate_vllm(l70, 4096, h100,
+                                                            4)),
+            lamina_dop_2_4=dataclasses.asdict(lam)),
+        qwen3_moe_min_bandwidth_gbs=min_bandwidth_moe(
+            qwen, 128, 8192, h100, h20) / 1e9)
+    log(f"cost model (h100 at efficiency 1.0; printed, not gated): "
+        f"{json.dumps(cost)}")
+    return dict(converter=conv, rotational=rot, cost_model=cost,
+                wall_s_phase=time.perf_counter() - t0)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3837,6 +4193,14 @@ def main() -> int:
     gemma2 = gemma2_e2e(torch, np, registry, transformer, counters)
     log(f"gemma2-27b phase done in {time.perf_counter() - t0:.1f} s; "
         f"phases 17-18 done at {time.perf_counter() - t_start:.1f} s")
+    # phase 19: seamless-m4t-medium at full width and depth
+    audio = audio_e2e(torch, np, registry, transformer, counters)
+    log(f"seamless phase done in {audio['wall_s_phase']:.1f} s")
+    # phase 20: the converter, the rotational pipeline, the cost model
+    analytic = analytic_e2e(torch, np, registry, counters, e2e["profile"],
+                            float(np.mean(plens)))
+    log(f"analytic phase done in {analytic['wall_s_phase']:.1f} s; phases "
+        f"19-20 done at {time.perf_counter() - t_start:.1f} s")
 
     stats = {"paged_decode_attention": dec["bf16"],
              "paged_prefill_chunk_attention": pre[("bf16", 1536, 512)],
@@ -3868,6 +4232,8 @@ def main() -> int:
                                 "dense_cache": dense, "other_dense": others,
                                 "speculative": spec, "moe": moe,
                                 "gemma2_27b": gemma2,
+                                "seamless_m4t_medium": audio,
+                                "analytic": analytic,
                                 "widened_kernel_cases": {
                                     " / ".join(k): v
                                     for k, v in wide.items()}}}))

@@ -1,11 +1,30 @@
-"""Reduced (smoke) config derivation. Port of ``repro/configs/base.py``
-(``reduced``; the reference's ShapeDtypeStruct helpers serve JAX
-lowering only)."""
+"""Input-shape definitions and reduced (smoke) config derivation. Port of
+``repro/configs/base.py`` (``InputShape``, ``INPUT_SHAPES``, ``reduced``;
+the reference's ShapeDtypeStruct helpers serve JAX lowering only)."""
 from __future__ import annotations
+
+import dataclasses
+from typing import Dict
 
 import torch
 
 from repro_torch.models.common import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -1,7 +1,8 @@
 """Architecture registry: ``arch`` id resolution, smoke variants, and
 per-arch input-shape applicability. Port of ``repro/configs/registry.py``
-(all 11 archs; the port serves the dense, vlm, moe, ssm and hybrid
-families, and holds the audio config as data)."""
+(all 11 archs; the port serves every family: the dense, vlm and moe ones
+through ``LLMEngine``, the ssm, hybrid and audio ones through the
+dense-cache entry points of ``models/transformer.py``)."""
 from __future__ import annotations
 
 import importlib

@@ -1,8 +1,8 @@
 """seamless-m4t-medium — encoder-decoder, multimodal speech/text
-[arXiv:2308.11596]. Port of ``repro/configs/seamless_m4t_medium.py``: data
-only, the port does not serve family ``audio`` yet. The audio frontend is
-stubbed: the encoder consumes precomputed (B, S_enc, d) frame
-embeddings."""
+[arXiv:2308.11596]. Port of ``repro/configs/seamless_m4t_medium.py``,
+served by ``models/transformer.py``'s dense-cache entry points (not by
+``LLMEngine``, as in the reference). The audio frontend is stubbed: the
+encoder consumes precomputed (B, S_enc, d) frame embeddings."""
 from repro_torch.models.common import ModelConfig
 
 CONFIG = ModelConfig(

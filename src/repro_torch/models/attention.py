@@ -1,6 +1,7 @@
 """GQA attention: blockwise (flash-style) prefill path, the paged chunk
-prefill path, and the single-token decode paths over the paged pool and
-over a dense head-major cache.
+prefill path, the single-token decode paths over the paged pool and over a
+dense head-major cache, and the single-token cross-attention of an
+encoder-decoder.
 Port of ``repro/models/attention.py``.
 
 The blockwise path carries running ``(max, denom, acc)`` statistics across
@@ -16,6 +17,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import combine as C
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_prefill_attention import \
     paged_prefill_chunk_attention
@@ -176,6 +178,23 @@ def _new_token_partial(q, k_new, v_new, *,
                                 logit_softcap=logit_softcap)
     return C.Partial(a=p_new.a.reshape(B, H, hd),
                      s=p_new.s.reshape(B, H), m=p_new.m.reshape(B, H))
+
+
+def decode_cross_attention(q, k_enc, v_enc) -> torch.Tensor:
+    """One-token cross-attention over a HEAD-MAJOR encoder K/V (B, Hkv,
+    S_enc, hd) whose rows are all live: q (B, H, hd) (no RoPE) -> (B, H,
+    hd) in q's dtype. The dense decode kernel on the card (cache_len =
+    S_enc for every sequence), its plain twin on the CPU. The reference
+    runs its jnp partial and ``finalize`` here (``blocks.py:266``); the
+    twin equals that at fp32 (a designed divergence: a CUDA tensor
+    launches a kernel)."""
+    B, H, hd = q.shape
+    Hkv = k_enc.shape[1]
+    full = torch.full((B,), k_enc.shape[2], dtype=torch.int32,
+                      device=q.device)
+    o = _da.decode_attention(q.reshape(B, Hkv, H // Hkv, hd).contiguous(),
+                             k_enc, v_enc, full)
+    return o.reshape(B, H, hd)
 
 
 def paged_decode_attention_partial_pos(q, k_pool, v_pool, block_tables,

@@ -1,10 +1,11 @@
 """Transformer blocks. Port of ``repro/models/blocks.py`` for the dense
 family (llama / gemma2 / vlm stacks: pre-norm attention + SwiGLU FFN, with
 gemma2's post-norms; the moe family's blocks put ``models/moe.py`` in the
-FFN's place), the RWKV6 block (rwkv6) and the Mamba2 block (zamba2's
-backbone). ``mode`` is "train" (full sequence, no cache),
-"prefill" (full sequence, returns the cache or state) or "decode" (one
-token)."""
+FFN's place), the RWKV6 block (rwkv6), the Mamba2 block (zamba2's
+backbone) and seamless's encoder block and decoder block with
+cross-attention (family ``audio``). ``mode`` is "train" (full sequence,
+no cache), "prefill" (full sequence, returns the cache or state) or
+"decode" (one token)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -14,7 +15,11 @@ import torch
 from repro_torch.models import ssm
 from repro_torch.models.attention import (attention_decode_step,
                                           attention_decode_step_paged,
-                                          attention_forward, init_attention)
+                                          attention_forward,
+                                          blockwise_attention,
+                                          decode_cross_attention,
+                                          init_attention, out_project,
+                                          qkv_project)
 from repro_torch.models.common import ModelConfig, rms_norm
 from repro_torch.models.ffn import ffn_forward, init_ffn
 from repro_torch.models.moe import init_moe, moe_forward
@@ -158,3 +163,92 @@ def mamba_block(params: Dict, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
     else:
         y, new_state = ssm.mamba_forward(params["mamba"], cfg, h), {}
     return x + y, new_state
+
+
+# ---------------------------------------------------------------------------
+# Encoder block (bidirectional) + decoder block w/ cross-attention (seamless)
+# ---------------------------------------------------------------------------
+def init_encoder_block(gen: torch.Generator, cfg: ModelConfig,
+                       device) -> Dict:
+    zeros = dict(dtype=cfg.dtype, device=device)
+    return {
+        "norm1": torch.zeros((cfg.d_model,), **zeros),
+        "norm2": torch.zeros((cfg.d_model,), **zeros),
+        "attn": init_attention(gen, cfg, device),
+        "ffn": init_ffn(gen, cfg, device),
+    }
+
+
+def encoder_block(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """Bidirectional self-attention + SwiGLU over the (B, S_enc, d)
+    frames: the plain blockwise path, as the reference's jnp one (no
+    Pallas kernel serves it there either)."""
+    h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    q, k, v = qkv_project(params["attn"], cfg, h, positions)
+    out = blockwise_attention(q, k, v, causal=False, q_positions=positions)
+    x = x + out_project(params["attn"], out)
+    h = rms_norm(x, params["norm2"], cfg.norm_eps)
+    return x + ffn_forward(params["ffn"], h)
+
+
+def init_decoder_block(gen: torch.Generator, cfg: ModelConfig,
+                       device) -> Dict:
+    zeros = dict(dtype=cfg.dtype, device=device)
+    return {
+        "norm1": torch.zeros((cfg.d_model,), **zeros),
+        "norm2": torch.zeros((cfg.d_model,), **zeros),
+        "norm3": torch.zeros((cfg.d_model,), **zeros),
+        "attn": init_attention(gen, cfg, device),
+        "cross": init_attention(gen, cfg, device),
+        "ffn": init_ffn(gen, cfg, device),
+    }
+
+
+def decoder_block(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                  enc_kv: Tuple[torch.Tensor, torch.Tensor], *, mode: str,
+                  positions: Optional[torch.Tensor] = None,
+                  cache: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
+    """Causal self-attention, cross-attention over the encoder's K/V, then
+    SwiGLU. ``enc_kv``: this layer's encoder (k, v), seq-major (B, S_enc,
+    Hkv, hd) for "train"/"prefill", HEAD-MAJOR (B, Hkv, S_enc, hd) from the
+    cache for "decode". At decode the self-attention reads the dense cache
+    ({"k", "v", "len"}) through ``attention_decode_step`` and the
+    cross-attention attends over every encoder row through
+    ``decode_cross_attention``: the dense decode kernel twice a layer on
+    the card. Returns (x, {"k_new", "v_new"} at decode, {"k", "v"} (B, S,
+    Hkv, hd) at prefill)."""
+    h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    new_cache: Dict = {}
+    if mode == "decode":
+        attn, k_new, v_new = attention_decode_step(
+            params["attn"], cfg, h, cache["k"], cache["v"], cache["len"])
+        new_cache = {"k_new": k_new, "v_new": v_new}
+    elif mode in ("prefill", "train"):
+        attn, k, v = attention_forward(params["attn"], cfg, h, positions)
+        if mode == "prefill":
+            new_cache = {"k": k, "v": v}
+    else:
+        raise ValueError(f"mode must be 'train', 'prefill' or 'decode'; got "
+                         f"{mode!r}")
+    x = x + attn
+    # cross attention (encoder K/V are fixed — computed once per request)
+    h = rms_norm(x, params["norm2"], cfg.norm_eps)
+    q = torch.einsum("bsd,dhk->bshk", h, params["cross"]["wq"])
+    ek, ev = enc_kv
+    if mode == "decode":
+        out = decode_cross_attention(q[:, 0], ek, ev)[:, None]
+    else:
+        out = blockwise_attention(q, ek, ev, causal=False)
+    x = x + out_project(params["cross"], out)
+    h = rms_norm(x, params["norm3"], cfg.norm_eps)
+    return x + ffn_forward(params["ffn"], h), new_cache
+
+
+def encoder_cross_kv(params: Dict, cfg: ModelConfig, enc_out: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Project the encoder output into this decoder layer's cross K/V,
+    seq-major (B, S_enc, Hkv, hd)."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, params["cross"]["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc_out, params["cross"]["wv"])
+    return k, v

@@ -1,6 +1,7 @@
 """Model assembly: embedding -> layer stack -> head.
 Port of ``repro/models/transformer.py`` for the dense/vlm/moe stacks, rwkv6
-(family ``ssm``) and zamba2 (family ``hybrid``):
+(family ``ssm``), zamba2 (family ``hybrid``) and seamless-m4t-medium's
+encoder-decoder (family ``audio``):
 
     init_params(seed, cfg, device=...)                      -> params
     params_from_jax(np_tree, cfg, device)                   -> params
@@ -20,10 +21,12 @@ Port of ``repro/models/transformer.py`` for the dense/vlm/moe stacks, rwkv6
                       v_scale_pool=None)                    -> (logits, updates)
 
 Per-layer parameters are stacked on axis 0 exactly as in the reference
-pytree (zamba2's mamba layers on (n_super, period) axes); a Python loop over
-layers replaces ``lax.scan``. ``params["layers"]`` may instead be a LIST of
-per-layer trees (zamba2: a list over superblocks of lists of mamba layers,
-and ``params["tail"]`` a list), the reference's listed layout
+pytree (zamba2's mamba layers on (n_super, period) axes; seamless's
+encoder layers in ``params["enc_layers"]``, its decoder layers in
+``params["layers"]``); a Python loop over layers replaces ``lax.scan``.
+``params["layers"]`` may instead be a LIST of per-layer trees (zamba2: a
+list over superblocks of lists of mamba layers, and ``params["tail"]`` a
+list), the reference's listed layout
 (``transformer.py:132``): ``forward``, ``prefill`` and ``decode_step`` then
 return per-layer lists of cache entries, as the reference's
 ``_decode_step_listed`` does. Each function takes ``device`` (default
@@ -32,6 +35,13 @@ a call that does not pass ``device="cpu"`` raises. With ``kv_cache_bits ==
 8`` the dense/vlm cache is int8 with fp32 per-token scales ("k_scale",
 "v_scale", (L, B, Hkv, S)), read by the dense decode kernel's int8 entry;
 the paged entry points serve int8 pools.
+
+An audio model's ``batch`` also holds "frames": (B, S_enc, d) frame
+embeddings (the stubbed audio frontend) that the encoder consumes; its
+cache adds the decoder layers' cross K/V "ck"/"cv" (L, B, Hkv, S_enc, hd),
+filled by ``prefill`` and only read after it. Its decode step launches the
+dense decode kernel twice a layer (self- and cross-attention). Like the
+reference, ``LLMEngine`` and the paged entry points do not serve it.
 
 The three prefill entry points also run on PADDED operands, the static
 buffers of the engine's compiled prefill programs (``serving/compiled.py``):
@@ -61,9 +71,9 @@ from repro_torch.models.common import (ModelConfig, Params, dense_init,
 
 # the KV-cache stacks: the paged entry points and LLMEngine serve these
 DENSE_FAMILIES = ("dense", "vlm", "moe")
-# families the dense-cache entry points (forward, prefill, decode_step)
-# serve
-SERVE_FAMILIES = DENSE_FAMILIES + ("ssm", "hybrid")
+# families the dense-cache entry points (init_params, forward, init_cache,
+# prefill, decode_step) serve
+SERVE_FAMILIES = DENSE_FAMILIES + ("ssm", "hybrid", "audio")
 
 
 def _check_family(cfg: ModelConfig, what: str,
@@ -155,6 +165,14 @@ def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> Params:
             params["tail"] = _stacked_init(gen, cfg, dev, (tail,),
                                            blocks.init_mamba_block)
         params["shared_attn"] = blocks.init_dense_block(gen, cfg, dev)
+    elif cfg.family == "audio":      # seamless enc-dec
+        params["enc_layers"] = _stacked_init(gen, cfg, dev,
+                                             (cfg.encoder_layers,),
+                                             blocks.init_encoder_block)
+        params["enc_norm"] = torch.zeros((cfg.d_model,), dtype=cfg.dtype,
+                                         device=dev)
+        params["layers"] = _stacked_init(gen, cfg, dev, (cfg.num_layers,),
+                                         blocks.init_decoder_block)
     else:
         params["layers"] = _stacked_init(
             gen, cfg, dev, (cfg.num_layers,),
@@ -329,6 +347,38 @@ def _zamba_stack(params, cfg: ModelConfig, x, positions, *, mode: str):
     return x, attn_caches, mstates, tail_states
 
 
+def _encdec_stacks(params, cfg: ModelConfig, batch: Dict, *, mode: str,
+                   device):
+    """The encoder over batch["frames"] (B, S_enc, d), its final norm, then
+    the decoder over batch["tokens"], each layer's cross K/V projected
+    from the encoder output. Returns (x, [per-layer cache]); at prefill a
+    layer's cache also holds its cross K/V "ck"/"cv" (B, S_enc, Hkv,
+    hd)."""
+    frames = torch.as_tensor(batch["frames"]).to(device=device,
+                                                  dtype=cfg.dtype)
+    B, S_enc, _ = frames.shape
+    enc_pos = torch.arange(S_enc, device=device)[None].expand(B, S_enc)
+    enc_out = frames
+    for i in range(cfg.encoder_layers):
+        enc_out = blocks.encoder_block(_layer(params["enc_layers"], i), cfg,
+                                       enc_out, enc_pos)
+    enc_out = rms_norm(enc_out, params["enc_norm"], cfg.norm_eps)
+    # the reference's decoder embeds without the tied-embedding scale
+    x = params["embed"][_int_tensor(batch["tokens"], device).long()]
+    S_dec = x.shape[1]
+    dec_pos = torch.arange(S_dec, device=device)[None].expand(B, S_dec)
+    caches = []
+    for i in range(cfg.num_layers):
+        p = _layer(params["layers"], i)
+        ekv = blocks.encoder_cross_kv(p, cfg, enc_out)
+        x, c = blocks.decoder_block(p, cfg, x, ekv, mode=mode,
+                                    positions=dec_pos)
+        if mode == "prefill":
+            c = dict(c, ck=ekv[0], cv=ekv[1])
+        caches.append(c)
+    return x, caches
+
+
 # ===========================================================================
 # Full-sequence forward
 # ===========================================================================
@@ -338,6 +388,9 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict, *,
     MoE router's aux loss, which only training (not ported) reads."""
     _check_family(cfg, "forward", SERVE_FAMILIES)
     dev = resolve_device(device)
+    if cfg.family == "audio":
+        x, _ = _encdec_stacks(params, cfg, batch, mode="train", device=dev)
+        return _head(params, cfg, x)
     x, positions, n_front = _embed(params, cfg, batch, dev)
     if cfg.family == "ssm":
         x, _ = _rwkv_stack(params, cfg, x, mode="train")
@@ -366,7 +419,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     "x_cm"} stacked over layers; zamba2's shared-attention K/V (n_super, B,
     Hkv, max_seq, hd), mamba states "h" (n_super, period, B, H, P, N) fp32
     and "conv" (n_super, period, B, K-1, conv_ch), plus
-    "tail_h"/"tail_conv"."""
+    "tail_h"/"tail_conv"; an audio model's decoder K/V and its empty cross
+    K/V "ck"/"cv" (L, B, Hkv, 0, hd), sized by the encoder at prefill."""
     _check_family(cfg, "init_cache", SERVE_FAMILIES)
     dev = resolve_device(device)
     hd = cfg.resolved_head_dim
@@ -392,6 +446,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
         if tail:
             cache["tail_h"] = torch.zeros((tail, batch, H, P, N), **f32)
             cache["tail_conv"] = torch.zeros((tail, batch, *conv), **model)
+    elif cfg.family == "audio":
+        cache["k"] = torch.zeros((L, batch, cfg.num_kv_heads, max_seq, hd),
+                                 **model)
+        cache["v"] = torch.zeros_like(cache["k"])
+        cache["ck"] = torch.zeros((L, batch, cfg.num_kv_heads, 0, hd),
+                                  **model)
+        cache["cv"] = torch.zeros_like(cache["ck"])
     else:
         kv = dict(dtype=torch.int8, device=dev) if _int8_cache(cfg) \
             else model
@@ -417,14 +478,15 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict, max_seq: int, *,
     head-major K/V, as the reference does. Attention is the plain
     blockwise path; the recurrent layers run the scan kernels on the card,
     and their final state is the closed form. ``length`` (dense/vlm): (B,)
-    real rows of padded prompts (module docstring)."""
+    real rows of padded prompts (module docstring). An audio model runs
+    its encoder over batch["frames"] and fills "ck"/"cv" head-major (L, B,
+    Hkv, S_enc, hd) beside the decoder's K/V."""
     _check_family(cfg, "prefill", SERVE_FAMILIES)
     if length is not None:
         _check_family(cfg, "prefill of padded prompts")
         _check_unpadded(cfg, length)
     dev = resolve_device(device)
     listed = _is_listed(params)
-    x, positions, _ = _embed(params, cfg, batch, dev)
     cache: Dict[str, Any] = {}
 
     def kv_slabs(entries, key):
@@ -436,6 +498,17 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict, max_seq: int, *,
             cache[f"{key}_scale"] = _per_layer(scales, listed)
         cache[key] = _per_layer(slabs, listed)
 
+    if cfg.family == "audio":
+        x, caches = _encdec_stacks(params, cfg, batch, mode="prefill",
+                                   device=dev)
+        for key in ("k", "v"):
+            kv_slabs(caches, key)
+        for key in ("ck", "cv"):
+            cache[key] = _per_layer(
+                (c[key].transpose(1, 2).contiguous() for c in caches), listed)
+        cache["len"] = _cache_len(x, None, 0)
+        return _head(params, cfg, x[:, -1]), cache
+    x, positions, _ = _embed(params, cfg, batch, dev)
     if cfg.family == "ssm":
         x, states = _rwkv_stack(params, cfg, x, mode="prefill")
         for key in ("S", "x_tm", "x_cm"):
@@ -603,14 +676,17 @@ def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Dict, *,
     KV placement is :func:`apply_decode_updates`' job. The cache's K/V (and
     scales) are only read. Listed parameters (the reference's
     ``_decode_step_listed``) read a listed cache and return per-layer
-    lists."""
+    lists. An audio model's step also reads its cross K/V "ck"/"cv" (the
+    dense decode kernel over every encoder row) and returns neither: they
+    stay the cache's."""
     _check_family(cfg, "decode_step", SERVE_FAMILIES)
     dev = resolve_device(device)
     listed = _is_listed(params)
     cur_len = _int_tensor(cache["len"], dev)
     x = _embed_tokens(params, cfg, _int_tensor(tokens, dev)[:, None])
     updates: Dict[str, Any] = {k: v for k, v in cache.items()
-                               if k not in ("k", "v", "k_scale", "v_scale")}
+                               if k not in ("k", "v", "ck", "cv", "k_scale",
+                                            "v_scale")}
     updates["len"] = cur_len + 1
 
     if cfg.family == "ssm":
@@ -657,6 +733,18 @@ def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Dict, *,
             for key in ("h", "conv"):
                 updates[f"tail_{key}"] = _per_layer(
                     [st[key] for st in states], listed)
+    elif cfg.family == "audio":
+        k_new, v_new = [], []
+        for i in range(cfg.num_layers):
+            x, c = blocks.decoder_block(
+                _layer(params["layers"], i), cfg, x,
+                (cache["ck"][i], cache["cv"][i]), mode="decode",
+                cache={"k": cache["k"][i], "v": cache["v"][i],
+                       "len": cur_len})
+            k_new.append(c["k_new"])
+            v_new.append(c["v_new"])
+        updates["k_new"] = _per_layer(k_new, listed)
+        updates["v_new"] = _per_layer(v_new, listed)
     else:
         caches = []
         for i in range(cfg.num_layers):
@@ -681,8 +769,9 @@ def apply_decode_updates(cache: Dict, updates: Dict) -> Dict:
     quantized (``kv_quant.quantize_token``) with its scales. Unlike the
     reference (which returns a new cache), the K/V (and scales) are written
     IN PLACE into ``cache["k"]`` / ``cache["v"]``, so a step never copies
-    the whole cache; the returned dict holds those same tensors. Stacked
-    caches only, as in the reference."""
+    the whole cache; the returned dict holds those same tensors. An audio
+    cache's cross K/V "ck"/"cv" stay as they are. Stacked caches only, as
+    in the reference."""
     new_cache = dict(cache)
     if "k_new" in updates:
         B = updates["k_new"].shape[1]

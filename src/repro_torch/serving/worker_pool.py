@@ -1,8 +1,8 @@
 """Memory-device worker pool and wire-byte accounting (paper §4.2.2, §3.1).
 Port of ``repro/serving/worker_pool.py`` (``AttentionWorkerPool`` over the
 paged pool and over a dense cache, ``TransferLog``,
-``expected_transfer_bytes``, and the MoE side: ``transfer_bytes_moe`` and
-``ExpertWorkerPool``; ``min_bandwidth_moe`` waits for the cost model).
+``expected_transfer_bytes``, and the MoE side: ``transfer_bytes_moe``,
+``min_bandwidth_moe`` and ``ExpertWorkerPool``).
 
 :class:`AttentionWorkerPool` owns the partitioning and the accounting of
 decode attention over the engine's paged block pool (or, in ``attend``,
@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import combine as C
+from repro_torch.core import costmodel as cm
 from repro_torch.kernels.paged_decode_attention import POS_PAD
 from repro_torch.models.attention import (_new_token_partial,
                                           decode_attention_combine,
@@ -276,6 +277,16 @@ def transfer_bytes_moe(cfg: ModelConfig, batch: int) -> int:
     """Per-iteration wire bytes for expert offloading: token activations to
     the pool and expert outputs back, per MoE layer."""
     return int(2 * BYTES * cfg.d_model * batch * cfg.num_layers)
+
+
+def min_bandwidth_moe(cfg: ModelConfig, batch: int, seq_len: float,
+                      hw_model: cm.HardwareSpec, hw_exp: cm.HardwareSpec,
+                      alpha: float = 0.2) -> float:
+    """Paper-§3.1 style minimum-bandwidth bound for the MoE boundary
+    (reference ``worker_pool.py:292``; ``hw_exp`` is unused there too)."""
+    t = cm.mtime(cfg, batch, hw_model) + cm.atime(cfg, batch, seq_len,
+                                                  hw_model)
+    return transfer_bytes_moe(cfg, batch) / (alpha * t)
 
 
 class ExpertWorkerPool:

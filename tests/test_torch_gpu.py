@@ -1308,3 +1308,109 @@ def test_cuda_moe_offload_engine_launch_accounting(cuda, kv_dtype):
         if placement == "moe_offload":
             assert eng.expert_pool.log.total == \
                 transfer_bytes_moe(cfg, 1) * st.tokens_generated
+
+
+# ---------------------------------------------------------------------------
+# the audio family and the converter's block on the card
+# ---------------------------------------------------------------------------
+def _cos(a, b):
+    a, b = a.float().flatten(), b.float().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["stacked", "listed"])
+def test_cuda_seamless_decode_matches_the_cpu(cuda, layout):
+    """seamless's smoke encoder-decoder in bf16 (G = 1, hd = 64): prefill
+    then 3 greedy decode steps on the card and on the CPU from the same
+    weights; every step launches the dense kernel twice a layer (self and
+    cross) and its logits agree with the CPU's at row cosine >= 0.999 (the
+    kernel and its twin differ in bf16 rounding). The listed layout's step
+    equals the stacked one bit for bit."""
+    from repro_torch.configs import registry as treg
+    from repro_torch.models import transformer as ttf
+    cfg = treg.get_smoke_config("seamless-m4t-medium", dtype=torch.bfloat16)
+    cpu = ttf.init_params(0, cfg, device="cpu")
+    params = ttf._tree_map(lambda a: a.to(cuda), cpu)
+    rng = np.random.default_rng(3)
+    batch = {"frames": rng.standard_normal((2, 300, cfg.d_model)).astype(
+                 np.float32),
+             "tokens": rng.integers(0, cfg.vocab_size, (2, 6))}
+    lg, cache = ttf.prefill(params, cfg, batch, 10, device=cuda)
+    clg, ccache = ttf.prefill(cpu, cfg, batch, 10, device="cpu")
+    assert _cos(lg.cpu(), clg) >= 0.999
+    listed = ttf._tree_map(lambda a: a, params)
+    listed["layers"] = [ttf._layer(params["layers"], i)
+                        for i in range(cfg.num_layers)]
+    for _ in range(3):
+        tok = lg.argmax(-1).int()
+        da.decode_attention.launches = 0
+        lg, upd = ttf.decode_step(params, cfg, tok, cache, device=cuda)
+        torch.cuda.synchronize()
+        assert da.decode_attention.launches == 2 * cfg.num_layers
+        clg, cupd = ttf.decode_step(cpu, cfg, tok.cpu(), ccache,
+                                    device="cpu")
+        for i in range(2):
+            assert _cos(lg[i].cpu(), clg[i]) >= 0.999
+        if layout == "listed":
+            lcache = {k: v if k == "len" else list(v)
+                      for k, v in cache.items()}
+            llg, lupd = ttf.decode_step(listed, cfg, tok, lcache,
+                                        device=cuda)
+            assert torch.equal(llg, lg)
+            assert torch.equal(torch.stack(lupd["k_new"]), upd["k_new"])
+        cache = ttf.apply_decode_updates(cache, upd)
+        ccache = ttf.apply_decode_updates(ccache, cupd)
+
+
+@pytest.mark.gpu
+def test_cuda_converter_block_with_a_dense_kernel_callback(cuda):
+    """A block graph (G = 4, hd = 64) on the card, fp32 ops, its attention
+    callback appending the step's k/v to a bf16 dense cache of 99 tokens
+    and launching the dense decode kernel: sliced = unsliced bit for bit,
+    the callback's output within 2 bf16 ulps of the kernel's plain twin,
+    and the rotational run over 3 batches = their direct runs."""
+    from repro_torch.configs import registry as treg
+    from repro_torch.core import converter, pipeline
+    from repro_torch.models import blocks as tblocks
+    cfg = treg.get_smoke_config("llama3-8b", num_heads=8, num_kv_heads=2)
+    B, S, G, hd = 4, 100, cfg.gqa_group, cfg.resolved_head_dim
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    w = tblocks.init_dense_block(gen, cfg, cuda)
+    g = converter.build_block_graph(cfg, weights=w, batch=B, device=cuda)
+    sp = converter.split_at_attention(g)
+    kc = torch.randn((B, cfg.num_kv_heads, S, hd), generator=gen,
+                     device=cuda).bfloat16()
+    vc = torch.randn_like(kc)
+    lens = torch.full((B,), S, dtype=torch.int32, device=cuda)
+    seen = []
+
+    def attn_fn(name, env, kernel=da.decode_attention):
+        kc[:, :, S - 1] = env["k_proj"].bfloat16()
+        vc[:, :, S - 1] = env["v_proj"].bfloat16()
+        q = env["q_proj"].bfloat16().reshape(B, cfg.num_kv_heads, G, hd)
+        o = kernel(q, kc, vc, lens)
+        seen.append((q, o))
+        return o.float().reshape(B, cfg.num_heads, hd)
+
+    x = {"x": torch.randn((B, cfg.d_model), generator=gen, device=cuda)}
+    da.decode_attention.launches = 0
+    env = sp.run(x, attn_fn)
+    direct = dict(x)
+    for name in g.order:
+        op = g.ops[name]
+        if op.kind == "attention":
+            direct[name] = attn_fn(name, direct)
+        elif op.kind != "input":
+            direct[name] = op.fn(*[direct[i] for i in op.inputs])
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == 2
+    assert torch.equal(env["residual2"], direct["residual2"])
+    q, o = seen[0]
+    want = da.decode_attention_plain(q, kc, vc, lens)
+    torch.testing.assert_close(o.float(), want.float(), rtol=8e-3, atol=1e-3)
+    envs, log = pipeline.run_rotational(
+        [sp] * 3, [x] * 3, lambda j, name, env: attn_fn(name, env))
+    for e in envs:
+        assert torch.equal(e["residual2"], env["residual2"])
+    assert all(r == (j + k) % 2 for j, k, r in log)

@@ -40,6 +40,13 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_analytic_core_modules_are_held_to_the_import_check():
+    names = {str(f.relative_to(ROOT)) for f in FILES}
+    for rel in ("core/costmodel.py", "core/converter.py",
+                "core/pipeline.py", "launch/analytic.py"):
+        assert f"src/repro_torch/{rel}" in names, rel
+
+
 def test_every_port_module_names_its_reference():
     for path in PORT.rglob("*.py"):
         if path.name == "__init__.py" and path.parent != PORT and \
@@ -94,6 +101,26 @@ def test_default_device_entry_points_raise_without_a_gpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--placement",
                     "moe_offload", "--requests", "2"])
+    # the audio family's entry points, and the converter's executable graph
+    acfg = registry.get_smoke_config("seamless-m4t-medium")
+    aparams = transformer.init_params(0, acfg, device="cpu")
+    batch = {"tokens": [[1, 2]], "frames": torch.zeros(1, 3, acfg.d_model)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_params(0, acfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_cache(acfg, 1, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.forward(aparams, acfg, batch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.prefill(aparams, acfg, batch, max_seq=4)
+    _, acache = transformer.prefill(aparams, acfg, batch, max_seq=4,
+                                    device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.decode_step(aparams, acfg, [1], acache)
+    from repro_torch.core import converter
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        converter.build_block_graph(cfg, weights=transformer._layer(
+            params["layers"], 0), batch=1)
 
 
 def test_init_params_on_cpu_is_seeded_and_follows_the_init_rules():

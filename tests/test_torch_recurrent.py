@@ -436,13 +436,17 @@ def test_entry_points_refuse_what_is_not_ported():
                                                   kv_cache_bits=8), 1, 4,
                             device="cpu")
     assert zcache["k"].dtype == torch.float32 and "k_scale" not in zcache
-    other = ModelConfig(family="audio")
-    for fn in (lambda: ttf.init_params(0, other, device="cpu"),
-               lambda: ttf.init_cache(other, 1, 4, device="cpu"),
-               lambda: ttf.forward({}, other, {"tokens": [[1]]},
-                                   device="cpu")):
-        with pytest.raises(NotImplementedError):
-            fn()
+    # the audio family is served since its slice (tests/test_torch_audio.py)
+    other = ModelConfig(family="audio", encoder_layers=1, num_layers=1,
+                        d_model=32, num_heads=2, num_kv_heads=2, d_ff=64,
+                        vocab_size=16, dtype=torch.float32)
+    ap = ttf.init_params(0, other, device="cpu")
+    assert ap["enc_layers"]["attn"]["wq"].shape[0] == 1 and \
+        "cross" in ap["layers"]
+    acache = ttf.init_cache(other, 1, 4, device="cpu")
+    assert acache["ck"].shape == (1, 1, 2, 0, 16)
+    assert ttf.forward(ap, other, {"tokens": [[1]], "frames": np.zeros(
+        (1, 3, 32), np.float32)}, device="cpu").shape == (1, 1, 16)
     # the moe family is served since its slice (tests/test_torch_moe.py)
     mcfg = treg.get_smoke_config("qwen3-moe-30b-a3b")
     mp = ttf.init_params(0, mcfg, device="cpu")
