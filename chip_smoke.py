@@ -211,8 +211,28 @@ Phases (any failure exits non-zero and prints no result line):
      busy time a step; llama3-70b's ``minimum_bandwidth``,
      ``estimate_vllm`` and ``estimate_lamina`` at DOP (2, 4); qwen3-moe's
      ``min_bandwidth_moe`` at (128, 8192);
- 21. one JSON line describing every ported kernel, then the result line.
-     A failed gate of phases 4, 5, 10, 11 and 13-20 is reported where it
+ 21. training (``train_e2e``): (a) tinyllama-1.1b at full width and
+     depth (bf16 weights from seed 0), 30 steps of B=8 x S=512
+     ``packed_batches`` through ``train_loop.train`` (AdamW lr 1e-3, 5
+     warmup steps): step wall p50, tokens/s, peak memory, the loss at
+     steps 1 and 30 (it must fall), the model-FLOPs share of 989 TFLOP/s
+     (6·N·T, remat's recompute 2·N·T beside it) and one profiled step;
+     then 15 steps, a checkpoint, a restore and 15 more on the same
+     batches = the uninterrupted run bit for bit; (b) one batch's loss and
+     every gradient at 2 of 22 layers in fp32 against the CPU port; (c)
+     zamba2-1.2b at full width and depth and rwkv6-7b at 8 of 32 layers,
+     B=4 x S=2048, 5 steps each: the scans' forward kernels launch twice
+     a remat unit's layer (forward and recompute) and their backward
+     kernels once a layer; at 2 layers a step's gradients through the
+     kernels against the plain twins on the card (zamba2 fp32, rwkv6 bf16
+     and fp32); (d) each backward kernel against its plain backward at
+     the forward's main shape (B=8, S=2048, H=64, P=N=64; row 7 in bf16
+     and fp32), two calls bit for bit, ragged S and exact 0 / 1.0 decays,
+     timed held and unheld beside its bound and the plain twin; (e) one
+     smoke-size fp32 train step of each of the 10 assigned archs on the
+     card against the CPU port (loss, gradient norm);
+ 22. one JSON line describing every ported kernel, then the result line.
+     A failed gate of phases 4, 5, 10, 11 and 13-21 is reported where it
      happens and fails the run after the last phase. No two full-width
      models are alive at once.
 
@@ -221,13 +241,17 @@ without a CUDA device or without the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -275,19 +299,31 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
     "rwkv6_scan": (
         "src/repro_torch/csrc/rwkv6_scan.cu",
         "src/repro/kernels/rwkv6_scan.py:22"),
+    # the scans' backward kernels replace no TPU kernel: the reference
+    # differentiates the lax.scan named here (models/ssm.py, its training
+    # path); the port's forward is a kernel, so its gradient is one too
+    "ssm_scan_bwd": (
+        "src/repro_torch/csrc/ssm_scan.cu",
+        "src/repro/models/ssm.py:117"),
+    "rwkv6_scan_bwd": (
+        "src/repro_torch/csrc/rwkv6_scan.cu",
+        "src/repro/models/ssm.py:280"),
 }
 
 
 # the dense-cache decode and scan kernels launch on none of LLMEngine's paths
+# (nor do the scans' backward kernels on any serving path: no gradient)
 NO_NEW_KERNEL = {"decode_attention": 0, "decode_attention_int8": 0,
-                 "ssm_scan": 0, "rwkv6_scan": 0}
+                 "ssm_scan": 0, "rwkv6_scan": 0, "ssm_scan_bwd": 0,
+                 "rwkv6_scan_bwd": 0}
 # nor does a paged kernel on the dense-cache / recurrent path (whose caches
 # are bf16: the int8 dense entry runs only on phase 14's int8 dense cache)
 NO_PAGED_KERNEL = {"paged_decode_attention": 0,
                    "paged_prefill_chunk_attention": 0,
                    "paged_decode_attention_int8": 0,
                    "paged_prefill_chunk_attention_int8": 0,
-                   "decode_attention_int8": 0}
+                   "decode_attention_int8": 0, "ssm_scan_bwd": 0,
+                   "rwkv6_scan_bwd": 0}
 
 
 def log(*a):
@@ -328,7 +364,9 @@ class Launches:
                     "decode_attention": da.decode_attention,
                     "decode_attention_int8": da.decode_attention_int8,
                     "ssm_scan": ssm.ssm_scan,
-                    "rwkv6_scan": rwkv.rwkv6_scan}
+                    "rwkv6_scan": rwkv.rwkv6_scan,
+                    "ssm_scan_bwd": ssm.ssm_scan_bwd,
+                    "rwkv6_scan_bwd": rwkv.rwkv6_scan_bwd}
 
     def reset(self):
         for fn in self.fns.values():
@@ -2330,6 +2368,9 @@ def ssm_case(torch, ssm, timer, *, B, S, H, P, N, seed, edges=False,
         ms=timer.ms(kernel, iters=9), ms_held=timer.ms(kernel, iters=9,
                                                        hold=True),
         host_us=timer.host_us(kernel),
+        # the same launch without the autograd Function around it
+        host_us_no_function=timer.host_us(
+            lambda: ssm._ssm_scan_forward(x, Bi, Ci, decay)),
         plain_ms=timer.ms(lambda: ssm.ssm_scan_plain(x, Bi, Ci, decay),
                           iters=3, warmup=1),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, bytes=nbytes,
@@ -2378,6 +2419,8 @@ def rwkv_case(torch, rwkv, timer, *, B, S, H, P, seed, decays="randn",
         ms=timer.ms(kernel, iters=9), ms_held=timer.ms(kernel, iters=9,
                                                        hold=True),
         host_us=timer.host_us(kernel),
+        host_us_no_function=timer.host_us(
+            lambda: rwkv._rwkv6_scan_forward(r, k, v, w, u)),
         plain_ms=timer.ms(lambda: rwkv.rwkv6_scan_plain(r, k, v, w, u),
                           iters=3, warmup=1),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, bytes=nbytes,
@@ -2511,9 +2554,10 @@ def card_vs_cpu(torch, np, transformer, cfg, counters, S=128, frames=0):
     (after ``frames`` stub frame rows of an encoder-decoder), then 4
     greedy decode steps fed the card's tokens. Every step's logits must
     agree by row cosine."""
+    from repro_torch.tree import tree_map
     B, n_new = 2, 4
     params = transformer.init_params(1, cfg, device=DEV)
-    cpu_params = transformer._tree_map(lambda a: a.cpu(), params)
+    cpu_params = tree_map(lambda a: a.cpu(), params)
     rng = np.random.default_rng(1)
     batch = {"tokens": rng.integers(0, cfg.vocab_size, size=(B, S)).tolist()}
     if frames:
@@ -2550,10 +2594,8 @@ def card_vs_cpu(torch, np, transformer, cfg, counters, S=128, frames=0):
 # dense-cache path and speculative decoding
 # ---------------------------------------------------------------------------
 def n_params(params):
-    from repro_torch.models import transformer
-    n = []
-    transformer._tree_map(lambda a: n.append(a.numel()), params)
-    return sum(n)
+    from repro_torch.tree import tree_leaves
+    return sum(a.numel() for a in tree_leaves(params))
 
 
 def load_model(torch, registry, transformer, arch, seed=0, **overrides):
@@ -2767,6 +2809,7 @@ def dense_cache_e2e(torch, np, transformer, cfg, params, counters):
     from repro_torch.kernels.decode_attention import decode_attention_int8
     from repro_torch.models.kv_quant import quantize_kv
     from repro_torch.serving import AttentionWorkerPool
+    from repro_torch.tree import tree_map
 
     out = {}
     B, S, Hkv, H, hd = 8, 4096, cfg.num_kv_heads, cfg.num_heads, \
@@ -2815,12 +2858,12 @@ def dense_cache_e2e(torch, np, transformer, cfg, params, counters):
     # an int8 dense cache through the serve step, 4 layers
     c4 = cfg.replace(num_layers=4)
     c8 = c4.replace(kv_cache_bits=8)
-    p4 = dict(params, layers=transformer._tree_map(lambda a: a[:4],
-                                                   params["layers"]))
+    p4 = dict(params, layers=tree_map(lambda a: a[:4], params["layers"]))
     toks = np.random.default_rng(16).integers(0, cfg.vocab_size,
                                               size=(2, 258)).tolist()
     with torch.inference_mode():
-        full = transformer.forward(p4, c4, {"tokens": toks}, device=DEV)
+        full, _ = transformer.forward(p4, c4, {"tokens": toks},
+                                      device=DEV)
         counters.reset()
         _, cache = transformer.prefill(p4, c8, {"tokens": [t[:-2] for t in
                                                            toks]},
@@ -3063,12 +3106,13 @@ def speculative_e2e(torch, np, registry, transformer):
     part from it only at a bf16 near-tie of the target's logits."""
     from repro_torch.serving.speculative import (greedy_generate,
                                                  speculative_generate)
+    from repro_torch.tree import tree_map
 
     cfg, params = load_model(torch, registry, transformer, "llama3-8b",
                              num_layers=4)
     dcfg = cfg.replace(num_layers=1)
-    dparams = dict(params, layers=transformer._tree_map(lambda a: a[:1],
-                                                        params["layers"]))
+    dparams = dict(params, layers=tree_map(lambda a: a[:1],
+                                           params["layers"]))
     prompt = np.random.default_rng(19).integers(0, cfg.vocab_size,
                                                 size=64).tolist()
     n_new = 24
@@ -3086,7 +3130,7 @@ def speculative_e2e(torch, np, registry, transformer):
     if pos is not None:     # the target's logits where the two part
         with torch.inference_mode():
             lg = transformer.forward(params, cfg, {"tokens": [
-                prompt + want[:pos]]}, device=DEV)[0, -1]
+                prompt + want[:pos]]}, device=DEV)[0][0, -1]
         tie = dict(position=pos, greedy=want[pos], speculative=got[pos],
                    gap_bf16_ulps=gap_ulps(lg, got[pos]))
     res = dict(tokens=n_new, equal=got == want, first_difference=tie,
@@ -3864,6 +3908,566 @@ def analytic_e2e(torch, np, registry, counters, profile, mean_ctx):
                 wall_s_phase=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: training (tinyllama-1.1b at full width and depth; the scans'
+# backward kernels through zamba2-1.2b and rwkv6-7b)
+# ---------------------------------------------------------------------------
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 512, 30        # (a)
+REC_B, REC_S, REC_STEPS, RWKV_LAYERS = 4, 2048, 5, 8   # (c)
+BWD_B, BWD_S, BWD_H, BWD_P = 8, 2048, 64, 64      # (d): the forward's shape
+# gradient agreement per leaf (cosine, and max |err| over the leaf's
+# largest entry): card vs CPU, both fp32 (cuBLAS fp32 products, no TF32);
+# scan kernels vs their plain twins on the card, fp32 (the forward's
+# three-pass bf16 products, ~1e-5 of each) and bf16 (one bf16 rounding
+# of the scan's output and of every later activation)
+GRAD_COS_CPU, GRAD_REL_CPU = 0.99999, 1e-3
+GRAD_COS_F32, GRAD_COS_BF16 = 0.9999, 0.999
+SMOKE_LOSS_RTOL = 1e-4
+
+
+def grad_agreement(got, want):
+    """(min cosine, max |got - want| / max |want|) over the leaves whose
+    gradient is not zero."""
+    cos, rel = [], []
+    for g, w in zip(got, want):
+        g, w = g.float().cpu(), w.float().cpu()
+        scale = float(w.abs().max())
+        if scale == 0.0 and float(g.abs().max()) == 0.0:
+            continue
+        cos.append(cosine(g, w))
+        rel.append(float((g - w).abs().max()) / max(scale, 1e-30))
+    return min(cos), max(rel)
+
+
+def leaf_names(tree, prefix=""):
+    """Dotted names of a tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        fields = getattr(tree, "_fields", range(len(tree)))
+        return [n for f, v in zip(fields, tree)
+                for n in leaf_names(v, f"{prefix}{f}.")]
+    return [prefix[:-1]]
+
+
+def train_walls(history):
+    """Per-step walls (s) from ``train``'s history logged every step."""
+    walls = [history[0]["wall_s"]]
+    walls += [b["wall_s"] - a["wall_s"] for a, b in zip(history, history[1:])]
+    return walls
+
+
+def param_count_no_embed(cfg, params):
+    """Parameters that a token's forward multiplies (the embedding table is
+    a lookup; a tied table is counted once, as the head)."""
+    n = n_params(params)
+    return n if cfg.tie_embeddings else n - cfg.vocab_size * cfg.d_model
+
+
+def train_tinyllama(torch, np, registry, transformer, counters):
+    """(a) tinyllama-1.1b at full width and depth, bf16 weights from seed
+    0: 30 steps of B=8 x S=512 ``packed_batches`` through ``train`` (lr
+    1e-3, 5 warmup steps), timed per step; then the same 30 batches as 15
+    steps, a checkpoint, a restore and 15 more: equal to the uninterrupted
+    run bit for bit. One step profiled."""
+    from repro_torch.data.synthetic import packed_batches
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import make_train_step, train
+    from repro_torch.tree import tree_leaves
+
+    cfg = registry.get_config("tinyllama-1.1b")
+    t0 = time.perf_counter()
+    data = packed_batches(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0,
+                          device=DEV)
+    batches = list(itertools.islice(data, TRAIN_STEPS))
+    sync(torch)
+    data_s = time.perf_counter() - t0
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_params(0, cfg, device=DEV)
+    N = n_params(params)
+    adamw = opt.AdamWConfig(lr=1e-3, warmup_steps=5,
+                            total_steps=TRAIN_STEPS)
+    counters.reset()
+    full_p, full_s, hist = train(cfg, adamw, iter(batches), TRAIN_STEPS,
+                                 params=params, log_every=1, device=DEV)
+    sync(torch)
+    launches = {k: n for k, n in counters.read().items() if n}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    walls = train_walls(hist)
+    p50 = float(np.median(walls[1:]))
+    tokens = TRAIN_B * TRAIN_S
+    n_mult = param_count_no_embed(cfg, params)
+    model_flops = 6 * n_mult * tokens
+    remat_flops = 2 * n_mult * tokens
+    losses = [h["loss"] for h in hist]
+    out = dict(parameters=N, parameters_multiplied=n_mult,
+               batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
+               data_gen_s_per_batch=data_s / TRAIN_STEPS,
+               first_step_s=walls[0], step_wall_p50_s=p50,
+               step_wall_min_s=float(min(walls[1:])),
+               tokens_per_s=tokens / p50, peak_gib=peak,
+               loss_step1=losses[0], loss_last=losses[-1],
+               grad_norm_step1=hist[0]["grad_norm"],
+               grad_norm_last=hist[-1]["grad_norm"],
+               mfu_6nt=model_flops / p50 / BF16_FLOP_PER_S,
+               mfu_with_remat_8nt=(model_flops + remat_flops) / p50
+               / BF16_FLOP_PER_S,
+               model_tflop_per_step=model_flops / 1e12,
+               remat_tflop_per_step=remat_flops / 1e12,
+               launches=launches)
+    gate(all(math.isfinite(x) for x in losses),
+         f"tinyllama train: non-finite loss {losses}")
+    # the corpus's successors are uniform over 32000 tokens, so 30 steps
+    # see each bigram a few times: the loss falls slowly from ~ln(32000)
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    out.update(loss_mean_first5=first, loss_mean_last5=last)
+    gate(last < first, f"tinyllama train: mean loss of the last 5 steps "
+         f"{last:.4f} not below the first 5's {first:.4f}")
+    gate(not launches, f"tinyllama train launched {launches} (its "
+         f"attention is the plain blockwise path)")
+    # resumed: 15 steps with a checkpoint, a restore, 15 more
+    half = TRAIN_STEPS // 2
+    saved = {}
+    save = ckpt.save
+
+    def timed_save(*a, **kw):
+        t = time.perf_counter()
+        path = save(*a, **kw)
+        saved["save_s"] = time.perf_counter() - t
+        saved["path"] = path
+        return path
+    data_b = iter(batches)
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save = timed_save
+        try:
+            p_half, s_half, _ = train(cfg, adamw, data_b, half,
+                                      params=params, log_every=half,
+                                      checkpoint_dir=d,
+                                      checkpoint_every=half, device=DEV)
+        finally:
+            ckpt.save = save
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for f in os.listdir(d))
+        template = {"params": p_half, "opt": s_half}
+        del p_half, s_half
+        t = time.perf_counter()
+        tree, step = ckpt.restore(d, template)
+        sync(torch)
+        restore_s = time.perf_counter() - t
+    del template
+    res_p, res_s, hist_b = train(cfg, adamw, data_b, TRAIN_STEPS - half,
+                                 params=tree["params"], state=tree["opt"],
+                                 log_every=TRAIN_STEPS - half, device=DEV)
+    del tree
+    sync(torch)
+    names = leaf_names({"params": res_p, "opt": res_s})
+    differ = [(n, float((a.float() - b.float()).abs().max()))
+              for n, a, b in zip(names,
+                                 tree_leaves({"params": res_p,
+                                                  "opt": res_s}),
+                                 tree_leaves({"params": full_p,
+                                                  "opt": full_s}))
+              if not torch.equal(a, b)]
+    out.update(checkpoint_step=step, checkpoint_bytes=size,
+               checkpoint_save_s=saved.get("save_s"),
+               checkpoint_restore_s=restore_s,
+               resumed_loss_last=hist_b[-1]["loss"],
+               resumed_equal_bit_for_bit=not differ,
+               resumed_leaves_differing=differ[:8])
+    gate(step == half and not differ, f"tinyllama resumed run != "
+         f"uninterrupted run: {len(differ)} leaves differ, first "
+         f"{differ[:4]}")
+    # one step profiled, from the trained state
+    step_fn = make_train_step(cfg, adamw)
+    out["profile"] = profile_window(
+        torch, lambda: step_fn(full_p, full_s, batches[0]), 1, TRAIN_B,
+        kernels=("elementwise", "reduce"))
+    del full_p, full_s, res_p, res_s, params, batches
+    release(torch)
+    log(f"train tinyllama-1.1b: {json.dumps(out)}")
+    return out
+
+
+def train_grads_vs_cpu(torch, registry, transformer):
+    """(b) one batch's loss and gradients of tinyllama-1.1b at full width
+    (2 of 22 layers, fp32) on the card against the CPU port."""
+    from repro_torch.data.synthetic import packed_batches
+    from repro_torch.training.train_loop import loss_and_grads
+    from repro_torch.tree import tree_map
+
+    cfg = registry.get_config("tinyllama-1.1b").replace(
+        num_layers=2, dtype=torch.float32)
+    gate(not torch.backends.cuda.matmul.allow_tf32,
+         "train grads vs CPU: TF32 matmuls are on")
+    params = transformer.init_params(1, cfg, device=DEV)
+    cpu_params = tree_map(lambda a: a.cpu(), params)
+    batch = next(packed_batches(cfg.vocab_size, 2, 128, seed=1))
+    t0 = time.perf_counter()
+    loss, _, grads = loss_and_grads(params, cfg, {k: v.to(DEV) for k, v in
+                                                  batch.items()}, DEV)
+    sync(torch)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    closs, _, cgrads = loss_and_grads(cpu_params, cfg, batch, "cpu")
+    cpu_s = time.perf_counter() - t0
+    cos, rel = grad_agreement(grads, cgrads)
+    loss_rel = abs(float(loss) - float(closs)) / abs(float(closs))
+    out = dict(layers=2, batch=2, seq=128, loss_card=float(loss),
+               loss_cpu=float(closs), loss_rel_err=loss_rel,
+               min_leaf_cosine=cos, max_leaf_rel_err=rel,
+               leaves=len(grads), card_s=card_s, cpu_s=cpu_s)
+    gate(loss_rel <= 1e-5 and cos >= GRAD_COS_CPU and rel <= GRAD_REL_CPU,
+         f"train grads card vs CPU: loss rel {loss_rel:.2e}, min cosine "
+         f"{cos:.7f} (need {GRAD_COS_CPU}), max rel {rel:.2e} (need "
+         f"{GRAD_REL_CPU})")
+    del params, cpu_params, grads, cgrads
+    release(torch)
+    log(f"train grads card vs CPU: {json.dumps(out)}")
+    return out
+
+
+@contextlib.contextmanager
+def plain_scans(ssm, rwkv):
+    """The scans' autograd Functions run their plain twins on the card,
+    forward and backward (the kernels' references), inside the block."""
+    saved = (ssm._ssm_scan_forward, ssm.ssm_scan_bwd,
+             rwkv._rwkv6_scan_forward, rwkv.rwkv6_scan_bwd)
+    ssm._ssm_scan_forward = ssm.ssm_scan_plain
+    ssm.ssm_scan_bwd = ssm.ssm_scan_bwd_plain
+    rwkv._rwkv6_scan_forward = rwkv.rwkv6_scan_plain
+    rwkv.rwkv6_scan_bwd = rwkv.rwkv6_scan_bwd_plain
+    try:
+        yield
+    finally:
+        (ssm._ssm_scan_forward, ssm.ssm_scan_bwd,
+         rwkv._rwkv6_scan_forward, rwkv.rwkv6_scan_bwd) = saved
+
+
+def train_recurrent(torch, np, registry, transformer, counters, arch,
+                    layers, B, S, steps, per_step, scan):
+    """(c) ``steps`` training steps of a recurrent arch at full width
+    (``layers`` of them; None = full depth), B x S packed batches, bf16,
+    through ``train``: the scans' forward (and remat recompute) and
+    backward kernels launch ``per_step`` times a step. Then one more step
+    profiled: the device time of the ``scan`` kernels (forward, backward,
+    the backward's partial sums) and their share of the step."""
+    from repro_torch.data.synthetic import packed_batches
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import make_train_step, train
+
+    over = {} if layers is None else {"num_layers": layers}
+    cfg, params = load_model(torch, registry, transformer, arch, **over)
+    data = packed_batches(cfg.vocab_size, B, S, seed=2, device=DEV)
+    adamw = opt.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    new_p, new_s, hist = train(cfg, adamw, data, steps, params=params,
+                               log_every=1, device=DEV)
+    sync(torch)
+    launches = {k: n for k, n in counters.read().items() if n}
+    del params
+    walls = train_walls(hist)
+    p50 = float(np.median(walls[1:]))
+    want = {k: n * steps for k, n in per_step.items()}
+    out = dict(layers=cfg.num_layers, batch=B, seq=S, steps=steps,
+               parameters=n_params(new_p), first_step_s=walls[0],
+               step_wall_p50_s=p50, tokens_per_s=B * S / p50,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               loss_step1=hist[0]["loss"], loss_last=hist[-1]["loss"],
+               launches=launches, launches_per_step=per_step)
+    gate(launches == want, f"train {arch}: launches {launches} != {want}")
+    gate(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+             for h in hist), f"train {arch}: non-finite loss or norm")
+    step_fn, batch = make_train_step(cfg, adamw), next(data)
+    marks = (f"{scan}_kernel", f"{scan}_bwd_kernel", "sum_partials")
+    prof = profile_window(torch, lambda: step_fn(new_p, new_s, batch), 1, B,
+                          kernels=marks)
+    prof["scan_kernels_ms"] = sum(prof[f"{m}_ms"] for m in marks)
+    prof["scan_share_of_step"] = prof["scan_kernels_ms"] / \
+        prof["step_ms_profiled"]
+    prof["scan_share_of_busy"] = prof["scan_kernels_ms"] / \
+        prof["device_busy_ms"]
+    out["profile"] = prof
+    del new_p, new_s
+    release(torch)
+    log(f"train {arch}: {json.dumps(out)}")
+    return out
+
+
+def train_scan_grads_vs_plain(torch, registry, transformer, counters, ssm,
+                              rwkv, arch, dtype, B=2, S=512, **over):
+    """(c) one batch's loss and gradients of a recurrent arch at full width
+    and 2 layers on the card, through the scan kernels and through their
+    plain twins."""
+    from repro_torch.data.synthetic import packed_batches
+    from repro_torch.training.train_loop import loss_and_grads
+
+    cfg = registry.get_config(arch).replace(num_layers=2, dtype=dtype,
+                                            **over)
+    params = transformer.init_params(3, cfg, device=DEV)
+    batch = next(packed_batches(cfg.vocab_size, B, S, seed=3, device=DEV))
+    counters.reset()
+    loss, _, grads = loss_and_grads(params, cfg, batch, DEV)
+    sync(torch)
+    launches = {k: n for k, n in counters.read().items() if n}
+    with plain_scans(ssm, rwkv):
+        ploss, _, pgrads = loss_and_grads(params, cfg, batch, DEV)
+        sync(torch)
+    cos, rel = grad_agreement(grads, pgrads)
+    loss_rel = abs(float(loss) - float(ploss)) / abs(float(ploss))
+    need = GRAD_COS_F32 if dtype == torch.float32 else GRAD_COS_BF16
+    out = dict(arch=arch, dtype=str(dtype).split(".")[-1], layers=2,
+               batch=B, seq=S, loss_kernels=float(loss),
+               loss_plain=float(ploss), loss_rel_err=loss_rel,
+               min_leaf_cosine=cos, max_leaf_rel_err=rel, launches=launches)
+    gate(bool(launches) and cos >= need and loss_rel <= 1e-3,
+         f"train {arch} {out['dtype']} kernels vs plain twins: launches "
+         f"{launches}, loss rel {loss_rel:.2e}, min cosine {cos:.6f} (need "
+         f"{need})")
+    del params, grads, pgrads
+    release(torch)
+    log(f"train grads kernels vs plain {arch} {out['dtype']}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def ssm_bwd_case(torch, ssm, timer, *, B, S, H, P, N, seed, edges=False,
+                 timed=True):
+    """The Mamba2 backward kernel vs its plain backward at a shape of the
+    forward's (model-like inputs, a random dy); two calls bit for bit."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device=DEV) - 1.0)
+    x = torch.randn((B, S, H, P), generator=gen, device=DEV) * dt[..., None]
+    Bi = torch.randn((B, S, N), generator=gen, device=DEV)
+    Ci = torch.randn((B, S, N), generator=gen, device=DEV)
+    decay = torch.exp(-dt)
+    if edges:
+        decay = edge_decays(torch, gen, decay)
+    dy = torch.randn((B, S, H, P), generator=gen, device=DEV)
+    ops = (x, Bi, Ci, decay, dy)
+    got = ssm.ssm_scan_bwd(*ops)
+    again = ssm.ssm_scan_bwd(*ops)
+    sync(torch)
+    want = ssm.ssm_scan_bwd_plain(*ops)
+    errs = [check_scan(f"ssm_scan_bwd {n}", g, w) for n, g, w in
+            zip(("dx", "dB", "dC", "ddecay"), got, want)]
+    out = dict(max_abs_err=max(errs),
+               grad_scale=max(float(w.abs().max()) for w in want),
+               deterministic=all(torch.equal(a, b)
+                                 for a, b in zip(got, again)))
+    gate(out["deterministic"], "ssm_scan_bwd: two calls differ")
+    if not timed:
+        return out
+    nbytes = 4 * (3 * x.numel() + 4 * Bi.numel() + 2 * decay.numel())
+    # the rule of rows 6-7: the chunked form's products at L-step tiles, one
+    # bf16 pass on the tensor cores. Per step and head: the boundary states,
+    # the adjoint's, and the cross-tile products of y (for ddecay), dx, dB
+    # and dC (12·P·N), their in-tile blocks (8·L·P); per step C·Bᵀ (2·L·N)
+    L = ssm.CHUNK
+    flops = B * S * (H * (12 * P * N + 8 * L * P) + 2 * L * N)
+    bound_ms, bound_by = bound(nbytes, flops)
+
+    def kernel():
+        return ssm.ssm_scan_bwd(*ops)
+    out.update(ms=timer.ms(kernel, iters=5),
+               ms_held=timer.ms(kernel, iters=5, hold=True),
+               host_us=timer.host_us(kernel, calls=10),
+               plain_ms=timer.ms(lambda: ssm.ssm_scan_bwd_plain(*ops),
+                                 iters=1, warmup=0),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+               bytes=nbytes, flops=flops,
+               # the sequential form this kernel runs: ~14·P·N fp32 flops a
+               # step and head (the recurrence, its adjoint, four products)
+               # on the CUDA cores
+               seq_fp32_ops_ms=14 * B * S * H * P * N / FP32_FLOP_PER_S
+               * 1e3)
+    return out
+
+
+def rwkv_bwd_case(torch, rwkv, timer, *, B, S, H, P, seed, dtype,
+                  decays="model", timed=True):
+    """The RWKV6 backward kernel vs its plain backward at a shape of the
+    forward's, in ``dtype`` (the model's decays, exact 0 among them, or
+    "randn"); two calls bit for bit."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    shape = (B, S, H, P)
+    r, k, v = (torch.randn(shape, generator=gen, device=DEV).to(dtype)
+               for _ in range(3))
+    noise = torch.randn(shape, generator=gen, device=DEV)
+    if decays == "model":
+        w = torch.exp(-torch.exp(-6.0 + 0.5 * noise))
+        pick = torch.rand(shape, generator=gen, device=DEV)
+        w = torch.where(pick < 0.02, 0.0, w)
+    else:
+        w = torch.exp(-torch.exp(noise - 2.0))
+    w = w.to(dtype).contiguous()
+    u = torch.randn((H, P), generator=gen, device=DEV) * 0.5
+    dy = torch.randn(shape, generator=gen, device=DEV)
+    ops = (r, k, v, w, u, dy)
+    got = rwkv.rwkv6_scan_bwd(*ops)
+    again = rwkv.rwkv6_scan_bwd(*ops)
+    sync(torch)
+    want = rwkv.rwkv6_scan_bwd_plain(*ops)
+    errs = []
+    for n, g, wnt in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        if g.dtype == torch.bfloat16:
+            errs.append(check_close(
+                f"rwkv6_scan_bwd {n}", g, wnt, rtol=ERR_RTOL,
+                atol=ERR_ATOL * max(1.0, float(wnt.abs().max()))))
+        else:
+            errs.append(check_scan(f"rwkv6_scan_bwd {n}", g, wnt))
+    out = dict(max_abs_err=max(errs),
+               grad_scale=max(float(w.abs().max()) for w in want),
+               deterministic=all(torch.equal(a, b)
+                                 for a, b in zip(got, again)))
+    gate(out["deterministic"], "rwkv6_scan_bwd: two calls differ")
+    if not timed:
+        return out
+    e = r.element_size()
+    nbytes = e * 8 * r.numel() + 4 * dy.numel() + 4 * 2 * u.numel()
+    # the rule of rows 6-7 (see ssm_bwd_case): per step and head the
+    # boundary states, the adjoint's and the cross-tile products of dr, dk
+    # and dv (10·P²); the in-tile blocks of dr, dk, dv and dw and the two
+    # score blocks they need (12·L·P)
+    L = rwkv.CHUNK
+    flops = B * S * H * (10 * P * P + 12 * L * P)
+    bound_ms, bound_by = bound(nbytes, flops)
+
+    def kernel():
+        return rwkv.rwkv6_scan_bwd(*ops)
+    out.update(ms=timer.ms(kernel, iters=5),
+               ms_held=timer.ms(kernel, iters=5, hold=True),
+               host_us=timer.host_us(kernel, calls=10),
+               plain_ms=timer.ms(lambda: rwkv.rwkv6_scan_bwd_plain(*ops),
+                                 iters=1, warmup=0),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+               bytes=nbytes, flops=flops,
+               seq_fp32_ops_ms=14 * B * S * H * P * P / FP32_FLOP_PER_S
+               * 1e3)
+    return out
+
+
+def train_smoke_archs(torch, np, registry, transformer, counters):
+    """(e) one smoke-size train step (fp32) of every assigned arch on the
+    card against the same step on the CPU port: the loss and the gradient
+    norm."""
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.tree import tree_map
+
+    out, bad = {}, []
+    for arch in registry.ASSIGNED:
+        cfg = registry.get_smoke_config(arch).replace(dtype=torch.float32)
+        params = transformer.init_params(5, cfg, device="cpu")
+        rng = np.random.default_rng(5)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 32)).astype(np.int32))}
+        if cfg.family == "audio":
+            batch["frames"] = torch.from_numpy(rng.standard_normal(
+                (2, 24, cfg.d_model)).astype(np.float32))
+        if cfg.modality == "vision":
+            batch["frontend"] = torch.from_numpy(rng.standard_normal(
+                (2, 8, cfg.d_model)).astype(np.float32))
+        adamw = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+        step = make_train_step(cfg, adamw)
+        _, _, cm = step(params, opt.init_opt_state(params), batch)
+        gp = tree_map(lambda a: a.to(DEV), params)
+        counters.reset()
+        _, _, gm = step(gp, opt.init_opt_state(gp),
+                        {k: v.to(DEV) for k, v in batch.items()})
+        sync(torch)
+        launches = {k: n for k, n in counters.read().items() if n}
+        rel = {k: abs(float(gm[k]) - float(cm[k])) / max(abs(float(cm[k])),
+                                                         1e-30)
+               for k in ("loss", "grad_norm")}
+        out[arch] = dict(loss_card=float(gm["loss"]),
+                         loss_cpu=float(cm["loss"]), rel_err=rel,
+                         launches=launches)
+        if rel["loss"] > SMOKE_LOSS_RTOL or rel["grad_norm"] > 1e-3:
+            bad.append(arch)
+        if cfg.family in ("ssm", "hybrid") and not launches:
+            bad.append(f"{arch}: no scan kernel launched")
+    gate(not bad, f"train smoke archs card vs CPU: {bad}")
+    log(f"train smoke archs card vs CPU: {json.dumps(out)}")
+    return out
+
+
+def train_e2e(torch, np, registry, transformer, counters, ssm, rwkv, timer):
+    """Phase 21: (a)-(e) of the training path. Returns (summary, the
+    backward kernels' rows, their launches on (c)'s runs)."""
+    t0 = time.perf_counter()
+    out = {"card": card_line()}
+    out["tinyllama"] = train_tinyllama(torch, np, registry, transformer,
+                                       counters)
+    out["grads_vs_cpu"] = train_grads_vs_cpu(torch, registry, transformer)
+    zcfg = registry.get_config("zamba2-1.2b")
+    n_super = zcfg.num_layers // zcfg.shared_attn_period
+    in_super = n_super * zcfg.shared_attn_period
+    out["zamba2"] = train_recurrent(
+        torch, np, registry, transformer, counters, "zamba2-1.2b", None,
+        REC_B, REC_S, REC_STEPS,
+        {"ssm_scan": zcfg.num_layers + in_super,
+         "ssm_scan_bwd": zcfg.num_layers}, "ssm_scan")
+    rl = RWKV_LAYERS
+    out["rwkv6"] = train_recurrent(
+        torch, np, registry, transformer, counters, "rwkv6-7b", rl, REC_B,
+        REC_S, REC_STEPS,
+        {"rwkv6_scan": 2 * rl, "rwkv6_scan_bwd": rl}, "rwkv6_scan")
+    out["scan_grads_vs_plain"] = [
+        train_scan_grads_vs_plain(torch, registry, transformer, counters,
+                                  ssm, rwkv, "zamba2-1.2b", torch.float32,
+                                  shared_attn_period=2),
+        train_scan_grads_vs_plain(torch, registry, transformer, counters,
+                                  ssm, rwkv, "rwkv6-7b", torch.bfloat16),
+        train_scan_grads_vs_plain(torch, registry, transformer, counters,
+                                  ssm, rwkv, "rwkv6-7b", torch.float32)]
+    rows = {}
+    shape = dict(B=BWD_B, S=BWD_S, H=BWD_H, P=BWD_P)
+    ragged = dict(shape, B=max(BWD_B // 2, 1), S=BWD_S - 1)
+    tag = " ".join(f"{k}={v}" for k, v in shape.items())
+    rows["ssm_scan_bwd"] = ssm_bwd_case(torch, ssm, timer, N=BWD_P, seed=40,
+                                        **shape)
+    log(f"ssm_scan_bwd zamba2 shape {tag} N={BWD_P}: "
+        f"{json.dumps(rows['ssm_scan_bwd'])}")
+    r = ssm_bwd_case(torch, ssm, timer, N=BWD_P, seed=41, edges=True,
+                     timed=False, **ragged)
+    log(f"ssm_scan_bwd ragged S={ragged['S']}, decays with exact 0 and "
+        f"1.0: {json.dumps(r)}")
+    rows["rwkv6_scan_bwd"] = rwkv_bwd_case(torch, rwkv, timer, seed=42,
+                                           dtype=torch.bfloat16, **shape)
+    log(f"rwkv6_scan_bwd rwkv6 shape {tag} bf16: "
+        f"{json.dumps(rows['rwkv6_scan_bwd'])}")
+    r = rwkv_bwd_case(torch, rwkv, timer, seed=43, dtype=torch.float32,
+                      **shape)
+    rows["rwkv6_scan_bwd_f32"] = r
+    log(f"rwkv6_scan_bwd rwkv6 shape {tag} f32: {json.dumps(r)}")
+    r = rwkv_bwd_case(torch, rwkv, timer, seed=44, dtype=torch.bfloat16,
+                      decays="model", timed=False, **ragged)
+    log(f"rwkv6_scan_bwd ragged S={ragged['S']}, the model's bf16 decays "
+        f"with exact 0: {json.dumps(r)}")
+    out["backward_kernels"] = rows
+    out["smoke_archs"] = train_smoke_archs(torch, np, registry, transformer,
+                                           counters)
+    launches = {"ssm_scan_bwd": out["zamba2"]["launches"].get(
+                    "ssm_scan_bwd", 0),
+                "rwkv6_scan_bwd": out["rwkv6"]["launches"].get(
+                    "rwkv6_scan_bwd", 0)}
+    out["wall_s_phase"] = time.perf_counter() - t0
+    return out, rows, launches
+
+
+def card_line():
+    """The card's name and power limit as nvidia-smi prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3882,11 +4486,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     # phase 1: device + build
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
-    log(card)
+    log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
@@ -4201,12 +4801,19 @@ def main() -> int:
                             float(np.mean(plens)))
     log(f"analytic phase done in {analytic['wall_s_phase']:.1f} s; phases "
         f"19-20 done at {time.perf_counter() - t_start:.1f} s")
+    # phase 21: training (tinyllama-1.1b; zamba2 and rwkv6 through the
+    # scans' backward kernels)
+    training, bwd_rows, bwd_launches = train_e2e(
+        torch, np, registry, transformer, counters, ssm, rwkv, Timer(torch))
+    log(f"training phase done in {training['wall_s_phase']:.1f} s; phase 21 "
+        f"done at {time.perf_counter() - t_start:.1f} s")
 
     stats = {"paged_decode_attention": dec["bf16"],
              "paged_prefill_chunk_attention": pre[("bf16", 1536, 512)],
              "paged_decode_attention_int8": dec["int8"],
              "paged_prefill_chunk_attention_int8": pre[("int8", 1536, 512)],
-             **new}
+             **new, "ssm_scan_bwd": bwd_rows["ssm_scan_bwd"],
+             "rwkv6_scan_bwd": bwd_rows["rwkv6_scan_bwd"]}
     launches = {**{k: l_bf16[k] for k in ("paged_decode_attention",
                                           "paged_prefill_chunk_attention")},
                 **{k: l_int8[k] for k in ("paged_decode_attention_int8",
@@ -4214,7 +4821,7 @@ def main() -> int:
                 "decode_attention": l_zamba["decode_attention"],
                 "decode_attention_int8": n_int8_dense,
                 "ssm_scan": l_zamba["ssm_scan"],
-                "rwkv6_scan": l_rwkv["rwkv6_scan"]}
+                "rwkv6_scan": l_rwkv["rwkv6_scan"], **bwd_launches}
     for name, n in launches.items():
         if not n:
             raise AssertionError(f"{name} was not launched on its path")
@@ -4234,6 +4841,7 @@ def main() -> int:
                                 "gemma2_27b": gemma2,
                                 "seamless_m4t_medium": audio,
                                 "analytic": analytic,
+                                "training": training,
                                 "widened_kernel_cases": {
                                     " / ".join(k): v
                                     for k, v in wide.items()}}}))

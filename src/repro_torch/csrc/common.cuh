@@ -138,6 +138,73 @@ inline int sm_count() {
 }
 
 // ---------------------------------------------------------------------------
+// The scans' backward kernels (ssm_scan.cu, rwkv6_scan.cu): their geometry,
+// scalar loads and stores of a bf16 or fp32 operand in fp32, and the
+// fixed-order sum of per-CTA partials that follows each of them
+// (deterministic: no atomics).
+// ---------------------------------------------------------------------------
+// Tiles of BWD_L steps; CTAs of BWD_THREADS threads, each CTA owning
+// BWD_ELEMS elements of a (P, Q) state: bwd_rows(P, Q) rows over all Q
+// columns, bwd_slices(P, Q) CTAs a (batch, head). The state before every
+// tile of every CTA goes to scratch: bwd_state_floats(...) floats. Each
+// entry point sizes its scratch from these alone (its *_scratch_floats).
+constexpr int BWD_L = 8;
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_ELEMS = 1024;
+
+__host__ __device__ constexpr int bwd_rows(int P, int Q) {
+  return BWD_ELEMS / Q < P ? BWD_ELEMS / Q : P;
+}
+__host__ __device__ constexpr int bwd_slices(int P, int Q) {
+  return (P + bwd_rows(P, Q) - 1) / bwd_rows(P, Q);
+}
+inline int64_t bwd_state_floats(int64_t B, int64_t S, int64_t H, int P,
+                                int Q) {
+  const int64_t tiles = (S + BWD_L - 1) / BWD_L;
+  return B * H * bwd_slices(P, Q) * tiles * bwd_rows(P, Q) * Q;
+}
+
+__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// out[o · inner + i] = Σ_{j < nsum} in[(o · nsum + j) · inner + i], j
+// ascending: one thread per output, grid-stride.
+template <typename T>
+__global__ void sum_partials_kernel(const float* __restrict__ in,
+                                    T* __restrict__ out, long outer,
+                                    int nsum, int inner) {
+  const long total = outer * inner;
+  for (long e = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<long>(gridDim.x) * blockDim.x) {
+    const long o = e / inner;
+    const int i = static_cast<int>(e - o * inner);
+    const float* src = in + o * nsum * inner + i;
+    float acc = 0.f;
+    for (int j = 0; j < nsum; ++j) acc += src[static_cast<long>(j) * inner];
+    store_f(out + e, acc);
+  }
+}
+
+template <typename T>
+cudaError_t sum_partials(const float* in, T* out, long outer, int nsum,
+                         int inner, cudaStream_t stream) {
+  const long total = outer * inner;
+  const long blocks = (total + 255) / 256;
+  const int grid = static_cast<int>(blocks < 8L * sm_count()
+                                        ? blocks : 8L * sm_count());
+  if (grid > 0)
+    sum_partials_kernel<T><<<grid, 256, 0, stream>>>(in, out, outer, nsum,
+                                                     inner);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // Warp-level tensor-core products (mma.sync m16n8k16, bf16 in, fp32
 // accumulate) and fp32 operands carried as bf16 hi + lo. Used by the
 // chunked scans (ssm_scan.cu, rwkv6_scan.cu).

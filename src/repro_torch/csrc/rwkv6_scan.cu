@@ -491,3 +491,373 @@ extern "C" int rwkv6_scan_f32(const void* r, const void* k, const void* v,
                               int S, int H, int P, void* stream) {
   return repro_torch::dispatch<float>(r, k, v, w, u, y, B, S, H, P, stream);
 }
+
+// ===========================================================================
+// The backward: rwkv6_scan_bwd_bf16 / rwkv6_scan_bwd_f32
+//
+// Replaces no TPU kernel: the reference differentiates its lax.scan
+// (repro/models/ssm.py, rwkv_time_mix_forward with use_pallas_kernels=False)
+// and has no backward kernel. The port's forward is the kernel above, so its
+// gradient is this second kernel, behind the autograd Function of
+// kernels/rwkv6_scan.py. The forward reads the state before the update,
+// y_t = r_t·S_{t-1} + (r_t·(u⊙k_t)) v_t, so with G_t = dL/dS_t (G_{S-1} = 0)
+// and ⟨v_t, dy_t⟩ = Σ_q v_t dy_t, in fp32:
+//     G_{t-1} = diag(w_t) G_t + r_t ⊗ dy_t
+//     dr_t = S_{t-1} dy_t + u ⊙ k_t ⟨v_t, dy_t⟩
+//     dk_t = G_t v_t + r_t ⊙ u ⟨v_t, dy_t⟩
+//     dv_t = G_tᵀ k_t + (r_t·(u⊙k_t)) dy_t
+//     dw_t = Σ_q G_t ⊙ S_{t-1} ;  du = Σ_{b,t} r_t ⊙ k_t ⟨v_t, dy_t⟩
+// The design is the Mamba2 backward's (ssm_scan.cu): one CTA of 256 threads
+// per (batch, head, slice of R = 1024 / P key rows p) over all P value
+// columns, each thread one column and 4 rows; pass 1 stores the state before
+// every 8-step tile in global scratch; pass 2 walks the tiles in reverse,
+// recomputes each tile's states from its boundary (never S_t / w_t: bf16
+// decays round to exactly 0), runs the adjoint back through the tile into
+// shared memory and computes the tile's outputs as dot products there; the
+// next tile's operands load into registers while a tile is computed. dr,
+// dk and dw are the CTA's own rows; dv (a sum over all rows) and du (a sum
+// over the batch) leave per-CTA partials that a second launch adds in a
+// fixed order (no atomics: two calls agree bit for bit). Outputs in the
+// inputs' dtype, du in fp32.
+// What bounds it: bytes, 1.34 GB of bf16 operands and fp32 dy at rwkv6's
+// B=8, S=2048, H=64 (0.40 ms), under the forward's rule: the chunked form's
+// products on the tensor cores (10·P² + 12·16·P a batch, step and head,
+// 56 GFLOP: 0.06 ms at 989 TFLOP/s). This design runs the sequential form,
+// ~14·P² fp32 flops a (batch, step, head) (0.90 ms at 67 TFLOP/s).
+// ===========================================================================
+namespace repro_torch {
+namespace {
+
+__host__ __device__ constexpr size_t rwkv_bwd_smem_floats(int R, int P) {
+  return static_cast<size_t>(2 * BWD_L) * R * (P + 1) + 3 * BWD_L * R +
+         2 * BWD_L * P + 2 * BWD_L;
+}
+
+// One tile's operands, loaded into registers ahead of their use: the
+// thread's share of r, k and w (BWD_L x R rows) and of v and dy (BWD_L x P
+// columns).
+template <int P>
+struct RwkvTileRegs {
+  static constexpr int R = bwd_rows(P, P);
+  static constexpr int RR = (BWD_L * R + BWD_THREADS - 1) / BWD_THREADS;
+  static constexpr int CR = (BWD_L * P + BWD_THREADS - 1) / BWD_THREADS;
+  float r[RR], k[RR], w[RR], v[CR], dy[CR];
+};
+
+template <typename E, int P>
+__device__ __forceinline__ void rwkv_tile_load(
+    RwkvTileRegs<P>& t, const E* __restrict__ r, const E* __restrict__ k,
+    const E* __restrict__ v, const E* __restrict__ w,
+    const float* __restrict__ dy, int b, int h, int S, int H, int p0,
+    int t0, bool bwd) {
+  constexpr int R = RwkvTileRegs<P>::R;
+  const int tid = threadIdx.x;
+  const int nt = min(BWD_L, S - t0);
+#pragma unroll
+  for (int j = 0; j < RwkvTileRegs<P>::RR; ++j) {
+    const int e = tid + j * BWD_THREADS, i = e / R, rr = e - i * R;
+    t.r[j] = t.k[j] = t.w[j] = 0.f;
+    if (i < nt) {
+      const long idx = ((static_cast<long>(b) * S + t0 + i) * H + h) * P +
+                       p0 + rr;
+      t.k[j] = load_f(k + idx);
+      t.w[j] = load_f(w + idx);
+      if (bwd) t.r[j] = load_f(r + idx);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < RwkvTileRegs<P>::CR; ++j) {
+    const int e = tid + j * BWD_THREADS, i = e / P, q = e - i * P;
+    t.v[j] = t.dy[j] = 0.f;
+    if (i < nt) {
+      const long idx = ((static_cast<long>(b) * S + t0 + i) * H + h) * P + q;
+      t.v[j] = load_f(v + idx);
+      if (bwd) t.dy[j] = __ldg(dy + idx);
+    }
+  }
+}
+
+template <int P>
+__device__ __forceinline__ void rwkv_tile_store(const RwkvTileRegs<P>& t,
+                                                float* rs, float* ks,
+                                                float* ws, float* vs,
+                                                float* dys) {
+  constexpr int R = RwkvTileRegs<P>::R;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < RwkvTileRegs<P>::RR; ++j) {
+    const int e = tid + j * BWD_THREADS;
+    if (e < BWD_L * R) {
+      rs[e] = t.r[j];
+      ks[e] = t.k[j];
+      ws[e] = t.w[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < RwkvTileRegs<P>::CR; ++j) {
+    const int e = tid + j * BWD_THREADS;
+    if (e < BWD_L * P) {
+      vs[e] = t.v[j];
+      dys[e] = t.dy[j];
+    }
+  }
+}
+
+template <typename E, int P>
+__global__ void __launch_bounds__(BWD_THREADS)
+rwkv6_scan_bwd_kernel(const E* __restrict__ r, const E* __restrict__ k,
+                      const E* __restrict__ v, const E* __restrict__ w,
+                      const float* __restrict__ u,
+                      const float* __restrict__ dy, E* __restrict__ dr,
+                      E* __restrict__ dk, E* __restrict__ dw,
+                      float* __restrict__ pdv, float* __restrict__ pdu,
+                      float* hb, int S, int H, int slices) {
+  constexpr int L = BWD_L, QP = P + 1, RSTEP = BWD_THREADS / P;
+  constexpr int K = BWD_ELEMS / BWD_THREADS;      // rows a thread owns
+  constexpr int R = RwkvTileRegs<P>::R;
+  extern __shared__ float sm[];
+  float* hs = sm;                       // [L][R][QP]: S_{t-1}, t in the tile
+  float* gs = hs + L * R * QP;          // [L][R][QP]: G_t
+  float* rs = gs + L * R * QP;          // [L][R]
+  float* ks = rs + L * R;               // [L][R]
+  float* ws = ks + L * R;               // [L][R]
+  float* vs = ws + L * R;               // [L][P]
+  float* dys = vs + L * P;              // [L][P]
+  float* vdy = dys + L * P;             // [L]: ⟨v_t, dy_t⟩
+  float* ruk = vdy + L;                 // [L]: Σ_{slice rows} r u k
+
+  const int sl = blockIdx.x % slices;
+  const int bh = blockIdx.x / slices;
+  const int h = bh % H, b = bh / H;
+  const int p0 = sl * R;
+  const int nc = (S + L - 1) / L;
+  const int tid = threadIdx.x, q = tid % P, r0 = tid / P;
+  float* hbase = hb + static_cast<long>(blockIdx.x) * nc * R * P;
+  const float* uh = u + static_cast<long>(h) * P + p0;
+  RwkvTileRegs<P> next;
+
+  // pass 1: the forward recurrence; the state before every tile to hb
+  float st[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) st[j] = 0.f;
+  rwkv_tile_load<E, P>(next, r, k, v, w, dy, b, h, S, H, p0, 0, false);
+  for (int c = 0; c < nc; ++c) {
+    const int t0 = c * L, nt = min(L, S - t0);
+    __syncthreads();                    // the last tile is done with smem
+    rwkv_tile_store<P>(next, rs, ks, ws, vs, dys);
+    __syncthreads();
+    if (c + 1 < nc)                     // in flight during this tile
+      rwkv_tile_load<E, P>(next, r, k, v, w, dy, b, h, S, H, p0, t0 + L,
+                           false);
+    float* dst = hbase + static_cast<long>(c) * R * P;
+#pragma unroll
+    for (int j = 0; j < K; ++j) dst[(r0 + j * RSTEP) * P + q] = st[j];
+    for (int i = 0; i < nt; ++i) {
+      const float vq = vs[i * P + q];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int rr = r0 + j * RSTEP;
+        st[j] = fmaf(ws[i * R + rr], st[j], ks[i * R + rr] * vq);
+      }
+    }
+  }
+
+  // pass 2: the tiles in reverse
+  float G[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) G[j] = 0.f;
+  float du_acc = 0.f;                   // row tid's Σ_t r k ⟨v, dy⟩
+  const int warp = tid / 32, lane = tid % 32;
+  rwkv_tile_load<E, P>(next, r, k, v, w, dy, b, h, S, H, p0, (nc - 1) * L,
+                       true);
+  for (int c = nc - 1; c >= 0; --c) {
+    const int t0 = c * L, nt = min(L, S - t0);
+    __syncthreads();                    // the last tile's products are done
+    rwkv_tile_store<P>(next, rs, ks, ws, vs, dys);
+    __syncthreads();
+    if (c > 0)                          // in flight during this tile
+      rwkv_tile_load<E, P>(next, r, k, v, w, dy, b, h, S, H, p0, t0 - L,
+                           true);
+    // per step: ⟨v_t, dy_t⟩ and the slice's Σ r u k, one warp a step
+    for (int i = warp; i < nt; i += BWD_THREADS / 32) {
+      float a1 = 0.f, a2 = 0.f;
+      for (int e = lane; e < P; e += 32)
+        a1 = fmaf(vs[i * P + e], dys[i * P + e], a1);
+      for (int e = lane; e < R; e += 32)
+        a2 = fmaf(rs[i * R + e] * __ldg(uh + e), ks[i * R + e], a2);
+#pragma unroll
+      for (int off = 16; off; off >>= 1) {
+        a1 += __shfl_xor_sync(0xffffffffu, a1, off);
+        a2 += __shfl_xor_sync(0xffffffffu, a2, off);
+      }
+      if (lane == 0) {
+        vdy[i] = a1;
+        ruk[i] = a2;
+      }
+    }
+    // the tile's states S_{t-1}, recomputed from its boundary
+    const float* src = hbase + static_cast<long>(c) * R * P;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int rr = r0 + j * RSTEP;
+      st[j] = src[rr * P + q];
+      hs[rr * QP + q] = st[j];
+    }
+    for (int i = 0; i + 1 < nt; ++i) {
+      const float vq = vs[i * P + q];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int rr = r0 + j * RSTEP;
+        st[j] = fmaf(ws[i * R + rr], st[j], ks[i * R + rr] * vq);
+        hs[((i + 1) * R + rr) * QP + q] = st[j];
+      }
+    }
+    // the adjoint, back through the tile: G_t, then G_{t-1}
+    for (int i = nt - 1; i >= 0; --i) {
+      const float dq = dys[i * P + q];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int rr = r0 + j * RSTEP;
+        gs[(i * R + rr) * QP + q] = G[j];
+        G[j] = fmaf(ws[i * R + rr], G[j], rs[i * R + rr] * dq);
+      }
+    }
+    __syncthreads();
+    // dr, dk, dw: the CTA's own rows
+    for (int e = tid; e < nt * R; e += BWD_THREADS) {
+      const int i = e / R, rr = e - i * R;
+      const float* sp = hs + (i * R + rr) * QP;
+      const float* gp = gs + (i * R + rr) * QP;
+      const float* vv = vs + i * P;
+      const float* dd = dys + i * P;
+      float a_r = 0.f, a_k = 0.f, a_w = 0.f;
+#pragma unroll 8
+      for (int qq = 0; qq < P; ++qq) {
+        a_r = fmaf(sp[qq], dd[qq], a_r);
+        a_k = fmaf(gp[qq], vv[qq], a_k);
+        a_w = fmaf(gp[qq], sp[qq], a_w);
+      }
+      const float ur = __ldg(uh + rr);
+      const long idx = ((static_cast<long>(b) * S + t0 + i) * H + h) * P +
+                       p0 + rr;
+      store_f(dr + idx, fmaf(ur * ks[e], vdy[i], a_r));
+      store_f(dk + idx, fmaf(rs[e] * ur, vdy[i], a_k));
+      store_f(dw + idx, a_w);
+    }
+    // dv over the slice's rows: partials (B, S, H, slices, P)
+    for (int e = tid; e < nt * P; e += BWD_THREADS) {
+      const int i = e / P, qq = e - i * P;
+      float acc = 0.f;
+      for (int rr = 0; rr < R; ++rr)
+        acc = fmaf(ks[i * R + rr], gs[(i * R + rr) * QP + qq], acc);
+      acc = fmaf(ruk[i], dys[e], acc);
+      pdv[(((static_cast<long>(b) * S + t0 + i) * H + h) * slices + sl) * P +
+          qq] = acc;
+    }
+    // du: each row's own running sum over the batch's steps
+    if (tid < R)
+      for (int i = 0; i < nt; ++i)
+        du_acc = fmaf(rs[i * R + tid] * ks[i * R + tid], vdy[i], du_acc);
+  }
+  if (tid < R) pdu[(static_cast<long>(b) * H + h) * P + p0 + tid] = du_acc;
+}
+
+// The backward's scratch, one fp32 buffer: the state before every tile of
+// every CTA (at 0), then the per-CTA partials of dv (B, S, H, slices, P) and
+// of du (B, H, P). Offsets and size in floats.
+struct RwkvBwdScratch {
+  int64_t pdv, pdu, floats;
+};
+
+inline RwkvBwdScratch rwkv_bwd_scratch(int64_t B, int64_t S, int64_t H,
+                                       int P) {
+  RwkvBwdScratch s;
+  s.pdv = bwd_state_floats(B, S, H, P, P);
+  s.pdu = s.pdv + B * S * H * bwd_slices(P, P) * P;
+  s.floats = s.pdu + B * H * P;
+  return s;
+}
+
+template <typename E, int P>
+cudaError_t launch_bwd(const E* r, const E* k, const E* v, const E* w,
+                       const float* u, const float* dy, E* dr, E* dk, E* dv,
+                       E* dw, float* du, float* scratch, int B, int S, int H,
+                       cudaStream_t stream) {
+  constexpr int R = bwd_rows(P, P), slices = bwd_slices(P, P);
+  const RwkvBwdScratch sc = rwkv_bwd_scratch(B, S, H, P);
+  float *pdv = scratch + sc.pdv, *pdu = scratch + sc.pdu;
+  const size_t smem = rwkv_bwd_smem_floats(R, P) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      rwkv6_scan_bwd_kernel<E, P>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  rwkv6_scan_bwd_kernel<E, P><<<B * H * slices, BWD_THREADS, smem, stream>>>(
+      r, k, v, w, u, dy, dr, dk, dw, pdv, pdu, scratch, S, H, slices);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = sum_partials(pdv, dv, static_cast<long>(B) * S * H, slices, P,
+                          stream)) != cudaSuccess)
+    return err;
+  return sum_partials(pdu, du, 1L, B, H * P, stream);
+}
+
+template <typename E>
+int dispatch_bwd(const void* r, const void* k, const void* v, const void* w,
+                 const void* u, const void* dy, void* dr, void* dk, void* dv,
+                 void* dw, void* du, void* scratch, int64_t scratch_floats,
+                 int B, int S, int H, int P, void* stream) {
+  if ((P != 32 && P != 64) ||
+      scratch_floats < rwkv_bwd_scratch(B, S, H, P).floats)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || S == 0 || H == 0) return 0;
+  const auto st = static_cast<cudaStream_t>(stream);
+#define REPRO_RWKV_BWD(PP)                                                   \
+  launch_bwd<E, PP>(                                                         \
+      static_cast<const E*>(r), static_cast<const E*>(k),                    \
+      static_cast<const E*>(v), static_cast<const E*>(w),                    \
+      static_cast<const float*>(u), static_cast<const float*>(dy),           \
+      static_cast<E*>(dr), static_cast<E*>(dk), static_cast<E*>(dv),         \
+      static_cast<E*>(dw), static_cast<float*>(du),                          \
+      static_cast<float*>(scratch), B, S, H, st)
+  const cudaError_t err = P == 32 ? REPRO_RWKV_BWD(32) : REPRO_RWKV_BWD(64);
+#undef REPRO_RWKV_BWD
+  return static_cast<int>(err);
+}
+
+}  // namespace
+}  // namespace repro_torch
+
+// The fp32 scratch the backward needs for these sizes (floats), or -1 for a
+// P it is not instantiated for.
+extern "C" int64_t rwkv6_scan_bwd_scratch_floats(int B, int S, int H, int P) {
+  if (P != 32 && P != 64) return -1;
+  return repro_torch::rwkv_bwd_scratch(B, S, H, P).floats;
+}
+
+// Plain C entry points of the backward (bound with ctypes): gradients dr,
+// dk, dv, dw (B, S, H, P) in the inputs' dtype and du (H, P) fp32 of the
+// forward above for dy (B, S, H, P) fp32. `scratch` holds `scratch_floats`
+// fp32 values, at least rwkv6_scan_bwd_scratch_floats(B, S, H, P).
+// Launches on `stream` (the kernel, then two fixed-order sums) and returns
+// cudaGetLastError() as an int; cudaErrorInvalidValue for a P the forward
+// is not instantiated for, or too small a scratch.
+extern "C" int rwkv6_scan_bwd_bf16(const void* r, const void* k,
+                                   const void* v, const void* w,
+                                   const void* u, const void* dy, void* dr,
+                                   void* dk, void* dv, void* dw, void* du,
+                                   void* scratch, int64_t scratch_floats,
+                                   int B, int S, int H, int P, void* stream) {
+  return repro_torch::dispatch_bwd<__nv_bfloat16>(
+      r, k, v, w, u, dy, dr, dk, dv, dw, du, scratch, scratch_floats, B, S,
+      H, P, stream);
+}
+
+extern "C" int rwkv6_scan_bwd_f32(const void* r, const void* k, const void* v,
+                                  const void* w, const void* u, const void* dy,
+                                  void* dr, void* dk, void* dv, void* dw,
+                                  void* du, void* scratch,
+                                  int64_t scratch_floats, int B, int S, int H,
+                                  int P, void* stream) {
+  return repro_torch::dispatch_bwd<float>(r, k, v, w, u, dy, dr, dk, dv, dw,
+                                          du, scratch, scratch_floats, B, S,
+                                          H, P, stream);
+}

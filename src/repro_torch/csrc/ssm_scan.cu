@@ -378,3 +378,374 @@ extern "C" int ssm_scan_f32(const void* x, const void* B_in, const void* C_in,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// ===========================================================================
+// The backward: ssm_scan_bwd_f32
+//
+// Replaces no TPU kernel: the reference differentiates its lax.scan
+// (repro/models/ssm.py, mamba_forward with use_pallas_kernels=False) and
+// has no backward kernel. The port's forward is the kernel above, so its
+// gradient is this second kernel, behind the autograd Function of
+// kernels/ssm_scan.py. With g_t = dL/dh_t (g_S = 0) and dy the gradient
+// of y, all fp32:
+//     g_t = decay_{t+1} g_{t+1} + dy_t ⊗ C_t
+//     dx_t = g_t B_t ;  dB_t = Σ_{h,p} g_t x_t ;  dC_t = Σ_{h,p} h_t dy_t
+//     ddecay_t = Σ_{p,n} g_t ⊙ h_{t-1}
+// Both recurrences are elementwise over the (P, N) state; only the four
+// outputs reduce. A simple design, right first:
+//  * one CTA of 256 threads per (batch, head, slice of R = min(1024 / N, P)
+//    state rows); each thread owns one column n and 4 rows of the slice.
+//  * pass 1 runs the forward recurrence and stores the state before every
+//    tile of L = 8 steps in global scratch (4 KB a CTA and tile).
+//  * pass 2 walks the tiles in reverse: it reloads the tile's boundary
+//    state, recomputes the tile's 8 states into shared memory (never
+//    h_t / decay_t: a decay may be exactly 0), runs the adjoint recurrence
+//    back through the tile into shared memory, then computes the tile's
+//    outputs as dot products over shared memory: dx (its rows are the
+//    CTA's own), and per-CTA partials of dB, dC and ddecay.
+//  * in both passes the next tile's operands are loaded into registers
+//    while the current tile is computed, then staged in shared memory.
+//  * a second launch (sum_partials) adds the partials over heads and
+//    slices in a fixed order: no atomics, so two calls agree bit for bit.
+// What bounds it: bytes, 0.83 GB of operands at zamba2's B=8, S=2048
+// (0.25 ms), under the same rule as the forward: the chunked form's
+// products on the tensor cores (12·P·N + 8·16·P a batch, step and head,
+// 60 GFLOP: 0.06 ms at 989 TFLOP/s). This design runs the sequential form
+// instead, ~14·P·N fp32 flops a (batch, step, head) on the CUDA cores
+// (0.90 ms at 67 TFLOP/s): the chunked tensor-core form is its redesign.
+// It also recomputes the forward once, moves every product through shared
+// memory and runs each CTA's steps in one dependent chain; its 76 KB of
+// shared memory allow three CTAs an SM, whose chains hide each other's
+// latency.
+// ===========================================================================
+namespace repro_torch {
+namespace {
+
+// Shared floats of a backward CTA of R rows over N columns: the states and
+// adjoints of a tile (rows padded to N + 1: conflict-free row reads), then
+// the staged operands.
+__host__ __device__ constexpr size_t ssm_bwd_smem_floats(int R, int N) {
+  return static_cast<size_t>(2 * BWD_L + 1) * R * (N + 1) +
+         2 * BWD_L * R + 2 * BWD_L * N + BWD_L + 1;
+}
+
+// One tile's operands, loaded into registers ahead of their use: the
+// thread's share of x and dy (BWD_L x R), of B and C (BWD_L x N), and a
+// decay (threads 0..BWD_L).
+template <int N>
+struct SsmTileRegs {
+  static constexpr int XR = (BWD_L * (BWD_ELEMS / N) + BWD_THREADS - 1) /
+                            BWD_THREADS;
+  static constexpr int BR = (BWD_L * N + BWD_THREADS - 1) / BWD_THREADS;
+  float x[XR], dy[XR], b[BR], c[BR], a;
+};
+
+template <int N>
+__device__ __forceinline__ void ssm_tile_load(
+    SsmTileRegs<N>& t, const float* __restrict__ x,
+    const float* __restrict__ Bm, const float* __restrict__ Cm,
+    const float* __restrict__ a, const float* __restrict__ dy, int b, int h,
+    int S, int H, int P, int p0, int R, int rows, int t0, bool bwd) {
+  const int tid = threadIdx.x;
+  const int nt = min(BWD_L, S - t0);
+#pragma unroll
+  for (int j = 0; j < SsmTileRegs<N>::XR; ++j) {
+    const int e = tid + j * BWD_THREADS, i = e / R, r = e - i * R;
+    t.x[j] = t.dy[j] = 0.f;
+    if (i < nt && r < rows) {
+      const long row = ((static_cast<long>(b) * S + t0 + i) * H + h) * P +
+                       p0 + r;
+      t.x[j] = __ldg(x + row);
+      if (bwd) t.dy[j] = __ldg(dy + row);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < SsmTileRegs<N>::BR; ++j) {
+    const int e = tid + j * BWD_THREADS, i = e / N, n = e - i * N;
+    t.b[j] = t.c[j] = 0.f;
+    if (i < nt) {
+      const long bt = static_cast<long>(b) * S + t0 + i;
+      t.b[j] = __ldg(Bm + bt * N + n);
+      if (bwd) t.c[j] = __ldg(Cm + bt * N + n);
+    }
+  }
+  // a_{t0} .. a_{t0+L}: the step after the tile is the next tile's first
+  // (0 past the sequence)
+  t.a = tid <= BWD_L && t0 + tid < S
+            ? __ldg(a + (static_cast<long>(b) * S + t0 + tid) * H + h)
+            : 0.f;
+}
+
+template <int N>
+__device__ __forceinline__ void ssm_tile_store(const SsmTileRegs<N>& t,
+                                               float* xs, float* dys,
+                                               float* bs, float* cs,
+                                               float* as, int R) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < SsmTileRegs<N>::XR; ++j) {
+    const int e = tid + j * BWD_THREADS;
+    if (e < BWD_L * R) {
+      xs[e] = t.x[j];
+      dys[e] = t.dy[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < SsmTileRegs<N>::BR; ++j) {
+    const int e = tid + j * BWD_THREADS;
+    if (e < BWD_L * N) {
+      bs[e] = t.b[j];
+      cs[e] = t.c[j];
+    }
+  }
+  if (tid <= BWD_L) as[tid] = t.a;
+}
+
+template <int N>
+__global__ void __launch_bounds__(BWD_THREADS)
+ssm_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ Bm,
+                    const float* __restrict__ Cm, const float* __restrict__ a,
+                    const float* __restrict__ dy, float* __restrict__ dx,
+                    float* __restrict__ pdB, float* __restrict__ pdC,
+                    float* __restrict__ pdd, float* hb, int S, int H, int P,
+                    int R, int slices) {
+  constexpr int L = BWD_L, NP = N + 1, RSTEP = BWD_THREADS / N;
+  constexpr int K = BWD_ELEMS / BWD_THREADS;      // rows a thread owns
+  extern __shared__ float sm[];
+  float* hs = sm;                          // [L+1][R][NP]: h_{t0-1} .. h_{t1-1}
+  float* gs = hs + (L + 1) * R * NP;       // [L][R][NP]:  g_{t0} .. g_{t1-1}
+  float* xs = gs + L * R * NP;             // [L][R]
+  float* dys = xs + L * R;                 // [L][R]
+  float* bs = dys + L * R;                 // [L][N]
+  float* cs = bs + L * N;                  // [L][N]
+  float* as = cs + L * N;                  // [L+1]: a_{t0} .. a_{t0+L}
+
+  const int s = blockIdx.x % slices;
+  const int bh = blockIdx.x / slices;
+  const int h = bh % H, b = bh / H;
+  const int p0 = s * R, rows = min(R, P - p0);
+  const int nc = (S + L - 1) / L;
+  const int tid = threadIdx.x, n = tid % N, r0 = tid / N;
+  const long HS = static_cast<long>(H) * slices;
+  float* hbase = hb + static_cast<long>(blockIdx.x) * nc * R * N;
+  SsmTileRegs<N> next;
+
+  // pass 1: the forward recurrence; the state before every tile to hb
+  float hr[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) hr[k] = 0.f;
+  ssm_tile_load<N>(next, x, Bm, Cm, a, dy, b, h, S, H, P, p0, R, rows, 0,
+                   false);
+  for (int c = 0; c < nc; ++c) {
+    const int t0 = c * L, nt = min(L, S - t0);
+    __syncthreads();                 // the last tile is done with smem
+    ssm_tile_store<N>(next, xs, dys, bs, cs, as, R);
+    __syncthreads();
+    if (c + 1 < nc)                  // in flight during this tile
+      ssm_tile_load<N>(next, x, Bm, Cm, a, dy, b, h, S, H, P, p0, R, rows,
+                       t0 + L, false);
+    float* dst = hbase + static_cast<long>(c) * R * N;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int r = r0 + k * RSTEP;
+      if (r < rows) dst[r * N + n] = hr[k];
+    }
+    for (int i = 0; i < nt; ++i) {
+      const float at = as[i], bn = bs[i * N + n];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int r = r0 + k * RSTEP;
+        if (r < rows) hr[k] = fmaf(at, hr[k], xs[i * R + r] * bn);
+      }
+    }
+  }
+
+  // pass 2: the tiles in reverse
+  float gr[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) gr[k] = 0.f;
+  const int warp = tid / 32, lane = tid % 32;
+  ssm_tile_load<N>(next, x, Bm, Cm, a, dy, b, h, S, H, P, p0, R, rows,
+                   (nc - 1) * L, true);
+  for (int c = nc - 1; c >= 0; --c) {
+    const int t0 = c * L, nt = min(L, S - t0);
+    __syncthreads();                 // the last tile's products are done
+    ssm_tile_store<N>(next, xs, dys, bs, cs, as, R);
+    __syncthreads();
+    if (c > 0)                       // in flight during this tile
+      ssm_tile_load<N>(next, x, Bm, Cm, a, dy, b, h, S, H, P, p0, R, rows,
+                       t0 - L, true);
+    // the tile's states, recomputed from its boundary
+    const float* src = hbase + static_cast<long>(c) * R * N;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int r = r0 + k * RSTEP;
+      if (r < rows) {
+        hr[k] = src[r * N + n];
+        hs[r * NP + n] = hr[k];
+      }
+    }
+    for (int i = 0; i < nt; ++i) {
+      const float at = as[i], bn = bs[i * N + n];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int r = r0 + k * RSTEP;
+        if (r < rows) {
+          hr[k] = fmaf(at, hr[k], xs[i * R + r] * bn);
+          hs[((i + 1) * R + r) * NP + n] = hr[k];
+        }
+      }
+    }
+    // the adjoint, back through the tile
+    for (int i = nt - 1; i >= 0; --i) {
+      const float an = as[i + 1], cn = cs[i * N + n];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int r = r0 + k * RSTEP;
+        if (r < rows) {
+          gr[k] = fmaf(an, gr[k], dys[i * R + r] * cn);
+          gs[(i * R + r) * NP + n] = gr[k];
+        }
+      }
+    }
+    __syncthreads();
+    // dx_t[p] = Σ_n g_t[p, n] B_t[n]: the CTA's own rows (two chains,
+    // added in a fixed order)
+    for (int e = tid; e < nt * rows; e += BWD_THREADS) {
+      const int i = e / rows, r = e - i * rows;
+      const float* g = gs + (i * R + r) * NP;
+      const float* bb = bs + i * N;
+      float a0 = 0.f, a1 = 0.f;
+#pragma unroll 8
+      for (int nn = 0; nn < N; nn += 2) {
+        a0 = fmaf(g[nn], bb[nn], a0);
+        a1 = fmaf(g[nn + 1], bb[nn + 1], a1);
+      }
+      dx[((static_cast<long>(b) * S + t0 + i) * H + h) * P + p0 + r] =
+          a0 + a1;
+    }
+    // dB and dC over the slice's rows: partials (B, S, H, slices, N)
+    for (int e = tid; e < nt * N; e += BWD_THREADS) {
+      const int i = e / N, nn = e - i * N;
+      float db = 0.f, dc = 0.f;
+      for (int r = 0; r < rows; ++r) {
+        db = fmaf(gs[(i * R + r) * NP + nn], xs[i * R + r], db);
+        dc = fmaf(hs[((i + 1) * R + r) * NP + nn], dys[i * R + r], dc);
+      }
+      const long o = ((static_cast<long>(b) * S + t0 + i) * HS +
+                      static_cast<long>(h) * slices + s) * N + nn;
+      pdB[o] = db;
+      pdC[o] = dc;
+    }
+    // ddecay over the slice: one warp a step, partials (B, S, H, slices)
+    for (int i = warp; i < nt; i += BWD_THREADS / 32) {
+      float acc = 0.f;
+      for (int e = lane; e < rows * N; e += 32) {
+        const int r = e / N, nn = e - r * N;
+        acc = fmaf(gs[(i * R + r) * NP + nn], hs[(i * R + r) * NP + nn], acc);
+      }
+#pragma unroll
+      for (int off = 16; off; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0)
+        pdd[((static_cast<long>(b) * S + t0 + i) * H + h) * slices + s] = acc;
+    }
+  }
+}
+
+// The backward's scratch, one fp32 buffer: the state before every tile of
+// every CTA (at 0), then the per-(head, slice) partials of dB and dC (B, S,
+// H, slices, N) and of ddecay (B, S, H, slices). Offsets and size in floats.
+struct SsmBwdScratch {
+  int64_t pdB, pdC, pdd, floats;
+};
+
+inline SsmBwdScratch ssm_bwd_scratch(int64_t B, int64_t S, int64_t H, int P,
+                                     int N) {
+  const int64_t parts = B * S * H * bwd_slices(P, N);
+  SsmBwdScratch s;
+  s.pdB = bwd_state_floats(B, S, H, P, N);
+  s.pdC = s.pdB + parts * N;
+  s.pdd = s.pdC + parts * N;
+  s.floats = s.pdd + parts;
+  return s;
+}
+
+template <int N>
+cudaError_t launch_bwd(const float* x, const float* Bm, const float* Cm,
+                       const float* a, const float* dy, float* dx, float* dB,
+                       float* dC, float* dd, float* scratch, int B, int S,
+                       int H, int P, cudaStream_t stream) {
+  const int R = bwd_rows(P, N), slices = bwd_slices(P, N);
+  const SsmBwdScratch sc = ssm_bwd_scratch(B, S, H, P, N);
+  float *pdB = scratch + sc.pdB, *pdC = scratch + sc.pdC,
+        *pdd = scratch + sc.pdd;
+  const size_t smem = ssm_bwd_smem_floats(R, N) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssm_scan_bwd_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  ssm_scan_bwd_kernel<N><<<B * H * slices, BWD_THREADS, smem, stream>>>(
+      x, Bm, Cm, a, dy, dx, pdB, pdC, pdd, scratch, S, H, P, R, slices);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long BS = static_cast<long>(B) * S;
+  if ((err = sum_partials(pdB, dB, BS, H * slices, N, stream)) != cudaSuccess)
+    return err;
+  if ((err = sum_partials(pdC, dC, BS, H * slices, N, stream)) != cudaSuccess)
+    return err;
+  return sum_partials(pdd, dd, BS * H, slices, 1, stream);
+}
+
+}  // namespace
+}  // namespace repro_torch
+
+// The fp32 scratch the backward needs for these sizes (floats), or -1 for a
+// P or N it is not instantiated for.
+extern "C" int64_t ssm_scan_bwd_scratch_floats(int B, int S, int H, int P,
+                                               int N) {
+  if (P % 8 != 0 || P < 8 || P > 256 ||
+      (N != 16 && N != 32 && N != 64 && N != 128))
+    return -1;
+  return repro_torch::ssm_bwd_scratch(B, S, H, P, N).floats;
+}
+
+// Plain C entry point of the backward (bound with ctypes): gradients dx
+// (B, S, H, P), dB / dC (B, S, N) and ddecay (B, S, H), fp32, of the
+// forward above for dy (B, S, H, P). `scratch` holds `scratch_floats`
+// fp32 values, at least ssm_scan_bwd_scratch_floats(B, S, H, P, N).
+// Launches on `stream` (the kernel, then three fixed-order sums) and
+// returns cudaGetLastError() as an int; cudaErrorInvalidValue for an N or
+// P the forward is not instantiated for, or too small a scratch.
+extern "C" int ssm_scan_bwd_f32(const void* x, const void* B_in,
+                                const void* C_in, const void* decay,
+                                const void* dy, void* dx, void* dB, void* dC,
+                                void* ddecay, void* scratch,
+                                int64_t scratch_floats, int B, int S, int H,
+                                int P, int N, void* stream) {
+  using namespace repro_torch;
+  const int64_t need = ssm_scan_bwd_scratch_floats(B, S, H, P, N);
+  if (need < 0 || scratch_floats < need)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || S == 0 || H == 0) return 0;
+  const auto* xf = static_cast<const float*>(x);
+  const auto* bf = static_cast<const float*>(B_in);
+  const auto* cf = static_cast<const float*>(C_in);
+  const auto* af = static_cast<const float*>(decay);
+  const auto* gy = static_cast<const float*>(dy);
+  auto* o_dx = static_cast<float*>(dx);
+  auto* o_db = static_cast<float*>(dB);
+  auto* o_dc = static_cast<float*>(dC);
+  auto* o_dd = static_cast<float*>(ddecay);
+  auto* sc = static_cast<float*>(scratch);
+  auto st = static_cast<cudaStream_t>(stream);
+#define REPRO_SSM_BWD(NN)                                                    \
+  launch_bwd<NN>(xf, bf, cf, af, gy, o_dx, o_db, o_dc, o_dd, sc, B, S, H, P, \
+                 st)
+  switch (N) {
+    case 16: return static_cast<int>(REPRO_SSM_BWD(16));
+    case 32: return static_cast<int>(REPRO_SSM_BWD(32));
+    case 64: return static_cast<int>(REPRO_SSM_BWD(64));
+    default: return static_cast<int>(REPRO_SSM_BWD(128));
+  }
+#undef REPRO_SSM_BWD
+}

@@ -19,6 +19,24 @@ padding.
 :func:`rwkv6_scan` dispatches on the device of ``r``: a CPU tensor runs the
 plain twin, a CUDA tensor launches the kernel or raises. The wrapper counts
 its kernel's launches (``rwkv6_scan.launches``).
+
+The scan is differentiable (a ``torch.autograd.Function``). The reference
+differentiates its ``lax.scan`` and has no backward kernel; here the
+backward is a second hand-written kernel, ``rwkv6_scan_bwd_{bf16,f32}`` in
+the same source, behind :func:`rwkv6_scan_bwd` (CPU tensors: the plain twin
+:func:`rwkv6_scan_bwd_plain`; launches counted in
+``rwkv6_scan_bwd.launches``). The forward reads the state before the
+update, y_t = r_t·S_{t-1} + (r_t·(u⊙k_t)) v_t, so with G_t = ∂L/∂S_t
+(G_{S-1} = 0) and ⟨v_t, dy_t⟩ = Σ_q v_t dy_t:
+
+    G_{t-1} = diag(w_t) G_t + r_t ⊗ dy_t
+    dr_t = S_{t-1} dy_t + u ⊙ k_t ⟨v_t, dy_t⟩
+    dk_t = G_t v_t + r_t ⊙ u ⟨v_t, dy_t⟩
+    dv_t = G_tᵀ k_t + (r_t·(u⊙k_t)) dy_t
+    dw_t = Σ_q G_t ⊙ S_{t-1} ;  du = Σ_{b,t} r_t ⊙ k_t ⟨v_t, dy_t⟩
+
+S_{t-1} is recomputed from the state stored at each tile boundary, never
+recovered by dividing by a decay (bf16 decays round to exactly 0).
 """
 from __future__ import annotations
 
@@ -27,11 +45,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _cuda
-from repro_torch.kernels.ssm_scan import CHUNK, segment_products
+from repro_torch.kernels.ssm_scan import (BWD_CHUNK, CHUNK,
+                                          segment_products)
 
 _LIB_NAME = "rwkv6_scan"
 HEAD_SIZES = (32, 64)                  # P the kernel is instantiated for
 _ENTRIES = {torch.bfloat16: "rwkv6_scan_bf16", torch.float32: "rwkv6_scan_f32"}
+_BWD_ENTRIES = {torch.bfloat16: "rwkv6_scan_bwd_bf16",
+                torch.float32: "rwkv6_scan_bwd_f32"}
 
 
 def rwkv6_scan_plain(r, k, v, w, u) -> torch.Tensor:
@@ -86,26 +107,14 @@ def rwkv6_scan_chunked_plain(r, k, v, w, u, chunk: int = CHUNK,
     return (y, state) if return_state else y
 
 
-def rwkv6_scan(r, k, v, w, u) -> torch.Tensor:
-    """r/k/v/w: (B, S, H, P) in the model dtype (w the per-step decay in
-    (0, 1)); u: (H, P) bonus. Returns y: (B, S, H, P) fp32.
-
-    CPU tensors run :func:`rwkv6_scan_plain`; CUDA tensors launch
-    ``csrc/rwkv6_scan.cu`` (r/k/v/w all bf16 or all fp32 and u fp32,
-    contiguous; P in ``HEAD_SIZES``) or raise."""
-    if r.device.type == "cpu":
-        return rwkv6_scan_plain(r, k, v, w, u)
-    if r.device.type != "cuda":
-        raise ValueError(f"no rwkv6_scan kernel for device {r.device}")
+def _check_operands(r, u, operands) -> None:
     B, S, H, P = r.shape
     if r.dtype not in _ENTRIES:
         raise TypeError(f"r/k/v/w must be bfloat16 or float32 on the GPU; "
                         f"got {r.dtype}")
     for name, t, shape, dtype in (("r", r, (B, S, H, P), r.dtype),
-                                  ("k", k, (B, S, H, P), r.dtype),
-                                  ("v", v, (B, S, H, P), r.dtype),
-                                  ("w", w, (B, S, H, P), r.dtype),
-                                  ("u", u, (H, P), torch.float32)):
+                                  ("u", u, (H, P), torch.float32),
+                                  *operands):
         if t.device != r.device:
             raise ValueError(f"{name} is on {t.device}, r on {r.device}")
         if t.dtype != dtype:
@@ -118,6 +127,18 @@ def rwkv6_scan(r, k, v, w, u) -> torch.Tensor:
     if P not in HEAD_SIZES:
         raise ValueError(f"kernel instantiated for P in {HEAD_SIZES}; "
                          f"got P={P}")
+
+
+def _rwkv6_scan_forward(r, k, v, w, u) -> torch.Tensor:
+    """The forward's dispatch: the plain twin on the CPU, the kernel on the
+    card (counted in ``rwkv6_scan.launches``)."""
+    if r.device.type == "cpu":
+        return rwkv6_scan_plain(r, k, v, w, u)
+    if r.device.type != "cuda":
+        raise ValueError(f"no rwkv6_scan kernel for device {r.device}")
+    B, S, H, P = r.shape
+    _check_operands(r, u, [(n, t, (B, S, H, P), r.dtype)
+                           for n, t in (("k", k), ("v", v), ("w", w))])
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=r.device)
     if S:
         entry = _ENTRIES[r.dtype]
@@ -129,7 +150,121 @@ def rwkv6_scan(r, k, v, w, u) -> torch.Tensor:
     return y
 
 
+class _Rwkv6Scan(torch.autograd.Function):
+    """y = rwkv6(r, k, v, w, u) with the hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.save_for_backward(r, k, v, w, u)
+        return _rwkv6_scan_forward(r, k, v, w, u)
+
+    @staticmethod
+    def backward(ctx, dy):
+        r, k, v, w, u = ctx.saved_tensors
+        grads = rwkv6_scan_bwd(r, k, v, w, u, dy.contiguous())
+        return tuple(g.to(t.dtype) for g, t in zip(grads, (r, k, v, w, u)))
+
+
+def rwkv6_scan(r, k, v, w, u) -> torch.Tensor:
+    """r/k/v/w: (B, S, H, P) in the model dtype (w the per-step decay in
+    [0, 1]); u: (H, P) bonus. Returns y: (B, S, H, P) fp32, differentiable
+    in all five inputs.
+
+    CPU tensors run :func:`rwkv6_scan_plain`; CUDA tensors launch
+    ``csrc/rwkv6_scan.cu`` (r/k/v/w all bf16 or all fp32 and u fp32,
+    contiguous; P in ``HEAD_SIZES``) or raise. The backward is
+    :func:`rwkv6_scan_bwd`."""
+    return _Rwkv6Scan.apply(r, k, v, w, u)
+
+
 rwkv6_scan.launches = 0
+
+
+def rwkv6_scan_bwd_plain(r, k, v, w, u, dy):
+    """Plain twin of the backward: (dr, dk, dv, dw (B, S, H, P), du (H,
+    P)), all fp32, for y's gradient dy (B, S, H, P). An fp32 step loop in
+    the kernel's two passes: the forward, keeping the state before every
+    tile of ``BWD_CHUNK`` steps; then the tiles in reverse, each
+    recomputing its states from its boundary and running the adjoint
+    recurrence (module docstring) back through them."""
+    chunk = BWD_CHUNK
+    B, S, H, P = r.shape
+    rf, kf, vf, wf, gy = (a.float() for a in (r, k, v, w, dy))
+    uf = u.float()
+    dev = r.device
+    state = torch.zeros((B, H, P, P), dtype=torch.float32, device=dev)
+    bounds = []
+    for t in range(S):
+        if t % chunk == 0:
+            bounds.append(state)
+        state = wf[:, t, :, :, None] * state + \
+            kf[:, t, :, :, None] * vf[:, t, :, None, :]
+    grads = [torch.empty((B, S, H, P), dtype=torch.float32, device=dev)
+             for _ in range(4)]
+    dr, dk, dv, dw = grads
+    du = torch.zeros((H, P), dtype=torch.float32, device=dev)
+    G = torch.zeros((B, H, P, P), dtype=torch.float32, device=dev)
+    for c in reversed(range(len(bounds))):
+        t0, t1 = c * chunk, min(S, (c + 1) * chunk)
+        prev = [bounds[c]]                               # S_{t0-1}, ...
+        for t in range(t0, t1 - 1):
+            prev.append(wf[:, t, :, :, None] * prev[-1] +
+                        kf[:, t, :, :, None] * vf[:, t, :, None, :])
+        for t in reversed(range(t0, t1)):
+            r_t, k_t, v_t, w_t, dy_t = (a[:, t] for a in (rf, kf, vf, wf,
+                                                          gy))
+            s_prev = prev[t - t0]
+            vdy = (v_t * dy_t).sum(-1, keepdim=True)            # (B, H, 1)
+            dr[:, t] = (s_prev @ dy_t[..., None])[..., 0] + uf * k_t * vdy
+            dk[:, t] = (G @ v_t[..., None])[..., 0] + r_t * uf * vdy
+            dv[:, t] = (G.transpose(-1, -2) @ k_t[..., None])[..., 0] + \
+                (r_t * uf * k_t).sum(-1, keepdim=True) * dy_t
+            dw[:, t] = (G * s_prev).sum(-1)
+            du += (r_t * k_t * vdy).sum(0)
+            G = w_t[..., None] * G + r_t[..., None] * dy_t[:, :, None, :]
+    return dr, dk, dv, dw, du
+
+
+def rwkv6_scan_bwd(r, k, v, w, u, dy):
+    """Gradients (dr, dk, dv, dw, du) of :func:`rwkv6_scan` for dy (B, S,
+    H, P) fp32: on the CPU the plain twin's (fp32); on the card
+    ``rwkv6_scan_bwd_{bf16,f32}`` computes in fp32 and writes dr/dk/dv/dw
+    in the inputs' dtype and du in fp32 (the forward's operand rules; dy
+    fp32 and contiguous) or raises.
+
+    The kernel's scratch, one fp32 buffer from the caching allocator of
+    the size ``rwkv6_scan_bwd_scratch_floats`` gives (the kernel source
+    defines its layout): the state before every tile of every CTA and the
+    per-CTA partials of dv and du, which a second launch sums in a fixed
+    order (deterministic; no atomics)."""
+    if r.device.type == "cpu":
+        return rwkv6_scan_bwd_plain(r, k, v, w, u, dy)
+    if r.device.type != "cuda":
+        raise ValueError(f"no rwkv6_scan_bwd kernel for device {r.device}")
+    B, S, H, P = r.shape
+    _check_operands(r, u, [*((n, t, (B, S, H, P), r.dtype)
+                             for n, t in (("k", k), ("v", v), ("w", w))),
+                           ("dy", dy, (B, S, H, P), torch.float32)])
+    dr, dk, dv, dw = (torch.empty((B, S, H, P), dtype=r.dtype,
+                                  device=r.device) for _ in range(4))
+    du = torch.empty((H, P), dtype=torch.float32, device=r.device)
+    if S:
+        n = _scratch_fn()(B, S, H, P)
+        scratch = torch.empty(n, dtype=torch.float32, device=r.device)
+        entry = _BWD_ENTRIES[r.dtype]
+        err = _bwd_fn(entry)(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             w.data_ptr(), u.data_ptr(), dy.data_ptr(),
+                             dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                             dw.data_ptr(), du.data_ptr(), scratch.data_ptr(),
+                             n, B, S, H, P, _cuda.stream_ptr(r.device))
+        _cuda.check(err, entry)
+        rwkv6_scan_bwd.launches += 1
+    else:
+        du.zero_()
+    return dr, dk, dv, dw, du
+
+
+rwkv6_scan_bwd.launches = 0
 
 
 def _kernel_fn(entry: str):
@@ -138,4 +273,21 @@ def _kernel_fn(entry: str):
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_fn(entry: str):
+    fn = getattr(_cuda.load(_LIB_NAME), entry)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int64] + \
+            [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _scratch_fn():
+    fn = _cuda.load(_LIB_NAME).rwkv6_scan_bwd_scratch_floats
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_int64
     return fn

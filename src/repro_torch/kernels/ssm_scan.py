@@ -19,6 +19,20 @@ no padding.
 :func:`ssm_scan` dispatches on the device of ``x``: a CPU tensor runs the
 plain twin, a CUDA tensor launches the kernel or raises. The wrapper counts
 its kernel's launches (``ssm_scan.launches``).
+
+The scan is differentiable (a ``torch.autograd.Function``). The reference
+differentiates its ``lax.scan`` and has no backward kernel; here the
+backward is a second hand-written kernel, ``ssm_scan_bwd_f32`` in the same
+source, behind :func:`ssm_scan_bwd` (CPU tensors: the plain twin
+:func:`ssm_scan_bwd_plain`; launches counted in ``ssm_scan_bwd.launches``).
+With ``g_t = ∂L/∂h_t``:
+
+    g_t = decay_{t+1} g_{t+1} + dy_t ⊗ C_t
+    dx_t = g_t B_t ;  dB_t = Σ_{h,p} g_t x_t ;  dC_t = Σ_{h,p} h_t dy_t
+    ddecay_t = Σ_{p,n} g_t ⊙ h_{t-1}
+
+``h_{t-1}`` is recomputed from the state stored at each tile boundary,
+never recovered as ``h_t / decay_t`` (a decay may be exactly 0).
 """
 from __future__ import annotations
 
@@ -31,6 +45,7 @@ from repro_torch.kernels import _cuda
 _LIB_NAME = "ssm_scan"
 STATE_SIZES = (16, 32, 64, 128)        # N the kernel is instantiated for
 CHUNK = 16                             # the kernel's tile: steps per state update
+BWD_CHUNK = 8                          # the plain backward twins' tile
 
 
 def ssm_scan_plain(x, B_in, C_in, decay) -> torch.Tensor:
@@ -92,34 +107,19 @@ def ssm_scan_chunked_plain(x, B_in, C_in, decay, chunk: int = CHUNK,
     return (y, h) if return_state else y
 
 
-def ssm_scan(x, B_in, C_in, decay) -> torch.Tensor:
-    """x: (B, S, H, P) dt-scaled inputs; B_in/C_in: (B, S, N) (shared by
-    every head); decay: (B, S, H) in (0, 1]. Returns y: (B, S, H, P) fp32.
-
-    CPU tensors run :func:`ssm_scan_plain`; CUDA tensors launch
-    ``csrc/ssm_scan.cu`` (fp32, contiguous; P a multiple of 8 up to 256,
-    N in ``STATE_SIZES``) or raise."""
+def _ssm_scan_forward(x, B_in, C_in, decay) -> torch.Tensor:
+    """The forward's dispatch: the plain twin on the CPU, the kernel on the
+    card (counted in ``ssm_scan.launches``)."""
     if x.device.type == "cpu":
         return ssm_scan_plain(x, B_in, C_in, decay)
     if x.device.type != "cuda":
         raise ValueError(f"no ssm_scan kernel for device {x.device}")
     Bb, S, H, P = x.shape
     N = B_in.shape[-1]
-    for name, t, shape in (("x", x, (Bb, S, H, P)), ("B_in", B_in, (Bb, S, N)),
-                           ("C_in", C_in, (Bb, S, N)),
-                           ("decay", decay, (Bb, S, H))):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32 on the GPU; got "
-                            f"{t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}; got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if P % 8 or not 8 <= P <= 256 or N not in STATE_SIZES:
-        raise ValueError(f"kernel instantiated for P a multiple of 8 in "
-                         f"[8, 256] and N in {STATE_SIZES}; got P={P}, N={N}")
+    _check_operands(x, (("x", x, (Bb, S, H, P)), ("B_in", B_in, (Bb, S, N)),
+                        ("C_in", C_in, (Bb, S, N)),
+                        ("decay", decay, (Bb, S, H))))
+    _check_shape(P, N)
     y = torch.empty((Bb, S, H, P), dtype=torch.float32, device=x.device)
     if S:
         err = _kernel_fn()(x.data_ptr(), B_in.data_ptr(), C_in.data_ptr(),
@@ -130,7 +130,139 @@ def ssm_scan(x, B_in, C_in, decay) -> torch.Tensor:
     return y
 
 
+def _check_operands(x, operands) -> None:
+    for name, t, shape in operands:
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 on the GPU; got "
+                            f"{t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}; got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_shape(P: int, N: int) -> None:
+    if P % 8 or not 8 <= P <= 256 or N not in STATE_SIZES:
+        raise ValueError(f"kernel instantiated for P a multiple of 8 in "
+                         f"[8, 256] and N in {STATE_SIZES}; got P={P}, N={N}")
+
+
+class _SsmScan(torch.autograd.Function):
+    """y = scan(x, B, C, decay) with the hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, x, B_in, C_in, decay):
+        ctx.save_for_backward(x, B_in, C_in, decay)
+        return _ssm_scan_forward(x, B_in, C_in, decay)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, B_in, C_in, decay = ctx.saved_tensors
+        grads = ssm_scan_bwd(x, B_in, C_in, decay, dy.contiguous())
+        return tuple(g.to(t.dtype) for g, t in
+                     zip(grads, (x, B_in, C_in, decay)))
+
+
+def ssm_scan(x, B_in, C_in, decay) -> torch.Tensor:
+    """x: (B, S, H, P) dt-scaled inputs; B_in/C_in: (B, S, N) (shared by
+    every head); decay: (B, S, H) in [0, 1]. Returns y: (B, S, H, P) fp32,
+    differentiable in all four inputs.
+
+    CPU tensors run :func:`ssm_scan_plain`; CUDA tensors launch
+    ``csrc/ssm_scan.cu`` (fp32, contiguous; P a multiple of 8 up to 256,
+    N in ``STATE_SIZES``) or raise. The backward is :func:`ssm_scan_bwd`."""
+    return _SsmScan.apply(x, B_in, C_in, decay)
+
+
 ssm_scan.launches = 0
+
+
+def ssm_scan_bwd_plain(x, B_in, C_in, decay, dy):
+    """Plain twin of the backward: (dx (B, S, H, P), dB (B, S, N), dC (B,
+    S, N), ddecay (B, S, H)), all fp32, for y's gradient dy (B, S, H, P).
+    An fp32 step loop in the kernel's two passes: the forward, keeping the
+    state before every tile of ``BWD_CHUNK`` steps; then the tiles in
+    reverse, each recomputing its states from its boundary and running the
+    adjoint recurrence (module docstring) back through them. The values do
+    not depend on the tile, which only bounds the states held at once."""
+    chunk = BWD_CHUNK
+    Bb, S, H, P = x.shape
+    N = B_in.shape[-1]
+    xf, bf, cf, af, gy = (a.float() for a in (x, B_in, C_in, decay, dy))
+    dev = x.device
+    h = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=dev)
+    bounds = []
+    for t in range(S):
+        if t % chunk == 0:
+            bounds.append(h)
+        h = h * af[:, t, :, None, None] + \
+            xf[:, t, :, :, None] * bf[:, t, None, None, :]
+    dx = torch.empty((Bb, S, H, P), dtype=torch.float32, device=dev)
+    dB = torch.empty((Bb, S, N), dtype=torch.float32, device=dev)
+    dC = torch.empty((Bb, S, N), dtype=torch.float32, device=dev)
+    dd = torch.empty((Bb, S, H), dtype=torch.float32, device=dev)
+    g = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=dev)
+    a_next = torch.zeros((Bb, H), dtype=torch.float32, device=dev)
+    for c in reversed(range(len(bounds))):
+        t0, t1 = c * chunk, min(S, (c + 1) * chunk)
+        hs = [bounds[c]]                                 # h_{t0-1}, ...
+        for t in range(t0, t1):
+            hs.append(hs[-1] * af[:, t, :, None, None] +
+                      xf[:, t, :, :, None] * bf[:, t, None, None, :])
+        for t in reversed(range(t0, t1)):
+            g = g * a_next[:, :, None, None] + \
+                gy[:, t, :, :, None] * cf[:, t, None, None, :]
+            dx[:, t] = (g @ bf[:, t, None, :, None])[..., 0]
+            dB[:, t] = torch.einsum("bhpn,bhp->bn", g, xf[:, t])
+            dC[:, t] = torch.einsum("bhpn,bhp->bn", hs[t - t0 + 1], gy[:, t])
+            dd[:, t] = (g * hs[t - t0]).sum(dim=(-2, -1))
+            a_next = af[:, t]
+    return dx, dB, dC, dd
+
+
+def ssm_scan_bwd(x, B_in, C_in, decay, dy):
+    """Gradients (dx, dB, dC, ddecay) of :func:`ssm_scan` for dy (B, S, H,
+    P), fp32. CPU tensors run :func:`ssm_scan_bwd_plain`; CUDA tensors
+    launch ``ssm_scan_bwd_f32`` (fp32, contiguous; the forward's shapes)
+    or raise.
+
+    The kernel's scratch, one fp32 buffer from the caching allocator of
+    the size ``ssm_scan_bwd_scratch_floats`` gives (the kernel source
+    defines its layout): the state before every tile of every CTA and the
+    per-(head, CTA) partials of dB, dC and ddecay, which a second launch
+    sums in a fixed order (deterministic; no atomics)."""
+    if x.device.type == "cpu":
+        return ssm_scan_bwd_plain(x, B_in, C_in, decay, dy)
+    if x.device.type != "cuda":
+        raise ValueError(f"no ssm_scan_bwd kernel for device {x.device}")
+    Bb, S, H, P = x.shape
+    N = B_in.shape[-1]
+    _check_operands(x, (("x", x, (Bb, S, H, P)), ("B_in", B_in, (Bb, S, N)),
+                        ("C_in", C_in, (Bb, S, N)),
+                        ("decay", decay, (Bb, S, H)),
+                        ("dy", dy, (Bb, S, H, P))))
+    _check_shape(P, N)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((Bb, S, H, P), **f32)
+    dB = torch.empty((Bb, S, N), **f32)
+    dC = torch.empty((Bb, S, N), **f32)
+    dd = torch.empty((Bb, S, H), **f32)
+    if S:
+        n = _scratch_fn()(Bb, S, H, P, N)
+        scratch = torch.empty(n, **f32)
+        err = _bwd_fn()(x.data_ptr(), B_in.data_ptr(), C_in.data_ptr(),
+                        decay.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                        dB.data_ptr(), dC.data_ptr(), dd.data_ptr(),
+                        scratch.data_ptr(), n, Bb, S, H, P, N,
+                        _cuda.stream_ptr(x.device))
+        _cuda.check(err, "ssm_scan_bwd_f32")
+        ssm_scan_bwd.launches += 1
+    return dx, dB, dC, dd
+
+
+ssm_scan_bwd.launches = 0
 
 
 def _kernel_fn():
@@ -139,4 +271,21 @@ def _kernel_fn():
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_fn():
+    fn = _cuda.load(_LIB_NAME).ssm_scan_bwd_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] + \
+            [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _scratch_fn():
+    fn = _cuda.load(_LIB_NAME).ssm_scan_bwd_scratch_floats
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_int64
     return fn

@@ -8,7 +8,7 @@ no cache), "prefill" (full sequence, returns the cache or state) or
 "decode" (one token)."""
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -52,8 +52,9 @@ def dense_block(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
                                              torch.Tensor]] = None,
                 paged_prefix_scales: Optional[Tuple[torch.Tensor,
                                                     torch.Tensor]] = None
-                ) -> Tuple[torch.Tensor, Dict]:
-    """Returns (x, new_cache_entries). ``mode="decode"`` reads either the
+                ) -> Tuple[torch.Tensor, Dict, Any]:
+    """Returns (x, new_cache_entries, aux_loss). ``mode="decode"`` reads
+    either the
     paged pool in ``cache`` ({"k_pool", "v_pool", "block_tables", "len"},
     plus "k_scale"/"v_scale" for an int8 pool) or a dense head-major cache
     ({"k", "v", "len"}, (B, Hkv, S, hd), plus "k_scale"/"v_scale"
@@ -63,8 +64,9 @@ def dense_block(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     given (chunked prefill) or over the head-major ``prefix_kv`` (the
     suffix prefill; see ``attention_forward``); ``mode="train"``
     returns no cache. A moe block's FFN is ``moe_forward`` over routing
-    groups of ``moe_group_size`` tokens; its aux loss serves training
-    (not ported) and is dropped."""
+    groups of ``moe_group_size`` tokens; ``aux_loss`` is its router's
+    load-balance loss (fp32 scalar; 0.0 for an FFN block), which
+    ``loss_fn`` weighs into the training loss."""
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
     new_cache: Dict = {}
     if mode == "decode":
@@ -96,12 +98,14 @@ def dense_block(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
 
     h = rms_norm(x, params["norm2"], cfg.norm_eps)
     if "moe" in params:
-        f, _ = moe_forward(params["moe"], cfg, h, group_size=moe_group_size)
+        f, aux = moe_forward(params["moe"], cfg, h,
+                             group_size=moe_group_size)
     else:
         f = ffn_forward(params["ffn"], h)
+        aux = 0.0                  # a constant: no kernel on serving paths
     if cfg.post_norms:
         f = rms_norm(f, params["norm_post_ffn"], cfg.norm_eps)
-    return x + f, new_cache
+    return x + f, new_cache, aux
 
 
 # ---------------------------------------------------------------------------

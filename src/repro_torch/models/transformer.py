@@ -5,7 +5,8 @@ encoder-decoder (family ``audio``):
 
     init_params(seed, cfg, device=...)                      -> params
     params_from_jax(np_tree, cfg, device)                   -> params
-    forward(params, cfg, batch, device=...)                 -> logits
+    forward(params, cfg, batch, device=...)                 -> (logits, aux)
+    loss_fn(params, cfg, batch, device=...)                 -> (loss, metrics)
     init_cache(cfg, batch, max_seq, device=...)             -> cache
     prefill(params, cfg, batch, max_seq, device=..., length=None)
                                                             -> (logits, cache)
@@ -64,10 +65,13 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.models import blocks, kv_quant, ssm
-from repro_torch.models.common import (ModelConfig, Params, dense_init,
+from repro_torch.models.common import (ModelConfig, Params,
+                                       cross_entropy_loss, dense_init,
                                        resolve_device, rms_norm, softcap)
+from repro_torch.tree import tree_leaves, tree_map
 
 # the KV-cache stacks: the paged entry points and LLMEngine serve these
 DENSE_FAMILIES = ("dense", "vlm", "moe")
@@ -84,14 +88,6 @@ def _check_family(cfg: ModelConfig, what: str,
             f"family={cfg.family!r}")
 
 
-def _tree_map(fn: Callable, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
 def _is_listed(params: Params) -> bool:
     return isinstance(params["layers"], (list, tuple))
 
@@ -106,7 +102,7 @@ def _layer(layers, i: int):
     views into the stacked tree (no copy)."""
     if isinstance(layers, (list, tuple)):
         return layers[i]
-    return _tree_map(lambda a: a[i], layers)
+    return tree_map(lambda a: a[i], layers)
 
 
 def _is_local(cfg: ModelConfig, i: int) -> bool:
@@ -189,25 +185,16 @@ def _stacked_init(gen, cfg: ModelConfig, dev, lead: Tuple[int, ...],
     n = int(np.prod(lead))
     blk = init_fn(gen, cfg, dev)
     if n == 1:
-        return _tree_map(lambda a: a.view(*lead, *a.shape), blk)
-    layers = _tree_map(lambda a: torch.empty((*lead, *a.shape),
+        return tree_map(lambda a: a.view(*lead, *a.shape), blk)
+    layers = tree_map(lambda a: torch.empty((*lead, *a.shape),
                                              dtype=a.dtype, device=dev), blk)
-    flat = _tree_map(lambda a: a.view(n, *a.shape[len(lead):]), layers)
+    flat = tree_map(lambda a: a.view(n, *a.shape[len(lead):]), layers)
     for i in range(n):
         if i:
             blk = init_fn(gen, cfg, dev)
-        for dst, src in _leaf_pairs(flat, blk):
+        for dst, src in zip(tree_leaves(flat), tree_leaves(blk)):
             dst[i].copy_(src)
     return layers
-
-
-def _leaf_pairs(a: Dict, b: Dict):
-    """(a_leaf, b_leaf) pairs of two dicts of the same structure."""
-    for k, v in b.items():
-        if isinstance(v, dict):
-            yield from _leaf_pairs(a[k], v)
-        else:
-            yield a[k], v
 
 
 def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
@@ -225,7 +212,7 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
             return torch.from_numpy(a.view(np.int16).copy()).view(
                 torch.bfloat16).to(dev)
         return torch.from_numpy(a.copy()).to(dev)
-    return _tree_map(conv, np_tree)
+    return tree_map(conv, np_tree)
 
 
 # ===========================================================================
@@ -300,45 +287,71 @@ def _pad_seq(kv: torch.Tensor, max_seq: int) -> torch.Tensor:
 # ===========================================================================
 # Layer stacks (full sequence: mode "train" or "prefill")
 # ===========================================================================
+def _maybe_remat(fn: Callable, cfg: ModelConfig, mode: str) -> Callable:
+    """``fn`` under activation checkpointing when ``cfg.remat`` and ``mode
+    == "train"`` (reference ``:39``) and autograd records: its activations
+    are dropped after the forward and recomputed in the backward. Memory
+    changes, values do not."""
+    if not (cfg.remat and mode == "train" and torch.is_grad_enabled()):
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False)
+
+
 def _dense_stack(params, cfg: ModelConfig, x, positions, *, mode: str,
                  moe_group_size: int = 256):
-    """Returns (x, [per-layer {"k", "v"}] when prefilling)."""
+    """Returns (x, aux, [per-layer {"k", "v"}] when prefilling); aux is
+    the sum over layers of the moe router's aux loss (fp32; the constant
+    0.0 without moe layers, so the serving paths launch nothing for it).
+    Each layer is one remat unit."""
     caches = []
+    aux = 0.0
     for i in range(cfg.num_layers):
-        x, c = blocks.dense_block(_layer(params["layers"], i), cfg, x,
-                                  mode=mode, positions=positions,
-                                  is_local=_is_local(cfg, i),
-                                  moe_group_size=moe_group_size)
+        def run(p_, h_, _loc=_is_local(cfg, i)):
+            return blocks.dense_block(p_, cfg, h_, mode=mode,
+                                      positions=positions, is_local=_loc,
+                                      moe_group_size=moe_group_size)
+
+        x, c, a = _maybe_remat(run, cfg, mode)(_layer(params["layers"], i), x)
         caches.append(c)
-    return x, caches
+        aux = aux + a
+    return x, aux, caches
 
 
 def _rwkv_stack(params, cfg: ModelConfig, x, *, mode: str):
-    """Returns (x, [per-layer state])."""
+    """Returns (x, [per-layer state]). Each layer is one remat unit."""
+    run = _maybe_remat(
+        lambda p_, h_: blocks.rwkv_block(p_, cfg, h_, mode=mode), cfg, mode)
     states = []
     for i in range(cfg.num_layers):
-        x, st = blocks.rwkv_block(_layer(params["layers"], i), cfg, x,
-                                  mode=mode)
+        x, st = run(_layer(params["layers"], i), x)
         states.append(st)
     return x, states
 
 
 def _zamba_stack(params, cfg: ModelConfig, x, positions, *, mode: str):
     """The shared attention block, then ``period`` mamba layers, per
-    superblock; then the tail mamba layers. Returns (x, [per-superblock
-    attention cache], [per-superblock [per-layer mamba state]],
-    [per-tail-layer mamba state])."""
+    superblock (one remat unit, as in the reference); then the tail mamba
+    layers (not rematerialised). Returns (x, [per-superblock attention
+    cache], [per-superblock [per-layer mamba state]], [per-tail-layer
+    mamba state])."""
     n_super, period, tail = _zamba_split(cfg)
-    attn_caches, mstates, tail_states = [], [], []
-    for si in range(n_super):
-        x, c = blocks.dense_block(params["shared_attn"], cfg, x, mode=mode,
-                                  positions=positions)
-        attn_caches.append(c)
-        sup = _layer(params["layers"], si)
+
+    def superblock(shared, sup, h):
+        h, c, _ = blocks.dense_block(shared, cfg, h, mode=mode,
+                                     positions=positions)
         states = []
         for mi in range(period):
-            x, st = blocks.mamba_block(_layer(sup, mi), cfg, x, mode=mode)
+            h, st = blocks.mamba_block(_layer(sup, mi), cfg, h, mode=mode)
             states.append(st)
+        return h, c, states
+
+    run = _maybe_remat(superblock, cfg, mode)
+    attn_caches, mstates, tail_states = [], [], []
+    for si in range(n_super):
+        x, c, states = run(params["shared_attn"],
+                           _layer(params["layers"], si), x)
+        attn_caches.append(c)
         mstates.append(states)
     for ti in range(tail):
         x, st = blocks.mamba_block(_layer(params["tail"], ti), cfg, x,
@@ -353,28 +366,35 @@ def _encdec_stacks(params, cfg: ModelConfig, batch: Dict, *, mode: str,
     the decoder over batch["tokens"], each layer's cross K/V projected
     from the encoder output. Returns (x, [per-layer cache]); at prefill a
     layer's cache also holds its cross K/V "ck"/"cv" (B, S_enc, Hkv,
-    hd)."""
+    hd). Each encoder layer and each decoder layer (with its cross K/V
+    projection) is one remat unit."""
     frames = torch.as_tensor(batch["frames"]).to(device=device,
                                                   dtype=cfg.dtype)
     B, S_enc, _ = frames.shape
     enc_pos = torch.arange(S_enc, device=device)[None].expand(B, S_enc)
+    enc_run = _maybe_remat(
+        lambda p_, h_: blocks.encoder_block(p_, cfg, h_, enc_pos), cfg, mode)
     enc_out = frames
     for i in range(cfg.encoder_layers):
-        enc_out = blocks.encoder_block(_layer(params["enc_layers"], i), cfg,
-                                       enc_out, enc_pos)
+        enc_out = enc_run(_layer(params["enc_layers"], i), enc_out)
     enc_out = rms_norm(enc_out, params["enc_norm"], cfg.norm_eps)
     # the reference's decoder embeds without the tied-embedding scale
     x = params["embed"][_int_tensor(batch["tokens"], device).long()]
     S_dec = x.shape[1]
     dec_pos = torch.arange(S_dec, device=device)[None].expand(B, S_dec)
-    caches = []
-    for i in range(cfg.num_layers):
-        p = _layer(params["layers"], i)
-        ekv = blocks.encoder_cross_kv(p, cfg, enc_out)
-        x, c = blocks.decoder_block(p, cfg, x, ekv, mode=mode,
-                                    positions=dec_pos)
+
+    def run(p_, h_):
+        ekv = blocks.encoder_cross_kv(p_, cfg, enc_out)
+        h_, c = blocks.decoder_block(p_, cfg, h_, ekv, mode=mode,
+                                     positions=dec_pos)
         if mode == "prefill":
             c = dict(c, ck=ekv[0], cv=ekv[1])
+        return h_, c
+
+    dec_run = _maybe_remat(run, cfg, mode)
+    caches = []
+    for i in range(cfg.num_layers):
+        x, c = dec_run(_layer(params["layers"], i), x)
         caches.append(c)
     return x, caches
 
@@ -383,23 +403,47 @@ def _encdec_stacks(params, cfg: ModelConfig, batch: Dict, *, mode: str,
 # Full-sequence forward
 # ===========================================================================
 def forward(params: Params, cfg: ModelConfig, batch: Dict, *,
-            device="cuda") -> torch.Tensor:
-    """Full-sequence logits (B, S, vocab). The reference also returns the
-    MoE router's aux loss, which only training (not ported) reads."""
+            device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence logits (B, S, vocab) and the aux loss: the moe
+    router's load-balance loss summed over layers (fp32 scalar; zero for
+    every other family), as the reference returns them. With
+    ``cfg.remat`` and autograd recording, each layer (zamba2: each
+    superblock) is recomputed in the backward (``_maybe_remat``)."""
     _check_family(cfg, "forward", SERVE_FAMILIES)
     dev = resolve_device(device)
+    aux = 0.0
     if cfg.family == "audio":
         x, _ = _encdec_stacks(params, cfg, batch, mode="train", device=dev)
-        return _head(params, cfg, x)
-    x, positions, n_front = _embed(params, cfg, batch, dev)
-    if cfg.family == "ssm":
-        x, _ = _rwkv_stack(params, cfg, x, mode="train")
-    elif cfg.family == "hybrid":
-        x = _zamba_stack(params, cfg, x, positions, mode="train")[0]
     else:
-        x, _ = _dense_stack(params, cfg, x, positions, mode="train")
-        x = x[:, n_front:]
-    return _head(params, cfg, x)
+        x, positions, n_front = _embed(params, cfg, batch, dev)
+        if cfg.family == "ssm":
+            x, _ = _rwkv_stack(params, cfg, x, mode="train")
+        elif cfg.family == "hybrid":
+            x = _zamba_stack(params, cfg, x, positions, mode="train")[0]
+        else:
+            x, aux, _ = _dense_stack(params, cfg, x, positions, mode="train")
+            x = x[:, n_front:]
+    if not torch.is_tensor(aux):             # no moe layer: the constant 0
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+    return _head(params, cfg, x), aux
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict, *,
+            device="cuda") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training loss (reference ``:338``): ``ce + router_aux_weight ·
+    aux`` and {"ce", "aux"}. ``batch`` may hold "labels" (default: the
+    next token, 0 past the end) and a "mask" over positions."""
+    dev = resolve_device(device)
+    logits, aux = forward(params, cfg, batch, device=dev)
+    labels = batch.get("labels")
+    if labels is None:
+        labels = F.pad(_int_tensor(batch["tokens"], dev)[:, 1:], (0, 1))
+    labels = _int_tensor(labels, dev)
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=dev)
+    ce = cross_entropy_loss(logits, labels, mask)
+    return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 # ===========================================================================
@@ -526,7 +570,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict, max_seq: int, *,
                 cache[f"tail_{key}"] = _per_layer(
                     (st[key] for st in tail_states), listed)
     else:
-        x, kv = _dense_stack(params, cfg, x, positions, mode="prefill")
+        x, _, kv = _dense_stack(params, cfg, x, positions, mode="prefill")
         for key in ("k", "v"):
             kv_slabs(kv, key)
     cache["len"] = _cache_len(x, length, 0)
@@ -559,10 +603,10 @@ def prefill_suffix(params: Params, cfg: ModelConfig, batch: Dict,
     positions = positions + P           # suffix tokens sit at P + i
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        x, c = blocks.dense_block(_layer(params["layers"], i), cfg, x,
-                                  mode="prefill", positions=positions,
-                                  is_local=_is_local(cfg, i),
-                                  prefix_kv=(k_prefix[i], v_prefix[i]))
+        x, c, _ = blocks.dense_block(_layer(params["layers"], i), cfg, x,
+                                     mode="prefill", positions=positions,
+                                     is_local=_is_local(cfg, i),
+                                     prefix_kv=(k_prefix[i], v_prefix[i]))
         ks.append(c["k"])
         vs.append(c["v"])
     cache = {"k": _hm(torch.stack(ks)), "v": _hm(torch.stack(vs)),
@@ -601,13 +645,14 @@ def prefill_chunk(params: Params, cfg: ModelConfig, batch: Dict,
     positions = positions + P           # chunk tokens sit at P + i
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        x, c = blocks.dense_block(_layer(params["layers"], i), cfg, x,
-                                  mode="prefill", positions=positions,
-                                  is_local=_is_local(cfg, i),
-                                  paged_prefix=(k_pool[i], v_pool[i], table),
-                                  paged_prefix_scales=None
-                                  if k_scale_pool is None else
-                                  (k_scale_pool[i], v_scale_pool[i]))
+        x, c, _ = blocks.dense_block(_layer(params["layers"], i), cfg, x,
+                                     mode="prefill", positions=positions,
+                                     is_local=_is_local(cfg, i),
+                                     paged_prefix=(k_pool[i], v_pool[i],
+                                                   table),
+                                     paged_prefix_scales=None
+                                     if k_scale_pool is None else
+                                     (k_scale_pool[i], v_scale_pool[i]))
         ks.append(c["k"])
         vs.append(c["v"])
     cache = {"k": _hm(torch.stack(ks)), "v": _hm(torch.stack(vs)),
@@ -648,10 +693,10 @@ def decode_step_paged(params: Params, cfg: ModelConfig, tokens,
               "block_tables": tables, "len": lens}
         if k_scale_pool is not None:
             lc.update(k_scale=k_scale_pool[i], v_scale=v_scale_pool[i])
-        x, c = blocks.dense_block(_layer(params["layers"], i), cfg, x,
-                                  mode="decode", cache=lc,
-                                  is_local=_is_local(cfg, i),
-                                  moe_group_size=moe_group_size)
+        x, c, _ = blocks.dense_block(_layer(params["layers"], i), cfg, x,
+                                     mode="decode", cache=lc,
+                                     is_local=_is_local(cfg, i),
+                                     moe_group_size=moe_group_size)
         ks.append(c["k_new"])
         vs.append(c["v_new"])
     updates = {"k_new": torch.stack(ks), "v_new": torch.stack(vs),
@@ -702,7 +747,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Dict, *,
         n_super, period, tail = _zamba_split(cfg)
         k_new, v_new, hs, convs = [], [], [], []
         for si in range(n_super):
-            x, c = blocks.dense_block(
+            x, c, _ = blocks.dense_block(
                 params["shared_attn"], cfg, x, mode="decode",
                 cache={"k": cache["k"][si], "v": cache["v"][si],
                        "len": cur_len})
@@ -752,7 +797,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens, cache: Dict, *,
             if _int8_cache(cfg):
                 lc.update(k_scale=cache["k_scale"][i],
                           v_scale=cache["v_scale"][i])
-            x, c = blocks.dense_block(
+            x, c, _ = blocks.dense_block(
                 _layer(params["layers"], i), cfg, x, mode="decode",
                 cache=lc, is_local=_is_local(cfg, i),
                 moe_group_size=moe_group_size)

@@ -43,7 +43,7 @@ def _greedy_next(params, cfg: ModelConfig, seq: List[int],
     verify, as in the reference)."""
     with torch.inference_mode():
         return transformer.forward(params, cfg, {"tokens": [seq]},
-                                   device=device)[0]
+                                   device=device)[0][0]
 
 
 def speculative_generate(target_params, target_cfg: ModelConfig,

@@ -124,7 +124,9 @@ def test_init_params_matches_the_reference_tree():
 
 def test_forward_logits_match_the_reference(fp32):
     jl, _ = jtf.forward(fp32["jp"], fp32["jcfg"], fp32["jbatch"])
-    tl = ttf.forward(fp32["tp"], fp32["tcfg"], fp32["tbatch"], device="cpu")
+    tl, taux = ttf.forward(fp32["tp"], fp32["tcfg"], fp32["tbatch"],
+                           device="cpu")
+    assert float(taux) == 0.0
     assert tl.shape == (B, S_DEC, fp32["tcfg"].vocab_size)
     _close(tl, jl, ATOL)
 
@@ -200,7 +202,7 @@ def test_bf16_matches_the_reference():
     jbatch = {"frames": jnp.asarray(frames), "tokens": jnp.asarray(tokens)}
     tbatch = {"frames": frames, "tokens": tokens}
     jf, _ = jtf.forward(jp, jcfg, jbatch)
-    tf = ttf.forward(tp, tcfg, tbatch, device="cpu")
+    tf, _ = ttf.forward(tp, tcfg, tbatch, device="cpu")
     _close(tf.float(), np.asarray(jf.astype(jnp.float32)), BTOL)
     jlg, jc = jtf.prefill(jp, jcfg, jbatch, S_DEC + 2)
     tlg, tc = ttf.prefill(tp, tcfg, tbatch, S_DEC + 2, device="cpu")

@@ -151,7 +151,7 @@ def test_int8_kv_decode_close_to_fp():
     cfg8 = cfg16.replace(kv_cache_bits=8)
     params = ttf.init_params(0, cfg16, device="cpu")
     toks = np.random.default_rng(1).integers(0, cfg16.vocab_size, (2, 20))
-    full = ttf.forward(params, cfg16, {"tokens": toks}, device="cpu")
+    full, _ = ttf.forward(params, cfg16, {"tokens": toks}, device="cpu")
     _, c8 = ttf.prefill(params, cfg8, {"tokens": toks[:, :-2]}, max_seq=32,
                         device="cpu")
     assert c8["k"].dtype == torch.int8 and "k_scale" in c8

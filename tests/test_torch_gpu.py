@@ -1,6 +1,7 @@
 """The port's CUDA kernels (paged decode and chunk prefill over bf16 and
-int8 pools, dense-cache decode, the Mamba2 and RWKV6 scans) against their
-plain PyTorch twins, on the card; and the engine's compiled programs
+int8 pools, dense-cache decode, the Mamba2 and RWKV6 scans and their
+backward kernels) against their plain PyTorch twins, on the card; and
+the engine's compiled programs
 (CUDA graph replays of the decode step and of the chunk step, the one-shot
 prefill and the suffix prefill) against the eager programs at the same
 operands, bit for bit.
@@ -29,6 +30,7 @@ from repro_torch.kernels import paged_decode_attention as pda
 from repro_torch.kernels import paged_prefill_attention as ppa
 from repro_torch.kernels import rwkv6_scan as rw
 from repro_torch.kernels import ssm_scan as ssm
+from repro_torch.tree import tree_map
 
 
 def _rand_paged(seed, B, Hkv, G, hd, bs, nb, spare=3):
@@ -693,6 +695,123 @@ def test_cuda_rwkv6_scan_matches_plain(cuda, B, S, H, P, dtype, decays):
         rw.rwkv6_scan(r, k, v, w.half(), u)
 
 
+# The scans' backward kernels against their plain fp32 backward twins: both
+# run the same fp32 step recurrences and differ by summation order, so the
+# scan tolerance holds for fp32 outputs; bf16 outputs (rwkv6's bf16 entry)
+# add their rounding (8e-3 relative, 1e-3 of the largest entry). Two calls
+# agree bit for bit (fixed-order sums, no atomics).
+SSM_BWD_CASES = [(2, 300, 3, 64, 64, False), (1, 37, 2, 32, 16, True),
+                 (1, 1, 2, 8, 16, False), (2, 65, 2, 40, 32, True),
+                 (1, 64, 2, 256, 128, True), (1, 2047, 3, 64, 64, True),
+                 (3, 40, 64, 64, 64, True), (2, 33, 4, 72, 16, False)]
+
+
+def _ssm_operands(cuda, B, S, H, P, N, edges, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=cuda) - 1.0)
+    x = torch.randn((B, S, H, P), generator=g, device=cuda) * dt[..., None]
+    Bi = torch.randn((B, S, N), generator=g, device=cuda)
+    Ci = torch.randn((B, S, N), generator=g, device=cuda)
+    a = torch.exp(-dt)
+    if edges:
+        a = _edge_decays(g, a)
+    dy = torch.randn((B, S, H, P), generator=g, device=cuda)
+    return (x, Bi, Ci, a), dy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,N,edges", SSM_BWD_CASES)
+def test_cuda_ssm_scan_bwd_matches_plain(cuda, B, S, H, P, N, edges):
+    ops, dy = _ssm_operands(cuda, B, S, H, P, N, edges, seed=S + 1)
+    n = ssm.ssm_scan_bwd.launches
+    got = ssm.ssm_scan_bwd(*ops, dy)
+    again = ssm.ssm_scan_bwd(*ops, dy)
+    assert ssm.ssm_scan_bwd.launches == n + 2
+    want = ssm.ssm_scan_bwd_plain(*ops, dy)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)                     # deterministic
+        _scan_close(a, c)
+    with pytest.raises(ValueError):                  # non-contiguous dy
+        ssm.ssm_scan_bwd(*ops, torch.cat([dy, dy], -1)[..., :P])
+
+
+@pytest.mark.gpu
+def test_cuda_ssm_scan_autograd_runs_the_backward_kernel(cuda):
+    ops, dy = _ssm_operands(cuda, 2, 70, 4, 64, 64, True, seed=3)
+    leaves = [t.clone().requires_grad_() for t in ops]
+    n_f, n_b = ssm.ssm_scan.launches, ssm.ssm_scan_bwd.launches
+    y = ssm.ssm_scan(*leaves)
+    grads = torch.autograd.grad(y, leaves, dy)
+    assert (ssm.ssm_scan.launches, ssm.ssm_scan_bwd.launches) == \
+        (n_f + 1, n_b + 1)
+    for a, b in zip(grads, ssm.ssm_scan_bwd(*ops, dy)):
+        assert torch.equal(a, b)
+
+
+RWKV_BWD_CASES = [(2, 300, 3, 64, torch.bfloat16, "randn"),
+                  (1, 37, 2, 32, torch.float32, "edges"),
+                  (1, 1, 2, 32, torch.bfloat16, "randn"),
+                  (2, 65, 2, 64, torch.float32, "model"),
+                  (1, 2047, 2, 64, torch.bfloat16, "model"),
+                  (1, 2047, 2, 64, torch.float32, "edges"),
+                  (3, 40, 64, 64, torch.bfloat16, "edges"),
+                  (5, 33, 64, 32, torch.float32, "model")]
+
+
+def _rwkv_operands(cuda, B, S, H, P, dtype, decays, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    shape = (B, S, H, P)
+    r, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    noise = torch.randn(shape, generator=g, device=cuda)
+    if decays == "model":
+        w = torch.exp(-torch.exp(-6.0 + 0.5 * noise))
+    else:
+        w = torch.exp(-torch.exp(noise - 2.0))
+        if decays == "edges":
+            w = _edge_decays(g, w)
+    u = torch.randn((H, P), generator=g, device=cuda) * 0.5
+    dy = torch.randn(shape, generator=g, device=cuda)
+    return (r, k, v, w.to(dtype).contiguous(), u), dy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,dtype,decays", RWKV_BWD_CASES)
+def test_cuda_rwkv6_scan_bwd_matches_plain(cuda, B, S, H, P, dtype, decays):
+    ops, dy = _rwkv_operands(cuda, B, S, H, P, dtype, decays, seed=S + P)
+    n = rw.rwkv6_scan_bwd.launches
+    got = rw.rwkv6_scan_bwd(*ops, dy)
+    again = rw.rwkv6_scan_bwd(*ops, dy)
+    assert rw.rwkv6_scan_bwd.launches == n + 2
+    want = rw.rwkv6_scan_bwd_plain(*ops, dy)
+    for i, (a, b, c) in enumerate(zip(got, again, want)):
+        assert torch.equal(a, b)                     # deterministic
+        assert a.dtype == (torch.float32 if i == 4 else dtype)
+        if a.dtype == torch.bfloat16:
+            torch.testing.assert_close(
+                a.float(), c, rtol=8e-3,
+                atol=1e-3 * max(1.0, float(c.abs().max())))
+        else:
+            _scan_close(a, c)
+    with pytest.raises(TypeError):                   # bf16 dy
+        rw.rwkv6_scan_bwd(*ops, dy.bfloat16())
+
+
+@pytest.mark.gpu
+def test_cuda_rwkv6_scan_autograd_runs_the_backward_kernel(cuda):
+    ops, dy = _rwkv_operands(cuda, 2, 70, 4, 64, torch.bfloat16, "edges",
+                             seed=4)
+    leaves = [t.clone().requires_grad_() for t in ops]
+    n_f, n_b = rw.rwkv6_scan.launches, rw.rwkv6_scan_bwd.launches
+    y = rw.rwkv6_scan(*leaves)
+    grads = torch.autograd.grad(y, leaves, dy)
+    assert (rw.rwkv6_scan.launches, rw.rwkv6_scan_bwd.launches) == \
+        (n_f + 1, n_b + 1)
+    for a, b in zip(grads, rw.rwkv6_scan_bwd(*ops, dy)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # the compiled decode step (serving/compiled.py): CUDA graph replays
 # ---------------------------------------------------------------------------
@@ -1331,7 +1450,7 @@ def test_cuda_seamless_decode_matches_the_cpu(cuda, layout):
     from repro_torch.models import transformer as ttf
     cfg = treg.get_smoke_config("seamless-m4t-medium", dtype=torch.bfloat16)
     cpu = ttf.init_params(0, cfg, device="cpu")
-    params = ttf._tree_map(lambda a: a.to(cuda), cpu)
+    params = tree_map(lambda a: a.to(cuda), cpu)
     rng = np.random.default_rng(3)
     batch = {"frames": rng.standard_normal((2, 300, cfg.d_model)).astype(
                  np.float32),
@@ -1339,7 +1458,7 @@ def test_cuda_seamless_decode_matches_the_cpu(cuda, layout):
     lg, cache = ttf.prefill(params, cfg, batch, 10, device=cuda)
     clg, ccache = ttf.prefill(cpu, cfg, batch, 10, device="cpu")
     assert _cos(lg.cpu(), clg) >= 0.999
-    listed = ttf._tree_map(lambda a: a, params)
+    listed = tree_map(lambda a: a, params)
     listed["layers"] = [ttf._layer(params["layers"], i)
                         for i in range(cfg.num_layers)]
     for _ in range(3):

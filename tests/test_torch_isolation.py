@@ -47,6 +47,14 @@ def test_analytic_core_modules_are_held_to_the_import_check():
         assert f"src/repro_torch/{rel}" in names, rel
 
 
+def test_training_modules_are_held_to_the_import_check():
+    names = {str(f.relative_to(ROOT)) for f in FILES}
+    for rel in ("training/optimizer.py", "training/train_loop.py",
+                "training/checkpoint.py", "data/synthetic.py",
+                "launch/train.py", "tree.py"):
+        assert f"src/repro_torch/{rel}" in names, rel
+
+
 def test_every_port_module_names_its_reference():
     for path in PORT.rglob("*.py"):
         if path.name == "__init__.py" and path.parent != PORT and \
@@ -121,6 +129,28 @@ def test_default_device_entry_points_raise_without_a_gpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         converter.build_block_graph(cfg, weights=transformer._layer(
             params["layers"], 0), batch=1)
+
+
+def test_training_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import packed_batches
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import train
+
+    cfg = registry.get_smoke_config("tinyllama-1.1b")
+    params = transformer.init_params(0, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.loss_fn(params, cfg, {"tokens": [[1, 2]]})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(cfg, opt.AdamWConfig(), packed_batches(cfg.vocab_size, 1, 8),
+              1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main(["--arch", "tinyllama-1.1b", "--smoke", "--steps",
+                        "1"])
 
 
 def test_init_params_on_cpu_is_seeded_and_follows_the_init_rules():

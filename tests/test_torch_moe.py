@@ -240,9 +240,11 @@ def _close(got, want, atol=MODEL_ATOL):
 def test_forward_matches_reference(model):
     cfg, tcfg, p, tp = model
     toks = np.random.default_rng(11).integers(0, cfg.vocab_size, (2, 24))
-    want, _ = jtf.forward(p, cfg, {"tokens": jnp.asarray(toks, jnp.int32)})
-    got = ttf.forward(tp, tcfg, {"tokens": toks}, device="cpu")
+    want, want_aux = jtf.forward(p, cfg, {"tokens": jnp.asarray(toks,
+                                                                jnp.int32)})
+    got, got_aux = ttf.forward(tp, tcfg, {"tokens": toks}, device="cpu")
     _close(got, want)
+    _close(got_aux, want_aux)
 
 
 @pytest.mark.parametrize("bits", [16, 8])

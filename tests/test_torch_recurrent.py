@@ -50,6 +50,7 @@ from repro_torch.kernels import ssm_scan as tssm
 from repro_torch.models import ssm as tssm_mod
 from repro_torch.models import transformer as ttf
 from repro_torch.models.common import ModelConfig
+from repro_torch.tree import tree_map
 from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 KTOL = 1e-5      # fp32 kernel twins vs oracles / Pallas (reordered sums)
@@ -198,8 +199,8 @@ def test_decode_partial_matches_reference_backend(sw):
 # modules: Mamba2, RWKV6 time/channel mix, closed-form final states
 # ---------------------------------------------------------------------------
 def _module_params(jp):
-    return ttf._tree_map(lambda a: _t(np.asarray(a)),
-                         jax.tree.map(np.asarray, jp))
+    return tree_map(lambda a: _t(np.asarray(a)),
+                    jax.tree.map(np.asarray, jp))
 
 
 @pytest.mark.parametrize("pallas", [False, True])
@@ -375,7 +376,7 @@ def test_prefill_then_decode_matches_forward_within_port(arch):
     params = ttf.init_params(1, cfg, device="cpu")
     toks = np.random.default_rng(13).integers(0, cfg.vocab_size,
                                               size=(2, 14))
-    full = ttf.forward(params, cfg, {"tokens": toks}, device="cpu")
+    full, _ = ttf.forward(params, cfg, {"tokens": toks}, device="cpu")
     assert full.shape == (2, 14, cfg.vocab_size)
     logits, cache = ttf.prefill(params, cfg, {"tokens": toks[:, :10]},
                                 max_seq=32, device="cpu")
@@ -446,7 +447,7 @@ def test_entry_points_refuse_what_is_not_ported():
     acache = ttf.init_cache(other, 1, 4, device="cpu")
     assert acache["ck"].shape == (1, 1, 2, 0, 16)
     assert ttf.forward(ap, other, {"tokens": [[1]], "frames": np.zeros(
-        (1, 3, 32), np.float32)}, device="cpu").shape == (1, 1, 16)
+        (1, 3, 32), np.float32)}, device="cpu")[0].shape == (1, 1, 16)
     # the moe family is served since its slice (tests/test_torch_moe.py)
     mcfg = treg.get_smoke_config("qwen3-moe-30b-a3b")
     mp = ttf.init_params(0, mcfg, device="cpu")
@@ -454,7 +455,7 @@ def test_entry_points_refuse_what_is_not_ported():
     assert ttf.init_cache(mcfg, 1, 4, device="cpu")["k"].shape[0] == \
         mcfg.num_layers
     assert ttf.forward(mp, mcfg, {"tokens": [[1, 2]]},
-                       device="cpu").shape == (1, 2, mcfg.vocab_size)
+                       device="cpu")[0].shape == (1, 2, mcfg.vocab_size)
     # LLMEngine and the paged entry points keep serving KV stacks only
     from repro_torch.serving import LLMEngine
     zcfg = treg.get_smoke_config("zamba2-1.2b")
@@ -471,9 +472,9 @@ def test_use_pallas_kernels_changes_nothing_in_the_port(arch):
     cfg = treg.get_smoke_config(arch)
     params = ttf.init_params(2, cfg, device="cpu")
     toks = np.random.default_rng(14).integers(0, cfg.vocab_size, (1, 9))
-    a = ttf.forward(params, cfg, {"tokens": toks}, device="cpu")
-    b = ttf.forward(params, cfg.replace(use_pallas_kernels=True),
-                    {"tokens": toks}, device="cpu")
+    a, _ = ttf.forward(params, cfg, {"tokens": toks}, device="cpu")
+    b, _ = ttf.forward(params, cfg.replace(use_pallas_kernels=True),
+                       {"tokens": toks}, device="cpu")
     assert torch.equal(a, b)
 
 
