@@ -623,16 +623,22 @@ def ptxas_summary(text, marker, names):
     return rows
 
 
-def sass_count(lib_name, opcode):
+def sass_count(lib_name, opcode, function=None):
     """How many instructions of ``opcode`` (e.g. HMMA, HGMMA) the SASS of a
-    built kernel library holds, from the build toolkit's cuobjdump."""
+    built kernel library holds, from the build toolkit's cuobjdump; with
+    ``function``, only in the functions whose mangled name holds it."""
     from repro_torch.kernels import _cuda
     tool = Path(_cuda._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "--dump-sass",
                            str(_cuda._target(lib_name))],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    return sum(opcode in line for line in sass.splitlines())
+    n, inside = 0, function is None
+    for line in sass.splitlines():
+        if function is not None and "Function : " in line:
+            inside = function in line
+        n += inside and opcode in line
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -2121,15 +2127,20 @@ def profile_decode(torch, eng, prompts, n_steps=3, at_state=None):
 
 # cuBLAS / CUTLASS matmul kernels by name (a profile's ``gemm_ms``)
 GEMM_MARKERS = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
+# the profiler's and the driver's own activities, not operators
+PROFILER_OWN = ("Module Loading", "Function Loading", "Activity Buffer")
 
 
 def profile_window(torch, step, n_steps, batch,
                    kernels=("paged_decode_kernel",)):
     """Run ``step()`` ``n_steps`` times under torch.profiler. Reports host
     wall per step, device-busy time per step (sum of kernel self time), the
-    idle share, the top kernels, and per step the device time of the
-    kernels whose names hold each of ``kernels`` (``<name>_ms``) and of
-    the matmul kernels (``gemm_ms``, by ``GEMM_MARKERS``)."""
+    idle share, the top kernels, the top operators by the device time of
+    the kernels they launch themselves (``top_ops_ms``: aten::mm,
+    aten::mul, ...; a ctypes launch counts under the autograd node around
+    it), and per step the device time of the kernels whose names hold each
+    of ``kernels`` (``<name>_ms``) and of the matmul kernels (``gemm_ms``,
+    by ``GEMM_MARKERS``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2149,6 +2160,12 @@ def profile_window(torch, step, n_steps, batch,
     busy = sum(t for _, t in dev)
     step_ms = wall * 1e3 / n_steps
     top = sorted(dev, key=lambda kv: -kv[1])[:6]
+    ops = sorted(((e.key, e.self_device_time_total / 1e3 / n_steps)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0
+                  and not any(m in e.key for m in PROFILER_OWN)),
+                 key=lambda kv: -kv[1])
     return dict(batch=batch, step_ms_profiled=step_ms,
                 device_busy_ms=busy,
                 **{f"{name}_ms": sum(t for k, t in dev if name in k)
@@ -2156,7 +2173,8 @@ def profile_window(torch, step, n_steps, batch,
                 gemm_ms=sum(t for k, t in dev
                             if any(m in k.lower() for m in GEMM_MARKERS)),
                 idle_share=1 - busy / step_ms if step_ms else None,
-                top_kernels_ms={k[:60]: round(v, 3) for k, v in top})
+                top_kernels_ms={k[:60]: round(v, 3) for k, v in top},
+                top_ops_ms={k[:60]: round(v, 3) for k, v in ops[:10]})
 
 
 # ---------------------------------------------------------------------------
@@ -4152,8 +4170,10 @@ def train_recurrent(torch, np, registry, transformer, counters, arch,
     (``layers`` of them; None = full depth), B x S packed batches, bf16,
     through ``train``: the scans' forward (and remat recompute) and
     backward kernels launch ``per_step`` times a step. Then one more step
-    profiled: the device time of the ``scan`` kernels (forward, backward,
-    the backward's partial sums) and their share of the step."""
+    profiled: the device time of the ``scan`` kernels (forward, the
+    backward's two passes and its partial sums) and their share of the
+    step, beside the elementwise and reduction kernels' and the top
+    operators'."""
     from repro_torch.data.synthetic import packed_batches
     from repro_torch.training import optimizer as opt
     from repro_torch.training.train_loop import make_train_step, train
@@ -4182,9 +4202,13 @@ def train_recurrent(torch, np, registry, transformer, counters, arch,
     gate(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
              for h in hist), f"train {arch}: non-finite loss or norm")
     step_fn, batch = make_train_step(cfg, adamw), next(data)
-    marks = (f"{scan}_kernel", f"{scan}_bwd_kernel", "sum_partials")
+    marks = (f"{scan}_kernel", f"{scan}_bwd_states_kernel",
+             f"{scan}_bwd_kernel", "sum_partials")
     prof = profile_window(torch, lambda: step_fn(new_p, new_s, batch), 1, B,
-                          kernels=marks)
+                          kernels=marks + ("elementwise", "reduce"))
+    # the backward's two passes (its sums apart)
+    prof["bwd_ms"] = (prof[f"{scan}_bwd_states_kernel_ms"] +
+                      prof[f"{scan}_bwd_kernel_ms"])
     prof["scan_kernels_ms"] = sum(prof[f"{m}_ms"] for m in marks)
     prof["scan_share_of_step"] = prof["scan_kernels_ms"] / \
         prof["step_ms_profiled"]
@@ -4279,12 +4303,7 @@ def ssm_bwd_case(torch, ssm, timer, *, B, S, H, P, N, seed, edges=False,
                plain_ms=timer.ms(lambda: ssm.ssm_scan_bwd_plain(*ops),
                                  iters=1, warmup=0),
                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-               bytes=nbytes, flops=flops,
-               # the sequential form this kernel runs: ~14·P·N fp32 flops a
-               # step and head (the recurrence, its adjoint, four products)
-               # on the CUDA cores
-               seq_fp32_ops_ms=14 * B * S * H * P * N / FP32_FLOP_PER_S
-               * 1e3)
+               bytes=nbytes, flops=flops)
     return out
 
 
@@ -4345,9 +4364,71 @@ def rwkv_bwd_case(torch, rwkv, timer, *, B, S, H, P, seed, dtype,
                plain_ms=timer.ms(lambda: rwkv.rwkv6_scan_bwd_plain(*ops),
                                  iters=1, warmup=0),
                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-               bytes=nbytes, flops=flops,
-               seq_fp32_ops_ms=14 * B * S * H * P * P / FP32_FLOP_PER_S
-               * 1e3)
+               bytes=nbytes, flops=flops)
+    return out
+
+
+def bwd_sweep(torch, ssm, rwkv, timer):
+    """Every instantiation of the two backward kernels once against its
+    plain backward twin, untimed, at a small B and a ragged S with exact 0
+    and 1.0 decays: row 6-bwd at N in STATE_SIZES and P in {8, 32, 64, 256}
+    (CTAs of 1, 2 and 4 warps; four row slices at 256), row 7-bwd at P in
+    HEAD_SIZES in bf16 and fp32 (the model's decays, exact 0 among them).
+    Each case also gates two calls bit for bit. Returns the checks run and
+    the largest error per kernel."""
+    worst = {"ssm_scan_bwd": 0.0, "rwkv6_scan_bwd": 0.0}
+    n = 0
+    for N in ssm.STATE_SIZES:
+        for P in (8, 32, 64, 256):
+            r = ssm_bwd_case(torch, ssm, timer, B=2, S=37, H=3, P=P, N=N,
+                             seed=N + P, edges=True, timed=False)
+            worst["ssm_scan_bwd"] = max(worst["ssm_scan_bwd"],
+                                        r["max_abs_err"])
+            n += 1
+    for P in rwkv.HEAD_SIZES:
+        for dtype in (torch.bfloat16, torch.float32):
+            r = rwkv_bwd_case(torch, rwkv, timer, B=2, S=37, H=3, P=P,
+                              seed=P, dtype=dtype, decays="model",
+                              timed=False)
+            worst["rwkv6_scan_bwd"] = max(worst["rwkv6_scan_bwd"],
+                                          r["max_abs_err"])
+            n += 1
+    return dict(checks=n, max_abs_err=worst)
+
+
+def bwd_design(torch, ssm, rwkv, shapes):
+    """The backward kernels' design numbers at ``shapes`` (name -> B, S, H,
+    P): warps a CTA, the grid, dynamic shared bytes and CTAs an SM of both
+    passes, the scratch bytes of the tile-boundary states and of the
+    partials; the HMMA (mma.sync) count in the SASS of each pass of each
+    backward (raises if one has none: the tensor-core design is not in
+    the build); registers, shared memory and spill of every instantiation
+    of both passes (ptxas)."""
+    from repro_torch.kernels import _cuda
+    out = {"launch": {}}
+    for name, (B, S, H, P) in shapes.items():
+        out["launch"][name] = {
+            "ssm_scan_bwd": ssm.bwd_design(B, S, H, P, P),
+            "rwkv6_scan_bwd bf16": rwkv.bwd_design(B, S, H, P,
+                                                   torch.bfloat16),
+            "rwkv6_scan_bwd f32": rwkv.bwd_design(B, S, H, P,
+                                                  torch.float32)}
+    out["hmma_in_sass"] = {
+        f"{lib} pass {i}": sass_count(lib, "HMMA", f"{lib}_bwd_{kernel}")
+        for lib in (ssm._LIB_NAME, rwkv._LIB_NAME)
+        for i, kernel in ((1, "states_kernel"), (2, "kernel"))}
+    if not all(out["hmma_in_sass"].values()):
+        raise AssertionError(f"no HMMA in a backward kernel's SASS: "
+                             f"{out['hmma_in_sass']}")
+    out["ptxas"] = [
+        f"{marker[:-1]} {row}"
+        for lib, marker, names in (
+            (ssm._LIB_NAME, "ssm_scan_bwd_states_kernelI", ("N", "W")),
+            (ssm._LIB_NAME, "ssm_scan_bwd_kernelI", ("N", "W")),
+            (rwkv._LIB_NAME, "rwkv6_scan_bwd_states_kernelI", ("P",)),
+            (rwkv._LIB_NAME, "rwkv6_scan_bwd_kernelI", ("P",)))
+        for row in ptxas_summary(_cuda.BUILD_LOG.get(lib, ""), marker,
+                                 names)]
     return out
 
 
@@ -4449,6 +4530,15 @@ def train_e2e(torch, np, registry, transformer, counters, ssm, rwkv, timer):
                       decays="model", timed=False, **ragged)
     log(f"rwkv6_scan_bwd ragged S={ragged['S']}, the model's bf16 decays "
         f"with exact 0: {json.dumps(r)}")
+    out["backward_sweep"] = bwd_sweep(torch, ssm, rwkv, timer)
+    log(f"backward kernels, every instantiation vs the plain twins: "
+        f"{json.dumps(out['backward_sweep'])}")
+    out["backward_design"] = bwd_design(
+        torch, ssm, rwkv, {"(d) " + tag: (BWD_B, BWD_S, BWD_H, BWD_P),
+                           "(c) B=%d S=%d" % (REC_B, REC_S):
+                               (REC_B, REC_S, BWD_H, BWD_P)})
+    log(f"backward kernels, chunked tensor-core design: "
+        f"{json.dumps(out['backward_design'])}")
     out["backward_kernels"] = rows
     out["smoke_archs"] = train_smoke_archs(torch, np, registry, transformer,
                                            counters)

@@ -138,36 +138,10 @@ inline int sm_count() {
 }
 
 // ---------------------------------------------------------------------------
-// The scans' backward kernels (ssm_scan.cu, rwkv6_scan.cu): their geometry,
-// scalar loads and stores of a bf16 or fp32 operand in fp32, and the
-// fixed-order sum of per-CTA partials that follows each of them
-// (deterministic: no atomics).
+// The scans' backward kernels (ssm_scan.cu, rwkv6_scan.cu): scalar loads and
+// stores of a bf16 or fp32 operand in fp32, and the fixed-order sum of
+// per-CTA partials that follows each of them (deterministic: no atomics).
 // ---------------------------------------------------------------------------
-// Tiles of BWD_L steps; CTAs of BWD_THREADS threads, each CTA owning
-// BWD_ELEMS elements of a (P, Q) state: bwd_rows(P, Q) rows over all Q
-// columns, bwd_slices(P, Q) CTAs a (batch, head). The state before every
-// tile of every CTA goes to scratch: bwd_state_floats(...) floats. Each
-// entry point sizes its scratch from these alone (its *_scratch_floats).
-constexpr int BWD_L = 8;
-constexpr int BWD_THREADS = 256;
-constexpr int BWD_ELEMS = 1024;
-
-__host__ __device__ constexpr int bwd_rows(int P, int Q) {
-  return BWD_ELEMS / Q < P ? BWD_ELEMS / Q : P;
-}
-__host__ __device__ constexpr int bwd_slices(int P, int Q) {
-  return (P + bwd_rows(P, Q) - 1) / bwd_rows(P, Q);
-}
-inline int64_t bwd_state_floats(int64_t B, int64_t S, int64_t H, int P,
-                                int Q) {
-  const int64_t tiles = (S + BWD_L - 1) / BWD_L;
-  return B * H * bwd_slices(P, Q) * tiles * bwd_rows(P, Q) * Q;
-}
-
-__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -186,6 +160,7 @@ __global__ void sum_partials_kernel(const float* __restrict__ in,
     const int i = static_cast<int>(e - o * inner);
     const float* src = in + o * nsum * inner + i;
     float acc = 0.f;
+#pragma unroll 8
     for (int j = 0; j < nsum; ++j) acc += src[static_cast<long>(j) * inner];
     store_f(out + e, acc);
   }
@@ -320,6 +295,115 @@ __device__ __forceinline__ void store_split1(__nv_bfloat16* hi,
   const __nv_bfloat16 h = __float2bfloat16_rn(x);
   *hi = h;
   *lo = __float2bfloat16_rn(x - __bfloat162float(h));
+}
+
+// Fragments of mma.m16n8k16 operands from bf16 rows in shared memory (ld:
+// the row stride in elements; 16-byte aligned rows). A (16 x 16) at rows
+// m0.., columns k0.. of an [m][k] array, or of the transpose of a [k][m]
+// array (_t). B of two neighbouring n-tiles (16 x 16, registers as
+// mma_bf16x3<2> takes them) or of one (8 x 16) at n0.., k0.. of an [n][k]
+// array, or of the transpose of a [k][n] array (_t).
+__device__ __forceinline__ void lda(uint32_t (&r)[4],
+                                    const __nv_bfloat16* a, int ld, int m0,
+                                    int k0) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+  ldsm_x4(r, a + (m0 + (mi & 1) * 8 + r8) * ld + k0 + (mi >> 1) * 8);
+}
+__device__ __forceinline__ void lda_t(uint32_t (&r)[4],
+                                      const __nv_bfloat16* a, int ld, int m0,
+                                      int k0) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+  ldsm_x4_trans(r, a + (k0 + (mi >> 1) * 8 + r8) * ld + m0 + (mi & 1) * 8);
+}
+__device__ __forceinline__ void ldb2(uint32_t (&r)[4],
+                                     const __nv_bfloat16* b, int ld, int n0,
+                                     int k0) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+  ldsm_x4(r, b + (n0 + (mi >> 1) * 8 + r8) * ld + k0 + (mi & 1) * 8);
+}
+__device__ __forceinline__ void ldb2_t(uint32_t (&r)[4],
+                                       const __nv_bfloat16* b, int ld,
+                                       int n0, int k0) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+  ldsm_x4_trans(r, b + (k0 + (mi & 1) * 8 + r8) * ld + n0 + (mi >> 1) * 8);
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldb1(uint32_t (&r)[2],
+                                     const __nv_bfloat16* b, int ld, int n0,
+                                     int k0) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+  ldsm_x2(r, b + (n0 + r8) * ld + k0 + (mi & 1) * 8);
+}
+__device__ __forceinline__ void ldb1_t(uint32_t (&r)[2],
+                                       const __nv_bfloat16* b, int ld,
+                                       int n0, int k0) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+  ldsm_x2_trans(r, b + (k0 + (mi & 1) * 8 + r8) * ld + n0);
+}
+
+// The same as mma_bf16x2 with an exact B (bf16 inputs) and A as hi + lo.
+template <int NJ>
+__device__ __forceinline__ void mma_bf16x2_b(float (*d)[4],
+                                             const uint32_t (&ah)[4],
+                                             const uint32_t (&al)[4],
+                                             const uint32_t (&b)[2 * NJ]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) mma_bf16(d[j], al, b[2 * j], b[2 * j + 1]);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) mma_bf16(d[j], ah, b[2 * j], b[2 * j + 1]);
+}
+
+// Sixteen accumulator rows (mma fragments of N columns, rows g and g + 8)
+// split into the hi / lo A operand of k-step kk (columns 16kk..16kk+15).
+template <int NC>
+__device__ __forceinline__ void acc_to_a(const float (&acc)[NC / 8][4],
+                                         int kk, uint32_t (&ah)[4],
+                                         uint32_t (&al)[4]) {
+  split_bf16x2(acc[2 * kk][0], acc[2 * kk][1], ah[0], al[0]);
+  split_bf16x2(acc[2 * kk][2], acc[2 * kk][3], ah[1], al[1]);
+  split_bf16x2(acc[2 * kk + 1][0], acc[2 * kk + 1][1], ah[2], al[2]);
+  split_bf16x2(acc[2 * kk + 1][2], acc[2 * kk + 1][3], ah[3], al[3]);
+}
+
+// A warp's sixteen state rows (NC columns in mma fragments) to and from
+// global scratch in fragment order: a float4 per lane and 8-column n-tile,
+// 512 contiguous bytes per n-tile, so both are whole coalesced lines and
+// each thread reads back what it wrote.
+template <int NC>
+__device__ __forceinline__ void state_store(float* dst,
+                                            const float (&acc)[NC / 8][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j)
+    *reinterpret_cast<float4*>(dst + j * 128 + lane * 4) =
+        make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+}
+template <int NC>
+__device__ __forceinline__ void state_load(float (&acc)[NC / 8][4],
+                                           const float* src) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j) {
+    const float4 v = *reinterpret_cast<const float4*>(src + j * 128 +
+                                                      lane * 4);
+    acc[j][0] = v.x;
+    acc[j][1] = v.y;
+    acc[j][2] = v.z;
+    acc[j][3] = v.w;
+  }
 }
 
 }  // namespace repro_torch

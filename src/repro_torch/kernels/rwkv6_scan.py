@@ -35,8 +35,18 @@ update, y_t = r_t·S_{t-1} + (r_t·(u⊙k_t)) v_t, so with G_t = ∂L/∂S_t
     dv_t = G_tᵀ k_t + (r_t·(u⊙k_t)) dy_t
     dw_t = Σ_q G_t ⊙ S_{t-1} ;  du = Σ_{b,t} r_t ⊙ k_t ⟨v_t, dy_t⟩
 
-S_{t-1} is recomputed from the state stored at each tile boundary, never
-recovered by dividing by a decay (bf16 decays round to exactly 0).
+The backward kernel is chunked on the forward's ``CHUNK``-step tiles:
+pass 1 advances the state tile by tile on the tensor cores and keeps the
+state before each tile; pass 2 walks the tiles in reverse, advancing the
+adjoint tile by tile, and computes each tile's gradients from products
+with that state and the incoming adjoint (tensor cores) plus the in-tile
+terms of dr, dk and dw, whose decays are per channel, in fp32 on the
+CUDA cores. dw is ``Σ_q G_t ⊙ S_{t-1}`` expanded over the tile into four
+terms whose decay factors are running products of factors in [0, 1]: no
+decay is ever divided out (bf16 decays round to exactly 0 and 1.0).
+:func:`rwkv6_scan_bwd_chunked_plain` is that algorithm in plain PyTorch,
+which the CPU tests hold against the step twin and ``jax.grad``; on the
+card the kernel is held against :func:`rwkv6_scan_bwd_plain`.
 """
 from __future__ import annotations
 
@@ -45,8 +55,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _cuda
-from repro_torch.kernels.ssm_scan import (BWD_CHUNK, CHUNK,
-                                          segment_products)
+from repro_torch.kernels.ssm_scan import CHUNK, segment_products
 
 _LIB_NAME = "rwkv6_scan"
 HEAD_SIZES = (32, 64)                  # P the kernel is instantiated for
@@ -183,11 +192,11 @@ rwkv6_scan.launches = 0
 def rwkv6_scan_bwd_plain(r, k, v, w, u, dy):
     """Plain twin of the backward: (dr, dk, dv, dw (B, S, H, P), du (H,
     P)), all fp32, for y's gradient dy (B, S, H, P). An fp32 step loop in
-    the kernel's two passes: the forward, keeping the state before every
-    tile of ``BWD_CHUNK`` steps; then the tiles in reverse, each
-    recomputing its states from its boundary and running the adjoint
-    recurrence (module docstring) back through them."""
-    chunk = BWD_CHUNK
+    two passes: the forward, keeping the state before every tile of
+    ``CHUNK`` steps; then the tiles in reverse, each recomputing its states
+    from its boundary and running the adjoint recurrence (module docstring)
+    back through them."""
+    chunk = CHUNK
     B, S, H, P = r.shape
     rf, kf, vf, wf, gy = (a.float() for a in (r, k, v, w, dy))
     uf = u.float()
@@ -225,6 +234,79 @@ def rwkv6_scan_bwd_plain(r, k, v, w, u, dy):
     return dr, dk, dv, dw, du
 
 
+def rwkv6_scan_bwd_chunked_plain(r, k, v, w, u, dy):
+    """The backward kernel's chunked algorithm in plain PyTorch (fp32); the
+    same outputs as :func:`rwkv6_scan_bwd_plain`. Pass 1 advances the state
+    tile by tile, keeping the state ``S0 = S_{b-1}`` before each tile [b,
+    e]; pass 2 walks the tiles in reverse with the incoming adjoint ``Gc =
+    G_e``. With E(s, t) = Π_{s<m<t} w_m (a vector over the key channel p),
+    pre(t) = E(b-1, t), F(t) = E(t, e+1), A[s, s'] = dy_s·v_{s'} and
+    c_t = A[t, t] = ⟨v_t, dy_t⟩:
+
+        dr_t = pre(t) ⊙ S0 dy_t + Σ_{s<t} A[t, s] E(s, t) ⊙ k_s + u⊙k_t c_t
+        dk_t = F(t) ⊙ Gc v_t + Σ_{s>t} A[s, t] E(t, s) ⊙ r_s + r_t⊙u c_t
+        dv_t = (k_t ⊙ F(t)) Gc + Σ_{s≥t} Gf[s, t] dy_s
+        with Gf the forward's score matrix (u bonus on its diagonal)
+        Gc <- diag(pre(e+1)) Gc + Σ_s (r_s ⊙ pre(s)) ⊗ dy_s
+
+    and dw_t = Σ_q G_t ⊙ S_{t-1} expanded over the tile per channel p into
+    four terms, no decay ever divided out:
+
+        F(t) pre(t) Σ_q Gc ⊙ S0
+        + F(t) Σ_{s'<t} E(s', t) k_{s'} (Gc v_{s'})
+        + pre(t) Σ_{s>t} E(t, s) r_s (S0 dy_s)
+        + Σ_{s>t>s'} E(t, s) E(s', t) r_s k_{s'} A[s, s']"""
+    B, S, H, P = r.shape
+    rf, kf, vf, wf, gy = (a.float() for a in (r, k, v, w, dy))
+    uf = u.float()
+    dev = r.device
+    state = torch.zeros((B, H, P, P), dtype=torch.float32, device=dev)
+    bounds = []
+    for b0 in range(0, S, CHUNK):
+        bounds.append(state)
+        kc, vc, wc = (a[:, b0:b0 + CHUNK] for a in (kf, vf, wf))
+        D = segment_products(wc)
+        state = state * torch.cumprod(wc, dim=1)[:, -1, ..., None] + \
+            torch.einsum("bshp,bshq->bhpq", kc * D[:, -1], vc)
+    grads = [torch.empty((B, S, H, P), dtype=torch.float32, device=dev)
+             for _ in range(4)]
+    dr, dk, dv, dw = grads
+    du = torch.zeros((H, P), dtype=torch.float32, device=dev)
+    Gc = torch.zeros((B, H, P, P), dtype=torch.float32, device=dev)
+    for c in reversed(range(len(bounds))):
+        sl = slice(c * CHUNK, (c + 1) * CHUNK)
+        S0 = bounds[c]
+        rc, kc, vc, wc, gc = (a[:, sl] for a in (rf, kf, vf, wf, gy))
+        D = segment_products(wc)                     # Π_{s<m≤t} at [t, s]
+        E = torch.zeros_like(D)                      # E(s, t) at [t, s], s < t
+        E[:, 1:] = D[:, :-1]
+        pre = torch.cumprod(torch.cat([torch.ones_like(wc[:, :1]),
+                                       wc[:, :-1]], 1), dim=1)
+        F = D[:, -1]
+        A = torch.einsum("bshq,buhq->bhsu", gc, vc)
+        ct = torch.diagonal(A, dim1=-2, dim2=-1).permute(0, 2, 1)[..., None]
+        drc = torch.einsum("bhpq,bthq->bthp", S0, gc)    # (S0 dy_t)[p]
+        dkc = torch.einsum("bhpq,bthq->bthp", Gc, vc)    # (Gc v_t)[p]
+        dr[:, sl] = pre * drc + torch.einsum("bhts,btshp,bshp->bthp", A, E,
+                                             kc) + uf * kc * ct
+        dk[:, sl] = F * dkc + torch.einsum("bhst,bsthp,bshp->bthp", A, E,
+                                           rc) + rc * uf * ct
+        Gf = torch.einsum("bshp,bthp,bsthp->bhst", rc, kc, E) + \
+            torch.diag_embed(torch.einsum("bthp,hp,bthp->bht", rc, uf, kc))
+        dv[:, sl] = torch.einsum("bthp,bhpq->bthq", kc * F, Gc) + \
+            torch.einsum("bhst,bshq->bthq", Gf, gc)
+        dw[:, sl] = (
+            F * pre * (Gc * S0).sum(-1)[:, None] +
+            F * torch.einsum("btuhp,buhp->bthp", E, kc * dkc) +
+            pre * torch.einsum("bsthp,bshp->bthp", E, rc * drc) +
+            torch.einsum("bsthp,btuhp,bshp,buhp,bhsu->bthp", E, E, rc, kc,
+                         A))
+        du += (rc * kc * ct).sum((0, 1))
+        Gc = Gc * torch.cumprod(wc, dim=1)[:, -1, ..., None] + torch.einsum(
+            "bshp,bshq->bhpq", rc * pre, gc)
+    return dr, dk, dv, dw, du
+
+
 def rwkv6_scan_bwd(r, k, v, w, u, dy):
     """Gradients (dr, dk, dv, dw, du) of :func:`rwkv6_scan` for dy (B, S,
     H, P) fp32: on the CPU the plain twin's (fp32); on the card
@@ -235,8 +317,8 @@ def rwkv6_scan_bwd(r, k, v, w, u, dy):
     The kernel's scratch, one fp32 buffer from the caching allocator of
     the size ``rwkv6_scan_bwd_scratch_floats`` gives (the kernel source
     defines its layout): the state before every tile of every CTA and the
-    per-CTA partials of dv and du, which a second launch sums in a fixed
-    order (deterministic; no atomics)."""
+    per-CTA partials of du, which a last launch sums in a fixed order
+    (deterministic; no atomics)."""
     if r.device.type == "cpu":
         return rwkv6_scan_bwd_plain(r, k, v, w, u, dy)
     if r.device.type != "cuda":
@@ -265,6 +347,25 @@ def rwkv6_scan_bwd(r, k, v, w, u, dy):
 
 
 rwkv6_scan_bwd.launches = 0
+
+
+def bwd_design(B: int, S: int, H: int, P: int, dtype) -> dict:
+    """The backward kernel's launches at these sizes on the current card
+    (``rwkv6_scan_bwd_design``, the ``dtype`` entry's kernels): warps a
+    CTA, CTAs, dynamic shared bytes a CTA and the CTAs an SM holds (the
+    occupancy query) of pass 2 and of pass 1, and the scratch bytes of the
+    tile-boundary states and of the per-CTA partials of du."""
+    out = (ctypes.c_int64 * 7)()
+    fn = _cuda.load(_LIB_NAME).rwkv6_scan_bwd_design
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _cuda.check(fn(B, S, H, P, int(dtype == torch.bfloat16),
+                   ctypes.addressof(out)), "rwkv6_scan_bwd_design")
+    floats = _scratch_fn()(B, S, H, P)
+    return dict(warps=out[0], ctas=out[1], smem_bytes=out[2],
+                ctas_per_sm=out[3], pass1_smem_bytes=out[5],
+                pass1_ctas_per_sm=out[6], state_bytes=4 * out[4],
+                partial_bytes=4 * (floats - out[4]))
 
 
 def _kernel_fn(entry: str):

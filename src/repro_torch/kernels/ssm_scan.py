@@ -31,8 +31,17 @@ With ``g_t = ∂L/∂h_t``:
     dx_t = g_t B_t ;  dB_t = Σ_{h,p} g_t x_t ;  dC_t = Σ_{h,p} h_t dy_t
     ddecay_t = Σ_{p,n} g_t ⊙ h_{t-1}
 
-``h_{t-1}`` is recomputed from the state stored at each tile boundary,
-never recovered as ``h_t / decay_t`` (a decay may be exactly 0).
+The backward kernel is chunked on the forward's ``CHUNK``-step tiles:
+pass 1 advances the state tile by tile on the tensor cores and keeps the
+state before each tile; pass 2 walks the tiles in reverse, advancing the
+adjoint tile by tile, and computes each tile's dx, dB, dC from products
+of the tile's operands with that state and the incoming adjoint. ddecay
+is ``⟨g_t, h_{t-1}⟩`` expanded over the tile into four terms whose decay
+factors are running products of factors in [0, 1]: no decay is ever
+divided out (a decay may be exactly 0).
+:func:`ssm_scan_bwd_chunked_plain` is that algorithm in plain PyTorch,
+which the CPU tests hold against the step twin and ``jax.grad``; on the
+card the kernel is held against :func:`ssm_scan_bwd_plain`.
 """
 from __future__ import annotations
 
@@ -44,8 +53,7 @@ from repro_torch.kernels import _cuda
 
 _LIB_NAME = "ssm_scan"
 STATE_SIZES = (16, 32, 64, 128)        # N the kernel is instantiated for
-CHUNK = 16                             # the kernel's tile: steps per state update
-BWD_CHUNK = 8                          # the plain backward twins' tile
+CHUNK = 16                             # the kernels' tile: steps per state update
 
 
 def ssm_scan_plain(x, B_in, C_in, decay) -> torch.Tensor:
@@ -182,12 +190,12 @@ ssm_scan.launches = 0
 def ssm_scan_bwd_plain(x, B_in, C_in, decay, dy):
     """Plain twin of the backward: (dx (B, S, H, P), dB (B, S, N), dC (B,
     S, N), ddecay (B, S, H)), all fp32, for y's gradient dy (B, S, H, P).
-    An fp32 step loop in the kernel's two passes: the forward, keeping the
-    state before every tile of ``BWD_CHUNK`` steps; then the tiles in
-    reverse, each recomputing its states from its boundary and running the
-    adjoint recurrence (module docstring) back through them. The values do
-    not depend on the tile, which only bounds the states held at once."""
-    chunk = BWD_CHUNK
+    An fp32 step loop in two passes: the forward, keeping the state before
+    every tile of ``CHUNK`` steps; then the tiles in reverse, each
+    recomputing its states from its boundary and running the adjoint
+    recurrence (module docstring) back through them. The values do not
+    depend on the tile, which only bounds the states held at once."""
+    chunk = CHUNK
     Bb, S, H, P = x.shape
     N = B_in.shape[-1]
     xf, bf, cf, af, gy = (a.float() for a in (x, B_in, C_in, decay, dy))
@@ -222,6 +230,79 @@ def ssm_scan_bwd_plain(x, B_in, C_in, decay, dy):
     return dx, dB, dC, dd
 
 
+def ssm_scan_bwd_chunked_plain(x, B_in, C_in, decay, dy):
+    """The backward kernel's chunked algorithm in plain PyTorch (fp32); the
+    same outputs as :func:`ssm_scan_bwd_plain`. Pass 1 advances the state
+    tile by tile, keeping the state ``H0 = h_{b-1}`` before each tile [b,
+    e]; pass 2 walks the tiles in reverse with the incoming adjoint
+    ``Gc = decay_{e+1} g_{e+1}``. With D(s, t) = Π_{s<m≤t} decay_m,
+    pre(t) = D(b-1, t) and suf(t) = D(t, e), per head:
+
+        dx_t = suf(t) Gc B_t + Σ_{s≥t} (C_s·B_t) D(t, s) dy_s
+        dB_t = Σ_h suf(t) x_t Gc + Σ_{s≥t} V[s, t] C_s
+        dC_t = Σ_h pre(t) dy_t H0 + Σ_{s≤t} V[t, s] B_s
+        with V[t, s] = (dy_t·x_s) D(s, t)
+        Gc <- pre(e) Gc + Σ_s pre(s) dy_s ⊗ C_s   (the previous tile's)
+
+    and ddecay_t = ⟨g_t, h_{t-1}⟩ expanded over the tile into four terms,
+    no decay ever divided out:
+
+        suf(t) pre(t-1) ⟨Gc, H0⟩
+        + suf(t) Σ_{s'<t} D(s', t-1) q1[s'],   q1[s] = x_s · (Gc B_s)
+        + pre(t-1) Σ_{s≥t} D(t, s) q2[s],      q2[s] = dy_s · (H0 C_s)
+        + Σ_{s≥t>s'} D(t, s) D(s', t-1) (dy_s·x_{s'}) (C_s·B_{s'})"""
+    Bb, S, H, P = x.shape
+    N = B_in.shape[-1]
+    xf, bf, cf, af, gy = (a.float() for a in (x, B_in, C_in, decay, dy))
+    dev = x.device
+    h = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=dev)
+    bounds = []
+    for b0 in range(0, S, CHUNK):
+        bounds.append(h)
+        xc, bc, ac = (a[:, b0:b0 + CHUNK] for a in (xf, bf, af))
+        D = segment_products(ac)
+        h = h * torch.cumprod(ac, dim=1)[:, -1, :, None, None] + \
+            torch.einsum("bshp,bsn->bhpn", xc * D[:, -1, :, :, None], bc)
+    dx = torch.empty((Bb, S, H, P), dtype=torch.float32, device=dev)
+    dB = torch.empty((Bb, S, N), dtype=torch.float32, device=dev)
+    dC = torch.empty((Bb, S, N), dtype=torch.float32, device=dev)
+    dd = torch.empty((Bb, S, H), dtype=torch.float32, device=dev)
+    Gc = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=dev)
+    for c in reversed(range(len(bounds))):
+        b0 = c * CHUNK
+        sl = slice(b0, b0 + CHUNK)
+        H0 = bounds[c]
+        xc, bc, cc, ac, gc = xf[:, sl], bf[:, sl], cf[:, sl], af[:, sl], gy[:, sl]
+        n = ac.shape[1]
+        D = segment_products(ac)                         # [t, s] = D(s, t)
+        pre = torch.cumprod(ac, dim=1)                   # D(b-1, t)
+        prem1 = torch.cat([torch.ones_like(pre[:, :1]), pre[:, :-1]], 1)
+        suf = D[:, -1]                                   # D(t, e)
+        Dm1 = torch.zeros_like(D)                        # [t, s'] = D(s', t-1)
+        Dm1[:, 1:] = D[:, :-1]
+        CB = torch.einsum("btn,bsn->bts", cc, bc)
+        dyx = torch.einsum("bthp,bshp->bhts", gc, xc)    # dy_t · x_s
+        V = dyx * D.permute(0, 3, 1, 2)
+        dxc = torch.einsum("bhpn,bsn->bshp", Gc, bc)     # (Gc B_s)[p]
+        dx[:, sl] = dxc * suf[..., None] + torch.einsum(
+            "bts,btsh,bthp->bshp", CB, D, gc)
+        dB[:, sl] = torch.einsum("bthp,bhpn->btn", xc * suf[..., None], Gc) \
+            + torch.einsum("bhst,bsn->btn", V, cc)
+        dC[:, sl] = torch.einsum("bthp,bhpn->btn", gc * pre[..., None], H0) \
+            + torch.einsum("bhts,bsn->btn", V, bc)
+        q1 = (xc * dxc).sum(-1)                                     # (B, n, H)
+        q2 = (gc * torch.einsum("bhpn,btn->bthp", H0, cc)).sum(-1)
+        M4 = dyx * CB[:, None]                                      # [s, s']
+        dd[:, sl] = (
+            suf * prem1 * (Gc * H0).sum((-2, -1))[:, None] +
+            suf * torch.einsum("btuh,buh->bth", Dm1, q1) +
+            prem1 * torch.einsum("bsth,bsh->bth", D, q2) +
+            torch.einsum("bsth,btuh,bhsu->bth", D, Dm1, M4))
+        Gc = Gc * pre[:, n - 1, :, None, None] + torch.einsum(
+            "bshp,bsn->bhpn", gc * pre[..., None], cc)
+    return dx, dB, dC, dd
+
+
 def ssm_scan_bwd(x, B_in, C_in, decay, dy):
     """Gradients (dx, dB, dC, ddecay) of :func:`ssm_scan` for dy (B, S, H,
     P), fp32. CPU tensors run :func:`ssm_scan_bwd_plain`; CUDA tensors
@@ -231,8 +312,8 @@ def ssm_scan_bwd(x, B_in, C_in, decay, dy):
     The kernel's scratch, one fp32 buffer from the caching allocator of
     the size ``ssm_scan_bwd_scratch_floats`` gives (the kernel source
     defines its layout): the state before every tile of every CTA and the
-    per-(head, CTA) partials of dB, dC and ddecay, which a second launch
-    sums in a fixed order (deterministic; no atomics)."""
+    per-(head, CTA) partials of dB, dC and ddecay, which a last launch sums
+    in a fixed order (deterministic; no atomics)."""
     if x.device.type == "cpu":
         return ssm_scan_bwd_plain(x, B_in, C_in, decay, dy)
     if x.device.type != "cuda":
@@ -263,6 +344,25 @@ def ssm_scan_bwd(x, B_in, C_in, decay, dy):
 
 
 ssm_scan_bwd.launches = 0
+
+
+def bwd_design(B: int, S: int, H: int, P: int, N: int) -> dict:
+    """The backward kernel's launches at these sizes on the current card
+    (``ssm_scan_bwd_design``): warps a CTA, CTAs, dynamic shared bytes a
+    CTA and the CTAs an SM holds (the occupancy query) of pass 2 and of
+    pass 1, and the scratch bytes of the tile-boundary states and of the
+    per-CTA partials."""
+    out = (ctypes.c_int64 * 7)()
+    fn = _cuda.load(_LIB_NAME).ssm_scan_bwd_design
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _cuda.check(fn(B, S, H, P, N, ctypes.addressof(out)),
+                "ssm_scan_bwd_design")
+    floats = _scratch_fn()(B, S, H, P, N)
+    return dict(warps=out[0], ctas=out[1], smem_bytes=out[2],
+                ctas_per_sm=out[3], pass1_smem_bytes=out[5],
+                pass1_ctas_per_sm=out[6], state_bytes=4 * out[4],
+                partial_bytes=4 * (floats - out[4]))
 
 
 def _kernel_fn():

@@ -695,11 +695,13 @@ def test_cuda_rwkv6_scan_matches_plain(cuda, B, S, H, P, dtype, decays):
         rw.rwkv6_scan(r, k, v, w.half(), u)
 
 
-# The scans' backward kernels against their plain fp32 backward twins: both
-# run the same fp32 step recurrences and differ by summation order, so the
-# scan tolerance holds for fp32 outputs; bf16 outputs (rwkv6's bf16 entry)
-# add their rounding (8e-3 relative, 1e-3 of the largest entry). Two calls
-# agree bit for bit (fixed-order sums, no atomics).
+# The scans' backward kernels against their plain fp32 backward twins: the
+# kernels run the chunked form on the tensor cores (every fp32 product in
+# three bf16 passes, ~1e-5 of each product), the twins the fp32 step
+# recurrences, so the scan tolerance holds for fp32 outputs; bf16 outputs
+# (rwkv6's bf16 entry) add their rounding (8e-3 relative, 1e-3 of the
+# largest entry). Two calls agree bit for bit (fixed-order sums, no
+# atomics).
 SSM_BWD_CASES = [(2, 300, 3, 64, 64, False), (1, 37, 2, 32, 16, True),
                  (1, 1, 2, 8, 16, False), (2, 65, 2, 40, 32, True),
                  (1, 64, 2, 256, 128, True), (1, 2047, 3, 64, 64, True),
