@@ -231,8 +231,30 @@ Phases (any failure exits non-zero and prints no result line):
      timed held and unheld beside its bound and the plain twin; (e) one
      smoke-size fp32 train step of each of the 10 assigned archs on the
      card against the CPU port (loss, gradient norm);
- 22. one JSON line describing every ported kernel, then the result line.
-     A failed gate of phases 4, 5, 10, 11 and 13-21 is reported where it
+ 22. the mesh and the collective attention backends: (a) 4 spawned
+     ranks of one gloo world sharing the card (NCCL refuses two ranks on
+     one device) drive ``core/attention_parallel.py``'s paged splits at
+     llama3-8b's attention width (pool of 2048 blocks of 16, 4 block
+     shards, 8 sequences of 300-2000 tokens, bf16 and int8): head on a
+     (2, 2) mesh with the batch over data, head x 4, request x 2 and x 4,
+     block x 4, and glm4-9b's G = 16 through head x 2 and block x 4; and
+     the dense seq / head / request splits x 4 on a (8, 2048, 8, 128)
+     bf16 cache. Each rank's row 1 / 3 launches, the bytes it hands to
+     the all-reduces (the triple's for block and seq, none for head and
+     request) and the count of every other collective it issues
+     (``CommDebugMode``: none) are gated, so KV never crosses ranks;
+     head and request equal
+     the in-process partition over the same slices bit for bit, block and
+     seq are within 2 bf16 ulps of the in-process block partition (whole
+     cache) and of one launch over the whole pool, every split within 2
+     bf16 ulps of ``AttentionWorkerPool.attend_paged``; per-call wall p50
+     beside the in-process pool's is printed. (b) the placed train step
+     on a (1, 1) mesh (NCCL, world size 1): tinyllama-1.1b at full width
+     and 2 layers, 3 steps, equal to ``make_train_step``'s eager steps bit
+     for bit in the loss and every leaf, every leaf still placed;
+     ``python3 chip_smoke.py --phase22`` runs it alone after the build;
+ 23. one JSON line describing every ported kernel, then the result line.
+     A failed gate of phases 4, 5, 10, 11 and 13-22 is reported where it
      happens and fails the run after the last phase. No two full-width
      models are alive at once.
 
@@ -4550,6 +4572,575 @@ def train_e2e(torch, np, registry, transformer, counters, ssm, rwkv, timer):
     return out, rows, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the mesh and the collective attention backends
+# ---------------------------------------------------------------------------
+COLL_WORLD = 4              # ranks of the attention pool, all on the card
+COLL_ITERS = 20             # timed calls of each split (wall p50)
+COLL_BS, COLL_NB = 16, 2048
+COLL_TIMEOUT_S = 300        # a rank that waits longer on a collective fails
+PLACED_LAYERS, PLACED_B, PLACED_S, PLACED_STEPS = 2, 8, 512, 3
+
+
+def coll_close(got, want, rtol=ERR_RTOL, atol=ERR_ATOL):
+    """(within 2 bf16 ulps + floor, as ``check_close``; max abs err)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    ok = bool((err <= atol + rtol * want.abs()).all()) and \
+        bool(got.isfinite().all())
+    return ok, float(err.max())
+
+
+def coll_pool(torch, cfg, int8, seed):
+    """A pool at ``cfg``'s attention width (one layer, 2048 blocks of 16, 4
+    block shards) holding 8 sequences of 300-2000 tokens that
+    ``PagedKVCache`` allocates round-robin over the shards; random bf16 K/V
+    from ``seed`` (int8: ``quantize_kv`` of them). Every rank makes the
+    same pool, tables and queries."""
+    import numpy as np
+    from repro_torch.models.kv_quant import quantize_kv
+    from repro_torch.serving.kvcache import PagedKVCache
+    kv = PagedKVCache(cfg.replace(num_layers=1), num_blocks=COLL_NB,
+                      block_size=COLL_BS, n_shards=COLL_WORLD,
+                      kv_dtype="int8" if int8 else "bf16", device=DEV)
+    lens = np.random.default_rng(22).integers(300, 2001, size=8)
+    ids = list(range(len(lens)))
+    for i, n in enumerate(lens):
+        kv.allocate(i, int(n))
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    shape = kv.k_pool.shape[1:]
+    k = torch.randn(shape, generator=g, device=DEV).to(torch.bfloat16)
+    v = torch.randn(shape, generator=g, device=DEV).to(torch.bfloat16)
+    c = dict(ks=None, vs=None, kp=k, vp=v)
+    if int8:
+        c["kp"], c["ks"] = quantize_kv(k)
+        c["vp"], c["vs"] = quantize_kv(v)
+    bt, clen = kv.block_table_batch(ids)
+    lt, lp, _ = kv.block_table_shards(ids)
+    dev = lambda a: torch.as_tensor(a, device=DEV)  # noqa: E731
+    c.update(bt=dev(bt), clen=dev(clen), lt=dev(lt), lp=dev(lp),
+             npb=kv.blocks_per_shard, lens=lens.tolist())
+    c["q"] = torch.randn((len(lens), cfg.num_heads, cfg.resolved_head_dim),
+                         generator=g, device=DEV).to(torch.bfloat16)
+    return c
+
+
+def coll_placed(full, mesh, spec):
+    """``full`` (the same on every rank) placed at ``spec``: this rank's
+    chunk, taken without a collective and made contiguous, as the kernel
+    reads it."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from repro_torch.core.disagg import placements
+    pl = placements(spec, mesh)
+    t = distribute_tensor(full, mesh, pl, src_data_rank=None)
+    if not t.to_local().is_contiguous():
+        t = DTensor.from_local(t.to_local().contiguous(), mesh, pl,
+                               run_check=False)
+    return t
+
+
+def coll_local(full, mesh, placements):
+    """This rank's chunk of ``full`` at ``placements``."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(full, mesh, placements,
+                             src_data_rank=None).to_local()
+
+
+def coll_slices(torch, pda, c, rows, heads):
+    """The in-process partition over the same slices: one launch per
+    (batch range, kv-head range) of the whole operands, the slices
+    ``AttentionWorkerPool`` cuts (kv heads ``[w·Hkv/n, (w+1)·Hkv/n)``,
+    ``request_splits`` of the batch), put together."""
+    from repro_torch.serving.worker_pool import request_splits
+    q = c["q"]
+    B, H, hd = q.shape
+    Hkv = c["kp"].shape[0]
+    G, hk = H // Hkv, Hkv // heads
+    out = torch.empty_like(q).view(B, Hkv, G, hd)
+    for lo, hi in request_splits(B, rows):
+        for w in range(heads):
+            sl = slice(w * hk, (w + 1) * hk)
+            skw = {} if c["ks"] is None else dict(k_scale=c["ks"][sl],
+                                                  v_scale=c["vs"][sl])
+            out[lo:hi, sl] = pda.paged_decode_attention(
+                q[lo:hi].reshape(hi - lo, Hkv, G, hd)[:, sl].contiguous(),
+                c["kp"][sl], c["vp"][sl], c["bt"][lo:hi].contiguous(),
+                c["clen"][lo:hi].contiguous(), **skw)
+    return out.view(B, H, hd)
+
+
+def coll_worker_pool(torch, cfg, c, partition, n):
+    """``AttentionWorkerPool(n, partition).attend_paged`` over the same pool
+    as the engine calls it, the last stored token of every sequence served
+    as the incoming one (its K/V read back from the pool, int8
+    dequantized). That call merges the incoming token's partial into each
+    worker's prefix partial; the collective backends take the stored
+    tokens only, as the reference's do. So the two agree to bf16 rounding,
+    not bit for bit."""
+    from repro_torch.serving.worker_pool import AttentionWorkerPool
+    last = c["clen"].long() - 1
+    blk = c["bt"].long().gather(1, (last // COLL_BS)[:, None])[:, 0]
+    off = last % COLL_BS
+
+    def incoming(pool, scale):
+        x = pool[:, blk, off].float()              # (Hkv, B, hd)
+        if scale is not None:
+            x = x * scale[:, blk, off][..., None]
+        return x.transpose(0, 1).to(torch.bfloat16).contiguous()
+
+    k_new, v_new = incoming(c["kp"], c["ks"]), incoming(c["vp"], c["vs"])
+    pool = AttentionWorkerPool(cfg, n, partition,
+                               "bf16" if c["ks"] is None else "int8")
+    kw = {} if c["ks"] is None else dict(k_scale=c["ks"], v_scale=c["vs"])
+    if partition == "block":
+        base = (torch.arange(n, device=DEV, dtype=torch.int32)
+                * c["npb"])[:, None, None]
+        kw.update(shard_tables=c["lt"] + base, shard_positions=c["lp"])
+    clen = c["clen"] - 1
+    return lambda: pool.attend_paged(c["q"], c["kp"], c["vp"], c["bt"],
+                                     clen, k_new, v_new, **kw)
+
+
+def coll_cases():
+    """Phase 22's paged calls: (name, arch, mesh shape, mesh axes, split,
+    axis, batch axis, int8)."""
+    out = []
+    for int8 in (False, True):
+        tag = "int8" if int8 else "bf16"
+        for arch, name, shape, axes, split, axis, baxis in (
+                ("llama3-8b", "head (2, 2), batch over data", (2, 2),
+                 ("data", "model"), "head", "model", "data"),
+                ("llama3-8b", "head x 4", (4,), ("model",), "head", "model",
+                 None),
+                ("llama3-8b", "request x 2", (2, 2), ("data", "model"),
+                 "request", "data", None),
+                ("llama3-8b", "request x 4", (4,), ("data",), "request",
+                 "data", None),
+                ("llama3-8b", "block x 4", (4,), ("attn",), "block", "attn",
+                 None),
+                ("glm4-9b", "G=16 head x 2", (2, 2), ("data", "model"),
+                 "head", "model", None),
+                ("glm4-9b", "G=16 block x 4", (4,), ("attn",), "block",
+                 "attn", None)):
+            out.append((f"{arch} {name} {tag}", arch, shape, axes, split,
+                        axis, baxis, int8))
+    return out
+
+
+def coll_rank(rank, world, store, out_dir, dev):
+    """One rank of phase 22's attention pool, a spawned process sharing the
+    card: loads the libraries phase 1 built (it never builds), drives every
+    split over its shards, and saves its gates' numbers for the parent."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    global DEV
+    DEV = dev                     # the parent's (a CPU rehearsal sets it)
+    if DEV == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=COLL_TIMEOUT_S))
+    try:
+        res = coll_rank_run(torch, np, dist, rank)
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def coll_rank_run(torch, np, dist, rank):
+    from repro_torch.configs import registry
+    from repro_torch.core import attention_parallel as ap
+    from repro_torch.core import combine as C
+    from repro_torch.core.disagg import P
+    from repro_torch.kernels import _cuda, ops
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.launch.mesh import make_test_mesh
+
+    for lib in (pda._LIB_NAME, da._LIB_NAME):
+        if DEV == "cuda" and not _cuda._target(lib).exists():
+            raise RuntimeError(f"{_cuda._target(lib)} is missing: phase 1 "
+                               f"builds the libraries, a rank never does")
+    from torch.distributed.tensor.debug import CommDebugMode
+    sent = {"bytes": 0, "calls": 0, "others": 0}
+    all_reduce = dist.all_reduce
+
+    def counted(t, *a, **k):                 # what this rank hands over
+        sent["bytes"] += t.numel() * t.element_size()
+        sent["calls"] += 1
+        return all_reduce(t, *a, **k)
+    dist.all_reduce = counted
+    fns = (pda.paged_decode_attention, pda.paged_decode_attention_int8,
+           da.decode_attention, da.decode_attention_int8)
+
+    def gated(fn):
+        """``fn()`` with every launch counter at 0 before it, read after:
+        its launches, the bytes it hands to ``all_reduce`` and the count
+        of every other collective it issues (``CommDebugMode`` sees the
+        functional ones DTensor's redistribute uses too)."""
+        sync(torch)
+        dist.barrier()
+        for f in fns:
+            f.launches = 0
+        sent.update(bytes=0, calls=0)
+        with CommDebugMode() as mode:
+            out = fn()
+        sync(torch)
+        sent["others"] = mode.get_total_counts() - sent["calls"]
+        return out, {f.__name__: f.launches for f in fns}, dict(sent)
+
+    def wall_p50(fn):
+        return coll_wall_p50(torch, np, fn, dist.barrier)
+
+    def alone_p50(fn):
+        """The in-process pool's wall, rank 0 alone on the card."""
+        dist.barrier()
+        p50 = coll_wall_p50(torch, np, fn) if rank == 0 else None
+        dist.barrier()
+        return p50
+
+    pools, meshes, res = {}, {}, {}
+    for name, arch, shape, axes, split, axis, baxis, int8 in coll_cases():
+        cfg = registry.get_config(arch)
+        if (arch, int8) not in pools:
+            pools[(arch, int8)] = coll_pool(torch, cfg, int8, seed=7 + int8)
+        c = pools[(arch, int8)]
+        if (shape, axes) not in meshes:
+            meshes[(shape, axes)] = make_test_mesh(shape, axes,
+                                                   device_type=DEV)
+        mesh = meshes[(shape, axes)]
+        sizes = dict(zip(axes, shape))
+        n = sizes[axis]
+        B, H, hd = c["q"].shape
+        if split == "head":
+            spec, sspec = P(axis, None, None, None), P(axis, None, None)
+        elif split == "request":
+            spec = sspec = P()
+        else:
+            spec, sspec = P(None, axis, None, None), P(None, axis, None)
+        kv = [coll_placed(c["kp"], mesh, spec),
+              coll_placed(c["vp"], mesh, spec)]
+        skw = {} if c["ks"] is None else dict(
+            k_scale=coll_placed(c["ks"], mesh, sspec),
+            v_scale=coll_placed(c["vs"], mesh, sspec))
+        if split == "head":
+            def fn(kv=kv, skw=skw, mesh=mesh, axis=axis, baxis=baxis, c=c):
+                return ap.head_parallel_paged_decode_attention(
+                    mesh, axis, c["q"], *kv, c["bt"], c["clen"],
+                    batch_axis=baxis, **skw)
+        elif split == "request":
+            def fn(kv=kv, skw=skw, mesh=mesh, axis=axis, c=c):
+                return ap.request_parallel_paged_decode_attention(
+                    mesh, axis, c["q"], *kv, c["bt"], c["clen"], **skw)
+        else:
+            def fn(kv=kv, skw=skw, mesh=mesh, axis=axis, c=c):
+                return ap.block_parallel_paged_decode_attention(
+                    mesh, axis, c["q"], *kv, c["lt"], c["lp"], c["clen"],
+                    **skw)
+        out, launches, coll = gated(fn)
+        entry = ("paged_decode_attention_int8" if int8
+                 else "paged_decode_attention")
+        r = dict(launches=launches, bytes=coll["bytes"],
+                 other_collectives=coll["others"],
+                 want_launches={f.__name__: int(f.__name__ == entry)
+                                for f in fns},
+                 want_bytes=(B * H * (hd + 2) * 4 if split == "block"
+                             else 0),
+                 placements=[repr(p) for p in out.placements])
+        got = out.to_local()
+        # the references, in this process (their launches not counted)
+        if split == "block":
+            skw_full = {} if c["ks"] is None else dict(k_scale=c["ks"],
+                                                       v_scale=c["vs"])
+            base = (torch.arange(n, device=DEV, dtype=torch.int32)
+                    * c["npb"])[:, None, None]
+            inproc = C.finalize(C.combine_many([
+                ops.paged_decode_partial_pos(
+                    c["q"], c["kp"], c["vp"], (c["lt"] + base)[w],
+                    c["lp"][w], c["clen"], **skw_full) for w in range(n)]))
+            single = pda.paged_decode_attention(
+                c["q"].reshape(B, cfg.num_kv_heads, -1, hd), c["kp"],
+                c["vp"], c["bt"], c["clen"], **skw_full).reshape(B, H, hd)
+            r["in_process_block"] = coll_close(got, inproc)
+            r["single_launch"] = coll_close(got, single)
+        else:
+            rows = sizes[baxis] if split == "head" and baxis else (
+                n if split == "request" else 1)
+            heads = n if split == "head" else 1
+            want = coll_local(coll_slices(torch, pda, c, rows, heads), mesh,
+                              out.placements)
+            r["equal_in_process_slices"] = bool(torch.equal(got, want))
+        pool_fn = coll_worker_pool(torch, cfg, c, split, n)
+        r["worker_pool"] = coll_close(
+            got, coll_local(pool_fn(), mesh, out.placements))
+        r["wall_ms_p50"] = wall_p50(fn)
+        r["worker_pool_wall_ms_p50"] = alone_p50(pool_fn)
+        res[name] = r
+    res["dense"] = coll_dense(torch, np, ap, C, P, make_test_mesh(
+        (COLL_WORLD,), ("model",), device_type=DEV), gated, wall_p50)
+    return res
+
+
+def coll_wall_p50(torch, np, fn, before=lambda: None):
+    """Median wall (ms) of ``fn`` to the card's end, over COLL_ITERS calls
+    after a warm one; ``before`` runs ahead of each (the ranks' barrier)."""
+    fn()
+    sync(torch)
+    times = []
+    for _ in range(COLL_ITERS):
+        before()
+        t0 = time.perf_counter()
+        fn()
+        sync(torch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def coll_dense(torch, np, ap, C, P, mesh, gated, wall_p50):
+    """The three dense splits x 4 on a (8, 2048, 8, 128) bf16 seq-major
+    cache (llama3-8b's attention width): seq against the whole cache's
+    partial computed in this process (2 bf16 ulps), head and request
+    against the same slices computed in this process (bit for bit). They
+    launch no kernel; only seq's triple crosses ranks."""
+    g = torch.Generator(device=DEV).manual_seed(23)
+    B, S, Hkv, hd, H = 8, 2048, 8, 128, 32
+    n = COLL_WORLD
+    q = torch.randn((B, H, hd), generator=g, device=DEV).to(torch.bfloat16)
+    kc = torch.randn((B, S, Hkv, hd), generator=g,
+                     device=DEV).to(torch.bfloat16)
+    vc = torch.randn((B, S, Hkv, hd), generator=g,
+                     device=DEV).to(torch.bfloat16)
+    clen = torch.as_tensor(np.random.default_rng(22).integers(
+        300, 2001, size=B), dtype=torch.int32, device=DEV)
+    pos = torch.arange(S, device=DEV)[None]
+
+    def attend(qs, ks, vs, cl):
+        return C.finalize(ap._masked_partial(
+            qs, ks, vs, pos < cl[:, None])).to(torch.bfloat16)
+
+    res = {}
+    for split, fn_, spec in (
+            ("seq", ap.seq_parallel_decode_attention,
+             P(None, "model", None, None)),
+            ("head", ap.head_parallel_decode_attention,
+             P(None, None, "model", None)),
+            ("request", ap.request_parallel_decode_attention,
+             P("model", None, None, None))):
+        kv = (coll_placed(kc, mesh, spec), coll_placed(vc, mesh, spec))
+
+        def fn(f=fn_, kv=kv):
+            return f(mesh, "model", q, *kv, clen)
+        out, launches, coll = gated(fn)
+        got = out.to_local()
+        r = dict(launches=launches, bytes=coll["bytes"],
+                 other_collectives=coll["others"],
+                 want_launches={k: 0 for k in launches},
+                 want_bytes=B * H * (hd + 2) * 4 if split == "seq" else 0,
+                 placements=[repr(p) for p in out.placements])
+        if split == "seq":
+            r["whole_cache"] = coll_close(got, coll_local(
+                attend(q, kc, vc, clen), mesh, out.placements))
+        elif split == "head":
+            want = torch.cat([attend(
+                q[:, w * H // n:(w + 1) * H // n],
+                kc[:, :, w * Hkv // n:(w + 1) * Hkv // n],
+                vc[:, :, w * Hkv // n:(w + 1) * Hkv // n], clen)
+                for w in range(n)], dim=1)
+            r["equal_in_process_slices"] = bool(torch.equal(
+                got, coll_local(want, mesh, out.placements)))
+        else:
+            want = torch.cat([attend(
+                q[w * B // n:(w + 1) * B // n],
+                kc[w * B // n:(w + 1) * B // n],
+                vc[w * B // n:(w + 1) * B // n],
+                clen[w * B // n:(w + 1) * B // n]) for w in range(n)])
+            r["equal_in_process_slices"] = bool(torch.equal(
+                got, coll_local(want, mesh, out.placements)))
+        r["wall_ms_p50"] = wall_p50(fn)
+        res[f"dense {split} x 4 bf16"] = r
+    return res
+
+
+def collective_e2e(torch):
+    """Phase 22 (a): the collective attention backends, 4 spawned ranks of
+    one gloo world sharing the card. Gates every rank's launches, the bytes
+    it hands to the all-reduces, the count of its other collectives, and
+    its output against the in-process partition. Returns (summary, row 1 / row 3 launches of the gated calls
+    summed over the ranks)."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    log("phase 22: 4 ranks on one H100, one gloo world: NCCL refuses two "
+        "ranks on one device, and gloo's all-reduce stages CUDA tensors "
+        "through host memory, so the collective walls below are no network "
+        "figure (4 processes also time-share the card)")
+    with tempfile.TemporaryDirectory() as d:
+        mp.start_processes(coll_rank, args=(COLL_WORLD, os.path.join(
+            d, "store"), d, DEV), nprocs=COLL_WORLD, start_method="spawn")
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"),
+                            weights_only=False) for r in range(COLL_WORLD)]
+    cases = {k: [r[k] for r in ranks] for k in ranks[0] if k != "dense"}
+    cases.update({k: [r["dense"][k] for r in ranks]
+                  for k in ranks[0]["dense"]})
+    totals = {"paged_decode_attention": 0, "paged_decode_attention_int8": 0}
+    out = {}
+    for name, per in cases.items():
+        for i, r in enumerate(per):
+            gate(r["launches"] == r["want_launches"],
+                 f"phase 22 {name} rank {i}: launches {r['launches']}, "
+                 f"want {r['want_launches']}")
+            gate(r["bytes"] == r["want_bytes"],
+                 f"phase 22 {name} rank {i}: {r['bytes']} bytes to the "
+                 f"all-reduces, want {r['want_bytes']}")
+            gate(r["other_collectives"] == 0,
+                 f"phase 22 {name} rank {i}: {r['other_collectives']} "
+                 f"collectives besides the all-reduces, want 0")
+            for key in ("in_process_block", "single_launch", "worker_pool",
+                        "whole_cache"):
+                if key in r:
+                    gate(r[key][0], f"phase 22 {name} rank {i}: "
+                         f"{key} max abs err {r[key][1]:.3e} over 2 bf16 "
+                         f"ulps + {ERR_ATOL}")
+            if "equal_in_process_slices" in r:
+                gate(r["equal_in_process_slices"],
+                     f"phase 22 {name} rank {i}: not bit for bit the "
+                     f"in-process partition over the same slices")
+            for k in totals:
+                totals[k] += r["launches"].get(k, 0)
+        first = per[0]
+        out[name] = dict(
+            wall_ms_p50_rank0=first["wall_ms_p50"],
+            wall_ms_p50_max_rank=max(r["wall_ms_p50"] for r in per),
+            worker_pool_wall_ms_p50=first.get("worker_pool_wall_ms_p50"),
+            launches_per_rank=[{k: v for k, v in r["launches"].items() if v}
+                               for r in per],
+            bytes_per_rank=[r["bytes"] for r in per],
+            other_collectives_per_rank=[r["other_collectives"] for r in per],
+            placements=first["placements"],
+            max_abs_err={k: max(r[k][1] for r in per)
+                         for k in ("in_process_block", "single_launch",
+                                   "worker_pool", "whole_cache")
+                         if k in first},
+            bit_equal_in_process_slices=[
+                r.get("equal_in_process_slices") for r in per])
+        log(f"phase 22 {name}: {json.dumps(out[name])}")
+    out["wall_s"] = time.perf_counter() - t0
+    return out, totals
+
+
+def placed_train_e2e(torch, np, registry, transformer):
+    """Phase 22 (b): the placed train step on a (1, 1) mesh (NCCL, world
+    size 1, this process): tinyllama-1.1b at full width and 2 layers, 3
+    steps of B=8 x 512 ``packed_batches``, parameters, AdamW state and
+    batch placed by ``core/disagg.place`` at ``specs_for_params`` /
+    ``specs_for_batch``; equal to ``make_train_step``'s eager steps from
+    the same parameters and batches bit for bit (loss, every leaf), and
+    every leaf keeps its placement."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.core import disagg
+    from repro_torch.data.synthetic import packed_batches
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = registry.get_config("tinyllama-1.1b").replace(
+        num_layers=PLACED_LAYERS)
+    params = transformer.init_params(0, cfg, device=DEV)
+    batches = list(itertools.islice(packed_batches(
+        cfg.vocab_size, PLACED_B, PLACED_S, seed=3, device=DEV),
+        PLACED_STEPS))
+    step = make_train_step(cfg, opt.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                total_steps=10))
+
+    def run(p, s, place=lambda b: b):
+        losses, walls = [], []
+        for b in batches:
+            sync(torch)
+            t0 = time.perf_counter()
+            p, s, m = step(p, s, place(b))
+            sync(torch)
+            walls.append(time.perf_counter() - t0)
+            loss = m["loss"]
+            losses.append(float(loss.full_tensor() if isinstance(
+                loss, DTensor) else loss))
+        return p, s, losses, walls
+
+    p_e, s_e, loss_e, wall_e = run(params, opt.init_opt_state(params))
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl" if DEV == "cuda" else "gloo",
+                                init_method=f"file://{d}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_test_mesh((1, 1), ("data", "model"), device_type=DEV)
+            specs = disagg.specs_for_params(cfg, params, mesh)
+            state = opt.init_opt_state(params)
+            p0 = disagg.place(params, specs, mesh)
+            s0 = opt.OptState(disagg.place(state.step, disagg.P(), mesh),
+                              disagg.place(state.mu, specs, mesh),
+                              disagg.place(state.nu, specs, mesh))
+            p_p, s_p, loss_p, wall_p = run(p0, s0, lambda b: disagg.place(
+                b, disagg.specs_for_batch(cfg, b, mesh), mesh))
+            leaves = list(zip(
+                tree_leaves((p_p, s_p.mu, s_p.nu, s_p.step)),
+                tree_leaves((p_e, s_e.mu, s_e.nu, s_e.step)),
+                tree_leaves((p0, s0.mu, s0.nu, s0.step))))
+            kept = all(isinstance(a, DTensor) and a.placements ==
+                       b0.placements for a, _, b0 in leaves)
+            differ = sum(not torch.equal(a.full_tensor(), b)
+                         for a, b, _ in leaves)
+        finally:
+            dist.destroy_process_group()
+    out = dict(layers=PLACED_LAYERS, batch=PLACED_B, seq=PLACED_S,
+               steps=PLACED_STEPS, loss_eager=loss_e, loss_placed=loss_p,
+               leaves=len(leaves), leaves_differing=differ,
+               placements_kept=kept, step_walls_eager_s=wall_e,
+               step_walls_placed_s=wall_p)
+    gate(loss_p == loss_e, f"placed (1, 1) train step: losses {loss_p} != "
+         f"eager {loss_e}")
+    gate(differ == 0, f"placed (1, 1) train step: {differ} of "
+         f"{len(leaves)} leaves differ from the eager step's")
+    gate(kept, "placed (1, 1) train step: a leaf lost its placement")
+    log(f"phase 22 placed train step (1, 1): {json.dumps(out)}")
+    return out
+
+
+def phase22(torch, np, registry, transformer):
+    """Phase 22: (a) the collective backends, (b) the placed train step.
+    Returns (summary, row 1 / row 3 launches)."""
+    t0 = time.perf_counter()
+    out, totals = collective_e2e(torch)
+    out["placed_train_step"] = placed_train_e2e(torch, np, registry,
+                                                transformer)
+    out["wall_s_phase"] = time.perf_counter() - t0
+    for k, n in totals.items():
+        gate(n > 0, f"phase 22: {k} was not launched by the collective "
+             f"backends")
+    return out, totals
+
+
+def phase22_main() -> int:
+    """``chip_smoke.py --phase22``: phase 1's build of the paged and dense
+    decode libraries, then phase 22 alone (no result line)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.models import transformer
+    log(card_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    _cuda.build([pda._LIB_NAME, da._LIB_NAME])
+    out, totals = phase22(torch, np, registry, transformer)
+    log(json.dumps({"phase22": out, "launches": totals}))
+    if FAILED:
+        raise AssertionError(f"{len(FAILED)} gate(s) failed: {FAILED}")
+    return 0
+
+
 def card_line():
     """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4897,6 +5488,11 @@ def main() -> int:
         torch, np, registry, transformer, counters, ssm, rwkv, Timer(torch))
     log(f"training phase done in {training['wall_s_phase']:.1f} s; phase 21 "
         f"done at {time.perf_counter() - t_start:.1f} s")
+    # phase 22: the collective attention backends on 4 ranks sharing the
+    # card, and the placed train step on a (1, 1) mesh
+    collective, coll_launches = phase22(torch, np, registry, transformer)
+    log(f"collective phase done in {collective['wall_s_phase']:.1f} s; "
+        f"phase 22 done at {time.perf_counter() - t_start:.1f} s")
 
     stats = {"paged_decode_attention": dec["bf16"],
              "paged_prefill_chunk_attention": pre[("bf16", 1536, 512)],
@@ -4919,7 +5515,9 @@ def main() -> int:
                     replaces=rep, launches=launches[name],
                     **{k: stats[name][k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms")})
+                        "bound_by", "library_ms")},
+                    **({"launches_phase22": coll_launches[name]}
+                       if name in coll_launches else {}))
                for name, (src, rep) in KERNELS.items()]
     log(json.dumps({"summary": {"homogeneous_bf16": e2e, "lamina_int8": lam,
                                 "partitions": parts, "faults": faults,
@@ -4932,6 +5530,7 @@ def main() -> int:
                                 "seamless_m4t_medium": audio,
                                 "analytic": analytic,
                                 "training": training,
+                                "collective": collective,
                                 "widened_kernel_cases": {
                                     " / ".join(k): v
                                     for k, v in wide.items()}}}))
@@ -4948,6 +5547,8 @@ if __name__ == "__main__":
     try:
         if len(sys.argv) == 3 and sys.argv[1] == "--dense-step":
             sys.exit(dense_step_main(sys.argv[2]))
+        if len(sys.argv) == 2 and sys.argv[1] == "--phase22":
+            sys.exit(phase22_main())
         sys.exit(main())
     except Exception:                       # report, no result line
         traceback.print_exc()

@@ -10,6 +10,10 @@ The running max ``m`` rides alongside (A, S) for numerical stability. An
 empty partial is the identity of :func:`combine` in both conventions the
 code base uses: ``m = -inf`` (this module) and ``m = -1e30, s = 0`` (the
 kernels' ``NEG_INF``).
+
+:func:`psum_combine` is the cross-rank form (reference ``:84``): the
+ranks of one mesh axis merge their partials by all-reduces over
+``torch.distributed``, so only the triple crosses ranks.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 
 class Partial(NamedTuple):
@@ -77,3 +82,24 @@ def combine_many(partials: list[Partial]) -> Partial:
     for p in partials[1:]:
         out = combine(out, p)
     return out
+
+
+def psum_combine(p: Partial, mesh, axis: str) -> Partial:
+    """Merge the partials of every rank on ``axis`` of ``mesh`` (a
+    ``DeviceMesh``), called on each of them: a MAX all-reduce of ``m``,
+    each rank's (a, s) rebased onto that global max (an empty partial,
+    ``m = -inf``, weighs 0), then SUM all-reduces of the rebased ``a`` and
+    ``s``. Every rank returns the merged partial. The all-reduces work in
+    place, so they run on new tensors; ``p`` is left as it was. The bytes
+    handed to the collectives are those of the triple, 4·(hd + 2) a
+    (row, head) in fp32."""
+    group = mesh.get_group(axis)
+    m_global = p.m.clone()
+    dist.all_reduce(m_global, op=dist.ReduceOp.MAX, group=group)
+    m_safe = torch.where(torch.isfinite(m_global), m_global, 0.0)
+    w = torch.where(torch.isfinite(p.m), torch.exp(p.m - m_safe), 0.0)
+    a = p.a * w[..., None]
+    s = p.s * w
+    dist.all_reduce(a, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(s, op=dist.ReduceOp.SUM, group=group)
+    return Partial(a=a, s=s, m=m_global)

@@ -22,6 +22,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.paged_prefill_attention import \
     paged_prefill_chunk_attention
 from repro_torch.models.common import (ModelConfig, apply_rope, dense_init,
+                                       is_placed, on_local_shards,
                                        rms_norm)
 
 NEG_INF = -1e30
@@ -87,7 +88,21 @@ def blockwise_attention(
 
     q: (B, Sq, H, hd); k, v: (B, Skv, Hkv, hd). Returns (B, Sq, H, hd).
     The one-shot prefill path (the reference has no Pallas kernel here
-    either); each block's partial merges by the running-softmax rule."""
+    either); each block's partial merges by the running-softmax rule.
+    Placed operands (DTensors) attend on each rank's batch rows and heads
+    (``on_local_shards``)."""
+    if is_placed(q):
+        kw = dict(causal=causal, sliding_window=sliding_window,
+                  attention_sinks=attention_sinks,
+                  logit_softcap=logit_softcap, block_size=block_size)
+        if q_positions is None:
+            q_positions = torch.arange(q.shape[1], device=q.device)[None]
+        if kv_positions is None:
+            kv_positions = torch.arange(k.shape[1], device=k.device)[None]
+        return on_local_shards(
+            lambda q_, k_, v_, qp, kp: blockwise_attention(
+                q_, k_, v_, q_positions=qp, kv_positions=kp, **kw),
+            (q, k, v), (q_positions, kv_positions))
     B, Sq, H, hd = q.shape
     Skv = k.shape[1]
     group = H // k.shape[2]

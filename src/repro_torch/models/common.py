@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 from typing import Any, Dict, Optional
 
 import torch
@@ -112,6 +113,99 @@ def resolve_device(device) -> torch.device:
 
 
 # ---------------------------------------------------------------------------
+# Placed (DTensor) operands
+# ---------------------------------------------------------------------------
+def is_placed(x) -> bool:
+    """Whether ``x`` is a DTensor. Asked without importing
+    ``torch.distributed.tensor`` (a second of start-up): before anything
+    imported it, no DTensor exists."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def on_local_shards(fn, tensors, positions=(), dims=(0, 2)):
+    """``fn(*tensors, *positions)`` on every rank's local shards of the
+    DTensor ``tensors[0]`` (callers ask ``is_placed`` first). The common
+    placement keeps each mesh dim on which ``tensors[0]`` is sharded over a
+    tensor dim in ``dims`` that every tensor's size divides; other mesh
+    dims are replicated first. The
+    (B, S) ``positions`` follow the batch (Shard(0)) and are replicated
+    otherwise. The result is placed as the tensors are. Used where a
+    function mixes its operands with tensors it makes itself (RoPE's
+    frequencies, the blockwise attention's masks and running state): on
+    the local shards they are all plain tensors, so the function runs
+    unchanged and a single device's result is untouched."""
+    lead = tensors[0]
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = lead.device_mesh
+    # placements as lists: local_map reads a tuple as one entry an output
+    pl = [p if isinstance(p, Shard) and p.dim in dims and
+          all(t.shape[p.dim] % mesh.size(i) == 0 for t in tensors)
+          else Replicate() for i, p in enumerate(lead.placements)]
+    pos_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+              for p in pl]
+    positions = tuple(
+        t if isinstance(t, DTensor) else DTensor.from_local(
+            t.expand(lead.shape[0], t.shape[-1]).contiguous(), mesh,
+            [Replicate()] * mesh.ndim, run_check=False)
+        for t in positions)
+    run = local_map(fn, out_placements=pl,
+                    in_placements=(pl,) * len(tensors) +
+                    (pos_pl,) * len(positions),
+                    device_mesh=mesh, redistribute_inputs=True)
+    return run(*tensors, *positions)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. A placed table whose vocab rows are sharded
+    (Shard(0) on a mesh dim) is looked up on each rank's rows: tokens
+    outside them give zeros, and the result is pending a sum over that mesh
+    dim (Partial), as a vocab-parallel embedding is; DTensor's own index
+    rules are not used (an index over the sharded dim yields a mask that
+    the next op cannot take, and some releases' rule for the gradient's
+    ``index_put`` fails). On one device nothing changes."""
+    if not is_placed(table):
+        return table[tokens.long()]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh,
+                                    [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    vocab = [i for i, p in enumerate(table.placements)
+             if isinstance(p, Shard) and p.dim == 0]
+    if len(vocab) > 1 or table.shape[0] % mesh.size(vocab[0] if vocab
+                                                    else 0):
+        raise ValueError(f"vocab-parallel lookup needs the rows split "
+                         f"evenly over one mesh dim; got "
+                         f"{table.placements}")
+    t_pl = [p if i in vocab else Replicate()
+            for i, p in enumerate(table.placements)]
+    k_pl = [Shard(0) if isinstance(p, Shard) and p.dim == 0 and
+            i not in vocab else Replicate()
+            for i, p in enumerate(tokens.placements)]
+    o_pl = [Partial() if i in vocab else k_pl[i] for i in range(mesh.ndim)]
+    rows = table.shape[0] // (mesh.size(vocab[0]) if vocab else 1)
+    lo = mesh.get_local_rank(vocab[0]) * rows if vocab else 0
+
+    def lookup(t, k):
+        idx = k.long() - lo
+        ok = (idx >= 0) & (idx < rows)
+        return torch.where(ok[..., None], t[idx.clamp(0, rows - 1)], 0.0)
+
+    # a rank's table gradient covers its own batch rows only: pending a
+    # sum over the mesh dims that split the batch
+    g_pl = [p if i in vocab else Partial() if isinstance(k_pl[i], Shard)
+            else Replicate() for i, p in enumerate(t_pl)]
+    return local_map(lookup, out_placements=o_pl,
+                     in_placements=(t_pl, k_pl),
+                     in_grad_placements=(g_pl, k_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
+
+
+# ---------------------------------------------------------------------------
 # Initialisation helpers
 # ---------------------------------------------------------------------------
 def dense_init(gen: torch.Generator, shape, dtype, device,
@@ -156,7 +250,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions broadcastable to (..., seq).
     Split-half convention: the first and second halves of head_dim rotate
-    as pairs (not interleaved even/odd lanes)."""
+    as pairs (not interleaved even/odd lanes). A placed ``x`` rotates on
+    each rank's local shards (``on_local_shards``)."""
+    if is_placed(x):
+        return on_local_shards(lambda x_, p_: apply_rope(x_, p_, theta),
+                               (x,), (positions,))
     head_dim = x.shape[-1]
     freqs = rope_frequencies(head_dim, theta, device=x.device)
     angles = positions[..., :, None].float() * freqs  # (..., s, hd/2)
@@ -179,12 +277,22 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token NLL in fp32 (reference ``common.py:194``): the
     logsumexp of fp32 logits minus the gold logit, gathered at int64
-    labels; with ``mask``, the masked sum over ``max(sum(mask), 1)``."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    labels; with ``mask``, the masked sum over ``max(sum(mask), 1)``.
+    Placed logits give each rank's rows their whole vocab first
+    (``on_local_shards``): a gather over a vocab-sharded DTensor has no
+    working rule."""
+    if is_placed(logits):
+        nll = on_local_shards(_token_nll, (logits,), (labels,), dims=(0,))
+    else:
+        nll = _token_nll(logits, labels)
     if mask is not None:
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
     return torch.mean(nll)
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return logz - gold

@@ -70,6 +70,7 @@ import torch.utils.checkpoint
 from repro_torch.models import blocks, kv_quant, ssm
 from repro_torch.models.common import (ModelConfig, Params,
                                        cross_entropy_loss, dense_init,
+                                       embed_lookup,
                                        resolve_device, rms_norm, softcap)
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -137,11 +138,14 @@ def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> Params:
     (truncated-normal fan-in ``dense_init``, zero norm weights), drawn by a
     ``torch.Generator`` on ``device``. Layers are filled one at a time into
     preallocated stacked tensors, so peak memory is the model plus one
-    layer's fp32 draw."""
+    layer's fp32 draw. On the meta device the tree holds shapes and dtypes
+    only (no generator: nothing is drawn), as ``jax.eval_shape`` gives."""
     _check_family(cfg, "init_params", SERVE_FAMILIES)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     params: Params = {
         "embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), cfg.dtype,
                             dev),
@@ -188,6 +192,8 @@ def _stacked_init(gen, cfg: ModelConfig, dev, lead: Tuple[int, ...],
         return tree_map(lambda a: a.view(*lead, *a.shape), blk)
     layers = tree_map(lambda a: torch.empty((*lead, *a.shape),
                                              dtype=a.dtype, device=dev), blk)
+    if dev.type == "meta":                   # shapes only: nothing to copy
+        return layers
     flat = tree_map(lambda a: a.view(n, *a.shape[len(lead):]), layers)
     for i in range(n):
         if i:
@@ -220,7 +226,7 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
 # ===========================================================================
 def _embed_tokens(params: Params, cfg: ModelConfig,
                   tokens: torch.Tensor) -> torch.Tensor:
-    tok = params["embed"][tokens.long()]
+    tok = embed_lookup(params["embed"], tokens)
     if cfg.tie_embeddings:
         # sqrt(d) rounded to the model dtype on the host: a Python scalar,
         # so a captured decode step copies nothing host -> device here

@@ -17,7 +17,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import transformer
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, is_placed
 from repro_torch.training import optimizer as opt
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -39,9 +39,18 @@ def loss_and_grads(params, cfg: ModelConfig, batch: Dict, device
     loss, metrics = transformer.loss_fn(tree_unflatten(params, live),
                                         cfg, batch, device=device)
     grads = torch.autograd.grad(loss, live, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _placed_like(g, p)
              for p, g in zip(live, grads)]
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A placed parameter's gradient at the parameter's placements (autograd
+    leaves it wherever the last op put it, a pending sum included), so the
+    update, and with it every leaf of the step, keeps its placement."""
+    if is_placed(p) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(cfg: ModelConfig, adamw: opt.AdamWConfig,

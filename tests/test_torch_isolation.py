@@ -55,6 +55,13 @@ def test_training_modules_are_held_to_the_import_check():
         assert f"src/repro_torch/{rel}" in names, rel
 
 
+def test_mesh_modules_are_held_to_the_import_check():
+    names = {str(f.relative_to(ROOT)) for f in FILES}
+    for rel in ("launch/mesh.py", "core/disagg.py",
+                "core/attention_parallel.py"):
+        assert f"src/repro_torch/{rel}" in names, rel
+
+
 def test_every_port_module_names_its_reference():
     for path in PORT.rglob("*.py"):
         if path.name == "__init__.py" and path.parent != PORT and \
