@@ -253,8 +253,33 @@ Phases (any failure exits non-zero and prints no result line):
      and 2 layers, 3 steps, equal to ``make_train_step``'s eager steps bit
      for bit in the loss and every leaf, every leaf still placed;
      ``python3 chip_smoke.py --phase22`` runs it alone after the build;
- 23. one JSON line describing every ported kernel, then the result line.
-     A failed gate of phases 4, 5, 10, 11 and 13-22 is reported where it
+ 23. the dry run on fake CUDA tensors (``dryrun_e2e``): (a) every kernel
+     entry (rows 1-7, 5-int8, 6-bwd, 7-bwd) at a shape phase 2, 3 or 7
+     runs: its real launch, then its shape-only face on fake copies of the
+     operands: the same output shapes, dtypes and strides and the same
+     reported FLOPs and bytes, no launch, no fake tensor among the stream
+     tickets; (b) the memory proof: tinyllama-1.1b's phase 21 (a) step
+     traced on a (1, 1) mesh against phase 21 (a)'s measured peak (with
+     what that phase holds beside its steps: what earlier phases left
+     allocated and its copy of the initial weights) and against one real
+     step's peak, and
+     the reference test's decode_32k config (2 layers, vocab 2048, B=128,
+     S=32768) against one real ``decode_step``'s peak, each within 10 %;
+     (c) each traced step's FLOPs equal to the same counting mode's count
+     over the real step (6·N·T and 8·N·T printed beside); (d) the
+     production sweep on the (16, 16) mesh, the dense family at every
+     applicable shape and every other arch at decode_32k
+     (``DRY_SWEEP_JOBS`` records at a time, each a ``python -m
+     repro_torch.launch.dryrun`` process of its own, ``dryrun.sweep``,
+     at the lowest priority, started after phase 18 so it runs beside
+     phases 19-23 (c)), and llama3-8b decode_32k on
+     (2, 16, 16): per-chip GiB, fits in 80 GB,
+     dominant term and seconds a record, then roofline.py's tables; the
+     dense family (tinyllama-1.1b, llama3-8b) must be traced ok and no
+     record may launch a kernel. Records and the sweep's log go to
+     ``build/dryrun/``;
+ 24. one JSON line describing every ported kernel, then the result line.
+     A failed gate of phases 4, 5, 10, 11 and 13-23 is reported where it
      happens and fails the run after the last phase. No two full-width
      models are alive at once.
 
@@ -263,6 +288,7 @@ without a CUDA device or without the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -4026,6 +4052,7 @@ def train_tinyllama(torch, np, registry, transformer, counters):
     data_s = time.perf_counter() - t0
     release(torch)
     torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
     params = transformer.init_params(0, cfg, device=DEV)
     N = n_params(params)
     adamw = opt.AdamWConfig(lr=1e-3, warmup_steps=5,
@@ -4049,6 +4076,11 @@ def train_tinyllama(torch, np, registry, transformer, counters):
                first_step_s=walls[0], step_wall_p50_s=p50,
                step_wall_min_s=float(min(walls[1:])),
                tokens_per_s=tokens / p50, peak_gib=peak,
+               # held beside the steps: what earlier phases left allocated,
+               # and this function's copy of the initial weights (kept for
+               # the resumed run), alive past the first step
+               held_before_gib=held_before / 2**30,
+               initial_weights_gib=tree_bytes(params) / 2**30,
                loss_step1=losses[0], loss_last=losses[-1],
                grad_norm_step1=hist[0]["grad_norm"],
                grad_norm_last=hist[-1]["grad_norm"],
@@ -5141,6 +5173,423 @@ def phase22_main() -> int:
     return 0
 
 
+def phase23_main() -> int:
+    """``chip_smoke.py --phase23``: phase 1's build, phase 21 (a) (the
+    tinyllama training run whose peak phase 23 (b) is held against), then
+    phase 23 alone (no result line)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.kernels import rwkv6_scan as rwkv
+    from repro_torch.kernels import ssm_scan as ssm
+    from repro_torch.models import transformer
+    log(card_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    _cuda.build([pda._LIB_NAME, ppa._LIB_NAME, da._LIB_NAME, ssm._LIB_NAME,
+                 rwkv._LIB_NAME])
+    counters = Launches(pda, ppa, da, ssm, rwkv)
+    train = train_tinyllama(torch, np, registry, transformer, counters)
+    sweep_dir = str(ROOT / "build" / "dryrun")
+    sweep = start_dry_sweep(registry, sweep_dir)
+    out = dryrun_e2e(torch, np, registry, transformer, counters, train,
+                     sweep, sweep_dir)
+    log(json.dumps({"phase23": out}))
+    if FAILED:
+        raise AssertionError(f"{len(FAILED)} gate(s) failed: {FAILED}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the dry run on fake CUDA tensors
+# ---------------------------------------------------------------------------
+# the proof's per-chip bytes against a peak measured on the card
+DRY_MEM_TOL = 0.10
+# the reference's dry-run test config (test_sharding.py:155): tinyllama at
+# 2 layers and a 2048-token vocab, decode_32k (B=128, S=32768)
+DRY_DECODE = {"num_layers": 2, "vocab_size": 2048}
+DRY_SWEEP_JOBS = 4            # records traced at once, one core each
+DRY_SWEEP_TIMEOUT_S = 600     # the sweep runs beside phases 19-23 (c)
+DENSE_FAMILY = ("tinyllama-1.1b", "llama3-8b")
+# the sweep here: the dense family at every applicable shape, one shape of
+# each other arch (the whole sweep, ``python -m repro_torch.launch.dryrun
+# --all``, runs ~15 min on 7 cores: PERF.md §6), and llama3-8b decode_32k
+# on the multi-pod mesh
+DRY_OTHER_SHAPE = "decode_32k"
+
+
+def face_cases(torch, np, dev):
+    """Every kernel entry at one shape phase 2, 3 or 7 runs: (entry, the
+    wrapper, operands, keywords)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    bf16 = torch.bfloat16
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.kernels import rwkv6_scan as rwkv
+    from repro_torch.kernels import ssm_scan as ssm
+    # phase 2's llama3-8b decode: B=8, Hkv=8, G=4, hd=128, blocks of 16,
+    # 2048 tokens a sequence at most
+    B, Hkv, G, hd, bs, nb = 8, 8, 4, 128, 16, 128
+    NB = B * nb + 1
+    kp, vp = randn(Hkv, NB, bs, hd), randn(Hkv, NB, bs, hd)
+    (kq, ks), (vq, vs) = quantize_pool(torch, kp), quantize_pool(torch, vp)
+    kp, vp = kp.to(bf16), vp.to(bf16)
+    tables = (1 + torch.arange(B * nb, device=dev, dtype=torch.int32)
+              ).reshape(B, nb)
+    lens = torch.from_numpy(np.random.default_rng(23).integers(
+        1, nb * bs + 1, size=B).astype(np.int32)).to(dev)
+    q = randn(B, Hkv, G, hd, dtype=bf16)
+    part = {"return_partials": True}
+    # phase 3's chunk: H=32, Hkv=8, hd=128, P=1536, C=512
+    C, P = 512, 1536
+    cq = randn(C, 32, hd, dtype=bf16)
+    kc, vc = randn(C, Hkv, hd, dtype=bf16), randn(C, Hkv, hd, dtype=bf16)
+    table = tables[0, :P // bs].contiguous()
+    # phase 7's dense decode: zamba2 (B=8, Hkv=32, G=1, hd=64, 2080 rows)
+    # and, for the int8 entry, glm4-9b's (B=8, Hkv=2, G=16, hd=128, 2048)
+    dq = randn(8, 32, 1, 64, dtype=bf16)
+    dk, dv = randn(8, 32, 2080, 64, dtype=bf16), randn(8, 32, 2080, 64,
+                                                       dtype=bf16)
+    dl = torch.full((8,), 2080, dtype=torch.int32, device=dev)
+    gq = randn(8, 2, 16, 128, dtype=bf16)
+    (gk, gks), (gv, gvs) = (quantize_pool(torch, randn(8, 2, 2048, 128))
+                            for _ in range(2))
+    gl = torch.full((8,), 2048, dtype=torch.int32, device=dev)
+    # phase 7's scans: B=8, S=2048, H=64, P=64 (N=64)
+    Bs, S, H, Pp, N = 8, 2048, 64, 64, 64
+    x, dy = randn(Bs, S, H, Pp), randn(Bs, S, H, Pp)
+    Bi, Ci = randn(Bs, S, N), randn(Bs, S, N)
+    decay = torch.rand((Bs, S, H), generator=gen, device=dev)
+    r, k, v = (randn(Bs, S, H, Pp) for _ in range(3))
+    w = torch.rand((Bs, S, H, Pp), generator=gen, device=dev)
+    u = randn(H, Pp)
+    rkvw_bf = [a.to(bf16) for a in (r, k, v, w)]
+    return [
+        ("paged_decode_attention_bf16", pda.paged_decode_attention,
+         [q, kp, vp, tables, lens], part),
+        ("paged_decode_attention_int8", pda.paged_decode_attention_int8,
+         [q, kq, vq, ks, vs, tables, lens], part),
+        ("paged_prefill_chunk_attention_bf16",
+         ppa.paged_prefill_chunk_attention, [cq, kp, vp, table, kc, vc], {}),
+        ("paged_prefill_chunk_attention_int8",
+         ppa.paged_prefill_chunk_attention_int8,
+         [cq, kq, vq, ks, vs, table, kc, vc], {}),
+        ("decode_attention_bf16", da.decode_attention, [dq, dk, dv, dl],
+         part),
+        ("decode_attention_int8", da.decode_attention_int8,
+         [gq, gk, gv, gks, gvs, gl], part),
+        ("ssm_scan_f32", ssm.ssm_scan, [x, Bi, Ci, decay], {}),
+        ("ssm_scan_bwd_f32", ssm.ssm_scan_bwd, [x, Bi, Ci, decay, dy], {}),
+        ("rwkv6_scan_bf16", rwkv.rwkv6_scan, rkvw_bf + [u], {}),
+        ("rwkv6_scan_f32", rwkv.rwkv6_scan, [r, k, v, w, u], {}),
+        ("rwkv6_scan_bwd_bf16", rwkv.rwkv6_scan_bwd, rkvw_bf + [u, dy], {}),
+        ("rwkv6_scan_bwd_f32", rwkv.rwkv6_scan_bwd, [r, k, v, w, u, dy], {}),
+    ]
+
+
+def dry_faces(torch, np, counters):
+    """(a) each entry's real launch, then its face on fake copies of the
+    same operands: equal shapes, dtypes and strides, equal reported cost;
+    the face launches nothing and leaves no fake tensor among the
+    tickets. Returns {entry: the check}."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.hlo_analysis import LocalCounter
+    out = {}
+    for name, fn, args, kw in face_cases(torch, np, torch.device(DEV)):
+        with LocalCounter(args) as real_count:
+            real = fn(*args, **kw)
+        sync(torch)
+        real = real if isinstance(real, tuple) else (real,)
+        before = counters.read()
+        with FakeTensorMode() as mode:
+            fargs = [mode.from_tensor(a) for a in args]
+            with LocalCounter(fargs) as fake_count:
+                fake = fn(*fargs, **kw)
+        fake = fake if isinstance(fake, tuple) else (fake,)
+        meta = lambda t: (list(t.shape), str(t.dtype), list(t.stride()))  # noqa
+        same = [meta(f) == meta(r) for f, r in zip(fake, real)]
+        rec = dict(outputs=[meta(r) for r in real], metadata_equal=same,
+                   flops=fake_count.kernel_flops,
+                   bytes=fake_count.kernel_bytes,
+                   cost_equal=(fake_count.kernel_flops,
+                               fake_count.kernel_bytes,
+                               fake_count.kernel_calls) ==
+                   (real_count.kernel_flops, real_count.kernel_bytes,
+                    real_count.kernel_calls),
+                   face_launched=counters.read() != before)
+        out[name] = rec
+        gate(len(fake) == len(real) and all(same),
+             f"phase 23 (a): {name}'s face metadata {[meta(f) for f in fake]}"
+             f" != the kernel's {rec['outputs']}")
+        gate(rec["cost_equal"], f"phase 23 (a): {name}'s face reports "
+             f"another cost than its launch")
+        gate(not rec["face_launched"], f"phase 23 (a): {name}'s face "
+             f"launched a kernel")
+        del real, fake, fargs
+    gate(not any(_cuda.is_fake(t) for t in _cuda._TICKETS.values()),
+         "phase 23 (a): a fake tensor among the stream tickets")
+    release(torch)
+    return out
+
+
+def dry_train(torch, registry, transformer, counters, train):
+    """(b, c) tinyllama-1.1b's phase 21 (a) step (full width and depth,
+    B=8 x 512, remat, AdamW) traced on a (1, 1) mesh. Its per-chip bytes
+    against phase 21 (a)'s measured peak, which also holds what the phase
+    keeps beside its steps (what earlier phases left allocated and its
+    copy of the initial weights: ``train``'s ``held_before_gib`` and
+    ``initial_weights_gib``), and against the peak of one real step on
+    the card above the memory held before its inputs were made; that
+    step counted by the same mode: FLOPs equal to the trace's."""
+    from repro_torch.core import disagg
+    from repro_torch.data.synthetic import packed_batches
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import LocalCounter
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.tree import tree_map
+    cfg = registry.get_config("tinyllama-1.1b")
+    adamw = opt.AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+    step = make_train_step(cfg, adamw)
+    meta = transformer.init_params(0, cfg, device="meta")
+    state = opt.init_opt_state(meta)
+    batch = next(packed_batches(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0,
+                                device=DEV))
+    mbatch = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                            device="meta"), batch)
+    t0 = time.perf_counter()
+    before = counters.read()
+    with dryrun.fake_world(1):
+        mesh = make_test_mesh((1, 1), device_type=DEV)
+        pspecs = disagg.specs_for_params(cfg, meta, mesh)
+        tr = dryrun.trace(step, (meta, state, mbatch), mesh,
+                          (pspecs, opt.OptState(disagg.P(), pspecs, pspecs),
+                           disagg.specs_for_batch(cfg, mbatch, mesh)))
+    trace_s = time.perf_counter() - t0
+    gate(counters.read() == before, "phase 23 (b): the train step's trace "
+         "launched a kernel")
+    proof = (tr["argument_bytes"] + tr["temp_bytes"]) / 2**30
+    beside = train["held_before_gib"] + train["initial_weights_gib"]
+    peak21 = train["peak_gib"]
+    out = dict(trace_s=trace_s, argument_gib=tr["argument_bytes"] / 2**30,
+               temp_gib=tr["temp_bytes"] / 2**30, per_chip_total_gib=proof,
+               phase21_peak_gib=peak21, phase21_held_beside_gib=beside,
+               rel_err_phase21=(proof + beside - peak21) / peak21,
+               rel_err_phase21_unaccounted=(proof - peak21) / peak21,
+               traced_flops=tr["flops"], traced_bytes=tr["bytes"],
+               traced_ops=tr["ops"])
+    gate(abs(out["rel_err_phase21"]) <= DRY_MEM_TOL,
+         f"phase 23 (b): the train step's proof {proof:.3f} GiB + "
+         f"{beside:.3f} GiB held beside phase 21 (a)'s steps is "
+         f"{out['rel_err_phase21']:+.1%} off its measured {peak21:.3f} GiB")
+    # (c) one real step, counted by the same mode; (b) its own peak
+    release(torch)
+    base = torch.cuda.memory_allocated()
+    params = transformer.init_params(0, cfg, device=DEV)
+    st = opt.init_opt_state(params)
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    with LocalCounter((params, st, batch)) as real:
+        new = step(params, st, batch)
+        sync(torch)
+    step_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    del new, params, st
+    release(torch)
+    out.update(step_peak_gib=step_peak,
+               rel_err_step=(proof - step_peak) / step_peak)
+    gate(abs(out["rel_err_step"]) <= DRY_MEM_TOL,
+         f"phase 23 (b): the train step's proof {proof:.3f} GiB is "
+         f"{out['rel_err_step']:+.1%} off one real step's {step_peak:.3f} "
+         f"GiB")
+    n_mult = param_count_no_embed(cfg, meta)
+    T = TRAIN_B * TRAIN_S
+    out.update(real_flops=real.total_flops,
+               flops_equal=real.total_flops == tr["flops"],
+               real_bytes=real.total_bytes, model_flops_6nt=6 * n_mult * T,
+               model_flops_8nt_remat=8 * n_mult * T)
+    gate(out["flops_equal"], f"phase 23 (c): the train step's traced FLOPs "
+         f"{tr['flops']:.6g} != its real count {real.total_flops:.6g}")
+    return out
+
+
+def dry_decode(torch, registry, transformer, counters):
+    """(b, c) the reference test's decode_32k config (tinyllama-1.1b at 2
+    layers, a 2048-token vocab, B=128, a 32768-row bf16 cache) traced on a
+    (1, 1) mesh, against one real ``decode_step``'s peak above the memory
+    held before its weights were made; the real step counted by the same
+    mode: FLOPs equal to the trace's."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.entrypoints import build_lowering_spec
+    from repro_torch.launch.hlo_analysis import LocalCounter
+    from repro_torch.launch.mesh import make_test_mesh
+    shp = INPUT_SHAPES["decode_32k"]
+    before = counters.read()
+    with dryrun.fake_world(1):
+        mesh = make_test_mesh((1, 1), device_type=DEV)
+        spec = build_lowering_spec("tinyllama-1.1b", "decode_32k", mesh,
+                                   overrides=DRY_DECODE)
+        tr = dryrun.trace(spec.fn, spec.args, mesh, spec.in_shardings,
+                          spec.out_shardings)
+    gate(counters.read() == before, "phase 23 (b): the decode step's trace "
+         "launched a kernel")
+    proof = (tr["argument_bytes"] + tr["temp_bytes"]) / 2**30
+    cfg = spec.cfg
+    release(torch)
+    base = torch.cuda.memory_allocated()
+    params = transformer.init_params(0, cfg, device=DEV)
+    cache = transformer.init_cache(cfg, shp.global_batch, shp.seq_len,
+                                   device=DEV)
+    cache["len"].fill_(shp.seq_len - 1)
+    tokens = torch.zeros((shp.global_batch,), dtype=torch.int32, device=DEV)
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    with LocalCounter((params, tokens, cache)) as real:
+        logits, updates = transformer.decode_step(params, cfg, tokens, cache,
+                                                  device=DEV)
+        sync(torch)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    finite = bool(torch.isfinite(logits.float()).all())
+    kv = (cache["k"].numel() + cache["v"].numel()) * 2 / 1e9
+    del logits, updates, params, cache
+    release(torch)
+    out = dict(kv_gb=kv, argument_gib=tr["argument_bytes"] / 2**30,
+               temp_gib=tr["temp_bytes"] / 2**30, per_chip_total_gib=proof,
+               measured_peak_gib=peak, rel_err=(proof - peak) / peak,
+               traced_flops=tr["flops"], real_flops=real.total_flops,
+               flops_equal=real.total_flops == tr["flops"],
+               traced_bytes=tr["bytes"], real_bytes=real.total_bytes,
+               kernel_calls=tr["kernel_calls"], finite=finite)
+    gate(finite, "phase 23 (b): decode_32k logits not finite")
+    gate(abs(out["rel_err"]) <= DRY_MEM_TOL,
+         f"phase 23 (b): decode_32k's proof {proof:.3f} GiB is "
+         f"{out['rel_err']:+.1%} off the measured {peak:.3f} GiB")
+    gate(out["flops_equal"], f"phase 23 (c): decode_32k's traced FLOPs "
+         f"{tr['flops']:.6g} != its real count {real.total_flops:.6g}")
+    return out
+
+
+def dry_records(registry):
+    """(arch, shape, flags) of phase 23's sweep, the longest first."""
+    recs = [(a, s, "") for a in DENSE_FAMILY
+            for s in registry.applicable_shapes(a)]
+    recs.sort(key=lambda r: ("train", "prefill").index(r[1].split("_")[0])
+              if r[1].split("_")[0] in ("train", "prefill") else 2)
+    recs.append(("llama3-8b", "decode_32k", "--multi-pod"))
+    recs += [(a, DRY_OTHER_SHAPE, "") for a in registry.ASSIGNED
+             if a not in DENSE_FAMILY]
+    return recs
+
+
+def start_dry_sweep(registry, out_dir):
+    """(d) the production sweep, started in the background: each record of
+    ``dry_records`` in a ``python -m repro_torch.launch.dryrun`` process of
+    its own, ``DRY_SWEEP_JOBS`` at a time (``dryrun.sweep``), on the (16,
+    16) mesh (the multi-pod record on (2, 16, 16)). Returns the process;
+    ``finish_dry_sweep`` waits for it."""
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = [["--arch", a, "--shape", s, "--device", "cuda", "--out-dir",
+             out_dir] + ([f] if f else []) for a, s, f in
+            dry_records(registry)]
+    cmd = ("import sys; from repro_torch.launch.dryrun import sweep; "
+           f"sys.exit(sweep({runs!r}, {DRY_SWEEP_JOBS}))")
+    log_f = open(os.path.join(out_dir, "sweep.log"), "w")
+    proc = subprocess.Popen([sys.executable, "-c", cmd], stdout=log_f,
+                            stderr=subprocess.STDOUT, env=env,
+                            start_new_session=True,
+                            preexec_fn=lambda: os.nice(19))
+    proc.t0 = time.perf_counter()
+    proc.log_f = log_f
+    # a run that fails before phase 23 ends the sweep's processes too
+    atexit.register(lambda: proc.poll() is None and os.killpg(proc.pid, 9))
+    return proc
+
+
+def finish_dry_sweep(proc, out_dir):
+    """Wait for the sweep (no longer than ``DRY_SWEEP_TIMEOUT_S`` from its
+    start; the whole process group is ended then), read its records, gate
+    them and print roofline.py's tables."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import roofline
+    left = DRY_SWEEP_TIMEOUT_S - (time.perf_counter() - proc.t0)
+    try:
+        proc.wait(timeout=max(left, 1))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        log(f"phase 23 (d): the sweep did not end in "
+            f"{DRY_SWEEP_TIMEOUT_S} s; its records so far are read")
+    proc.log_f.close()
+    wall = time.perf_counter() - proc.t0
+    recs = roofline.load(out_dir)
+    rows = {}
+    for r in recs:
+        mem = r.get("memory", {})
+        rows[f"{r['arch']}:{r['shape']}:{r['chips']}"] = dict(
+            ok=r["ok"], per_chip_gib=mem.get("per_chip_total", 0) / 2**30,
+            fits_h100_80g=mem.get("fits_h100_80g"),
+            dominant=r.get("roofline", {}).get("dominant"),
+            seconds=r["total_s"], cost_method=r.get("cost_method"),
+            launched=sum(r["launches"].values()))
+    for key, row in rows.items():
+        log(f"dry run {key}: {json.dumps(row)}")
+    with open(os.path.join(out_dir, "sweep.log")) as f:
+        failed = [line.split()[1:3] for line in f if line.startswith("FAIL")]
+    want = [(a, s) for a, s, f in dry_records(registry) if not f]
+    got = {(r["arch"], r["shape"]) for r in recs if not r["multi_pod"]}
+    for arch, shape in want:
+        ok = (arch, shape) in got and all(
+            r["ok"] for r in recs if (r["arch"], r["shape"]) ==
+            (arch, shape))
+        if arch in DENSE_FAMILY:
+            gate(ok, f"phase 23 (d): {arch} {shape} not traced ok on the "
+                 f"(16, 16) mesh")
+    gate(any(r["multi_pod"] and r["ok"] for r in recs),
+         "phase 23 (d): llama3-8b decode_32k not traced on (2, 16, 16)")
+    gate(not any(sum(r["launches"].values()) for r in recs),
+         "phase 23 (d): a dry-run record launched a kernel")
+    for line in (roofline.dryrun_table(recs) + [""] +
+                 roofline.roofline_table(recs) + [""] +
+                 roofline.worst_candidates(recs)):
+        log(line)
+    return dict(records=len(recs), wanted=len(want) + 1,
+                missing=sorted(f"{a}:{s}" for a, s in set(want) - got),
+                failed=failed, wall_s=wall, rows=rows)
+
+
+def dryrun_e2e(torch, np, registry, transformer, counters, train, sweep,
+               sweep_dir):
+    """Phase 23: (a) the faces against the kernels, (b) the memory proof
+    against measured peaks, (c) traced FLOPs against a real step's count,
+    (d) the production sweep (started after phase 18, records of their
+    own processes, each gated on its launch counters). Every launch
+    counter of this process holds across its traces."""
+    t0 = time.perf_counter()
+    out = {"faces": dry_faces(torch, np, counters)}
+    log(f"dry run faces vs kernels: {json.dumps(out['faces'])}")
+    out["train_step"] = dry_train(torch, registry, transformer, counters,
+                                  train)
+    log(f"dry run tinyllama train step: {json.dumps(out['train_step'])}")
+    out["decode_32k"] = dry_decode(torch, registry, transformer, counters)
+    log(f"dry run decode_32k: {json.dumps(out['decode_32k'])}")
+    out["sweep"] = finish_dry_sweep(sweep, sweep_dir)
+    out["wall_s_phase"] = time.perf_counter() - t0
+    return out
+
+
 def card_line():
     """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5474,6 +5923,12 @@ def main() -> int:
     gemma2 = gemma2_e2e(torch, np, registry, transformer, counters)
     log(f"gemma2-27b phase done in {time.perf_counter() - t0:.1f} s; "
         f"phases 17-18 done at {time.perf_counter() - t_start:.1f} s")
+    # phase 23 (d)'s production sweep: shape-only traces in processes of
+    # their own at the lowest priority (each holds a CUDA context, ~0.5
+    # GiB), started after the phases that need most of the card's memory
+    # and read in phase 23
+    sweep_dir = str(ROOT / "build" / "dryrun")
+    sweep = start_dry_sweep(registry, sweep_dir)
     # phase 19: seamless-m4t-medium at full width and depth
     audio = audio_e2e(torch, np, registry, transformer, counters)
     log(f"seamless phase done in {audio['wall_s_phase']:.1f} s")
@@ -5493,6 +5948,11 @@ def main() -> int:
     collective, coll_launches = phase22(torch, np, registry, transformer)
     log(f"collective phase done in {collective['wall_s_phase']:.1f} s; "
         f"phase 22 done at {time.perf_counter() - t_start:.1f} s")
+    # phase 23: the dry run on fake CUDA tensors
+    dry = dryrun_e2e(torch, np, registry, transformer, counters,
+                     training["tinyllama"], sweep, sweep_dir)
+    log(f"dry-run phase done in {dry['wall_s_phase']:.1f} s; phase 23 "
+        f"done at {time.perf_counter() - t_start:.1f} s")
 
     stats = {"paged_decode_attention": dec["bf16"],
              "paged_prefill_chunk_attention": pre[("bf16", 1536, 512)],
@@ -5531,6 +5991,7 @@ def main() -> int:
                                 "analytic": analytic,
                                 "training": training,
                                 "collective": collective,
+                                "dryrun": dry,
                                 "widened_kernel_cases": {
                                     " / ".join(k): v
                                     for k, v in wide.items()}}}))
@@ -5549,6 +6010,8 @@ if __name__ == "__main__":
             sys.exit(dense_step_main(sys.argv[2]))
         if len(sys.argv) == 2 and sys.argv[1] == "--phase22":
             sys.exit(phase22_main())
+        if len(sys.argv) == 2 and sys.argv[1] == "--phase23":
+            sys.exit(phase23_main())
         sys.exit(main())
     except Exception:                       # report, no result line
         traceback.print_exc()

@@ -6,6 +6,16 @@ use (``-shared -Xcompiler -fPIC``; no PyTorch headers, so a build takes
 seconds), then loaded with ``ctypes``. The library name carries a digest of
 the sources, so an edited kernel is rebuilt and a stale one is never loaded.
 Nothing here runs at import time: the CPU tests import every module.
+
+Every wrapper also has a shape-only face for a trace under
+``FakeTensorMode`` (the dry run, ``launch/dryrun.py``): given a fake CUDA
+tensor (:func:`is_fake`) it checks the operands as a launch would and
+returns empty outputs with the kernel's shapes, dtypes and strides,
+allocating its split-KV workspace or backward scratch as the launch does,
+and reaches no library, stream, ticket or launch counter. Real launches
+and faces alike report each call's FLOPs and bytes to the accountants in
+:data:`ACCOUNTANTS` (the dry run's counting mode), from shapes alone, so a
+real step and its fake trace count the same.
 """
 from __future__ import annotations
 
@@ -17,9 +27,10 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, List
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -106,6 +117,31 @@ def stream_ptr(device) -> int:
 
 
 _SM_COUNT: Dict[int, int] = {}     # device index -> SM count
+# the SMs of an H100 SXM: what a shape-only face plans its split-KV
+# workspace for when the trace runs on a host without a card
+H100_SM_COUNT = 132
+
+# fn(entry, flops, nbytes), called at every kernel launch and face
+ACCOUNTANTS: List[Callable[[str, float, float], None]] = []
+
+
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor of a shape-only trace: the wrapper
+    then runs its kernel's face and launches nothing."""
+    return isinstance(t, FakeTensor)
+
+
+def account(entry: str, flops: float, nbytes: float) -> None:
+    """Report one kernel call's FLOPs and bytes (inputs read once, outputs
+    written once) to every accountant."""
+    for fn in ACCOUNTANTS:
+        fn(entry, flops, nbytes)
+
+
+def face_sm_count(device) -> int:
+    """The SM count a face plans with: the card's, or the H100's on a host
+    without one (a dry run traces on any host)."""
+    return sm_count(device) if torch.cuda.is_available() else H100_SM_COUNT
 _TICKETS: Dict[tuple, torch.Tensor] = {}   # (device index, stream) -> tickets
 
 

@@ -171,6 +171,9 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
                                      cache_len, **kw)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len, **kw)
+    if _cuda.is_fake(q):
+        return _face("decode_attention_bf16", q, k_cache, v_cache, None, None,
+                     cache_len, **kw)
     out = _launch("decode_attention_bf16", q, k_cache, v_cache, None, None,
                   cache_len, **kw)
     decode_attention.launches += 1
@@ -195,13 +198,16 @@ def decode_attention_int8(q, k_cache, v_cache, k_scale, v_scale, cache_len,
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len,
                                       k_scale=k_scale, v_scale=v_scale, **kw)
+    if _cuda.is_fake(q):
+        return _face("decode_attention_int8", q, k_cache, v_cache, k_scale,
+                     v_scale, cache_len, **kw)
     out = _launch("decode_attention_int8", q, k_cache, v_cache, k_scale,
                   v_scale, cache_len, **kw)
     decode_attention_int8.launches += 1
     return out
 
 
-decode_attention.launches = 0        # bf16 kernel launches
+decode_attention.launches = 0        # bf16 kernel launches (real ones)
 decode_attention_int8.launches = 0   # int8 kernel launches
 
 
@@ -230,9 +236,46 @@ def _launch(entry, q, k_cache, v_cache, k_scale, v_scale, cache_len, *,
         k_cache.stride(0), splits, int(sliding_window),
         int(attention_sinks), float(logit_softcap), stream)
     _cuda.check(err, entry)
+    if _cuda.ACCOUNTANTS:
+        _cuda.account(entry, *cost(q, k_cache, k_scale is not None))
     if return_partials:
         return o, l, m
     return o
+
+
+def _face(entry, q, k_cache, v_cache, k_scale, v_scale, cache_len, *,
+          return_partials, **_):
+    """The shape-only face of a launch on fake tensors: the operand checks,
+    the outputs and split-KV workspace a launch allocates, the cost
+    reported; nothing launched or counted in ``launches``."""
+    _check_cuda_operands(q, k_cache, v_cache, cache_len, k_scale, v_scale)
+    B, Hkv, G, hd = q.shape
+    dev = q.device
+    splits = plan_splits(B, Hkv, k_cache.shape[2], _cuda.face_sm_count(dev),
+                         G)
+    o = torch.empty_like(q)
+    l = torch.empty((B, Hkv, G), dtype=torch.float32, device=dev)
+    m = torch.empty_like(l)
+    if splits > 1:
+        torch.empty(B * Hkv * splits * G * (hd + 2), dtype=torch.float32,
+                    device=dev)
+    _cuda.account(entry, *cost(q, k_cache, k_scale is not None))
+    if return_partials:
+        return o, l, m
+    return o
+
+
+def cost(q, k_cache, int8: bool):
+    """(FLOPs, bytes) of one call from shapes alone, by the kernel table's
+    bound rule over every cache row (a trace cannot see cache_len): QK and
+    PV, 4·hd FLOPs a (row, query head); K and V read once (an int8 row hd
+    + 4 bytes a token-head with its scale), q read, o, l, m written."""
+    B, Hkv, G, hd = q.shape
+    rows = B * k_cache.shape[2]
+    row_bytes = (hd + 4) * 2 if int8 else hd * 2 * 2
+    nbytes = (rows * Hkv * row_bytes + 2 * q.numel() + 4 * B +
+              2 * q.numel() + 2 * 4 * B * Hkv * G)
+    return 4 * rows * Hkv * G * hd, nbytes
 
 
 _CACHES = ("k_cache", "v_cache", "k_scale", "v_scale")

@@ -42,18 +42,25 @@ def _triple_to_partial(o, l, m, B, H, hd) -> Partial:
 def decode_partial(q, k_cache, v_cache, cache_len, *,
                    k_scale=None, v_scale=None,
                    sliding_window: int = 0, attention_sinks: int = 0,
-                   logit_softcap: float = 0.0) -> Partial:
+                   logit_softcap: float = 0.0, row_offset: int = 0) -> Partial:
     """Partial triple over a DENSE head-major cache (the reference's
     ``_pallas_decode_partial_backend``, ``ops.py:97``, and, for int8
     caches, its jnp partial with ``k_scale``; model-layer contract:
     cache_len = stored tokens, window w.r.t. total length cache_len + 1).
     q: (B, H, hd); caches (B, Hkv, S, hd); k_scale/v_scale: the fp32
-    (B, Hkv, S) scales of an int8 cache (the int8 kernel then runs)."""
+    (B, Hkv, S) scales of an int8 cache (the int8 kernel then runs).
+    ``row_offset``: the global position of the cache's first row, when it
+    holds one slice of a sequence-split cache (the placed decode step):
+    the lengths and sinks are taken relative to it, so the kernel masks
+    the slice's rows as the whole cache's."""
     B, H, hd = q.shape
     Hkv = k_cache.shape[1]
     qg = q.reshape(B, Hkv, H // Hkv, hd).contiguous()
     sw, sinks, clen = _serving_window(sliding_window, attention_sinks,
                                       cache_len)
+    if row_offset:
+        clen = clen - row_offset
+        sinks = max(sinks - row_offset, 0)
     o, l, m = _da.decode_attention(
         qg, k_cache, v_cache, clen, k_scale=k_scale, v_scale=v_scale,
         sliding_window=sw,

@@ -246,6 +246,9 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             cache_len, **kw)
+    if _cuda.is_fake(q):
+        return _face("paged_decode_attention_bf16", q, k_pool, v_pool, None,
+                     None, block_tables, cache_len, **kw)
     out = _launch("paged_decode_attention_bf16", q, k_pool, v_pool, None,
                   None, block_tables, cache_len, **kw)
     paged_decode_attention.launches += 1
@@ -275,6 +278,9 @@ def paged_decode_attention_int8(q, k_pool, v_pool, k_scale, v_scale,
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             cache_len, k_scale=k_scale,
                                             v_scale=v_scale, **kw)
+    if _cuda.is_fake(q):
+        return _face("paged_decode_attention_int8", q, k_pool, v_pool,
+                     k_scale, v_scale, block_tables, cache_len, **kw)
     out = _launch("paged_decode_attention_int8", q, k_pool, v_pool, k_scale,
                   v_scale, block_tables, cache_len, **kw)
     paged_decode_attention_int8.launches += 1
@@ -315,9 +321,52 @@ def _launch(entry, q, k_pool, v_pool, k_scale, v_scale, block_tables,
              B, Hkv, G, hd, num_blocks, bs, nb, splits, int(sliding_window),
              int(attention_sinks), float(logit_softcap), stream)
     _cuda.check(err, entry)
+    if _cuda.ACCOUNTANTS:
+        _cuda.account(entry, *cost(q, k_pool, block_tables, block_positions,
+                                   k_scale is not None))
     if return_partials:
         return o, l, m
     return o
+
+
+def _face(entry, q, k_pool, v_pool, k_scale, v_scale, block_tables,
+          cache_len, *, block_positions, return_partials, **_):
+    """The shape-only face of a launch on fake tensors: the operand checks,
+    the outputs and split-KV workspace a launch allocates, the cost
+    reported; nothing launched or counted in ``launches``."""
+    _check_cuda_operands(q, k_pool, v_pool, block_tables, cache_len,
+                         block_positions, k_scale, v_scale)
+    B, Hkv, G, hd = q.shape
+    dev = q.device
+    splits = plan_splits(B, Hkv, block_tables.shape[1],
+                         _cuda.face_sm_count(dev), G)
+    o = torch.empty_like(q)
+    l = torch.empty((B, Hkv, G), dtype=torch.float32, device=dev)
+    m = torch.empty_like(l)
+    if splits > 1:
+        torch.empty(B * Hkv * splits * G * (hd + 2), dtype=torch.float32,
+                    device=dev)
+    _cuda.account(entry, *cost(q, k_pool, block_tables, block_positions,
+                               k_scale is not None))
+    if return_partials:
+        return o, l, m
+    return o
+
+
+def cost(q, k_pool, block_tables, block_positions, int8: bool):
+    """(FLOPs, bytes) of one call from shapes alone, by the kernel table's
+    bound rule over every row the tables name (a trace cannot see
+    cache_len): 4·hd FLOPs a (row, query head); K and V read once (an int8
+    row hd + 4 bytes a token-head), q, the tables, positions and lengths
+    read, o, l, m written."""
+    B, Hkv, G, hd = q.shape
+    rows = B * block_tables.shape[1] * k_pool.shape[2]
+    row_bytes = (hd + 4) * 2 if int8 else hd * 2 * 2
+    nbytes = (rows * Hkv * row_bytes + 2 * q.numel() +
+              4 * block_tables.numel() +
+              (0 if block_positions is None else 4 * block_positions.numel())
+              + 4 * B + 2 * q.numel() + 2 * 4 * B * Hkv * G)
+    return 4 * rows * Hkv * G * hd, nbytes
 
 
 def _kernel_fn(entry: str):

@@ -162,6 +162,9 @@ def paged_prefill_chunk_attention(q, k_pool, v_pool, block_table,
     if q.device.type == "cpu":
         return paged_prefill_chunk_attention_plain(
             q, k_pool, v_pool, block_table, k_chunk, v_chunk, **kw)
+    if _cuda.is_fake(q):
+        return _face("paged_prefill_chunk_attention_bf16", q, k_pool, v_pool,
+                     None, None, block_table, k_chunk, v_chunk)
     out = _launch("paged_prefill_chunk_attention_bf16", q, k_pool, v_pool,
                   None, None, block_table, k_chunk, v_chunk, **kw)
     paged_prefill_chunk_attention.launches += 1
@@ -188,6 +191,9 @@ def paged_prefill_chunk_attention_int8(q, k_pool, v_pool, k_scale, v_scale,
         return paged_prefill_chunk_attention_plain(
             q, k_pool, v_pool, block_table, k_chunk, v_chunk,
             k_scale=k_scale, v_scale=v_scale, **kw)
+    if _cuda.is_fake(q):
+        return _face("paged_prefill_chunk_attention_int8", q, k_pool, v_pool,
+                     k_scale, v_scale, block_table, k_chunk, v_chunk)
     out = _launch("paged_prefill_chunk_attention_int8", q, k_pool, v_pool,
                   k_scale, v_scale, block_table, k_chunk, v_chunk, **kw)
     paged_prefill_chunk_attention_int8.launches += 1
@@ -217,7 +223,37 @@ def _launch(entry, q, k_pool, v_pool, k_scale, v_scale, block_table,
              block_table.shape[0], int(sliding_window), int(attention_sinks),
              float(logit_softcap), _cuda.stream_ptr(q.device))
     _cuda.check(err, entry)
+    if _cuda.ACCOUNTANTS:
+        _cuda.account(entry, *cost(q, k_pool, block_table,
+                                   k_scale is not None))
     return out
+
+
+def _face(entry, q, k_pool, v_pool, k_scale, v_scale, block_table, k_chunk,
+          v_chunk):
+    """The shape-only face of a launch on fake tensors: the operand checks,
+    the output, the cost reported; nothing launched or counted in
+    ``launches``."""
+    _check_cuda_operands(q, k_pool, v_pool, block_table, k_chunk, v_chunk,
+                         k_scale, v_scale)
+    _cuda.account(entry, *cost(q, k_pool, block_table, k_scale is not None))
+    return torch.empty_like(q)
+
+
+def cost(q, k_pool, block_table, int8: bool):
+    """(FLOPs, bytes) of one call from shapes alone, by the kernel table's
+    bound rule with the causal mask and no window: 4·hd FLOPs a (query,
+    key) pair and query head; q, the chunk's K/V and the prefix's P rows
+    read once (an int8 row hd + 4 bytes a token-head), the table read, the
+    output written."""
+    C, H, hd = q.shape
+    Hkv, _, bs, _ = k_pool.shape
+    P = block_table.shape[0] * bs
+    pairs = P * C + C * (C + 1) // 2
+    row_bytes = (hd + 4) * 2 if int8 else hd * 2 * 2
+    nbytes = (2 * (2 * q.numel() + 2 * C * Hkv * hd) + P * Hkv * row_bytes +
+              4 * block_table.shape[0])
+    return 4 * pairs * H * hd, nbytes
 
 
 def launch_geometry(C, H, Hkv, hd, int8=False):

@@ -149,6 +149,9 @@ def _rwkv6_scan_forward(r, k, v, w, u) -> torch.Tensor:
     _check_operands(r, u, [(n, t, (B, S, H, P), r.dtype)
                            for n, t in (("k", k), ("v", v), ("w", w))])
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=r.device)
+    if _cuda.is_fake(r):                 # a shape-only trace's face
+        _cuda.account(_ENTRIES[r.dtype], *cost(r))
+        return y
     if S:
         entry = _ENTRIES[r.dtype]
         err = _kernel_fn(entry)(r.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -156,7 +159,23 @@ def _rwkv6_scan_forward(r, k, v, w, u) -> torch.Tensor:
                                 S, H, P, _cuda.stream_ptr(r.device))
         _cuda.check(err, entry)
         rwkv6_scan.launches += 1
+        if _cuda.ACCOUNTANTS:
+            _cuda.account(entry, *cost(r))
     return y
+
+
+def cost(r, backward: bool = False):
+    """(FLOPs, bytes) of one call from shapes alone. FLOPs: the recurrence's
+    5·P² a step and head (the reference's per-step accounting,
+    ``launch/analytic.py`` ``recurrence_corrections``), twice that for the
+    backward; bytes by the kernel table's bound rule (inputs read once,
+    outputs written once)."""
+    B, S, H, P = r.shape
+    e = r.element_size()
+    flops = 5 * B * S * H * P * P * (2 if backward else 1)
+    if backward:     # r, k, v, w, dr, dk, dv, dw; dy; u, du
+        return flops, e * 8 * r.numel() + 4 * r.numel() + 4 * 2 * H * P
+    return flops, e * 4 * r.numel() + 4 * H * P + 4 * r.numel()
 
 
 class _Rwkv6Scan(torch.autograd.Function):
@@ -334,6 +353,9 @@ def rwkv6_scan_bwd(r, k, v, w, u, dy):
         n = _scratch_fn()(B, S, H, P)
         scratch = torch.empty(n, dtype=torch.float32, device=r.device)
         entry = _BWD_ENTRIES[r.dtype]
+        if _cuda.is_fake(r):             # a shape-only trace's face
+            _cuda.account(entry, *cost(r, True))
+            return dr, dk, dv, dw, du
         err = _bwd_fn(entry)(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                              w.data_ptr(), u.data_ptr(), dy.data_ptr(),
                              dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -341,6 +363,8 @@ def rwkv6_scan_bwd(r, k, v, w, u, dy):
                              n, B, S, H, P, _cuda.stream_ptr(r.device))
         _cuda.check(err, entry)
         rwkv6_scan_bwd.launches += 1
+        if _cuda.ACCOUNTANTS:
+            _cuda.account(entry, *cost(r, True))
     else:
         du.zero_()
     return dr, dk, dv, dw, du

@@ -129,13 +129,32 @@ def _ssm_scan_forward(x, B_in, C_in, decay) -> torch.Tensor:
                         ("decay", decay, (Bb, S, H))))
     _check_shape(P, N)
     y = torch.empty((Bb, S, H, P), dtype=torch.float32, device=x.device)
+    if _cuda.is_fake(x):                 # a shape-only trace's face
+        _cuda.account("ssm_scan_f32", *cost(x, B_in))
+        return y
     if S:
         err = _kernel_fn()(x.data_ptr(), B_in.data_ptr(), C_in.data_ptr(),
                            decay.data_ptr(), y.data_ptr(), Bb, S, H, P, N,
                            _cuda.stream_ptr(x.device))
         _cuda.check(err, "ssm_scan_f32")
         ssm_scan.launches += 1
+        if _cuda.ACCOUNTANTS:
+            _cuda.account("ssm_scan_f32", *cost(x, B_in))
     return y
+
+
+def cost(x, B_in, backward: bool = False):
+    """(FLOPs, bytes) of one call from shapes alone. FLOPs: the recurrence's
+    5·P·N a step and head (the reference's per-step accounting,
+    ``launch/analytic.py`` ``recurrence_corrections``), twice that for the
+    backward; bytes by the kernel table's bound rule (fp32 inputs read
+    once, outputs written once)."""
+    Bb, S, H, P = x.shape
+    N = B_in.shape[-1]
+    flops = 5 * Bb * S * H * P * N * (2 if backward else 1)
+    if backward:     # x, dy, dx; B, C, dB, dC; decay, ddecay
+        return flops, 4 * (3 * x.numel() + 4 * B_in.numel() + 2 * Bb * S * H)
+    return flops, 4 * (2 * x.numel() + 2 * B_in.numel() + Bb * S * H)
 
 
 def _check_operands(x, operands) -> None:
@@ -333,6 +352,9 @@ def ssm_scan_bwd(x, B_in, C_in, decay, dy):
     if S:
         n = _scratch_fn()(Bb, S, H, P, N)
         scratch = torch.empty(n, **f32)
+        if _cuda.is_fake(x):             # a shape-only trace's face
+            _cuda.account("ssm_scan_bwd_f32", *cost(x, B_in, True))
+            return dx, dB, dC, dd
         err = _bwd_fn()(x.data_ptr(), B_in.data_ptr(), C_in.data_ptr(),
                         decay.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                         dB.data_ptr(), dC.data_ptr(), dd.data_ptr(),
@@ -340,6 +362,8 @@ def ssm_scan_bwd(x, B_in, C_in, decay, dy):
                         _cuda.stream_ptr(x.device))
         _cuda.check(err, "ssm_scan_bwd_f32")
         ssm_scan_bwd.launches += 1
+        if _cuda.ACCOUNTANTS:
+            _cuda.account("ssm_scan_bwd_f32", *cost(x, B_in, True))
     return dx, dB, dC, dd
 
 

@@ -108,4 +108,4 @@ def mesh_axes(mesh) -> "OrderedDict[str, int]":
     names = mesh.mesh_dim_names
     if names is None:
         raise ValueError("the placement rules need a mesh with dim names")
-    return OrderedDict(zip(names, tuple(mesh.mesh.shape)))
+    return OrderedDict(zip(names, mesh.shape))

@@ -53,15 +53,49 @@ def qkv_project(params, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,Hkv,hd) with RoPE applied."""
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    q = _heads_project(x, params["wq"])
+    k = _heads_project(x, params["wk"])
+    v = _heads_project(x, params["wv"])
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _heads_project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) @ w (d, H, hd) -> (B, S, H, hd). A placed projection
+    runs column-parallel on each rank's shards: the weight keeps its split
+    of the heads (or head_dim) and has its FSDP split of d gathered, x
+    keeps its batch split and has whole rows, and the result is split as
+    both (DTensor's own rule may split the fused H·hd columns where the
+    heads cannot split, which the (H, hd) view then cannot express)."""
+    if not is_placed(w):
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = w.device_mesh
+    w_pl = [p if isinstance(p, Shard) and p.dim in (1, 2) else Replicate()
+            for p in w.placements]
+    x_pl = [Shard(0) if isinstance(p, Shard) and p.dim == 0 and
+            not isinstance(w_pl[i], Shard) else Replicate()
+            for i, p in enumerate(x.placements)]
+    o_pl = [Shard(0) if isinstance(xp, Shard) else
+            Shard(wp.dim + 1) if isinstance(wp, Shard) else Replicate()
+            for xp, wp in zip(x_pl, w_pl)]
+    # a rank's gradients cover its own heads (x's) or rows (w's): pending
+    # sums over the mesh dims that split the other operand
+    xg_pl = [xp if isinstance(xp, Shard) else
+             Partial() if isinstance(wp, Shard) else Replicate()
+             for xp, wp in zip(x_pl, w_pl)]
+    wg_pl = [wp if isinstance(wp, Shard) else
+             Partial() if isinstance(xp, Shard) else Replicate()
+             for xp, wp in zip(x_pl, w_pl)]
+    return local_map(lambda x_, w_: torch.einsum("bsd,dhk->bshk", x_, w_),
+                     out_placements=o_pl, in_placements=(x_pl, w_pl),
+                     in_grad_placements=(xg_pl, wg_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(x, w)
 
 
 def out_project(params, attn_out: torch.Tensor) -> torch.Tensor:
@@ -149,20 +183,24 @@ def decode_attention_partial(q, k_cache, v_cache, cache_len, *,
                              k_scale=None, v_scale=None,
                              sliding_window: int = 0,
                              attention_sinks: int = 0,
-                             logit_softcap: float = 0.0) -> C.Partial:
+                             logit_softcap: float = 0.0,
+                             row_offset: int = 0) -> C.Partial:
     """Partial attention over the cached prefix (reference ``:175``).
 
     q: (B, H, hd) (RoPE applied); caches: HEAD-MAJOR (B, Hkv, S, hd);
     cache_len: (B,) = number of tokens stored (the new token is NOT there);
     k_scale/v_scale: the fp32 (B, Hkv, S) per-token scales of an int8
-    cache. Window masks are computed w.r.t. total length cache_len + 1.
+    cache; row_offset: the global position of the cache's first row (a
+    slice of a sequence-split cache). Window masks are computed w.r.t.
+    total length cache_len + 1.
     The dense decode kernel (bf16 or int8 entry) on the card, its plain
     twin on the CPU."""
     return ops.decode_partial(q, k_cache, v_cache, cache_len,
                               k_scale=k_scale, v_scale=v_scale,
                               sliding_window=sliding_window,
                               attention_sinks=attention_sinks,
-                              logit_softcap=logit_softcap)
+                              logit_softcap=logit_softcap,
+                              row_offset=row_offset)
 
 
 def decode_attention_combine(q, k_cache, v_cache, cache_len, k_new, v_new,
@@ -173,13 +211,88 @@ def decode_attention_combine(q, k_cache, v_cache, cache_len, k_new, v_new,
     """Full decode attention = combine(prefix partial, new-token partial)
     (reference ``:378``). k_new/v_new: (B, Hkv, hd) — the current token's
     keys/values, full precision (an int8 cache quantizes them only when
-    it stores them); k_scale/v_scale: an int8 cache's scales."""
-    p_prev = decode_attention_partial(
-        q, k_cache, v_cache, cache_len, k_scale=k_scale, v_scale=v_scale,
-        sliding_window=sliding_window,
-        attention_sinks=attention_sinks, logit_softcap=logit_softcap)
-    p_new = _new_token_partial(q, k_new, v_new, logit_softcap=logit_softcap)
+    it stores them); k_scale/v_scale: an int8 cache's scales. A placed
+    cache is attended on each rank's shard (:func:`_placed_decode`)."""
+    kw = dict(sliding_window=sliding_window, attention_sinks=attention_sinks,
+              logit_softcap=logit_softcap)
+    if is_placed(k_cache):
+        return _placed_decode(q, k_cache, v_cache, cache_len, k_new, v_new,
+                              k_scale, v_scale, **kw)
+    return _decode_combine(q, k_cache, v_cache, cache_len, k_new, v_new,
+                           k_scale=k_scale, v_scale=v_scale, **kw)
+
+
+def _decode_combine(q, k_cache, v_cache, cache_len, k_new, v_new, *,
+                    k_scale=None, v_scale=None, row_offset: int = 0,
+                    reduce=None, **kw) -> torch.Tensor:
+    p_prev = decode_attention_partial(q, k_cache, v_cache, cache_len,
+                                      k_scale=k_scale, v_scale=v_scale,
+                                      row_offset=row_offset, **kw)
+    if reduce is not None:
+        p_prev = reduce(p_prev)
+    if k_new is None:                    # cross-attention: no new token
+        return C.finalize(p_prev).to(q.dtype)
+    p_new = _new_token_partial(q, k_new, v_new,
+                               logit_softcap=kw["logit_softcap"])
     return C.finalize(C.combine(p_prev, p_new)).to(q.dtype)
+
+
+def _placed_decode(q, k_cache, v_cache, cache_len, k_new, v_new, k_scale,
+                   v_scale, **kw) -> torch.Tensor:
+    """:func:`decode_attention_combine` over a placed (B, Hkv, S, hd) cache,
+    computed on each rank's shard where it lies: the cache and its scales
+    are never redistributed. Over a mesh dim that splits the batch or the
+    kv heads, each rank attends its own rows or heads (q, the new token's
+    K/V and the lengths follow the cache); over one that splits S (the seq
+    partition), each rank's prefix partial covers its slice, the lengths
+    and sinks taken relative to it (``row_offset``), and only the (a, s,
+    m) triple crosses ranks (``psum_combine``) before the new token joins
+    (``k_new=None``: no new token, the cross-attention's case). The result
+    is placed as q's batch and heads."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.core.combine import psum_combine
+    mesh = k_cache.device_mesh
+    kpl = list(k_cache.placements)
+    if any(not (p.is_replicate() or isinstance(p, Shard) and p.dim < 3)
+           for p in kpl):
+        raise ValueError(f"a placed decode cache is split over batch, kv "
+                         f"heads or sequence; got {tuple(kpl)}")
+    seq = [i for i, p in enumerate(kpl) if isinstance(p, Shard) and p.dim == 2]
+    names = mesh.mesh_dim_names
+    q_pl = [p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+            for p in kpl]
+    len_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+              for p in kpl]
+
+    def placed(t):
+        return t if isinstance(t, DTensor) else DTensor.from_local(
+            t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+    def reduce(p):
+        for i in seq:
+            p = psum_combine(p, mesh, names[i])
+        return p
+
+    news = () if k_new is None else (placed(k_new), placed(v_new))
+    scales = () if k_scale is None else (k_scale, v_scale)
+
+    def local(q_, k_, v_, len_, *rest):
+        kn_, vn_ = rest[:len(news)] if news else (None, None)
+        sc = rest[len(news):]
+        lo = 0
+        for i in seq:                 # the slice's rank over the seq dims
+            lo = lo * mesh.size(i) + mesh.get_local_rank(i)
+        return _decode_combine(
+            q_, k_, v_, len_, kn_, vn_, k_scale=sc[0] if sc else None,
+            v_scale=sc[1] if sc else None, row_offset=lo * k_.shape[2],
+            reduce=reduce, **kw)
+
+    return local_map(
+        local, out_placements=q_pl,
+        in_placements=(q_pl, kpl, kpl, len_pl) + (q_pl,) * len(news) +
+        (kpl,) * len(scales), device_mesh=mesh, redistribute_inputs=True)(
+            placed(q), k_cache, v_cache, placed(cache_len), *news, *scales)
 
 
 def _new_token_partial(q, k_new, v_new, *,
@@ -207,6 +320,10 @@ def decode_cross_attention(q, k_enc, v_enc) -> torch.Tensor:
     Hkv = k_enc.shape[1]
     full = torch.full((B,), k_enc.shape[2], dtype=torch.int32,
                       device=q.device)
+    if is_placed(k_enc):
+        return _placed_decode(q, k_enc, v_enc, full, None, None, None, None,
+                              sliding_window=0, attention_sinks=0,
+                              logit_softcap=0.0)
     o = _da.decode_attention(q.reshape(B, Hkv, H // Hkv, hd).contiguous(),
                              k_enc, v_enc, full)
     return o.reshape(B, H, hd)

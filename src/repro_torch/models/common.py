@@ -113,6 +113,27 @@ def resolve_device(device) -> torch.device:
 
 
 # ---------------------------------------------------------------------------
+# Activation-placement hook (installed by the dry run's launcher; identity
+# by default). Lives here so every model module (the layer stacks, the
+# rwkv mixer) can pin an activation's placement without import cycles.
+# ---------------------------------------------------------------------------
+_ACT_CONSTRAINT = None
+
+
+def set_activation_constraint(fn) -> None:
+    """Install ``fn(x) -> x`` (or ``None`` to uninstall), called on the
+    residual stream after every layer of the full-sequence stacks and on
+    rwkv's fused mixer input (``launch/entrypoints.py``
+    ``install_activation_constraint``)."""
+    global _ACT_CONSTRAINT
+    _ACT_CONSTRAINT = fn
+
+
+def constrain_activation(x):
+    return _ACT_CONSTRAINT(x) if _ACT_CONSTRAINT is not None else x
+
+
+# ---------------------------------------------------------------------------
 # Placed (DTensor) operands
 # ---------------------------------------------------------------------------
 def is_placed(x) -> bool:
@@ -121,6 +142,27 @@ def is_placed(x) -> bool:
     imported it, no DTensor exists."""
     mod = sys.modules.get("torch.distributed.tensor")
     return mod is not None and isinstance(x, mod.DTensor)
+
+
+def whole_rows(x):
+    """A placed ``x`` with its last dim whole on every rank: a mesh dim
+    that splits it is replicated (an all-gather); one that holds a pending
+    sum is reduce-scattered over the last dim first, then gathered (the
+    two halves of an all-reduce, the first of which the activation
+    placement would pay anyway). The other mesh dims stay as they are."""
+    from torch.distributed.tensor import Replicate, Shard
+    last = x.ndim - 1
+    pl = tuple(x.placements)
+    if any(p.is_partial() for p in pl) and \
+            not any(isinstance(p, Shard) and p.dim == last for p in pl):
+        n = x.device_mesh.size([p.is_partial() for p in pl].index(True))
+        if x.shape[last] % n == 0:
+            i = [p.is_partial() for p in pl].index(True)
+            pl = pl[:i] + (Shard(last),) + pl[i + 1:]
+            x = x.redistribute(x.device_mesh, pl)
+    want = tuple(Replicate() if p.is_partial() or isinstance(p, Shard) and
+                 p.dim == last else p for p in pl)
+    return x if want == pl else x.redistribute(x.device_mesh, want)
 
 
 def on_local_shards(fn, tensors, positions=(), dims=(0, 2)):
@@ -176,8 +218,7 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
                                     run_check=False)
     vocab = [i for i, p in enumerate(table.placements)
              if isinstance(p, Shard) and p.dim == 0]
-    if len(vocab) > 1 or table.shape[0] % mesh.size(vocab[0] if vocab
-                                                    else 0):
+    if len(vocab) > 1 or vocab and table.shape[0] % mesh.size(vocab[0]):
         raise ValueError(f"vocab-parallel lookup needs the rows split "
                          f"evenly over one mesh dim; got "
                          f"{table.placements}")
@@ -225,7 +266,13 @@ def dense_init(gen: torch.Generator, shape, dtype, device,
 # ---------------------------------------------------------------------------
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm with the ``(1 + weight)`` scale, computed in fp32."""
+    """RMSNorm with the ``(1 + weight)`` scale, computed in fp32. A placed
+    ``x`` whose hidden dim is split (the activation placement of
+    ``launch/entrypoints.py``) is gathered whole on that dim first, so
+    the projections after the norm run column-parallel on full rows (the
+    Megatron order: one all-gather in, one reduce-scatter out)."""
+    if is_placed(x):
+        x = whole_rows(x)
     dt = x.dtype
     xf = x.float()
     xf = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)

@@ -1,7 +1,6 @@
 """Mixture-of-Experts layer (GShard/Switch-style capacity dispatch).
-Port of ``repro/models/moe.py`` (``init_moe``, ``_capacity``,
-``moe_forward``; the reference's ``set_sharding_hook`` is mesh tooling and
-is not ported).
+Port of ``repro/models/moe.py`` (``set_sharding_hook``, ``init_moe``,
+``_capacity``, ``moe_forward``).
 
 Tokens are routed in fixed-size groups (default 256 tokens): an fp32
 router, softmax, the top-k experts of each token (ties to the lower
@@ -27,7 +26,24 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ModelConfig, dense_init
+from repro_torch.models.common import (ModelConfig, dense_init, is_placed,
+                                       whole_rows)
+
+# Placement hook of the dispatch pipeline, ``fn(tensor, kind) -> tensor``
+# with kind "tokens", "dispatch" or "expert_tokens" (the reference's five
+# sites). Like the reference, no launcher installs it: pinning the
+# dispatch pipeline raised the per-layer collective bytes in the
+# reference's dry runs. It stays for experiments; identity when unset.
+_SHARDING_HOOK = None
+
+
+def set_sharding_hook(fn) -> None:
+    global _SHARDING_HOOK
+    _SHARDING_HOOK = fn
+
+
+def _shard(x, kind: str):
+    return _SHARDING_HOOK(x, kind) if _SHARDING_HOOK is not None else x
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, device,
@@ -89,6 +105,91 @@ def route(router: torch.Tensor, cfg: ModelConfig, xg: torch.Tensor,
     return probs, top_p, onehot, keep, pos
 
 
+def _dispatch(router: torch.Tensor, cfg: ModelConfig, xg: torch.Tensor,
+              C: int) -> Tuple[torch.Tensor, ...]:
+    """The routing of :func:`route` and the (G, gs, E, C) dispatch and
+    combine tensors built from it one routing choice at a time: (probs,
+    the one-hot choices, dispatch, combine), fp32."""
+    G, gs, _ = xg.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    probs, top_p, onehot, keep, pos = route(router, cfg, xg, C)
+    pos_i = pos.long()
+    dispatch = torch.zeros((G, gs, E, C), dtype=torch.float32,
+                           device=xg.device)
+    combine = torch.zeros_like(dispatch)
+    for j in range(k):
+        slot = keep[:, :, j, :, None] * _one_hot(pos_i[:, :, j], C)
+        dispatch = dispatch + slot
+        combine = combine + slot * top_p[:, :, j, None, None]
+    return probs, onehot, dispatch, combine
+
+
+def _dispatch_on_shards(router, cfg: ModelConfig, xg, C: int):
+    """:func:`_dispatch` of placed token groups (G, gs, d), whole rows, on
+    each rank's groups: routing is per group, so a rank sorts and ranks
+    its own tokens and no token crosses ranks. The results keep xg's
+    group split and are replicated over its other mesh dims."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from torch.distributed.tensor import Partial
+    mesh = xg.device_mesh
+    pl = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in xg.placements]
+    # the router's gradient from a rank's groups: a pending sum over the
+    # mesh dims that split the groups
+    rg = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
+    return local_map(lambda r, x_: _dispatch(r, cfg, x_, C),
+                     out_placements=(pl,) * 4,
+                     in_placements=([Replicate()] * mesh.ndim, pl),
+                     in_grad_placements=(rg, pl), device_mesh=mesh,
+                     redistribute_inputs=True)(router, xg)
+
+
+def _experts(disp, xg, comb, w_gate, w_up, w_down) -> torch.Tensor:
+    """Dispatch the token groups xg (G, gs, d) to the experts' capacity
+    slots, run the SwiGLU experts batched over E (SiLU in fp32) and
+    combine them back: (G, gs, d)."""
+    disp = _shard(disp, "dispatch")
+    xe = _shard(torch.einsum("gtec,gtd->gecd", disp, xg), "expert_tokens")
+    h = torch.einsum("gecd,edf->gecf", xe, w_gate)
+    u = torch.einsum("gecd,edf->gecf", xe, w_up)
+    h = F.silu(h.float()).to(xg.dtype) * u
+    ye = _shard(torch.einsum("gecf,efd->gecd", h, w_down), "expert_tokens")
+    return torch.einsum("gtec,gecd->gtd", _shard(comb, "dispatch"), ye)
+
+
+def _experts_on_shards(disp, xg, comb, w_gate, w_up, w_down):
+    """:func:`_experts` of placed groups on each rank's shards, expert
+    parallel: a rank runs its groups (xg's group split) through its own
+    experts (the weights' expert split over ``model``, their FSDP split of
+    d gathered) on its slice of the dispatch and combine tensors, so its
+    output is its experts' share of every token (a pending sum over the
+    expert split). No token or expert weight is gathered across the
+    expert split (DTensor's einsum rules in some releases cannot view the
+    expert products split over E)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = xg.device_mesh
+    g_pl = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in xg.placements]
+    e_dims = [isinstance(p, Shard) and p.dim == 0 and not isinstance(
+        g_pl[i], Shard) for i, p in enumerate(w_gate.placements)]
+    w_pl = [Shard(0) if e else Replicate() for e in e_dims]
+    dc_pl = [Shard(2) if e else g for e, g in zip(e_dims, g_pl)]
+    out_pl = [Partial() if e else g for e, g in zip(e_dims, g_pl)]
+    # gradients: a rank's expert slice of the tokens (a pending sum over
+    # the expert split) and its groups' share of the weights (a pending
+    # sum over the group split)
+    x_g = [Partial() if e else g for e, g in zip(e_dims, g_pl)]
+    w_g = [Shard(0) if e else Partial() if isinstance(g, Shard)
+           else Replicate() for e, g in zip(e_dims, g_pl)]
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(_experts, out_placements=out_pl,
+                     in_placements=(dc_pl, g_pl, dc_pl, w_pl, w_pl, w_pl),
+                     in_grad_placements=(dc_pl, x_g, dc_pl, w_g, w_g, w_g),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        disp, xg, comb, w_gate, w_up, w_down)
+
+
 def moe_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                 group_size: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y (B, S, d), the Switch aux loss, fp32 scalar).
@@ -106,26 +207,18 @@ def moe_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     E, k = cfg.num_experts, cfg.experts_per_token
     C = _capacity(gs, k, E, cfg.capacity_factor)
 
-    xg = x.reshape(G, gs, d)
-    probs, top_p, onehot, keep, pos = route(params["router"], cfg, xg, C)
-    pos_i = pos.long()
-
-    # (G, gs, E, C) dispatch / combine, one routing choice at a time
+    xg = _shard(x.reshape(G, gs, d), "tokens")
+    if is_placed(xg):
+        xg = whole_rows(xg)
+        probs, onehot, dispatch, combine = _dispatch_on_shards(
+            params["router"], cfg, xg, C)
+    else:
+        probs, onehot, dispatch, combine = _dispatch(params["router"], cfg,
+                                                     xg, C)
     dtype = x.dtype
-    dispatch = torch.zeros((G, gs, E, C), dtype=torch.float32,
-                           device=x.device)
-    combine = torch.zeros_like(dispatch)
-    for j in range(k):
-        slot = keep[:, :, j, :, None] * _one_hot(pos_i[:, :, j], C)
-        dispatch = dispatch + slot
-        combine = combine + slot * top_p[:, :, j, None, None]
-
-    xe = torch.einsum("gtec,gtd->gecd", dispatch.to(dtype), xg)
-    h = torch.einsum("gecd,edf->gecf", xe, params["w_gate"])
-    u = torch.einsum("gecd,edf->gecf", xe, params["w_up"])
-    h = F.silu(h.float()).to(dtype) * u
-    ye = torch.einsum("gecf,efd->gecd", h, params["w_down"])
-    y = torch.einsum("gtec,gecd->gtd", combine.to(dtype), ye)
+    args = (dispatch.to(dtype), xg, combine.to(dtype), params["w_gate"],
+            params["w_up"], params["w_down"])
+    y = _experts_on_shards(*args) if is_placed(xg) else _experts(*args)
 
     # Switch-style load-balance loss
     frac_tokens = onehot.sum(dim=2).mean(dim=(0, 1))          # (E,)

@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import ModelConfig, dense_init, rms_norm
+from repro_torch.models.common import (ModelConfig, constrain_activation,
+                                       dense_init, is_placed, rms_norm)
 
 
 def _suffix_products(a: torch.Tensor) -> torch.Tensor:
@@ -36,6 +37,66 @@ def _suffix_products(a: torch.Tensor) -> torch.Tensor:
     decay that rounded to 0 gives 0, not NaN."""
     rev = torch.cumprod(a.flip(1), dim=1).flip(1)        # Π_{s >= t}
     return torch.cat([rev[:, 1:], torch.ones_like(rev[:, :1])], dim=1)
+
+
+_HEAD_DIM = {"bh": 2, "s": 1, "h": 0}
+
+
+def _on_heads(fn, operands, kinds: str, outs: str = "bh"):
+    """``fn(*operands)``; placed operands run on each rank's shards of
+    batch and heads (every head and sequence is independent: the scans,
+    their closed-form final states, the decode recurrence). ``kinds``
+    names each operand's layout and ``outs`` each result's: "bh" (B, S,
+    H, ...), "s" (B, H, ...), "b" (B, S, N) shared by every head (split
+    over batch only), "h" (H, ...) (split over heads only). The batch
+    and heads are split as the first operand splits them, the heads also
+    over a ``model`` dim it is replicated on (a local slice)."""
+    lead = operands[0]
+    if not is_placed(lead):
+        return fn(*operands)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = lead.device_mesh
+    kinds, outs = kinds.split(), outs.split()
+    hd = _HEAD_DIM[kinds[0]]
+    H = lead.shape[hd]
+
+    def keep(p, i):
+        if not isinstance(p, Shard):
+            return None
+        if p.dim == 0 and lead.shape[0] % mesh.size(i) == 0:
+            return "b"
+        if p.dim == hd and H % mesh.size(i) == 0:
+            return "h"
+        return None
+
+    kept = [keep(p, i) for i, p in enumerate(lead.placements)]
+    names = mesh.mesh_dim_names or ()
+    if "h" not in kept and "model" in names:
+        i = names.index("model")
+        if lead.placements[i].is_replicate() and H % mesh.size(i) == 0:
+            kept[i] = "h"
+
+    def pl(kind, grad=False):
+        """An operand's placements; for its gradient, a mesh dim it is
+        replicated over but the work splits (heads for "b", batch for
+        "h") holds each rank's share: a pending sum."""
+        out = []
+        for k in kept:
+            if k is None:
+                out.append(Replicate())
+            elif (kind, k) in (("b", "h"), ("h", "b")):
+                out.append(Partial() if grad else Replicate())
+            else:
+                out.append(Shard(0 if k == "b" else _HEAD_DIM[kind]))
+        return out
+
+    out_pl = tuple(pl(k) for k in outs)
+    return local_map(fn, out_placements=out_pl[0] if len(outs) == 1
+                     else out_pl,
+                     in_placements=tuple(pl(k) for k in kinds),
+                     in_grad_placements=tuple(pl(k, True) for k in kinds),
+                     device_mesh=mesh, redistribute_inputs=True)(*operands)
 
 
 # ===========================================================================
@@ -75,8 +136,39 @@ def _mamba_project(params, cfg, x, conv_state=None):
       z, xh: (B, S, H, P); Bm, Cm: (B, S, N); dt: (B, S, H) fp32;
       new_conv_state: the last K-1 pre-activation conv inputs.
     """
-    d_inner, H, P, N = mamba_dims(cfg)
     proj = torch.matmul(x, params["w_in"])
+    args = (params["conv_w"], params["conv_b"], params["dt_bias"], proj) + \
+        (() if conv_state is None else (conv_state,))
+    if is_placed(proj):
+        return _mamba_conv_on_shards(cfg, *args)
+    return _mamba_conv(cfg, *args)
+
+
+def _mamba_conv_on_shards(cfg, *args):
+    """:func:`_mamba_conv` of a placed projection on each rank's rows,
+    whole on the channels (the split into z / x / B / C / dt and the
+    causal conv need them whole; some DTensor releases cannot pad a
+    channel-split tensor). The results keep the batch split; the conv
+    weights' gradients from a rank's rows are pending sums over it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from functools import partial
+    proj = args[3]
+    mesh = proj.device_mesh
+    pl = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in proj.placements]
+    rep = [Replicate()] * mesh.ndim
+    wg = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
+    extra = len(args) - 4                     # the decode step's conv state
+    return local_map(partial(_mamba_conv, cfg), out_placements=(pl,) * 6,
+                     in_placements=(rep,) * 3 + (pl,) * (1 + extra),
+                     in_grad_placements=(wg,) * 3 + (pl,) * (1 + extra),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def _mamba_conv(cfg, conv_w, conv_b, dt_bias, proj, conv_state=None):
+    d_inner, H, P, N = mamba_dims(cfg)
+    x = proj
     z, xr, Bm, Cm, dt = torch.split(proj, [d_inner, d_inner, N, N, H],
                                     dim=-1)
     # causal depthwise conv over (x, B, C)
@@ -88,14 +180,13 @@ def _mamba_project(params, cfg, x, conv_state=None):
     else:  # decode: prepend cached last K-1 inputs
         padded = torch.cat([conv_state, conv_in], dim=1)
     new_conv_state = padded[:, -(K - 1):, :]
-    conv = sum(padded[:, i:i + S, :] * params["conv_w"][i]
-               for i in range(K)) + params["conv_b"]
+    conv = sum(padded[:, i:i + S, :] * conv_w[i] for i in range(K)) + conv_b
     conv = F.silu(conv.float()).to(x.dtype)
     xr, Bm, Cm = torch.split(conv, [d_inner, N, N], dim=-1)
     B_ = x.shape[0]
     xh = xr.reshape(B_, S, H, P)
     z = z.reshape(B_, S, H, P)
-    dt = F.softplus(dt.float() + params["dt_bias"])
+    dt = F.softplus(dt.float() + dt_bias)
     return z, xh, Bm, Cm, dt, new_conv_state
 
 
@@ -125,12 +216,14 @@ def mamba_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     decay = torch.exp(-torch.exp(params["a_log"]) * dt)  # (B, S, H)
     xdt = xh.float() * dt[..., None]  # (B, S, H, P)
     Bf = Bm.float().contiguous()
-    y = ops.ssm_scan(xdt, Bf, Cm.float().contiguous(), decay)
+    y = _on_heads(ops.ssm_scan, (xdt, Bf, Cm.float().contiguous(), decay),
+                  "bh b b bh")
     y = y + xh.float() * params["d_skip"][None, None, :, None]
     out = _mamba_finish(params, cfg, y.to(x.dtype), z, B_, S)
     if not final_state:
         return out
-    return out, {"h": mamba_final_state(xdt, Bf, decay), "conv": conv_state}
+    h = _on_heads(mamba_final_state, (xdt, Bf, decay), "bh b bh", "s")
+    return out, {"h": h, "conv": conv_state}
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, device) -> Dict:
@@ -218,11 +311,42 @@ def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
 def _time_mix_inputs(params, x, x_prev):
     """Data-dependent lerps for r/k/v/w/g (RWKV6 ddlerp), the five lora
     paths as one stacked einsum. Returns (B, 5, S, d)."""
+    if is_placed(x):
+        mixed = _time_mix_on_shards(params, x, x_prev)
+    else:
+        mixed = _time_mix(params["mu"], params["lora_a"], params["lora_b"],
+                          x, x_prev)
+    # kept in the residual's placement when the launcher installs a
+    # constraint (the reference's site)
+    return constrain_activation(mixed)
+
+
+def _time_mix(mu, lora_a, lora_b, x, x_prev):
     xx = x_prev - x
-    lora = torch.tanh(torch.einsum("bsd,xdl->bxsl", xx, params["lora_a"]))
-    mix = params["mu"][None, :, None, :] + torch.einsum(
-        "bxsl,xld->bxsd", lora, params["lora_b"])
+    lora = torch.tanh(torch.einsum("bsd,xdl->bxsl", xx, lora_a))
+    mix = mu[None, :, None, :] + torch.einsum("bxsl,xld->bxsd", lora,
+                                              lora_b)
     return x[:, None] + xx[:, None] * mix
+
+
+def _time_mix_on_shards(params, x, x_prev):
+    """:func:`_time_mix` of placed (B, S, d) inputs on each rank's rows,
+    whole on d, with the small fused lora weights whole (DTensor's rules
+    split their stacked 5-dim in the backward, which a later view cannot
+    take). The result keeps the batch split, whole on d; the weights'
+    gradients from a rank's rows are pending sums over the batch split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    pl = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in x.placements]
+    rep = [Replicate()] * mesh.ndim
+    wg = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
+    return local_map(_time_mix, out_placements=pl,
+                     in_placements=(rep, rep, rep, pl, pl),
+                     in_grad_placements=(wg, wg, wg, pl, pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        params["mu"], params["lora_a"], params["lora_b"], x, x_prev)
 
 
 def _rwkv_rkvwg(params, cfg, x, x_prev):
@@ -231,7 +355,8 @@ def _rwkv_rkvwg(params, cfg, x, x_prev):
     mixed = _time_mix_inputs(params, x, x_prev)
     # fused r/k/v/g projection; _RWKV_MIX order is (r, k, v, w, g): the
     # projected four are 0, 1, 2, 4
-    proj = torch.einsum("bxsd,xde->bxse", mixed[:, [0, 1, 2, 4]],
+    proj = torch.einsum("bxsd,xde->bxse",
+                        torch.cat([mixed[:, :3], mixed[:, 4:]], dim=1),
                         params["w_rkvg"])
     r = proj[:, 0].reshape(B_, S, H, P)
     k = proj[:, 1].reshape(B_, S, H, P)
@@ -266,15 +391,16 @@ def rwkv_time_mix_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     """Full-sequence RWKV6 time-mix. x: (B, S, d) -> (B, S, d); with
     ``final_state`` -> (y, {"S", "x_tm"}), the decode state after x."""
     B_, S, d = x.shape
-    x_prev = _token_shift(x, torch.zeros((B_, d), dtype=x.dtype,
-                                         device=x.device))
+    x_prev = _token_shift(x, torch.zeros_like(x[:, 0]))
     r, k, v, g, w = _rwkv_rkvwg(params, cfg, x, x_prev)
     r, k, v, w = (a.contiguous() for a in (r, k, v, w))
-    wkv = ops.rwkv6_scan(r, k, v, w, params["bonus_u"]).to(x.dtype)
+    wkv = _on_heads(ops.rwkv6_scan, (r, k, v, w, params["bonus_u"]),
+                    "bh bh bh bh h").to(x.dtype)
     out = _rwkv_out(params, cfg, wkv, g, B_, S)
     if not final_state:
         return out
-    return out, {"S": rwkv_final_state(k, v, w), "x_tm": x[:, -1]}
+    return out, {"S": _on_heads(rwkv_final_state, (k, v, w), "bh bh bh",
+                                "s"), "x_tm": x[:, -1]}
 
 
 def init_rwkv_state(cfg: ModelConfig, batch: int, device) -> Dict:
@@ -295,16 +421,23 @@ def rwkv_time_mix_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     B_, S, d = x.shape
     x_prev = state["x_tm"][:, None, :]
     r, k, v, g, w = _rwkv_rkvwg(params, cfg, x, x_prev)
-    u = params["bonus_u"]
-    r_t, k_t, v_t, w_t = (a[:, 0].float() for a in (r, k, v, w))
-    kv = k_t[..., :, None] * v_t[..., None, :]
-    y = torch.einsum("bhp,bhpq->bhq", r_t, state["S"] + u[..., None] * kv)
-    S_new = w_t[..., :, None] * state["S"] + kv
+    y, S_new = _on_heads(_rwkv_step, (r[:, 0], k[:, 0], v[:, 0], w[:, 0],
+                                      state["S"], params["bonus_u"]),
+                         "s s s s s h", "s s")
     out = _rwkv_out(params, cfg, y[:, None].to(x.dtype), g, B_, S)
     new_state = dict(state)
     new_state["S"] = S_new
     new_state["x_tm"] = x[:, 0]
     return out, new_state
+
+
+def _rwkv_step(r, k, v, w, S, u):
+    """One token of the RWKV6 recurrence: r/k/v/w (B, H, P), the state S
+    (B, H, P, P) fp32 -> (y (B, H, P), the new state), fp32."""
+    r_t, k_t, v_t, w_t = (a.float() for a in (r, k, v, w))
+    kv = k_t[..., :, None] * v_t[..., None, :]
+    y = torch.einsum("bhp,bhpq->bhq", r_t, S + u[..., None] * kv)
+    return y, w_t[..., :, None] * S + kv
 
 
 def rwkv_channel_mix_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,

@@ -69,6 +69,7 @@ import torch.utils.checkpoint
 
 from repro_torch.models import blocks, kv_quant, ssm
 from repro_torch.models.common import (ModelConfig, Params,
+                                       constrain_activation as _constrain,
                                        cross_entropy_loss, dense_init,
                                        embed_lookup,
                                        resolve_device, rms_norm, softcap)
@@ -119,6 +120,10 @@ def _check_unpadded(cfg: ModelConfig, length) -> None:
 
 
 def _int_tensor(x, device) -> torch.Tensor:
+    """``x`` as an int32 tensor on ``device``; one that already is (a
+    placed one included) is used as it is."""
+    if torch.is_tensor(x) and x.dtype == torch.int32 and x.device == device:
+        return x
     return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
                            dtype=torch.int32, device=device)
 
@@ -319,6 +324,7 @@ def _dense_stack(params, cfg: ModelConfig, x, positions, *, mode: str,
                                       moe_group_size=moe_group_size)
 
         x, c, a = _maybe_remat(run, cfg, mode)(_layer(params["layers"], i), x)
+        x = _constrain(x)
         caches.append(c)
         aux = aux + a
     return x, aux, caches
@@ -331,6 +337,7 @@ def _rwkv_stack(params, cfg: ModelConfig, x, *, mode: str):
     states = []
     for i in range(cfg.num_layers):
         x, st = run(_layer(params["layers"], i), x)
+        x = _constrain(x)
         states.append(st)
     return x, states
 
@@ -357,6 +364,7 @@ def _zamba_stack(params, cfg: ModelConfig, x, positions, *, mode: str):
     for si in range(n_super):
         x, c, states = run(params["shared_attn"],
                            _layer(params["layers"], si), x)
+        x = _constrain(x)
         attn_caches.append(c)
         mstates.append(states)
     for ti in range(tail):
@@ -382,10 +390,11 @@ def _encdec_stacks(params, cfg: ModelConfig, batch: Dict, *, mode: str,
         lambda p_, h_: blocks.encoder_block(p_, cfg, h_, enc_pos), cfg, mode)
     enc_out = frames
     for i in range(cfg.encoder_layers):
-        enc_out = enc_run(_layer(params["enc_layers"], i), enc_out)
+        enc_out = _constrain(enc_run(_layer(params["enc_layers"], i),
+                                     enc_out))
     enc_out = rms_norm(enc_out, params["enc_norm"], cfg.norm_eps)
     # the reference's decoder embeds without the tied-embedding scale
-    x = params["embed"][_int_tensor(batch["tokens"], device).long()]
+    x = embed_lookup(params["embed"], _int_tensor(batch["tokens"], device))
     S_dec = x.shape[1]
     dec_pos = torch.arange(S_dec, device=device)[None].expand(B, S_dec)
 
@@ -401,6 +410,7 @@ def _encdec_stacks(params, cfg: ModelConfig, batch: Dict, *, mode: str,
     caches = []
     for i in range(cfg.num_layers):
         x, c = dec_run(_layer(params["layers"], i), x)
+        x = _constrain(x)
         caches.append(c)
     return x, caches
 

@@ -24,10 +24,21 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 
 def _split_batch(batch: Dict, n: int):
     """The batch's tensors (B, ...) as n microbatches along the batch
-    axis."""
-    parts = {k: torch.as_tensor(v).chunk(n, dim=0) for k, v in batch.items()}
+    axis. A placed tensor is split on each rank's rows, so every
+    microbatch keeps the batch's placement (no rank gathers another's
+    rows): microbatch i holds the i-th n-th of each rank's rows."""
+    parts = {k: _chunks(v, n) for k, v in batch.items()}
     for i in range(n):
         yield {k: v[i] for k, v in parts.items()}
+
+
+def _chunks(v, n: int):
+    if not is_placed(v):
+        return torch.as_tensor(v).chunk(n, dim=0)
+    from torch.distributed.tensor import DTensor
+    return [DTensor.from_local(c, v.device_mesh, v.placements,
+                               run_check=False)
+            for c in v.to_local().chunk(n, dim=0)]
 
 
 def loss_and_grads(params, cfg: ModelConfig, batch: Dict, device
@@ -67,7 +78,7 @@ def make_train_step(cfg: ModelConfig, adamw: opt.AdamWConfig,
         if grad_accum == 1:
             loss, metrics, grads = loss_and_grads(params, cfg, batch, dev)
         else:
-            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            gsum = [torch.zeros_like(p, dtype=torch.float32)
                     for p in tree_leaves(params)]
             loss = torch.zeros((), dtype=torch.float32, device=dev)
             msum = {"ce": torch.zeros((), dtype=torch.float32, device=dev),

@@ -1535,3 +1535,107 @@ def test_cuda_converter_block_with_a_dense_kernel_callback(cuda):
     for e in envs:
         assert torch.equal(e["residual2"], env["residual2"])
     assert all(r == (j + k) % 2 for j, k, r in log)
+
+
+# ---------------------------------------------------------------------------
+# the shape-only faces: a fake tensor's call returns the kernel's metadata
+# ---------------------------------------------------------------------------
+def _face_cases(dev):
+    """(entry, wrapper call, operands) for every CUDA entry at a small
+    shape that splits the KV (a workspace) where the kernel can."""
+    rng = np.random.default_rng(0)
+    q, kp, vp, bt, lens = _rand_paged(7, 2, 2, 4, 128, 16, 40)
+    pool = [_bf16(q, dev), _bf16(kp, dev), _bf16(vp, dev),
+            torch.from_numpy(bt).to(dev), torch.from_numpy(lens).to(dev)]
+    kq, ks = _int8_pool(kp, dev)
+    vq, vs = _int8_pool(vp, dev)
+    chunk = [_bf16(rng.standard_normal((40, 8, 128)), dev)] + pool[1:3] + \
+        [pool[3][0].contiguous()] + \
+        [_bf16(rng.standard_normal((40, 2, 128)), dev) for _ in range(2)]
+    S = 640
+    dq = _bf16(rng.standard_normal((2, 2, 4, 128)), dev)
+    dk, dv = (_bf16(rng.standard_normal((2, 2, S, 128)), dev)
+              for _ in range(2))
+    dl = torch.tensor([S, 100], dtype=torch.int32, device=dev)
+    dkq, dks = _int8_pool(dk.float().cpu(), dev)
+    dvq, dvs = _int8_pool(dv.float().cpu(), dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    x = torch.randn((2, 40, 4, 32), **f32)
+    Bi, Ci = (torch.randn((2, 40, 16), **f32) for _ in range(2))
+    decay = torch.rand((2, 40, 4), **f32)
+    rkvw = [torch.randn((2, 40, 4, 32), **f32) for _ in range(4)]
+    rkvw[3] = torch.rand((2, 40, 4, 32), **f32)
+    u = torch.randn((4, 32), **f32)
+    dy = torch.randn((2, 40, 4, 32), **f32)
+    part = dict(return_partials=True)
+    return [
+        ("paged_decode_attention_bf16", pda.paged_decode_attention, pool,
+         part),
+        ("paged_decode_attention_int8", pda.paged_decode_attention_int8,
+         [pool[0], kq, vq, ks, vs] + pool[3:], part),
+        ("paged_prefill_chunk_attention_bf16",
+         ppa.paged_prefill_chunk_attention, chunk, {}),
+        ("paged_prefill_chunk_attention_int8",
+         ppa.paged_prefill_chunk_attention_int8,
+         [chunk[0], kq, vq, ks, vs] + chunk[3:], {}),
+        ("decode_attention_bf16", da.decode_attention, [dq, dk, dv, dl],
+         part),
+        ("decode_attention_int8", da.decode_attention_int8,
+         [dq, dkq, dvq, dks, dvs, dl], part),
+        ("ssm_scan_f32", ssm.ssm_scan, [x, Bi, Ci, decay], {}),
+        ("ssm_scan_bwd_f32", ssm.ssm_scan_bwd, [x, Bi, Ci, decay, dy], {}),
+        ("rwkv6_scan_bf16", rw.rwkv6_scan,
+         [a.bfloat16() for a in rkvw] + [u], {}),
+        ("rwkv6_scan_f32", rw.rwkv6_scan, rkvw + [u], {}),
+        ("rwkv6_scan_bwd_bf16", rw.rwkv6_scan_bwd,
+         [a.bfloat16() for a in rkvw] + [u, dy], {}),
+        ("rwkv6_scan_bwd_f32", rw.rwkv6_scan_bwd, rkvw + [u, dy], {}),
+    ]
+
+
+FACE_ENTRIES = ["paged_decode_attention_bf16", "paged_decode_attention_int8",
+                "paged_prefill_chunk_attention_bf16",
+                "paged_prefill_chunk_attention_int8",
+                "decode_attention_bf16", "decode_attention_int8",
+                "ssm_scan_f32", "ssm_scan_bwd_f32", "rwkv6_scan_bf16",
+                "rwkv6_scan_f32", "rwkv6_scan_bwd_bf16",
+                "rwkv6_scan_bwd_f32"]
+LAUNCH_COUNTERS = (pda.paged_decode_attention,
+                   pda.paged_decode_attention_int8,
+                   ppa.paged_prefill_chunk_attention,
+                   ppa.paged_prefill_chunk_attention_int8,
+                   da.decode_attention, da.decode_attention_int8,
+                   ssm.ssm_scan, ssm.ssm_scan_bwd, rw.rwkv6_scan,
+                   rw.rwkv6_scan_bwd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", FACE_ENTRIES)
+def test_cuda_face_returns_the_kernels_metadata(cuda, entry):
+    """The entry's face on fake copies of the operands: outputs of the
+    real launch's shapes, dtypes and strides; the cost it reports equal to
+    the real launch's; no launch counted and no fake tensor among the
+    stream tickets."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.hlo_analysis import LocalCounter
+    name, fn, args, kw = next(c for c in _face_cases(cuda) if c[0] == entry)
+    with LocalCounter(args) as real_count:
+        real = fn(*args, **kw)
+    torch.cuda.synchronize()
+    real = real if isinstance(real, tuple) else (real,)
+    before = [f.launches for f in LAUNCH_COUNTERS]
+    with FakeTensorMode() as mode:
+        fargs = [mode.from_tensor(a) for a in args]
+        with LocalCounter(fargs) as fake_count:
+            fake = fn(*fargs, **kw)
+    fake = fake if isinstance(fake, tuple) else (fake,)
+    assert [f.launches for f in LAUNCH_COUNTERS] == before
+    assert len(fake) == len(real)
+    for f, r in zip(fake, real):
+        assert (tuple(f.shape), f.dtype, f.stride(), f.device) == \
+            (tuple(r.shape), r.dtype, r.stride(), r.device)
+    assert fake_count.kernel_calls == real_count.kernel_calls == {name: 1}
+    assert fake_count.kernel_flops == real_count.kernel_flops > 0
+    assert fake_count.kernel_bytes == real_count.kernel_bytes > 0
+    assert not any(_cuda.is_fake(t) for t in _cuda._TICKETS.values())

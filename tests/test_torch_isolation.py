@@ -62,6 +62,34 @@ def test_mesh_modules_are_held_to_the_import_check():
         assert f"src/repro_torch/{rel}" in names, rel
 
 
+def test_dry_run_modules_are_held_to_the_import_check():
+    names = {str(f.relative_to(ROOT)) for f in FILES}
+    for rel in ("launch/entrypoints.py", "launch/dryrun.py",
+                "launch/hlo_analysis.py", "launch/roofline.py",
+                "configs/base.py"):
+        assert f"src/repro_torch/{rel}" in names, rel
+
+
+def test_the_port_has_every_module_of_the_reference():
+    """``comm -23`` of the two packages' module lists is empty."""
+    ref = {p.relative_to(ROOT / "src" / "repro")
+           for p in (ROOT / "src" / "repro").rglob("*.py")}
+    port = {p.relative_to(PORT) for p in PORT.rglob("*.py")}
+    assert sorted(str(p) for p in ref - port) == []
+
+
+def test_the_dry_run_defaults_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.run_one("tinyllama-1.1b", "decode_32k", multi_pod=False,
+                       mode="natural", out_dir=str(tmp_path))
+    assert not dist.is_initialized()
+
+
 def test_every_port_module_names_its_reference():
     for path in PORT.rglob("*.py"):
         if path.name == "__init__.py" and path.parent != PORT and \

@@ -303,7 +303,147 @@ def _part_train(inputs):
                 for x in tree_leaves(p0))}
 
 
-PARTS = (("mesh", _part_mesh), ("train", _part_train))
+SERVE_MAX_SEQ = 48
+
+
+def _serve_inputs(vocab: int):
+    """The prompts and the next tokens of the placed serve steps."""
+    rng = np.random.default_rng(2)
+    return (rng.integers(0, vocab, (4, 24)).astype(np.int32),
+            rng.integers(0, vocab, (4,)).astype(np.int32))
+
+
+def _part_serve(inputs):
+    """The placed prefill, then the dense-cache decode step over the cache
+    placed at the head and at the seq partition (S over ``model``):
+    logits, the step's new K/V, and the placements the cache kept."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import registry
+    from repro_torch.core import disagg
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+
+    mesh = make_test_mesh((2, 4), ("data", "model"), device_type="cpu")
+    cfg = registry.get_smoke_config("llama3-8b", **TRAIN_OVERRIDES)
+    params = torch.load(inputs, weights_only=False)
+    prompts, nxt = (torch.as_tensor(a) for a in _serve_inputs(
+        cfg.vocab_size))
+    p0 = disagg.place(params, disagg.specs_for_params(cfg, params, mesh),
+                      mesh)
+    batch = {"tokens": prompts}
+    b0 = disagg.place(batch, disagg.specs_for_batch(cfg, batch, mesh), mesh)
+    full = lambda x: x.full_tensor() if isinstance(x, DTensor) else x  # noqa
+    logits, cache = transformer.prefill(p0, cfg, b0, SERVE_MAX_SEQ,
+                                        device="cpu")
+    res = {"prefill_logits": full(logits).numpy(),
+           "prefill_k": full(cache["k"]).numpy()}
+    tok = disagg.place(nxt, disagg.specs_for_batch(
+        cfg, {"t": nxt}, mesh)["t"], mesh)
+    for part in ("head", "seq"):
+        specs = disagg.specs_for_cache(cfg, cache, mesh, part)
+        placed = tree_map(
+            lambda t, spec: t.redistribute(mesh, disagg.placements(
+                spec, mesh)) if isinstance(t, DTensor) else
+            disagg.place(t, spec, mesh), cache, specs)
+        lg, upd = transformer.decode_step(p0, cfg, tok, placed, device="cpu")
+        res[part] = {"logits": full(lg).numpy(),
+                     "k_new": full(upd["k_new"]).numpy(),
+                     "v_new": full(upd["v_new"]).numpy(),
+                     "cache_placements": [repr(p) for p in
+                                          placed["k"].placements]}
+    return res
+
+
+FAMILY_ARCHS = ("zamba2-1.2b", "rwkv6-7b", "qwen3-moe-30b-a3b")
+
+
+def _family_step(cfg, params, batch, mesh=None):
+    """One train step; with a mesh, of the parameters, AdamW state and
+    batch placed at the reference's specs."""
+    from repro_torch.core import disagg
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import make_train_step
+    state = opt.init_opt_state(params)
+    if mesh is not None:
+        pspecs = disagg.specs_for_params(cfg, params, mesh)
+        params = disagg.place(params, pspecs, mesh)
+        state = opt.OptState(disagg.place(state.step, disagg.P(), mesh),
+                             disagg.place(state.mu, pspecs, mesh),
+                             disagg.place(state.nu, pspecs, mesh))
+        batch = disagg.place(batch, disagg.specs_for_batch(cfg, batch, mesh),
+                             mesh)
+    return make_train_step(cfg, opt.AdamWConfig(lr=1e-3))(params, state,
+                                                          batch)
+
+
+def _part_families(inputs):
+    """One placed train step of a hybrid, an ssm and a moe smoke config
+    (the scans on each rank's batch and heads, the moe routing on each
+    rank's token groups): the loss and the gradient norm."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer
+
+    mesh = make_test_mesh((2, 4), ("data", "model"), device_type="cpu")
+    res = {}
+    for arch in FAMILY_ARCHS:
+        cfg = registry.get_smoke_config(arch)
+        params = transformer.init_params(0, cfg, device="cpu")
+        batch = {k: torch.as_tensor(v)
+                 for k, v in _batch(cfg.vocab_size).items()}
+        try:
+            _, _, m = _family_step(cfg, params, batch, mesh)
+        except Exception:
+            res[arch] = {"error": traceback.format_exc()}
+            continue
+        full = lambda x: x.full_tensor() if isinstance(x, DTensor) else x  # noqa
+        res[arch] = {k: float(full(v)) for k, v in m.items()}
+        if cfg.family in ("ssm", "hybrid"):
+            res[arch].update(_recurrent_serve(cfg, params, mesh))
+    return res
+
+
+def _recurrent_serve(cfg, params, mesh=None):
+    """prefill -> decode_step of a recurrent smoke config (placed at the
+    reference's specs when a mesh is given): the logits of both and the
+    prefill's final states, as numpy."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core import disagg
+    from repro_torch.models import transformer
+    prompts, nxt = (torch.as_tensor(a) for a in _serve_inputs(
+        cfg.vocab_size))
+    batch = {"tokens": prompts}
+    if mesh is not None:
+        params = disagg.place(params, disagg.specs_for_params(
+            cfg, params, mesh), mesh)
+        batch = disagg.place(batch, disagg.specs_for_batch(cfg, batch, mesh),
+                             mesh)
+        nxt = disagg.place(nxt, disagg.specs_for_batch(
+            cfg, {"t": nxt}, mesh)["t"], mesh)
+    full = lambda x: x.full_tensor() if isinstance(x, DTensor) else x  # noqa
+    with torch.no_grad():
+        logits, cache = transformer.prefill(params, cfg, batch, SERVE_MAX_SEQ,
+                                            device="cpu")
+        if mesh is not None:
+            specs = disagg.specs_for_cache(cfg, cache, mesh)
+            cache = {k: v.redistribute(mesh, disagg.placements(specs[k], mesh))
+                     if isinstance(v, DTensor) else
+                     disagg.place(v, specs[k], mesh)
+                     for k, v in cache.items()}
+        lg, _ = transformer.decode_step(params, cfg, nxt, cache,
+                                        device="cpu")
+    state = "S" if cfg.family == "ssm" else "h"
+    return {"prefill_logits": full(logits).numpy(),
+            "state": full(cache[state]).numpy(), "logits": full(lg).numpy()}
+
+
+PARTS = (("mesh", _part_mesh), ("train", _part_train),
+         ("serve", _part_serve), ("families", _part_families))
 
 
 def _rank_main(rank: int, world: int, store: str, out_dir: str,
@@ -446,3 +586,101 @@ def test_placed_train_step_keeps_every_leaf_placed(world):
     for res in _part(world, "train"):
         assert res["kept_placements"]
         assert res["sharded_leaves"] >= 8   # the step really is sharded
+
+
+@pytest.fixture(scope="module")
+def single_serve():
+    """The single-process prefill and decode step of the same parameters,
+    prompts and tokens."""
+    import jax
+
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer
+    _, jparams = _jax_setup()
+    cfg = registry.get_smoke_config("llama3-8b", **TRAIN_OVERRIDES)
+    params = transformer.params_from_jax(
+        jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    prompts, nxt = (torch.as_tensor(a) for a in _serve_inputs(
+        cfg.vocab_size))
+    with torch.no_grad():
+        logits, cache = transformer.prefill(params, cfg, {"tokens": prompts},
+                                            SERVE_MAX_SEQ, device="cpu")
+        lg, upd = transformer.decode_step(params, cfg, nxt, cache,
+                                          device="cpu")
+    return {"prefill_logits": logits.numpy(), "prefill_k": cache["k"].numpy(),
+            "logits": lg.numpy(), "k_new": upd["k_new"].numpy(),
+            "v_new": upd["v_new"].numpy()}
+
+
+def test_placed_prefill_matches_single_process(world, single_serve):
+    for res in _part(world, "serve"):
+        np.testing.assert_allclose(res["prefill_logits"],
+                                   single_serve["prefill_logits"],
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_allclose(res["prefill_k"],
+                                   single_serve["prefill_k"], rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("part", ["head", "seq"])
+def test_placed_decode_step_matches_single_process(world, single_serve,
+                                                   part):
+    """The decode step over a cache split by kv heads (no collective of
+    K/V) or by sequence (each rank's slice, its partial psum-combined):
+    logits and the new token's K/V at fp32 1e-5 of the single-process
+    step; under the head split the first layer's new K/V bit for bit (a
+    later layer's input has passed through the placed out-projections,
+    whose partial sums add in another order)."""
+    for res in _part(world, "serve"):
+        got = res[part]
+        assert got["cache_placements"] == (
+            ["Shard(dim=1)", "Shard(dim=2)"] if part == "head" else
+            ["Shard(dim=1)", "Shard(dim=3)"])
+        np.testing.assert_allclose(got["logits"], single_serve["logits"],
+                                   rtol=0, atol=1e-5)
+        for key in ("k_new", "v_new"):
+            np.testing.assert_allclose(got[key], single_serve[key], rtol=0,
+                                       atol=1e-5)
+            if part == "head":
+                np.testing.assert_array_equal(got[key][0],
+                                              single_serve[key][0])
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_placed_train_step_of_each_family_matches_single_process(world,
+                                                                 arch):
+    """zamba2 / rwkv6 (the scans on each rank's shards, their gradients
+    summed over the ranks that share an operand) and qwen3-moe (routing on
+    each rank's token groups, the router's gradient summed): the placed
+    step's loss and gradient norm equal the single-process step's."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer
+    cfg = registry.get_smoke_config(arch)
+    params = transformer.init_params(0, cfg, device="cpu")
+    batch = {k: torch.as_tensor(v)
+             for k, v in _batch(cfg.vocab_size).items()}
+    _, _, want = _family_step(cfg, params, batch)
+    for r, res in enumerate(_part(world, "families")):
+        got = res[arch]
+        assert "error" not in got, f"rank {r}:\n{got['error']}"
+        assert abs(got["loss"] - float(want["loss"])) < 1e-4, got
+        assert abs(got["grad_norm"] - float(want["grad_norm"])) < \
+            1e-4 * max(1.0, float(want["grad_norm"])), got
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-7b"])
+def test_placed_recurrent_serve_step_matches_single_process(world, arch):
+    """The placed prefill (the scans and their closed-form final states on
+    each rank's batch and heads) and decode step (rwkv6's recurrence on
+    each rank's heads): logits and final states at fp32 1e-5 of the
+    single-process steps."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer
+    cfg = registry.get_smoke_config(arch)
+    want = _recurrent_serve(cfg, transformer.init_params(0, cfg,
+                                                         device="cpu"))
+    for res in _part(world, "families"):
+        got = res[arch]
+        for key in ("prefill_logits", "state", "logits"):
+            np.testing.assert_allclose(got[key], want[key], rtol=0,
+                                       atol=1e-5, err_msg=key)
