@@ -278,8 +278,38 @@ Phases (any failure exits non-zero and prints no result line):
      dense family (tinyllama-1.1b, llama3-8b) must be traced ok and no
      record may launch a kernel. Records and the sweep's log go to
      ``build/dryrun/``;
- 24. one JSON line describing every ported kernel, then the result line.
-     A failed gate of phases 4, 5, 10, 11 and 13-23 is reported where it
+ 24. the long_500k configuration (``long_e2e``: one sequence of 524,288
+     tokens at B = 1): (a) rows 1, 3 (full context; window 8192; glm4-9b-
+     sinks' G = 16 at the 256-split cap), 4 and 2 (a 512-token chunk at P
+     = 523,776, window 8192), 5 (zamba2's shared attention, no window;
+     glm4-9b-sinks), 5-int8 (llama3-8b-sw8k) and 7 (rwkv6-7b, B·S·H·P =
+     2^31, against ``rwkv6_scan_chunked_plain``) against their plain twins
+     with NaN values or scales in every slot outside the live range, timed
+     unheld and held beside their bounds and SDPA; (b) the dry run's
+     ``serve_step`` (``build_lowering_spec(arch, "long_500k")``) at full
+     width and depth for zamba2-1.2b, glm4-9b-sinks, llama3-8b-sw8k over
+     an int8 dense cache and rwkv6-7b, from a cache filled from a seed at
+     524,280 tokens (NaN past it): 8 steps + ``apply_decode_updates``,
+     each against the same step with row 5's plain twin (every row 5 call
+     of the step within 2 bf16 ulps of its twin on its own operands and
+     at a cosine >= 0.999, its largest ulp error printed; the logits'
+     cosine within max(0.001, the distance one bf16 ulp on row 5's
+     outputs moves the twin step); argmax or a tie), row 5 launches
+     counted each step, step wall p50, a profiled window of
+     3 steps at the full cache (row 5's ms beside its byte bound), peak
+     memory, cache bytes = the formula; rwkv6-7b's one-shot prefill of
+     262,144 tokens (``LONG_PREFILL_S``); (c) llama3-8b-sw8k through
+     LLMEngine, attention_pool head x 2 over an int8 pool of 32,776
+     blocks: one request of 524,256
+     tokens chunk-prefilled by 512 and 32 greedy tokens (launches, the
+     TransferLog, resident bytes, the last step's decode and last chunk's
+     attention over the real pool against their twins; TTFT split into
+     eager, capture and replay seconds, TBT p50, peak); (d) each (b)
+     record traced on a (1, 1) mesh within 10 % of one real step's peak,
+     and llama3-8b-sw8k's bf16 record beside the card's memory.
+     ``python3 chip_smoke.py --phase24`` runs it alone after the build;
+ 25. one JSON line describing every ported kernel, then the result line.
+     A failed gate of phases 4, 5, 10, 11 and 13-24 is reported where it
      happens and fails the run after the last phase. No two full-width
      models are alive at once.
 
@@ -291,6 +321,7 @@ from __future__ import annotations
 import atexit
 import contextlib
 import dataclasses
+import functools
 import gc
 import itertools
 import json
@@ -529,6 +560,9 @@ def quantize_pool(torch, pool):
 def decode_case(torch, pda, timer, *, B, Hkv, G, hd, bs, lens, seed,
                 int8=False, sliding_window=0, sinks=0, softcap=0.0,
                 pos_pad=False, library=True):
+    """The paged decode kernel vs its twin; every slot no mask keeps (past
+    cache_len, in free blocks, outside the window and sinks) holds NaN
+    values (bf16) or NaN scales (int8)."""
     from repro_torch.kernels import _cuda
     gen = torch.Generator(device=DEV).manual_seed(seed)
     nbs = [-(-n // bs) for n in lens]
@@ -546,6 +580,11 @@ def decode_case(torch, pda, timer, *, B, Hkv, G, hd, bs, lens, seed,
         tables[i, :n] = perm[used:used + n].int()
         used += n
         stale[int(tables[i, n - 1]), lens[i] - (n - 1) * bs:] = True
+        if sliding_window:
+            slot = (torch.arange(n, device=DEV)[:, None] * bs +
+                    torch.arange(bs, device=DEV))
+            out_w = (slot < lens[i] - sliding_window) & (slot >= sinks)
+            stale[tables[i, :n].long()] |= out_w
     k_pool[:, stale] = float("nan")        # stale NaN past cache_len
     v_pool[:, stale] = float("nan")
     q = torch.randn((B, Hkv, G, hd), generator=gen, device=DEV).bfloat16()
@@ -693,7 +732,8 @@ def sass_count(lib_name, opcode, function=None):
 # phase 3: paged chunk prefill
 # ---------------------------------------------------------------------------
 def prefill_case(torch, ppa, timer, *, H, Hkv, hd, bs, P, C, seed,
-                 int8=False, sliding_window=0, sinks=0, softcap=0.0):
+                 int8=False, sliding_window=0, sinks=0, softcap=0.0,
+                 plain_iters=5):
     gen = torch.Generator(device=DEV).manual_seed(seed)
     nb = P // bs
     NB = nb + 5
@@ -730,9 +770,10 @@ def prefill_case(torch, ppa, timer, *, H, Hkv, hd, bs, P, C, seed,
     if sliding_window:
         valid &= (pos_k > pos_q - sliding_window) | (pos_k < sinks)
     pairs = int(valid.sum())                  # per query head
+    kept = int(valid[:, :P].any(0).sum())     # prefix rows the masks keep
     row_bytes = (hd + 4) * 2 if int8 else hd * 2 * 2
     nbytes = (2 * (q.numel() + kc.numel() + vc.numel() + out.numel()) +
-              P * Hkv * row_bytes + nb * 4)
+              kept * Hkv * row_bytes + nb * 4)
     flops = 4 * pairs * H * hd
     bound_ms, bound_by = bound(nbytes, flops)
     def kernel():
@@ -742,7 +783,8 @@ def prefill_case(torch, ppa, timer, *, H, Hkv, hd, bs, P, C, seed,
     timing = dict(ms_held=timer.ms(kernel, iters=9, hold=True),
                   host_us=timer.host_us(kernel))
     plain_ms = timer.ms(lambda: ppa.paged_prefill_chunk_attention_plain(
-        q, *pools, table, kc, vc, **kw), iters=5)
+        q, *pools, table, kc, vc, **kw), iters=plain_iters,
+        warmup=min(plain_iters, 2))
     library_ms = None
     if softcap == 0.0:
         kp, vp = ppa.gather_prefix_dense(*pools, table)
@@ -768,7 +810,7 @@ def prefill_case(torch, ppa, timer, *, H, Hkv, hd, bs, P, C, seed,
                       library_host_us=timer.host_us(library))
     return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                **timing)
+                prefix_rows_kept=kept, **timing)
 
 
 def prefill_design(ppa):
@@ -1047,6 +1089,7 @@ def compiled_stats(comp):
     captures reserved."""
     return dict(graphs_captured=comp.captures, graphs_kept=comp.graphs,
                 capture_s=comp.capture_s, replays=comp.replays,
+                eager_calls=comp.eager_calls,
                 graph_reserved_mib=comp.reserved_bytes / 2**20)
 
 
@@ -2231,9 +2274,10 @@ def profile_window(torch, step, n_steps, batch,
 def dense_decode_case(torch, da, timer, *, B, Hkv, G, hd, lens, S, seed,
                       sliding_window=0, sinks=0, softcap=0.0, int8=False):
     """The dense decode kernel vs its twin on a (B, Hkv, S, hd) cache whose
-    slots past each cache_len hold NaN (NaN scales too, for an int8
-    cache); o alone and the (o, l, m) triple. The int8 entry is also held
-    against the bf16 twin on the unquantized cache (cosine)."""
+    slots no mask keeps (past each cache_len, outside the window and
+    sinks) hold NaN (NaN scales too, for an int8 cache); o alone and the
+    (o, l, m) triple. The int8 entry is also held against the bf16 twin
+    on the unquantized cache (cosine)."""
     from repro_torch.kernels import _cuda
     gen = torch.Generator(device=DEV).manual_seed(seed)
     shape = (B, Hkv, S, hd)
@@ -2242,6 +2286,9 @@ def dense_decode_case(torch, da, timer, *, B, Hkv, G, hd, lens, S, seed,
     cache_len = torch.tensor(lens, dtype=torch.int32, device=DEV)
     pos = torch.arange(S, device=DEV)
     stale = pos[None] >= cache_len[:, None]                      # (B, S)
+    if sliding_window:
+        stale |= (pos[None] < cache_len[:, None] - sliding_window) & \
+            (pos[None] >= sinks)
     stale3 = stale[:, None].expand(B, Hkv, S)
     k[stale3] = float("nan")
     v[stale3] = float("nan")
@@ -2448,12 +2495,16 @@ def ssm_case(torch, ssm, timer, *, B, S, H, P, N, seed, edges=False,
 
 
 def rwkv_case(torch, rwkv, timer, *, B, S, H, P, seed, decays="randn",
-              timed=True):
+              timed=True, twin=None, plain_iters=3):
     """The RWKV6 scan kernel vs its step twin at a prefill shape, bf16
     inputs (the model dtype). ``decays``: "randn", w = exp(-exp(N(0,1) - 2));
     "model", the layer's w = exp(-exp(-6 + noise)) in bf16 (mostly 0.996 or
     exactly 1.0) with exact 0 among them. ``timed``: also its times, held
-    and unheld, the host time of a call, and its bounds."""
+    and unheld, the host time of a call, and its bounds. ``twin``: the
+    plain scan held against (the step twin by default), timed over
+    ``plain_iters`` calls (0: the checking call's own time, for a twin
+    that runs for seconds)."""
+    twin = twin or rwkv.rwkv6_scan_plain
     gen = torch.Generator(device=DEV).manual_seed(seed)
     shape = (B, S, H, P)
     r, k, v = (torch.randn(shape, generator=gen, device=DEV).bfloat16()
@@ -2468,9 +2519,15 @@ def rwkv_case(torch, rwkv, timer, *, B, S, H, P, seed, decays="randn",
     u = torch.randn((H, P), generator=gen, device=DEV) * 0.5
     y = rwkv.rwkv6_scan(r, k, v, w, u)
     sync(torch)
-    want = rwkv.rwkv6_scan_plain(r, k, v, w, u)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    want = twin(r, k, v, w, u)
+    b.record()
+    b.synchronize()
     out = dict(max_abs_err=check_scan("rwkv6_scan y", y, want),
                y_scale=float(want.abs().max()))
+    del want
     if not timed:
         return out
     nbytes = 2 * 4 * r.numel() + 4 * u.numel() + 4 * y.numel()
@@ -2487,8 +2544,8 @@ def rwkv_case(torch, rwkv, timer, *, B, S, H, P, seed, decays="randn",
         host_us=timer.host_us(kernel),
         host_us_no_function=timer.host_us(
             lambda: rwkv._rwkv6_scan_forward(r, k, v, w, u)),
-        plain_ms=timer.ms(lambda: rwkv.rwkv6_scan_plain(r, k, v, w, u),
-                          iters=3, warmup=1),
+        plain_ms=timer.ms(lambda: twin(r, k, v, w, u), iters=plain_iters,
+                          warmup=1) if plain_iters else a.elapsed_time(b),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, bytes=nbytes,
         flops=flops,
         # the sequential form's bound, kept for comparison: its fp32
@@ -5424,6 +5481,22 @@ def dry_train(torch, registry, transformer, counters, train):
     return out
 
 
+def trace_1x1(torch, arch, shape, overrides):
+    """``build_lowering_spec(arch, shape)`` traced on a (1, 1) mesh: (the
+    spec, whose function is what the card then runs, the dry run's trace
+    of it, the seconds both took)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.entrypoints import build_lowering_spec
+    from repro_torch.launch.mesh import make_test_mesh
+    t0 = time.perf_counter()
+    with dryrun.fake_world(1):
+        mesh = make_test_mesh((1, 1), device_type=DEV)
+        spec = build_lowering_spec(arch, shape, mesh, overrides=overrides)
+        tr = dryrun.trace(spec.fn, spec.args, mesh, spec.in_shardings,
+                          spec.out_shardings)
+    return spec, tr, time.perf_counter() - t0
+
+
 def dry_decode(torch, registry, transformer, counters):
     """(b, c) the reference test's decode_32k config (tinyllama-1.1b at 2
     layers, a 2048-token vocab, B=128, a 32768-row bf16 cache) traced on a
@@ -5431,18 +5504,11 @@ def dry_decode(torch, registry, transformer, counters):
     held before its weights were made; the real step counted by the same
     mode: FLOPs equal to the trace's."""
     from repro_torch.configs.base import INPUT_SHAPES
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.entrypoints import build_lowering_spec
     from repro_torch.launch.hlo_analysis import LocalCounter
-    from repro_torch.launch.mesh import make_test_mesh
     shp = INPUT_SHAPES["decode_32k"]
     before = counters.read()
-    with dryrun.fake_world(1):
-        mesh = make_test_mesh((1, 1), device_type=DEV)
-        spec = build_lowering_spec("tinyllama-1.1b", "decode_32k", mesh,
-                                   overrides=DRY_DECODE)
-        tr = dryrun.trace(spec.fn, spec.args, mesh, spec.in_shardings,
-                          spec.out_shardings)
+    spec, tr, _ = trace_1x1(torch, "tinyllama-1.1b", "decode_32k",
+                            DRY_DECODE)
     gate(counters.read() == before, "phase 23 (b): the decode step's trace "
          "launched a kernel")
     proof = (tr["argument_bytes"] + tr["temp_bytes"]) / 2**30
@@ -5588,6 +5654,603 @@ def dryrun_e2e(torch, np, registry, transformer, counters, train, sweep,
     out["sweep"] = finish_dry_sweep(sweep, sweep_dir)
     out["wall_s_phase"] = time.perf_counter() - t0
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the long_500k configuration (one 524,288-token sequence)
+# ---------------------------------------------------------------------------
+LONG_S = 524_288              # configs/base.py long_500k: B = 1
+LONG_STEPS = 8                # serve steps from a cache at LONG_S - 8
+LONG_BS = 16
+# (b): registry id and the overrides of the run on the card; the config is
+# config_for_shape(arch, "long_500k") (llama3-8b-sw8k, glm4-9b-sinks)
+LONG_ARCHS = (("zamba2-1.2b", None), ("glm4-9b", None),
+              ("llama3-8b", {"kv_cache_bits": 8}), ("rwkv6-7b", None))
+# rwkv6-7b's one-shot prefill at B = 1: the longest power of two the card
+# holds beside its weights. At 262,144 the time mix's five mixed inputs
+# (B, 5, S, d) asked for 10 GiB more with 48.35 GiB allocated and 22.69
+# GiB reserved but unallocated (an H100 80GB, 79.18 GiB); at 524,288
+# those inputs, the fused projection and the closed-form final state's
+# fp32 suffix products alone exceed the card
+LONG_PREFILL_S = 262_144
+# (c): one request through Lamina's int8 pool, head x 2
+LONG_PROMPT = 524_256
+LONG_NEW = 32
+LONG_CHUNK = 512
+LONG_POOL_BLOCKS = LONG_S // LONG_BS + 8
+
+
+def long_kernel_cases(torch, pda, ppa, da, rwkv, timer):
+    """(a) rows 1, 3, 2, 4, 5, 5-int8 and 7 at 524,288 tokens against their
+    plain twins on the card, NaN values or scales in every slot outside the
+    live range, timed unheld and held beside their bounds (and SDPA on
+    pre-gathered K/V where the table has it)."""
+    nb = LONG_S // LONG_BS
+    out = {}
+
+    def put(name, r):
+        out[name] = r
+        log(f"phase 24 (a) {name}: {json.dumps(r)}")
+        torch.cuda.empty_cache()
+
+    paged = dict(B=1, Hkv=8, G=4, hd=128, bs=LONG_BS)
+    put("row 1 llama3-8b full context", decode_case(
+        torch, pda, timer, lens=[LONG_S], seed=240, **paged))
+    put("row 3 llama3-8b full context", decode_case(
+        torch, pda, timer, lens=[LONG_S], seed=241, int8=True, **paged))
+    put("row 3 llama3-8b-sw8k window 8192", decode_case(
+        torch, pda, timer, lens=[LONG_S], seed=242, int8=True,
+        sliding_window=8191, **paged))
+    put("row 3 glm4-9b-sinks G=16 window 8192 sinks 4", decode_case(
+        torch, pda, timer, B=1, Hkv=2, G=16, hd=128, bs=LONG_BS,
+        lens=[LONG_S], seed=243, int8=True, sliding_window=8191, sinks=4))
+    P = LONG_S - LONG_CHUNK
+    for int8 in (True, False):
+        put(f"row {4 if int8 else 2} llama3-8b-sw8k C=512 P={P} window 8192",
+            prefill_case(torch, ppa, timer, H=32, Hkv=8, hd=128, bs=LONG_BS,
+                         P=P, C=LONG_CHUNK, seed=244, int8=int8,
+                         sliding_window=8192, plain_iters=1))
+    put("row 5 zamba2 shared attention Hkv=32 G=1 hd=64", dense_decode_case(
+        torch, da, timer, B=1, Hkv=32, G=1, hd=64, lens=[LONG_S - 8],
+        S=LONG_S, seed=245))
+    put("row 5 glm4-9b-sinks Hkv=2 G=16 window 8192 sinks 4",
+        dense_decode_case(torch, da, timer, B=1, Hkv=2, G=16, hd=128,
+                          lens=[LONG_S - 8], S=LONG_S, seed=246,
+                          sliding_window=8191, sinks=4))
+    put("row 5-int8 llama3-8b-sw8k Hkv=8 G=4 window 8192", dense_decode_case(
+        torch, da, timer, B=1, Hkv=8, G=4, hd=128, lens=[LONG_S - 8],
+        S=LONG_S, seed=247, int8=True, sliding_window=8191))
+    # the chunked twin in tiles of 64 steps (a quarter of the 16-step
+    # tiles' Python loop: 8192 tiles, ~10 s on the card)
+    put("row 7 rwkv6-7b B=1 S=524288 H=64 P=64 (2^31 elements)", rwkv_case(
+        torch, rwkv, timer, B=1, S=LONG_S, H=64, P=64, seed=248,
+        twin=functools.partial(rwkv.rwkv6_scan_chunked_plain, chunk=64),
+        plain_iters=0))
+    out["paged_plan"] = {
+        f"Hkv={h} G={g}": pda.launch_geometry(1, h, nb, _sm_count(torch), g)
+        for h, g in ((8, 4), (4, 4), (2, 16))}
+    return out
+
+
+def _sm_count(torch):
+    from repro_torch.kernels import _cuda
+    return _cuda.sm_count(torch.device(DEV))
+
+
+def fill_long_cache(torch, cache, seed, length):
+    """A decode cache filled from ``seed`` on the card at ``length`` tokens:
+    normal K/V (int8 values in [-127, 127] with scales in [0.005, 0.03))
+    and recurrent states, written a leading slice at a time so nothing
+    the size of the cache is ever allocated beside it; every K/V slot at or
+    past ``length`` holds NaN (NaN scales in an int8 cache)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    for key, t in cache.items():
+        if key == "len":
+            t.fill_(length)
+            continue
+        for part in t:
+            if key.endswith("_scale"):
+                part.uniform_(0.005, 0.03, generator=gen)
+            elif t.dtype == torch.int8:
+                part.random_(-127, 128, generator=gen)
+            else:
+                part.normal_(generator=gen)
+        if key in ("k", "v") and t.is_floating_point():
+            t[:, :, :, length:] = float("nan")
+        elif key.endswith("_scale"):
+            t[..., length:] = float("nan")
+
+
+def long_attention_layers(cfg):
+    """Attention invocations a decode step makes (row 5 launches)."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_period
+    return 0 if cfg.family == "ssm" else cfg.num_layers
+
+
+def long_row5_bound(cfg, length, int8):
+    """Row 5's byte bound for one step at ``length`` stored tokens: the rows
+    each attention invocation's masks keep (window and sinks, as the
+    kernel takes them: the serving window less the incoming token), K + V
+    (int8 rows hd + 4 bytes with their scale) over the memory rate."""
+    w, sinks = cfg.sliding_window, cfg.attention_sinks
+    rows = length
+    if w:
+        kw = w - 1
+        rows = min(length, kw) + max(0, min(sinks, length - kw))
+    hd = cfg.resolved_head_dim
+    row_bytes = (hd + 4) * 2 if int8 else hd * 2 * 2
+    nbytes = long_attention_layers(cfg) * rows * cfg.num_kv_heads * row_bytes
+    return nbytes / HBM_BYTES_PER_S * 1e3, rows
+
+
+def long_cache_bytes(cfg, int8):
+    """The formula for the dense cache's K/V (and scales) at LONG_S."""
+    n = long_attention_layers(cfg)
+    hd = cfg.resolved_head_dim
+    per = (hd + 4) if int8 else 2 * hd
+    return 2 * n * cfg.num_kv_heads * LONG_S * per
+
+
+def long_trace(torch, arch, overrides):
+    """The long_500k record of ``arch`` on a (1, 1) mesh: (the spec, its
+    per-chip bytes: arguments + the peak of the temporaries)."""
+    spec, tr, secs = trace_1x1(torch, arch, "long_500k", overrides)
+    proof = (tr["argument_bytes"] + tr["temp_bytes"]) / 2**30
+    return spec, dict(per_chip_gib=proof,
+                      argument_gib=tr["argument_bytes"] / 2**30,
+                      temp_gib=tr["temp_bytes"] / 2**30,
+                      kernel_calls=tr["kernel_calls"], trace_s=secs)
+
+
+def ulp_err(torch, got, want):
+    """The largest |got - want| over the elements, in bf16 ulps of
+    ``want`` (the spacing of bf16 values at each element of it)."""
+    want = want.float()
+    exp = torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126)))
+    return float(((got.float() - want).abs() / torch.exp2(exp - 7)).max())
+
+
+def twin_steps(torch, da, serve_step, params, tok, cache, step):
+    """The same step with row 5's plain twin, (1) each of its calls also
+    launching the kernel on the call's own operands, held within the
+    kernel tolerance of the twin (o 2 bf16 ulps; l rtol 1e-3; m atol
+    1e-3), its o's largest ulp error and cosine to the twin's recorded,
+    and (2) with the twin's o moved by at most one bf16 ulp (a seeded
+    third of its elements up, a third down): the cosine of (1) and (2)'s
+    logits is the step's rounding floor, how far one ulp of row 5 moves
+    this random-weight model's logits at full depth. Returns (the twin
+    step's logits, that cosine, the largest move of a logit from (1) to
+    (2), the calls outside tolerance, each call's (ulps, cosine))."""
+    orig, plain_fn = da.decode_attention, da.decode_attention_plain
+    bad, calls = [], []
+
+    def held(q, k, v, clen, **kw):
+        want = plain_fn(q, k, v, clen, **kw)
+        got = orig(q, k, v, clen, **kw)
+        calls.append((ulp_err(torch, got[0], want[0]),
+                      cosine(got[0], want[0])))
+        try:
+            check_close("row 5 o", got[0], want[0])
+            check_close("row 5 l", got[1], want[1], rtol=1e-3, atol=1e-6)
+            check_close("row 5 m", got[2], want[2], rtol=0.0, atol=1e-3)
+        except AssertionError as e:
+            bad.append((step, len(calls) - 1, str(e)[:120]))
+        return want
+
+    def moved(q, k, v, clen, **kw):
+        o, l, m = plain_fn(q, k, v, clen, **kw)
+        gen = torch.Generator(device=q.device).manual_seed(step)
+        bump = torch.randint(-1, 2, o.shape, generator=gen, device=q.device)
+        return (o.float() * (1 + bump * 2.0 ** -8)).to(o.dtype), l, m
+
+    held.launches = moved.launches = 0  # the bf16 entry counts on its name
+    try:
+        da.decode_attention = held
+        plain, _ = serve_step(params, tok, cache)
+        da.decode_attention = moved
+        ulp, _ = serve_step(params, tok, cache)
+    finally:
+        da.decode_attention = orig
+    move = float((ulp[0].float() - plain[0].float()).abs().max())
+    return plain, cosine(plain[0], ulp[0]), move, bad, calls
+
+
+def long_decode(torch, np, transformer, counters, arch, overrides):
+    """(b) and (d) for one arch: the dry run's (1, 1) record, then its
+    ``serve_step`` on the card at full width and depth from a cache filled
+    at LONG_S - LONG_STEPS: LONG_STEPS steps + ``apply_decode_updates``,
+    each against the same step with row 5's plain twin (``twin_steps``:
+    every row 5 call held on its own operands, within the kernel tolerance
+    and at a cosine >= MIN_COSINE; the logits' cosine within
+    max(1 - MIN_COSINE, the twin's own one-ulp distance); the same argmax,
+    or one whose logit in the twin's lies within max(NEAR_TIE_ULPS, twice
+    the largest move one ulp of row 5 gives a logit) of the top: what
+    logits each moved that far can swap), row 5's launches counted each
+    step, a
+    profiled window of 3 steps at the full cache, peak memory and cache
+    bytes against the formula. Returns (the record, the launches the
+    steps counted)."""
+    from repro_torch.kernels import decode_attention as da
+    before = counters.read()
+    spec, dry = long_trace(torch, arch, overrides)
+    gate(counters.read() == before, f"phase 24 (d) {arch}: the trace "
+         f"launched a kernel")
+    cfg, serve_step = spec.cfg, spec.fn
+    int8 = cfg.kv_cache_bits == 8 and cfg.family == "dense"
+    n_attn = long_attention_layers(cfg)
+    row5 = "decode_attention_int8" if int8 else "decode_attention"
+    want = {k: 0 for k in counters.fns}
+    if n_attn:
+        want[row5] = n_attn
+    release(torch)
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = transformer.init_params(0, cfg, device=DEV)
+    cache = transformer.init_cache(cfg, 1, LONG_S, device=DEV)
+    fill_long_cache(torch, cache, 24, LONG_S - LONG_STEPS)
+    sync(torch)
+    setup_s = time.perf_counter() - t0
+    kv_bytes = tree_bytes({k: v for k, v in cache.items()
+                           if k in ("k", "v", "k_scale", "v_scale")})
+    gate(kv_bytes == long_cache_bytes(cfg, int8), f"phase 24 (b) {arch}: "
+         f"cache K/V bytes {kv_bytes} != {long_cache_bytes(cfg, int8)}")
+    tok = torch.tensor([7], dtype=torch.int32, device=DEV)
+    step_ms, cos, ties, launch_bad, finite = [], [], [], [], True
+    floors, moves, layer_bad, call_ulps, call_cos = [], [], [], [], []
+    counted = {}
+    step_peak = None
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(LONG_STEPS):
+        sync(torch)
+        counters.reset()
+        t1 = time.perf_counter()
+        logits, upd = serve_step(params, tok, cache)
+        sync(torch)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        if step_peak is None:
+            step_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        got = counters.read()
+        for k, n in got.items():
+            counted[k] = counted.get(k, 0) + n
+        if got != want:
+            launch_bad.append((step, {k: n for k, n in got.items() if n}))
+        finite &= bool(torch.isfinite(logits.float()).all())
+        if n_attn:
+            plain, floor, move, bad, calls = twin_steps(
+                torch, da, serve_step, params, tok, cache, step)
+            layer_bad += bad
+            call_ulps.append(max(u for u, _ in calls))
+            call_cos.append(min(c for _, c in calls))
+            cos.append(cosine(logits[0], plain[0]))
+            floors.append(floor)
+            moves.append(move)
+            t = int(logits[0].argmax())
+            if t != int(plain[0].argmax()):
+                top = float(plain[0].float().max())
+                ties.append((step, gap_ulps(plain[0], t),
+                             max(NEAR_TIE_ULPS, 2 * move / bf16_ulp(top))))
+            del plain
+        cache = transformer.apply_decode_updates(cache, upd)
+        tok = logits.argmax(-1).int()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    gate(int(cache["len"][0]) == LONG_S, f"phase 24 (b) {arch}: cache len "
+         f"{cache['len'].tolist()} != {LONG_S}")
+    gate(not launch_bad, f"phase 24 (b) {arch}: steps whose launches != "
+         f"{ {k: n for k, n in want.items() if n} }: {launch_bad[:4]}")
+    gate(finite, f"phase 24 (b) {arch}: logits not finite")
+    if n_attn:
+        gate(not layer_bad, f"phase 24 (b) {arch}: row 5 on a step's own "
+             f"operands outside the kernel tolerance of its twin: "
+             f"{layer_bad[:4]}")
+        gate(min(call_cos) >= MIN_COSINE, f"phase 24 (b) {arch}: a row 5 "
+             f"call's o at cosine {min(call_cos)} to its twin's on the same "
+             f"operands")
+        far = [(i, c, f) for i, (c, f) in enumerate(zip(cos, floors))
+               if 1 - c > max(1 - MIN_COSINE, 1 - f)]
+        gate(not far, f"phase 24 (b) {arch}: step logits vs the plain "
+             f"twin's farther than max(1 - {MIN_COSINE}, the twin's own "
+             f"one-ulp distance): (step, cosine, floor) {far[:4]}")
+        gate(all(g <= lim for _, g, lim in ties), f"phase 24 (b) {arch}: "
+             f"argmax left the plain twin's farther than one ulp of row 5 "
+             f"can swap: (step, gap ulps, limit ulps) {ties[:4]}")
+
+    def step():   # at the full cache, len = LONG_S: no write past it
+        serve_step(params, tok, cache)
+
+    prof = profile_window(torch, step, 3, 1, kernels=(
+        "dense_tc_kernel", "dense_lanes_kernel"))
+    row5_ms = prof["dense_tc_kernel_ms"] + prof["dense_lanes_kernel_ms"]
+    bound_ms, rows = long_row5_bound(cfg, LONG_S, int8)
+    dry_err = (dry["per_chip_gib"] - step_peak) / step_peak
+    gate(abs(dry_err) <= DRY_MEM_TOL, f"phase 24 (d) {arch}: the (1, 1) "
+         f"record {dry['per_chip_gib']:.3f} GiB is {dry_err:+.1%} off one "
+         f"real step's {step_peak:.3f} GiB")
+    res = dict(config=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+               kv_heads=cfg.num_kv_heads, window=cfg.sliding_window,
+               sinks=cfg.attention_sinks, kv_cache_bits=cfg.kv_cache_bits,
+               parameters=n_params(params), setup_s=setup_s,
+               cache_kv_bytes=kv_bytes, cache_bytes=tree_bytes(cache),
+               step_ms_p50=sorted(step_ms)[len(step_ms) // 2],
+               step_ms=[round(t, 2) for t in step_ms],
+               cosine_vs_plain=[round(c, 6) for c in cos],
+               twin_one_ulp_cosine=[round(c, 6) for c in floors],
+               twin_one_ulp_max_logit_move=moves,
+               steps_at_cosine_0_999=sum(c >= MIN_COSINE for c in cos),
+               row5_call_max_ulps=call_ulps,
+               row5_call_min_cosine=[round(c, 8) for c in call_cos],
+               row5_launches_per_step=n_attn,
+               min_cosine_vs_plain=min(cos) if cos else None,
+               argmax_ties=ties, step_peak_gib=step_peak, peak_gib=peak,
+               profile=prof, row5_ms_per_step=row5_ms,
+               row5_bound_ms_per_step=bound_ms, row5_rows_kept=rows,
+               row5_share_of_busy=row5_ms / prof["device_busy_ms"]
+               if n_attn else None,
+               dry_run_1x1=dict(dry, rel_err_vs_step_peak=dry_err))
+    log(f"phase 24 (b) {arch} long_500k serve_step: {json.dumps(res)}")
+    del logits, upd, cache
+    if cfg.family == "ssm":
+        res["prefill"] = long_rwkv_prefill(torch, np, transformer, cfg,
+                                           params, counters)
+        for k, n in res["prefill"]["launches"].items():
+            counted[k] = counted.get(k, 0) + n
+    del params
+    release(torch)
+    return res, {k: n for k, n in counted.items() if n}
+
+
+def long_rwkv_prefill(torch, np, transformer, cfg, params, counters):
+    """rwkv6-7b's one-shot prefill of one seeded prompt of LONG_PREFILL_S
+    tokens at B = 1: wall, peak, row 7 launches (one a layer), finite
+    logits."""
+    tokens = np.random.default_rng(24).integers(
+        0, cfg.vocab_size, size=(1, LONG_PREFILL_S)).tolist()
+    release(torch)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    sync(torch)
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(params, cfg, {"tokens": tokens},
+                                        max_seq=LONG_PREFILL_S, device=DEV)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in counters.read().items() if n}
+    finite = bool(torch.isfinite(logits.float()).all())
+    out = dict(tokens=LONG_PREFILL_S, wall_s=wall,
+               tok_s=LONG_PREFILL_S / wall, launches=launches,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               peak_above_weights_gib=(torch.cuda.max_memory_allocated() -
+                                       base) / 2**30, finite=finite,
+               state_bytes=tree_bytes({k: v for k, v in cache.items()
+                                       if k != "len"}))
+    gate(launches == {"rwkv6_scan": cfg.num_layers}, f"phase 24 (b) rwkv6 "
+         f"prefill launches {launches}")
+    gate(finite, "phase 24 (b) rwkv6 prefill logits not finite")
+    log(f"phase 24 (b) rwkv6-7b prefill at B=1: {json.dumps(out)}")
+    del logits, cache
+    return out
+
+
+def timed_chunks(torch, comp):
+    """Time every call of the engine's chunk program (synchronized around
+    it) and split it: a new key's eager warm-up and its capture, an eager
+    call on a full cache, or a replay. Returns the tally the wrapper
+    fills."""
+    tally = dict(eager_s=0.0, capture_s=0.0, replay_s=0.0, warm_ups=0,
+                 eager_calls=0, replays=0)
+    run = comp.chunk.run
+
+    def wrapped(key, operands, program, tickets=0, capture=True):
+        new = key not in comp.chunk._graphs
+        cap0 = comp.chunk.capture_s
+        sync(torch)
+        t0 = time.perf_counter()
+        result = run(key, operands, program, tickets, capture)
+        sync(torch)
+        dt = time.perf_counter() - t0
+        if new:
+            cap = comp.chunk.capture_s - cap0
+            tally["capture_s"] += cap
+            tally["eager_s"] += dt - cap
+            tally["warm_ups" if cap else "eager_calls"] += 1
+        else:
+            tally["replay_s"] += dt
+            tally["replays"] += 1
+        return result
+
+    comp.chunk.run = wrapped
+    return tally
+
+
+def long_request(torch, np, registry, transformer, counters):
+    """(c) one request of LONG_PROMPT seeded tokens through LLMEngine on
+    Lamina's path (attention_pool, head partition, 2 workers, an int8
+    paged pool of LONG_POOL_BLOCKS blocks of 16): chunk-prefilled by 512,
+    LONG_NEW greedy tokens. At the last step one layer's decode attention
+    over the real pool and the last chunk's attention against their plain
+    twins; launches, the TransferLog, resident bytes."""
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.serving import EngineConfig, LLMEngine, State
+
+    cfg = registry.config_for_shape("llama3-8b", "long_500k")
+    L, hd, Hkv = cfg.num_layers, cfg.resolved_head_dim, cfg.num_kv_heads
+    params = transformer.init_params(0, cfg, device=DEV)
+    econf = EngineConfig(placement="attention_pool", partition="head",
+                         attention_workers=2, kv_dtype="int8",
+                         block_size=LONG_BS, num_blocks=LONG_POOL_BLOCKS,
+                         max_batch=1, prefill_chunk_tokens=LONG_CHUNK)
+    warm = LLMEngine(cfg, params, econf.replace(num_blocks=64), device=DEV)
+    warm.submit(make_requests([list(range(1, 41))], 2))
+    warm.run()
+    del warm
+    release(torch)
+    prompt = np.random.default_rng(25).integers(
+        0, cfg.vocab_size, size=LONG_PROMPT).tolist()
+    eng = LLMEngine(cfg, params, econf, device=DEV)
+    resident = eng.stats.kv_pool_bytes_resident
+    want_resident = 2 * L * Hkv * LONG_POOL_BLOCKS * LONG_BS * (hd + 4)
+    gate(resident == want_resident, f"phase 24 (c): pool resident bytes "
+         f"{resident} != 2·L·Hkv·blocks·bs·(hd+4) = {want_resident}")
+    tally = timed_chunks(torch, eng.compiled_prefill) \
+        if eng.compiled_prefill is not None else None
+    req, = make_requests([prompt], LONG_NEW)
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    sync(torch)
+    t0 = time.perf_counter()
+    eng.submit([req])
+    while len(req.output) < LONG_NEW - 1:
+        eng.step()
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    st = eng.stats
+    # the twins at the last step: the last layer's decode attention over the
+    # whole pool (both workers' heads) and a chunk at the prompt's end
+    tables, lens = eng.kv.block_table_batch([req.rid])
+    gen = torch.Generator(device=DEV).manual_seed(26)
+    layer = L - 1
+    tbl = torch.as_tensor(tables, device=DEV)
+    clen = torch.as_tensor(lens, device=DEV)
+    pools = (eng.kv.k_pool[layer], eng.kv.v_pool[layer])
+    scales = dict(k_scale=eng.kv.k_scale[layer], v_scale=eng.kv.v_scale[layer])
+    q = torch.randn((1, Hkv, cfg.gqa_group, hd), generator=gen,
+                    device=DEV).bfloat16()
+    kw = dict(sliding_window=cfg.sliding_window - 1, return_partials=True,
+              **scales)
+    o, l_, m = pda.paged_decode_attention(q, *pools, tbl, clen, **kw)
+    po, pl, pm = pda.paged_decode_attention_plain(q, *pools, tbl, clen, **kw)
+    dec = dict(cache_len=int(lens[0]), max_abs_err=check_close(
+        "524K decode o", o, po))
+    check_close("524K decode l", l_, pl, rtol=1e-3, atol=1e-6)
+    check_close("524K decode m", m, pm, rtol=0.0, atol=1e-3)
+    # the prompt's last chunk: 480 tokens after 32,736 blocks
+    P = (LONG_PROMPT - 1) // LONG_CHUNK * LONG_CHUNK
+    C = LONG_PROMPT - P
+    table = eng.kv.gather_prefix_indices(req.rid, P)
+    qc = torch.randn((C, cfg.num_heads, hd), generator=gen,
+                     device=DEV).bfloat16()
+    kc = torch.randn((C, Hkv, hd), generator=gen, device=DEV).bfloat16()
+    vc = torch.randn_like(kc)
+    ckw = dict(sliding_window=cfg.sliding_window, **scales)
+    got = ppa.paged_prefill_chunk_attention(qc, *pools, table, kc, vc, **ckw)
+    ref = ppa.paged_prefill_chunk_attention_plain(qc, *pools, table, kc, vc,
+                                                  **ckw)
+    chunk = dict(P=P, C=C, max_abs_err=check_close("524K chunk", got, ref))
+    del o, po, got, ref
+    counters.reset()
+    prof = profile_window(torch, eng.step, 1, 1)       # the last step
+    last = counters.read()
+    gate(req.state == State.FINISHED and len(req.output) == LONG_NEW,
+         f"phase 24 (c): the request did not finish: {len(req.output)}")
+    want_l = paged_want(L, st.steps - 1, st.prefill_chunks_run, workers=2,
+                        int8=True)
+    gate(launches == want_l, f"phase 24 (c): launches {launches} != "
+         f"{want_l}")
+    gate(last == paged_want(L, 1, 0, workers=2, int8=True),
+         f"phase 24 (c): the last step's launches {last}")
+    gate(st.prefill_chunks_run == -(-LONG_PROMPT // LONG_CHUNK),
+         f"phase 24 (c): {st.prefill_chunks_run} chunks")
+    tlog = transfer_log_check(cfg, eng, [prompt], "int8")
+    gate(tlog["ok"], f"phase 24 (c): TransferLog {tlog} != the §3.1 "
+         f"formulas")
+    comp = eng.compiled_prefill
+    if comp is not None:
+        from repro_torch.serving.compiled import MAX_GRAPHS
+        ch = comp.chunk
+        gate(ch.captures == ch.graphs == min(MAX_GRAPHS, st.prefill_chunks_run)
+             and ch.eager_calls == st.prefill_chunks_run - ch.captures,
+             f"phase 24 (c): chunk program {compiled_stats(ch)} for "
+             f"{st.prefill_chunks_run} chunks (want its last {MAX_GRAPHS} "
+             f"keys captured, the earlier ones eager)")
+    out = dict(config=cfg.name, prompt=LONG_PROMPT, new_tokens=LONG_NEW,
+               pool_blocks=LONG_POOL_BLOCKS, pool_bytes_resident=resident,
+               chunks=st.prefill_chunks_run, decode_steps=st.steps,
+               ttft_s=st.request_ttfts[0] if st.request_ttfts else None,
+               ttft_split=tally,
+               chunk_graphs=compiled_stats(comp.chunk) if comp else None,
+               decode_graphs=compiled_stats(eng.compiled)
+               if eng.compiled else None,
+               tbt_p50_s=st.tbt_percentiles()["p50"],
+               last_step_profile=prof, wall_s_31_tokens=wall,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches={k: n for k, n in launches.items() if n},
+               transfer_log=tlog, decode_vs_twin=dec, chunk_vs_twin=chunk,
+               per_worker_kv_bytes=eng.pool.per_worker_kv_bytes)
+    log(f"phase 24 (c) 524K request, attention_pool head x2 int8: "
+        f"{json.dumps(out)}")
+    del eng, req, params
+    release(torch)
+    return out, {k: launches[k] + last[k] for k in launches
+                 if launches[k] + last[k]}
+
+
+def long_e2e(torch, np, registry, transformer, counters, pda, ppa, da,
+             rwkv):
+    """Phase 24: the long_500k configuration on the card. Returns (summary,
+    the launches of (b) and (c) per kernel)."""
+    t0 = time.perf_counter()
+    log(f"phase 24 on {card_line()}")
+    out = {"kernels": long_kernel_cases(torch, pda, ppa, da, rwkv,
+                                        Timer(torch))}
+    release(torch)
+    log(f"phase 24 (a) done in {time.perf_counter() - t0:.1f} s")
+    launches = {}
+
+    def add(got):
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+
+    for arch, overrides in LONG_ARCHS:
+        t1 = time.perf_counter()
+        res, got = long_decode(torch, np, transformer, counters, arch,
+                               overrides)
+        res["wall_s"] = time.perf_counter() - t1
+        out[arch] = res
+        add(got)
+        log(f"phase 24 (b) {arch} done in {res['wall_s']:.1f} s")
+    # (d) the bf16 record of llama3-8b-sw8k beside the card's memory
+    _, bf16 = long_trace(torch, "llama3-8b", None)
+    bf16["card_total_gib"] = torch.cuda.get_device_properties(
+        0).total_memory / 2**30
+    out["llama3-8b-sw8k_bf16_record"] = bf16
+    log(f"phase 24 (d) llama3-8b-sw8k bf16 record (1, 1): "
+        f"{json.dumps(bf16)}")
+    t1 = time.perf_counter()
+    out["request"], req_launches = long_request(torch, np, registry,
+                                                transformer, counters)
+    out["request"]["wall_s_phase"] = time.perf_counter() - t1
+    add(req_launches)
+    out["wall_s_phase"] = time.perf_counter() - t0
+    out["card"] = card_line()
+    return out, {k: n for k, n in launches.items() if n}
+
+
+def phase24_main() -> int:
+    """``chip_smoke.py --phase24``: phase 1's build of the libraries phase
+    24 launches, then phase 24 alone (no result line)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.kernels import rwkv6_scan as rwkv
+    from repro_torch.kernels import ssm_scan as ssm
+    from repro_torch.models import transformer
+    log(card_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    _cuda.build([pda._LIB_NAME, ppa._LIB_NAME, da._LIB_NAME, rwkv._LIB_NAME])
+    counters = Launches(pda, ppa, da, ssm, rwkv)
+    out, launches = long_e2e(torch, np, registry, transformer, counters, pda,
+                             ppa, da, rwkv)
+    log(json.dumps({"phase24": out, "launches": launches}))
+    if FAILED:
+        raise AssertionError(f"{len(FAILED)} gate(s) failed: {FAILED}")
+    return 0
 
 
 def card_line():
@@ -5953,6 +6616,11 @@ def main() -> int:
                      training["tinyllama"], sweep, sweep_dir)
     log(f"dry-run phase done in {dry['wall_s_phase']:.1f} s; phase 23 "
         f"done at {time.perf_counter() - t_start:.1f} s")
+    # phase 24: the long_500k configuration (524,288 tokens at B = 1)
+    long, long_launches = long_e2e(torch, np, registry, transformer,
+                                   counters, pda, ppa, da, rwkv)
+    log(f"long_500k phase done in {long['wall_s_phase']:.1f} s; phase 24 "
+        f"done at {time.perf_counter() - t_start:.1f} s")
 
     stats = {"paged_decode_attention": dec["bf16"],
              "paged_prefill_chunk_attention": pre[("bf16", 1536, 512)],
@@ -5977,7 +6645,9 @@ def main() -> int:
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")},
                     **({"launches_phase22": coll_launches[name]}
-                       if name in coll_launches else {}))
+                       if name in coll_launches else {}),
+                    **({"launches_phase24": long_launches[name]}
+                       if name in long_launches else {}))
                for name, (src, rep) in KERNELS.items()]
     log(json.dumps({"summary": {"homogeneous_bf16": e2e, "lamina_int8": lam,
                                 "partitions": parts, "faults": faults,
@@ -5992,6 +6662,7 @@ def main() -> int:
                                 "training": training,
                                 "collective": collective,
                                 "dryrun": dry,
+                                "long_500k": long,
                                 "widened_kernel_cases": {
                                     " / ".join(k): v
                                     for k, v in wide.items()}}}))
@@ -6012,6 +6683,8 @@ if __name__ == "__main__":
             sys.exit(phase22_main())
         if len(sys.argv) == 2 and sys.argv[1] == "--phase23":
             sys.exit(phase23_main())
+        if len(sys.argv) == 2 and sys.argv[1] == "--phase24":
+            sys.exit(phase24_main())
         sys.exit(main())
     except Exception:                       # report, no result line
         traceback.print_exc()

@@ -280,13 +280,17 @@ def logits_spec(cfg: ModelConfig, mesh, batch: int) -> P:
 def placements(spec: P, mesh) -> Tuple:
     """DTensor placements of ``spec`` on ``mesh``: one a mesh dim,
     ``Shard(d)`` where the spec puts that axis on tensor dim d, else
-    ``Replicate()``.
+    ``Replicate()``. A mesh dim of size 1 is ``Replicate()`` whatever the
+    spec says: the same layout (its one shard is the whole tensor), and
+    DTensor refuses to reshape a size-1 tensor dim sharded over it (the
+    decode entry at B = 1 on a (1, 1) mesh, where "data" divides B).
 
     A dim split over several axes is sharded by DTensor in mesh-dim order
     (the first mesh dim outermost) and by JAX in the spec's order; every
     spec of these rules lists them in mesh order, so any other order
     raises rather than silently transposing the shards."""
-    names = list(mesh_axes(mesh))
+    sizes = mesh_axes(mesh)
+    names = list(sizes)
     out = [Replicate()] * len(names)
     seen = set()
     for d, entry in enumerate(spec):
@@ -300,7 +304,8 @@ def placements(spec: P, mesh) -> Tuple:
             if a in seen:
                 raise ValueError(f"spec {spec} uses axis {a!r} twice")
             seen.add(a)
-            out[names.index(a)] = Shard(d)
+            if sizes[a] > 1:
+                out[names.index(a)] = Shard(d)
         order = [names.index(a) for a in axes]
         if order != sorted(order):
             raise ValueError(f"spec {spec} splits dim {d} over {axes}, not "

@@ -32,16 +32,18 @@
 // What the design does about it:
 //  * split-KV: one CTA per (b, h, split), launched as grid (S, Hkv, B) with
 //    the splits fastest, so one sequence's splits go to different SMs.
-//    Split j takes the cache rows of units [j·U/S, (j+1)·U/S), U = the
-//    cache's 16-row units. The wrapper plans S from B, Hkv, the cache
-//    length, G and the SM count only (plan_splits: 2 CTAs an SM, 1 split
-//    once the B·Hkv pairs alone give every SM a CTA), never from
-//    cache_len, so it needs no host sync and a CUDA graph can capture the
-//    call. Inside a split the
-//    live rows (before cache_len; in the window or among the sinks) are at
-//    most two runs of positions; the CTA numbers them 0..n-1 and walks only
-//    those, so a split with none live writes the empty partial without a
-//    load, and no load is spent on rows before the window.
+//    The wrapper plans S from B, Hkv, the cache length, G and the SM
+//    count only (plan_splits: 2 CTAs an SM, 1 split once the B·Hkv pairs
+//    alone give every SM a CTA), never from cache_len, so it needs no host
+//    sync and a CUDA graph can capture the call. The live rows (before
+//    cache_len; in the window or among the sinks) are at most two runs of
+//    positions, numbered 0..N-1 from cache_len on the device; split j
+//    walks live rows [j·U/S, (j+1)·U/S) of them in 16-row units (U = N /
+//    16, rounded up), so a split with none writes the empty partial
+//    without a load, no load is spent on rows before the window, and a
+//    window's rows spread over the splits (cut from the cache's rows, a
+//    window of 8192 at the end of 524,288 falls in 1-3 splits, and a few
+//    CTAs stream it while the other SMs idle).
 //  * one launch: each split writes its fp32 (acc, m, l) partial to a
 //    workspace; the last CTA of a (b, h) to arrive (an atomic ticket after
 //    a __threadfence) merges the S partials by the §4.2.2 rule, writes o,
@@ -149,31 +151,28 @@ struct LiveRows {
   }
 };
 
+// Split `split` of S's share of a sequence's live rows: before len (and
+// the cache's S rows), in the window or among the sinks. They are the runs
+// [0, a1) and [b0, end), N rows in all; the split takes live rows
+// [lo, hi) of them, whole 16-row units of N.
 __device__ __forceinline__ LiveRows live_rows(const Params& p, int len,
-                                              int lo, int hi) {
-  const int end = min(len, p.S);
-  int a1 = end, b0 = 0, b1 = 0;
+                                              int S, int split) {
+  const int end = max(min(len, p.S), 0);
+  int a1 = end, b0 = end;
   if (p.sliding_window > 0) {
     const int win_lo = len - p.sliding_window;  // first in-window position
     const int sinks = max(p.sinks, 0);
     if (sinks < win_lo) {                       // two runs
       a1 = min(sinks, end);
-      b0 = win_lo;
-      b1 = end;
+      b0 = min(win_lo, end);
     }
   }
-  const int na = max(min(a1, hi) - lo, 0);
-  b0 = max(b0, lo);
-  const int nb = max(min(b1, hi) - b0, 0);
-  return {lo, na, b0, na + nb};
-}
-
-// Cache rows [lo, hi) of split `split` of S: whole 16-row units.
-__device__ __forceinline__ void split_range(int rows, int S, int split,
-                                            int& lo, int& hi) {
+  const int rows = a1 + (end - b0);
   const long long units = (rows + kUnit - 1) / kUnit;
-  lo = min(static_cast<int>(split * units / S) * kUnit, rows);
-  hi = min(static_cast<int>((split + 1) * units / S) * kUnit, rows);
+  const int lo = min(static_cast<int>(split * units / S) * kUnit, rows);
+  const int hi = min(static_cast<int>((split + 1) * units / S) * kUnit, rows);
+  const int na = max(min(a1, hi) - lo, 0);
+  return {lo, na, b0 + max(lo - a1, 0), hi - lo};
 }
 
 // One element (query head idx / HD, column idx % HD) of the CTA's merged
@@ -398,9 +397,7 @@ dense_tc_kernel(const Params p) {
   const size_t bh = static_cast<size_t>(b) * p.Hkv + h;
 
   const int len = p.cache_len[b];
-  int lo, hi;
-  split_range(p.S, S, split, lo, hi);
-  const LiveRows lv = live_rows(p, len, lo, hi);
+  const LiveRows lv = live_rows(p, len, S, split);
   if (lv.n == 0) {                      // uniform over the CTA
     put_empty<G, HD>(p, bh, BHkv, S, split);
     if (S > 1) merge_splits<G, HD>(p, bh, BHkv, S, smem, C::SMEM);
@@ -717,9 +714,7 @@ dense_lanes_kernel(const Params p) {
   const size_t bh = static_cast<size_t>(b) * p.Hkv + h;
 
   const int len = p.cache_len[b];
-  int lo, hi;
-  split_range(p.S, S, split, lo, hi);
-  const LiveRows lv = live_rows(p, len, lo, hi);
+  const LiveRows lv = live_rows(p, len, S, split);
   float* scratch = reinterpret_cast<float*>(sm_raw);
   if (lv.n == 0) {                      // uniform over the CTA
     put_empty<G, HD>(p, bh, BHkv, S, split);

@@ -25,11 +25,18 @@
 // What the design does about it:
 //  * split-KV: one CTA per (b, h, split), launched as grid (S, Hkv, B)
 //    with the splits fastest, so a long sequence's splits go to different
-//    SMs. Split j of sequence b takes table slots [j·nb/S, (j+1)·nb/S).
-//    The wrapper picks S on the host from nb, B·Hkv and the SM count
+//    SMs. The wrapper picks S on the host from nb, B·Hkv and the SM count
 //    (plan_splits: 4 CTAs an SM, >= 2 wherever the table has the slots),
-//    never from cache_len, so it needs no sync. A CTA first compacts its
-//    slice of the table into shared memory (slots with a live row only:
+//    never from cache_len, so it needs no sync. The CTAs share out the
+//    sequence's live slots, which they find from cache_len: those before
+//    it, in the window or among the sinks, at most two runs of the table
+//    (split_slots), so a window's slots spread over the splits: cut from
+//    the whole table, a window of 8192 tokens at the end of a
+//    524,288-token one falls in 2 of its 66 splits, and a few CTAs stream
+//    it while the other SMs idle. With block positions (the block
+//    partition's shards) a slot's position is known only from the table,
+//    and split j takes slots [j·nb/S, (j+1)·nb/S). A CTA first compacts
+//    its slice of the table into shared memory (slots with a live row only:
 //    past cache_len, outside the window or POS_PAD drop out), so a split
 //    with nothing live does no load and no math.
 //  * one launch: each split writes its fp32 (m, l, acc) partial to a
@@ -229,6 +236,44 @@ __device__ __forceinline__ float reduce_scatter(float (&d)[G], int cl) {
   return v;
 }
 
+// The table slots of one split: entries v0 .. v0 + n - 1 of the
+// sequence's list of live slots, entry v at table slot v below a1, else
+// at b0 + (v - a1).
+struct SplitSlots {
+  int v0, n, a1, b0;
+  __device__ __forceinline__ int slot(int v) const {
+    return v < a1 ? v : b0 + (v - a1);
+  }
+};
+
+// Split `split` of S's share of the live slots of a sequence of `len`
+// tokens. Without block positions slot i holds positions [i·bs, i·bs +
+// bs): the slots before len are [0, hi), of which a window keeps the
+// sink slots [0, sa) and [wlo, hi), the slots it reaches; the S splits
+// share those evenly. With positions every slot is listed.
+__device__ __forceinline__ SplitSlots split_slots(const Params& p, int len,
+                                                  int S, int split) {
+  int total = p.nb, a1 = p.nb, b0 = p.nb;
+  if (!p.positions) {
+    const int hi = min(p.nb, (max(len, 0) + p.bs - 1) / p.bs);
+    a1 = b0 = hi;
+    if (p.sliding_window > 0) {
+      const int win_lo = len - p.sliding_window;  // first in-window position
+      const int wlo = win_lo > 0 ? win_lo / p.bs : 0;
+      const int sa = p.sinks > 0 ? (p.sinks + p.bs - 1) / p.bs : 0;
+      if (wlo > sa) {                              // two runs
+        a1 = min(sa, hi);
+        b0 = min(wlo, hi);
+      }
+    }
+    total = a1 + (hi - b0);
+  }
+  const int v0 = static_cast<int>(static_cast<int64_t>(split) * total / S);
+  const int v1 =
+      static_cast<int>(static_cast<int64_t>(split + 1) * total / S);
+  return {v0, v1 - v0, a1, b0};
+}
+
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const Params p) {
@@ -262,15 +307,15 @@ paged_decode_kernel(const Params p) {
   const int g_own = cl / LPG;            // this lane's query head
   const size_t bh = static_cast<size_t>(b) * p.Hkv + h;
   const int bs = p.bs;
-  const int lo = static_cast<int>(static_cast<int64_t>(split) * p.nb / S);
-  const int n = static_cast<int>(static_cast<int64_t>(split + 1) * p.nb / S)
-                - lo;
 
-  // every load the prologue needs, issued together
+  // every load the prologue needs, issued together (after cache_len,
+  // which places the split)
   const int len = p.cache_len[b];
-  const int32_t* table = p.tables + static_cast<size_t>(b) * p.nb + lo;
+  const SplitSlots sp = split_slots(p, len, S, split);
+  const int n = sp.n;
+  const int32_t* table = p.tables + static_cast<size_t>(b) * p.nb;
   const int32_t* bpos = p.positions
-      ? p.positions + static_cast<size_t>(b) * p.nb + lo : nullptr;
+      ? p.positions + static_cast<size_t>(b) * p.nb : nullptr;
   int tile_r[kSlotsPerThread], base_r[kSlotsPerThread];
 #pragma unroll
   for (int i = 0; i < kSlotsPerThread; ++i) {
@@ -278,8 +323,9 @@ paged_decode_kernel(const Params p) {
     tile_r[i] = 0;
     base_r[i] = 0;
     if (s < n) {
-      tile_r[i] = __ldg(table + s);
-      base_r[i] = bpos ? __ldg(bpos + s) : (lo + s) * bs;
+      const int slot = sp.slot(sp.v0 + s);
+      tile_r[i] = __ldg(table + slot);
+      base_r[i] = bpos ? __ldg(bpos + slot) : slot * bs;
     }
   }
   float qf[G][EPL];

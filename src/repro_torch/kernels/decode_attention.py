@@ -80,12 +80,26 @@ def plan_splits(B: int, Hkv: int, S: int, sm_count: int, G: int = 1) -> int:
 
 
 def split_ranges(S: int, splits: int):
-    """Cache rows [lo, hi) of each split, as the kernel cuts them: split j
-    takes the units [j·U // splits, (j+1)·U // splits), U = ceil(S / 16)."""
+    """Entries [lo, hi) of a list of ``S`` live rows (:func:`live_rows`)
+    that each split takes, as the kernel cuts them: split j takes the
+    units [j·U // splits, (j+1)·U // splits), U = ceil(S / 16)."""
     units = -(-S // SPLIT_UNIT)
     return [(min(j * units // splits * SPLIT_UNIT, S),
              min((j + 1) * units // splits * SPLIT_UNIT, S))
             for j in range(splits)]
+
+
+def live_rows(S: int, cache_len: int, sliding_window: int = 0,
+              sinks: int = 0) -> list:
+    """The positions of a cache of ``S`` rows that the masks keep for a
+    sequence of ``cache_len`` tokens, in the order the kernel's splits
+    share them (``live_rows`` of the CUDA source): those before cache_len;
+    with a window the sinks, then the window."""
+    end = max(min(cache_len, S), 0)
+    a1 = b0 = end
+    if sliding_window > 0 and max(sinks, 0) < cache_len - sliding_window:
+        a1, b0 = min(sinks, end), min(cache_len - sliding_window, end)
+    return list(range(a1)) + list(range(b0, end))
 
 
 def launch_geometry(B: int, Hkv: int, S: int, sm_count: int,

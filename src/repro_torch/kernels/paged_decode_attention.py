@@ -75,10 +75,30 @@ def plan_splits(B: int, Hkv: int, nb: int, sm_count: int,
 
 
 def split_ranges(nb: int, splits: int):
-    """Table slots [lo, hi) of each split, as the kernel cuts them: split j
-    takes [j·nb // S, (j+1)·nb // S)."""
+    """Entries [lo, hi) of a list of ``nb`` table slots that each split
+    takes, as the kernel cuts them: split j takes [j·nb // S, (j+1)·nb //
+    S). The list is the table with block positions, else
+    :func:`live_slots`."""
     return [(j * nb // splits, (j + 1) * nb // splits)
             for j in range(splits)]
+
+
+def live_slots(nb: int, block_size: int, cache_len: int,
+               sliding_window: int = 0, sinks: int = 0) -> list:
+    """The table slots of a sequence of ``cache_len`` tokens that hold a
+    row the masks keep, in the order the kernel's splits share them
+    (``split_slots`` of the CUDA source, for tables without block
+    positions): the slots before cache_len; with a window only those it
+    reaches and those holding a sink."""
+    hi = min(nb, -(-max(cache_len, 0) // block_size))
+    a1 = b0 = hi
+    if sliding_window > 0:
+        win_lo = cache_len - sliding_window
+        wlo = win_lo // block_size if win_lo > 0 else 0
+        sa = -(-sinks // block_size) if sinks > 0 else 0
+        if wlo > sa:
+            a1, b0 = min(sa, hi), min(wlo, hi)
+    return list(range(a1)) + list(range(b0, hi))
 
 
 def launch_geometry(B: int, Hkv: int, nb: int, sm_count: int,

@@ -33,6 +33,8 @@ NEG_INF = -1e30
 _LIB_NAME = "paged_prefill_attention"
 # the instantiated head sizes (any group size dividing 64)
 HEAD_DIMS = (64, 112, 128)
+# the most fp32 scores the plain twin holds at once (1 GiB)
+PLAIN_SCORE_ELEMS = 1 << 28
 
 
 def gather_prefix_dense(k_pool, v_pool, block_table):
@@ -63,7 +65,10 @@ def paged_prefill_chunk_attention_plain(q, k_pool, v_pool, block_table,
                                         logit_softcap: float = 0.0):
     """Plain twin of both kernels: same arguments, same result (C, H, hd).
     An int8 pool's gathered prefix is dequantized here with its scale pools
-    (the plain path may densify; the kernels never do)."""
+    (the plain path may densify; the kernels never do). The chunk's rows
+    are attended PLAIN_SCORE_ELEMS scores at a time (each row on its own,
+    so the result does not depend on the slicing): a 512-row chunk over a
+    524,288-token prefix would hold 34 GB of fp32 scores at once."""
     C, H, hd = q.shape
     Hkv, _, bs, _ = k_pool.shape
     G = H // Hkv
@@ -75,25 +80,30 @@ def paged_prefill_chunk_attention_plain(q, k_pool, v_pool, block_table,
         vp = vp * gather_prefix_scales(v_scale, block_table)[:, :, None]
     k_all = torch.cat([kp, k_chunk.float()], dim=0)      # (P+C, Hkv, hd)
     v_all = torch.cat([vp, v_chunk.float()], dim=0)
+    del kp, vp
     scale = 1.0 / math.sqrt(hd)
     qg = q.float().reshape(C, Hkv, G, hd) * scale
-    s = torch.einsum("chgd,khd->hgck", qg, k_all)        # (Hkv, G, C, P+C)
-    if logit_softcap > 0.0:
-        s = logit_softcap * torch.tanh(s / logit_softcap)
-    pos_q = P + torch.arange(C, device=q.device)[:, None]
     pos_k = torch.arange(P + C, device=q.device)[None, :]
-    valid = pos_k <= pos_q
-    if sliding_window > 0:
-        in_window = pos_k > pos_q - sliding_window
-        if attention_sinks > 0:
-            in_window |= pos_k < attention_sinks
-        valid &= in_window
-    s = torch.where(valid, s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(valid, torch.exp(s - m), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("hgck,khd->chgd", p / l.clamp_min(1e-30), v_all)
-    return out.reshape(C, H, hd).to(q.dtype)
+    rows = max(1, PLAIN_SCORE_ELEMS // (H * (P + C)))
+    out = []
+    for c0 in range(0, C, rows):
+        s = torch.einsum("chgd,khd->hgck", qg[c0:c0 + rows], k_all)
+        if logit_softcap > 0.0:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        pos_q = P + c0 + torch.arange(s.shape[2], device=q.device)[:, None]
+        valid = pos_k <= pos_q
+        if sliding_window > 0:
+            in_window = pos_k > pos_q - sliding_window
+            if attention_sinks > 0:
+                in_window |= pos_k < attention_sinks
+            valid &= in_window
+        s = torch.where(valid, s, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.where(valid, torch.exp(s - m), 0.0)
+        l = p.sum(dim=-1, keepdim=True)
+        out.append(torch.einsum("hgck,khd->chgd", p / l.clamp_min(1e-30),
+                                v_all))
+    return torch.cat(out).reshape(C, H, hd).to(q.dtype)
 
 
 def _check_cuda_operands(q, k_pool, v_pool, block_table, k_chunk, v_chunk,

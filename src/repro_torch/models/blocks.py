@@ -139,7 +139,8 @@ def rwkv_block(params: Dict, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
     last = state["x_cm"] if mode == "decode" else torch.zeros_like(h[:, 0])
     cm, _ = ssm.rwkv_channel_mix_forward(params["cmix"], cfg, h, last)
     new_state = dict(tstate)
-    new_state["x_cm"] = h[:, -1]
+    # a prefill's state is a copy: a view of h would keep all S rows alive
+    new_state["x_cm"] = h[:, -1].clone() if mode == "prefill" else h[:, -1]
     return x + cm, new_state
 
 

@@ -180,6 +180,8 @@ def _mamba_conv(cfg, conv_w, conv_b, dt_bias, proj, conv_state=None):
     else:  # decode: prepend cached last K-1 inputs
         padded = torch.cat([conv_state, conv_in], dim=1)
     new_conv_state = padded[:, -(K - 1):, :]
+    if conv_state is None:   # a copy: a view would keep all S rows alive
+        new_conv_state = new_conv_state.clone()
     conv = sum(padded[:, i:i + S, :] * conv_w[i] for i in range(K)) + conv_b
     conv = F.silu(conv.float()).to(x.dtype)
     xr, Bm, Cm = torch.split(conv, [d_inner, N, N], dim=-1)
@@ -399,8 +401,9 @@ def rwkv_time_mix_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     out = _rwkv_out(params, cfg, wkv, g, B_, S)
     if not final_state:
         return out
+    # x_tm a copy: a view of x would keep the layer's whole input alive
     return out, {"S": _on_heads(rwkv_final_state, (k, v, w), "bh bh bh",
-                                "s"), "x_tm": x[:, -1]}
+                                "s"), "x_tm": x[:, -1].clone()}
 
 
 def init_rwkv_state(cfg: ModelConfig, batch: int, device) -> Dict:

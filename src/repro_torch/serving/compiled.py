@@ -21,7 +21,18 @@ way (cap: the blocks of one shard) with ``POS_PAD`` positions.
   scalar; it takes only shared/bs + k·chunk/bs, so the full chunks of
   later prompts reuse the graphs (the reference's argument,
   ``llm_engine.py:245``). Only a prompt's final, partial chunk is padded,
-  to :func:`chunk_bucket`;
+  to :func:`chunk_bucket`. Its keys are unbounded: nb grows with every
+  chunk of a prompt (a 524,288-token prompt makes 1024 keys). A chunk
+  with MAX_GRAPHS or more chunks of its prompt still to run, whose key
+  has no graph, runs eagerly and is not captured: the prompt's own later
+  keys, all new, push its graph out of the MAX_GRAPHS most recently used
+  before the prompt ends, so only a prompt prefilled beside it could
+  replay it. Every other key is captured and kept by least recent use,
+  so a prompt of at most MAX_GRAPHS chunks runs as under plain LRU, and
+  a longer one ends holding the graphs LRU would hold, without the
+  captures LRU would drop unreplayed (960 of a 524,288-token prompt's
+  1024, each about as long as the call). The eager call launches the
+  same kernels;
 * the one-shot prefill, keyed by :func:`prefill_bucket` of S; a moe
   model's runs eagerly and unpadded: pad rows would join its routing
   groups and change the experts' capacity (``models/moe.py``), and a
@@ -217,7 +228,12 @@ class GraphCache:
     ``program`` returns (the static outputs of the graph after a replay).
     ``pool`` is the graph memory pool shared by every program of an
     engine; ``tickets`` > 0 gives the capture that many private merge
-    tickets of the paged decode kernel."""
+    tickets of the paged decode kernel. With ``capture`` False a key that
+    has no graph runs ``program`` eagerly on device copies of its
+    operands (counted in ``eager_calls``), neither captured nor evicting
+    one; a key that has one replays."""
+
+    eager_calls = 0               # calls run eagerly, not captured
 
     def __init__(self, device, pool=None):
         self.device = cuda_device(device)
@@ -235,8 +251,12 @@ class GraphCache:
         return len(self._graphs)
 
     def run(self, key: Tuple, operands: Sequence[np.ndarray], program,
-            tickets: int = 0):
+            tickets: int = 0, capture: bool = True):
         entry = self._graphs.get(key)
+        if entry is None and not capture:
+            self.eager_calls += 1
+            return program(*(torch.as_tensor(a, device=self.device)
+                             for a in operands))
         if entry is None:
             entry = self._entry(operands)
             self._fill(entry, operands)
@@ -379,13 +399,17 @@ class CompiledPrefill:
         return {} if kv.k_scale is None else dict(k_scale_pool=kv.k_scale,
                                                   v_scale_pool=kv.v_scale)
 
-    def run_chunk(self, tokens: Sequence[int], blocks: Sequence[int]):
-        """One chunk of ``tokens`` over the prefix blocks ``blocks``."""
+    def run_chunk(self, tokens: Sequence[int], blocks: Sequence[int],
+                  remaining: int = 0):
+        """One chunk of ``tokens`` over the prefix blocks ``blocks``, with
+        ``remaining`` chunks of its prompt still to run after it (a new
+        key is captured only when that is under MAX_GRAPHS)."""
         C = len(tokens)
         Cb = chunk_bucket(C, self._chunk_cap)
         ops = (pad_tokens(tokens, Cb), np.asarray(blocks, np.int32),
                np.asarray([C], np.int32))
-        return self.chunk.run((Cb, len(blocks)), ops, self._chunk)
+        return self.chunk.run((Cb, len(blocks)), ops, self._chunk,
+                              capture=remaining < MAX_GRAPHS)
 
     def run_oneshot(self, tokens: Sequence[int]):
         """The one-shot prefill of ``tokens`` (a moe model's eagerly, at

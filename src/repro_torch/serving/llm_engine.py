@@ -594,7 +594,8 @@ class LLMEngine:
         chunk = list(known[cursor:target])
         if self.compiled_prefill is not None:
             blocks = self.kv.tables[rid][:cursor // self.kv.block_size]
-            logits, k, v = self.compiled_prefill.run_chunk(chunk, blocks)
+            logits, k, v = self.compiled_prefill.run_chunk(
+                chunk, blocks, -(-(total - target) // self._chunk_tokens))
         else:
             idx = self.kv.gather_prefix_indices(rid, cursor)
             logits, cache = transformer.prefill_chunk(

@@ -1639,3 +1639,260 @@ def test_cuda_face_returns_the_kernels_metadata(cuda, entry):
     assert fake_count.kernel_flops == real_count.kernel_flops > 0
     assert fake_count.kernel_bytes == real_count.kernel_bytes > 0
     assert not any(_cuda.is_fake(t) for t in _cuda._TICKETS.values())
+
+
+# ---------------------------------------------------------------------------
+# the long_500k shapes (chip_smoke phase 24): one sequence of 524,288 tokens
+# ---------------------------------------------------------------------------
+LONG_S = 524_288
+
+
+def _nan_outside(pos, clen, window, sinks):
+    """Slots no mask keeps: at or past cache_len, or outside the window
+    and the sinks."""
+    out = pos >= clen
+    if window:
+        out |= (pos < clen - window) & (pos >= sinks)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hkv,G,int8,window,sinks", [
+    (8, 4, False, 0, 0), (8, 4, True, 0, 0), (8, 4, True, 8191, 0),
+    (2, 16, True, 8191, 4)])
+def test_cuda_paged_decode_at_524k(cuda, Hkv, G, int8, window, sinks):
+    """Rows 1 / 3 over one layer's pool of 32,768 blocks of 16 (llama3-8b,
+    glm4-9b-sinks at the 256-split cap), every slot no mask keeps (stale,
+    outside the window and sinks, a spare block) NaN (NaN scales for
+    int8)."""
+    bs, nb = 16, LONG_S // 16
+    gen = torch.Generator(device=cuda).manual_seed(Hkv * G + window)
+    NB = nb + 4
+    kp = torch.randn((Hkv, NB, bs, 128), generator=gen,
+                     device=cuda).bfloat16()
+    vp = torch.randn_like(kp)
+    table = (torch.randperm(NB - 1, generator=gen, device=cuda)[:nb]
+             + 1).int()[None]
+    clen = torch.tensor([LONG_S - 3], dtype=torch.int32, device=cuda)
+    pos = torch.arange(LONG_S, device=cuda).reshape(nb, bs)
+    stale = torch.zeros((NB, bs), dtype=torch.bool, device=cuda)
+    stale[0] = True
+    stale[table[0].long()] = _nan_outside(pos, int(clen), window, sinks)
+    q = torch.randn((1, Hkv, G, 128), generator=gen, device=cuda).bfloat16()
+    kw = dict(sliding_window=window, attention_sinks=sinks,
+              return_partials=True)
+    pools = (kp, vp)
+    if int8:
+        from repro_torch.models.kv_quant import quantize_kv
+        (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
+        ks[:, stale] = float("nan")
+        vs[:, stale] = float("nan")
+        pools = (kq, vq)
+        kw.update(k_scale=ks, v_scale=vs)
+    else:
+        kp[:, stale] = float("nan")
+        vp[:, stale] = float("nan")
+    assert pda.plan_splits(1, Hkv, nb, _cuda.sm_count(cuda), G) == \
+        min(pda.max_splits(G), -(-4 * _cuda.sm_count(cuda) // Hkv))
+    got = pda.paged_decode_attention(q, *pools, table, clen, **kw)
+    want = pda.paged_decode_attention_plain(q, *pools, table, clen, **kw)
+    for a, b, tol in zip(got, want, (8e-3, 1e-3, 1e-3)):
+        assert torch.isfinite(a.float()).all()
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_cuda_chunk_prefill_at_524k(cuda, int8):
+    """Rows 2 / 4: a 512-token chunk at P = 523,776 with llama3-8b-sw8k's
+    window of 8192, over a pool of 32,741 blocks (the kernel's tile skip
+    far from P = 0, its TMA maps over the whole pool); NaN in the blocks
+    the table skips."""
+    bs, C = 16, 512
+    P = LONG_S - C
+    nb = P // bs
+    NB = nb + 5
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    kp = torch.randn((8, NB, bs, 128), generator=gen, device=cuda).bfloat16()
+    vp = torch.randn_like(kp)
+    table = torch.randperm(NB, generator=gen, device=cuda)[:nb].int()
+    unref = torch.ones(NB, dtype=torch.bool, device=cuda)
+    unref[table.long()] = False
+    q = torch.randn((C, 32, 128), generator=gen, device=cuda).bfloat16()
+    kc = torch.randn((C, 8, 128), generator=gen, device=cuda).bfloat16()
+    vc = torch.randn_like(kc)
+    kw = dict(sliding_window=8192)
+    pools = (kp, vp)
+    if int8:
+        from repro_torch.models.kv_quant import quantize_kv
+        (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
+        ks[:, unref] = float("nan")
+        vs[:, unref] = float("nan")
+        pools = (kq, vq)
+        kw.update(k_scale=ks, v_scale=vs)
+    else:
+        kp[:, unref] = float("nan")
+        vp[:, unref] = float("nan")
+    got = ppa.paged_prefill_chunk_attention(q, *pools, table, kc, vc, **kw)
+    want = ppa.paged_prefill_chunk_attention_plain(q, *pools, table, kc, vc,
+                                                   **kw)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                               atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hkv,G,hd,int8,window,sinks", [
+    (32, 1, 64, False, 0, 0), (2, 16, 128, False, 8191, 4),
+    (8, 4, 128, True, 8191, 0)], ids=["zamba2", "glm4-9b-sinks",
+                                      "llama3-8b-sw8k-int8"])
+def test_cuda_dense_decode_at_524k(cuda, Hkv, G, hd, int8, window, sinks):
+    """Row 5 (and 5-int8) over a dense cache of 524,288 rows at B = 1:
+    zamba2's shared attention (9 splits of ~58K rows), glm4-9b-sinks and
+    llama3-8b-sw8k past their windows; NaN in every slot no mask keeps."""
+    gen = torch.Generator(device=cuda).manual_seed(Hkv + G)
+    k = torch.randn((1, Hkv, LONG_S, hd), generator=gen,
+                    device=cuda).bfloat16()
+    v = torch.randn_like(k)
+    clen = torch.tensor([LONG_S - 8], dtype=torch.int32, device=cuda)
+    stale = _nan_outside(torch.arange(LONG_S, device=cuda), int(clen),
+                         window, sinks)
+    q = torch.randn((1, Hkv, G, hd), generator=gen, device=cuda).bfloat16()
+    kw = dict(sliding_window=window, attention_sinks=sinks,
+              return_partials=True)
+    caches = (k, v)
+    if int8:
+        from repro_torch.models.kv_quant import quantize_kv
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        ks[:, :, stale] = float("nan")
+        vs[:, :, stale] = float("nan")
+        caches = (kq, vq)
+        kw.update(k_scale=ks, v_scale=vs)
+    else:
+        k[:, :, stale] = float("nan")
+        v[:, :, stale] = float("nan")
+    got = da.decode_attention(q, *caches, clen, **kw)
+    want = da.decode_attention_plain(q, *caches, clen, **kw)
+    for a, b, tol in zip(got, want, (8e-3, 1e-3, 1e-3)):
+        assert torch.isfinite(a.float()).all()
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=1e-3)
+
+
+def _call_ms(fn, iters=20):
+    """Device milliseconds a call of ``fn`` takes, the mean of ``iters``
+    calls after a warm one, by CUDA events, the calls enqueued while the
+    card spins (so the host's enqueue time is not counted)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged,Hkv,G,sinks", [
+    (True, 8, 4, 0), (True, 2, 16, 4), (False, 8, 4, 0)],
+    ids=["row 3 llama3-8b-sw8k", "row 3 glm4-9b-sinks G=16",
+         "row 5-int8 llama3-8b-sw8k"])
+def test_cuda_window_at_524k_spreads_over_the_splits(cuda, paged, Hkv, G,
+                                                     sinks):
+    """A window of 8192 at the end of an int8 sequence of 524,288 tokens
+    takes at most a quarter of the full-context call's device time and
+    equals its plain twin: the splits share the window's rows. Cutting
+    the whole table (cache) put them in 1-5 splits, and the windowed call
+    took 0.33-0.53 of the full-context one on an H100
+    (``tools/window_split_ab.py``)."""
+    gen = torch.Generator(device=cuda).manual_seed(Hkv * G)
+    shape = (Hkv, LONG_S // 16, 16, 128) if paged else (1, Hkv, LONG_S, 128)
+    kq, vq = (torch.randint(-127, 128, shape, generator=gen, device=cuda,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(shape[:-1], generator=gen, device=cuda) * 0.025 +
+              0.005 for _ in range(2))
+    q = torch.randn((1, Hkv, G, 128), generator=gen, device=cuda).bfloat16()
+    clen = torch.tensor([LONG_S], dtype=torch.int32, device=cuda)
+    if paged:
+        table = torch.arange(shape[1], dtype=torch.int32, device=cuda)[None]
+        mod, args = pda, (q, kq, vq, table, clen)
+        fn = pda.paged_decode_attention
+    else:
+        mod, args = da, (q, kq, vq, clen)
+        fn = da.decode_attention
+    kw = dict(k_scale=ks, v_scale=vs, attention_sinks=sinks,
+              return_partials=True)
+    full = _call_ms(lambda: fn(*args, sliding_window=0, **kw))
+    win = _call_ms(lambda: fn(*args, sliding_window=8191, **kw))
+    assert win <= 0.25 * full, (win, full)
+    plain = mod.paged_decode_attention_plain if paged else \
+        mod.decode_attention_plain
+    got = fn(*args, sliding_window=8191, **kw)
+    want = plain(*args, sliding_window=8191, **kw)
+    for a, b, tol in zip(got, want, (8e-3, 1e-3, 1e-3)):
+        assert torch.isfinite(a.float()).all()
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_cuda_rwkv6_scan_at_2_31_elements(cuda):
+    """Row 7 at rwkv6-7b's B = 1, S = 524,288, H = 64, P = 64: B·S·H·P =
+    2^31 elements, the kernel's 64-bit row bases at their edge, against
+    the chunked twin in 64-step tiles (the step twin takes minutes)."""
+    import functools
+    B, S, H, P = 1, LONG_S, 64, 64
+    gen = torch.Generator(device=cuda).manual_seed(248)
+    r, k, v = (torch.randn((B, S, H, P), generator=gen,
+                           device=cuda).bfloat16() for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((B, S, H, P), generator=gen,
+                                         device=cuda) - 2.0)).bfloat16()
+    u = torch.randn((H, P), generator=gen, device=cuda) * 0.5
+    y = rw.rwkv6_scan(r, k, v, w, u)
+    assert y.shape == (B, S, H, P) and y.numel() == 2 ** 31
+    want = functools.partial(rw.rwkv6_scan_chunked_plain, chunk=64)(
+        r, k, v, w, u)
+    _scan_close(y, want)
+
+
+@pytest.mark.gpu
+def test_cuda_chunk_program_runs_keys_past_its_graphs_eagerly(cuda,
+                                                               monkeypatch):
+    """A prompt of more chunk keys than the chunk program keeps graphs:
+    the chunks with MAX_GRAPHS or more of the prompt still to run go
+    eagerly (the same kernels), the last MAX_GRAPHS are captured, and the
+    greedy tokens equal those of an engine that captures every key; the
+    chunk kernel counts L a chunk both ways."""
+    from repro_torch.configs import registry as treg
+    from repro_torch.models import transformer as ttf
+    from repro_torch.serving import (EngineConfig, LLMEngine, Request,
+                                     SamplingParams)
+    from repro_torch.serving import compiled as C
+
+    cfg = treg.get_smoke_config("llama3-8b", num_kv_heads=2,
+                                dtype=torch.bfloat16)
+    params = ttf.init_params(0, cfg, device=cuda)
+    econf = EngineConfig(max_batch=1, block_size=4, num_blocks=64,
+                         prefill_chunk_tokens=8, kv_dtype="int8")
+    prompt = np.random.default_rng(9).integers(
+        0, cfg.vocab_size, size=75).tolist()             # 10 chunks
+    fn = ppa.paged_prefill_chunk_attention_int8
+    outs = {}
+    for cap in (4, 64):
+        monkeypatch.setattr(C, "MAX_GRAPHS", cap)
+        eng = LLMEngine(cfg, params, econf, device=cuda)
+        req = Request(prompt=list(prompt),
+                      params=SamplingParams(max_new_tokens=6))
+        n0 = fn.launches
+        eng.submit([req])
+        eng.run()
+        torch.cuda.synchronize()
+        outs[cap] = req.output
+        ch = eng.compiled_prefill.chunk
+        chunks = eng.stats.prefill_chunks_run
+        assert chunks == 10
+        assert fn.launches - n0 == cfg.num_layers * chunks
+        assert ch.captures == min(cap, chunks)
+        assert ch.eager_calls == chunks - ch.captures
+    assert outs[4] == outs[64]
