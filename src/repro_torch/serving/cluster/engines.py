@@ -242,10 +242,21 @@ class DecodeEngine(LLMEngine):
         ran, so this step's shard deaths are visible), then prealloc →
         transfer → admit. A transfer that completes this step joins this
         very step's decode batch."""
+        tr = self.trace
+        if tr.on:
+            tr.open("step.handoff")
+            tr.open("handoff.prealloc")
         self._reset_faulted_transfers()
         self._advance_prealloc()
+        if tr.on:
+            tr.close()
         self._advance_transfer()
+        if tr.on:
+            tr.open("handoff.admit")
         self._advance_waiting()
+        if tr.on:
+            tr.close()
+            tr.close()
 
     def _stall_waiver(self) -> bool:
         """Handoffs in flight hold pool blocks while nothing runs yet — a
@@ -318,14 +329,20 @@ class DecodeEngine(LLMEngine):
         shared across the queue in FIFO order, so a large import cannot
         starve a small one forever — the head finishes first."""
         budget = self.disagg.transfer_blocks_per_step or None
+        tr = self.trace
         for h in self.transfer_q:
             if budget is not None and budget <= 0:
                 break
             step = h.blocks_in_flight if budget is None \
                 else min(budget, h.blocks_in_flight)
             stop = h.cursor + step
+            if tr.on:
+                tr.open("handoff.transfer", h.rid, step,
+                        h.payload.bytes_of_blocks(step))
             self.stats.kv_bytes_transferred += self.kv.write_handoff_blocks(
                 h.payload, h.mapping, h.cursor, stop)
+            if tr.on:
+                tr.close()
             h.cursor = stop
             if budget is not None:
                 budget -= step

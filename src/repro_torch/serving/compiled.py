@@ -91,6 +91,7 @@ from repro_torch.kernels import rwkv6_scan as _rwkv
 from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.models import transformer
 from repro_torch.serving.kvcache import gather_blocks
+from repro_torch.serving.trace import SpanRecorder
 
 MIN_WIDTH_BUCKET = 8
 MIN_PREFILL_BUCKET = 64
@@ -245,6 +246,7 @@ class GraphCache:
         self.capture_s = 0.0          # host seconds spent capturing
         self.replays = 0
         self.reserved_bytes = 0       # device memory reserved by captures
+        self.trace = SpanRecorder()   # the engine's, once it owns this
 
     @property
     def graphs(self) -> int:
@@ -293,7 +295,12 @@ class GraphCache:
         copy out of it is done), then one copy to the device buffer."""
         if entry.copied is None:
             entry.copied = torch.cuda.Event()
+        tr = self.trace
+        if tr.on:
+            tr.open("wait.fill")
         entry.copied.synchronize()
+        if tr.on:
+            tr.close()
         host = entry.host.numpy()
         off = 0
         for a in operands:

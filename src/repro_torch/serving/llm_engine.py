@@ -66,6 +66,7 @@ from repro_torch.serving.request import Request, SamplingParams, State
 from repro_torch.serving.sampler import request_generator, sample_per_request
 from repro_torch.serving.scheduler import RequestScheduler, make_policy
 from repro_torch.serving.stats import EngineStats
+from repro_torch.serving.trace import SpanRecorder
 
 
 class SchedulingStalled(RuntimeError):
@@ -96,6 +97,8 @@ class EngineEvent:
     rid: int
     step: int          # engine step counter when the event fired
     info: Dict = dataclasses.field(default_factory=dict)
+    # time.time() when it fired; events compare by kind, rid, step, info
+    t_s: float = dataclasses.field(default=0.0, compare=False)
 
 
 class RequestHandle:
@@ -184,6 +187,8 @@ class LLMEngine:
                                       prefix_sharing=econf.prefix_sharing)
         self.stats = EngineStats()
         self.stats.kv_pool_bytes_resident = self.kv.pool_bytes_resident
+        # host spans of each step (serving/trace.py), off until started
+        self.trace = SpanRecorder()
         self._decode_fn = self.placement.decode_fn()
         # the port of the reference's jax.jits: on the card the decode step
         # and the three prefill programs replay from CUDA graphs keyed by
@@ -199,6 +204,9 @@ class LLMEngine:
             self.compiled_prefill = CompiledPrefill(
                 cfg, params, self.kv, self.device, self._chunk_tokens,
                 pool=pool)
+            for g in (self.compiled,
+                      *self.compiled_prefill.programs().values()):
+                g.trace = self.trace
         # prefill compute is skipped only where the suffix-only prefill
         # equals the full one: MoE capacity dispatch couples a routing
         # group's tokens, so a moe model shares pool memory but recomputes
@@ -259,7 +267,8 @@ class LLMEngine:
         return list(self._events)
 
     def _emit(self, kind: str, rid: int, **info) -> None:
-        self._events.append(EngineEvent(kind, rid, self._step_no, info))
+        self._events.append(EngineEvent(kind, rid, self._step_no, info,
+                                        time.time()))
 
     @property
     def pool(self):
@@ -295,8 +304,16 @@ class LLMEngine:
         probes) runs first, so a shard death detected at the step boundary
         is recovered before this step's admission wave."""
         self._step_no += 1
+        tr = self.trace
+        if tr.on:
+            tr.open_step(self._step_no)
+            tr.open("step.fault_tick")
         self._fault_tick()
+        if tr.on:
+            tr.close()
         self._pre_admit_tick()
+        if tr.on:
+            tr.open("step.admit")
         while True:
             admitted = self.sched.admit()
             for req in admitted:
@@ -335,10 +352,20 @@ class LLMEngine:
                     f"({self.kv.num_free} free) and nothing is running — "
                     f"it can never be admitted; shrink the prompt or grow "
                     f"num_blocks" + self.kv._degraded_note())
+        if tr.on:
+            tr.close()
         self._prefill_chunk_iteration()
         self._note_recoveries()
+        if tr.on:
+            tr.open("step.decode")
         self._decode_iteration()
+        if tr.on:
+            tr.close()
+            tr.open("step.retire")
         self._retire()
+        if tr.on:
+            tr.close()
+            tr.close()                         # the step
 
     def run(self, max_steps: int = 10_000) -> EngineStats:
         steps = 0
@@ -487,7 +514,12 @@ class LLMEngine:
                       logits: torch.Tensor) -> None:
         """Refuse to sample from non-finite logits: name the offending
         requests and the engine step instead of emitting garbage tokens."""
+        tr = self.trace
+        if tr.on:
+            tr.open("wait.sample")
         finite = torch.isfinite(logits).all(dim=-1).cpu()
+        if tr.on:
+            tr.close()
         if bool(finite.all()):
             return
         bad = [r.rid for r, ok in zip(reqs, finite.tolist()) if not ok]
@@ -501,15 +533,26 @@ class LLMEngine:
     # prefill / recompute
     # ------------------------------------------------------------------
     def _prefill(self, req: Request) -> None:
+        tr = self.trace
+        if tr.on:
+            tr.open("step.admit", req.rid, len(req.prompt))
         logits = self._prefill_known(req.rid, req.prompt)
         tok = self._sample([req], logits)
         req.record_token(int(tok[0]))
+        if tr.on:
+            tr.close()
 
     def _recompute(self, req: Request) -> None:
         """Re-admission of a preempted request: rebuild its pool KV by
         re-prefilling prompt + generated tokens minus the still-unstored
         last one (the §5 recovery path). No token is sampled."""
-        self._prefill_known(req.rid, req.prompt + req.output[:-1])
+        known = req.prompt + req.output[:-1]
+        tr = self.trace
+        if tr.on:
+            tr.open("step.admit", req.rid, len(known))
+        self._prefill_known(req.rid, known)
+        if tr.on:
+            tr.close()
 
     def _prefill_known(self, rid: int, known: Sequence[int]) -> torch.Tensor:
         """One-shot prefill: compute and store pool KV for `known` tokens,
@@ -567,6 +610,8 @@ class LLMEngine:
         req = self.sched.next_prefill()
         if req is None:
             return
+        tr = self.trace
+        t0 = time.time_ns() if tr.on else 0
         rid = req.rid
         known = list(req.prompt) + req.output[:-1] if req.output \
             else req.prompt
@@ -591,6 +636,8 @@ class LLMEngine:
             if not self._free_blocks_for_chunk(req,
                                                grow + headroom + reserve):
                 return  # stall this iteration; decode continues
+        if tr.on:
+            tr.open("step.chunk", rid, cursor, target - cursor, start_ns=t0)
         chunk = list(known[cursor:target])
         if self.compiled_prefill is not None:
             blocks = self.kv.tables[rid][:cursor // self.kv.block_size]
@@ -616,6 +663,8 @@ class LLMEngine:
         if target >= total and not req.output:
             tok = self._sample([req], logits)
             req.record_token(int(tok[0]))
+        if tr.on:
+            tr.close()
 
     def _free_blocks_for_chunk(self, req: Request, need: int) -> bool:
         """Check `need` blocks are free before a chunk allocation. Chunk
@@ -646,20 +695,22 @@ class LLMEngine:
     # decode
     # ------------------------------------------------------------------
     def _decode_iteration(self) -> None:
-        running = [r for r in self.sched.running
-                   if r.state == State.RUNNING
-                   and self.sched.prefill_done(r.rid)]
-        if not running:
+        tr = self.trace
+        if tr.on:
+            tr.open("decode.prepare")
+        batch = self._decode_batch()
+        if tr.on:
+            tr.close()
+        if batch is None:
             return
-        running = self._resolve_pool_pressure(running)
-        if not running:
-            return
-        ids = [r.rid for r in running]
-        extra = self.placement.decode_extra_args(self.kv, ids)
-        tables, lens = self.kv.block_table_batch(ids)
+        running, ids, tables, lens, extra = batch
         tokens = [r.output[-1] for r in running]
         t0 = time.time()
+        if tr.on:
+            tr.open("decode.run", a=len(running))
         out = self._decode_validated(running, tokens, tables, lens, extra)
+        if tr.on:
+            tr.close()
         if out is None:
             # a shard died mid-decode: this iteration is aborted with
             # NOTHING committed (no append, no pool write, no sample); its
@@ -667,6 +718,8 @@ class LLMEngine:
             return
         logits, updates = out
         dt = time.time() - t0
+        if tr.on:
+            tr.open("decode.commit")
         # placement is the memory pool's job: append the input token's K/V
         # (allocator bookkeeping per sequence, then ONE batched scatter)
         positions = [int(n) for n in lens]
@@ -674,9 +727,15 @@ class LLMEngine:
             self.kv.append_token(r.rid)
         self.kv.write_tokens(ids, updates["k_new"], updates["v_new"],
                              positions)
+        if tr.on:
+            tr.close()
+            tr.open("decode.sample")
         toks = self._sample(running, logits)
         for i, r in enumerate(running):
             r.record_token(int(toks[i]))
+        if tr.on:
+            tr.close()
+            tr.open("decode.account")
         self.placement.log_step(len(running))
         self.stats.steps += 1
         self.stats.kv_pool_bytes_resident = self.kv.pool_bytes_resident
@@ -685,6 +744,24 @@ class LLMEngine:
         self.stats.tokens_generated += len(running)
         self.stats.batch_sizes.append(len(running))
         self.stats.step_times.append(dt)
+        if tr.on:
+            tr.close()
+
+    def _decode_batch(self):
+        """This step's decode batch, pool pressure resolved, and its host
+        operands: ``(running, ids, tables, lens, extra)``; ``None`` when
+        nothing decodes."""
+        running = [r for r in self.sched.running
+                   if r.state == State.RUNNING
+                   and self.sched.prefill_done(r.rid)]
+        if running:
+            running = self._resolve_pool_pressure(running)
+        if not running:
+            return None
+        ids = [r.rid for r in running]
+        extra = self.placement.decode_extra_args(self.kv, ids)
+        tables, lens = self.kv.block_table_batch(ids)
+        return running, ids, tables, lens, extra
 
     def _decode_validated(self, running: List[Request], tokens, tables,
                           lens, extra):
@@ -711,7 +788,13 @@ class LLMEngine:
             if self._fault is not None:
                 logits, shard = self._fault.filter_decode(self._step_no,
                                                           logits)
-            if bool(torch.isfinite(logits).all()):
+            tr = self.trace
+            if tr.on:
+                tr.open("wait.validate")
+            finite = bool(torch.isfinite(logits).all())
+            if tr.on:
+                tr.close()
+            if finite:
                 if suspect is not None:
                     self.health.clear(suspect)
                     self.stats.transient_faults_recovered += 1
@@ -775,9 +858,15 @@ class LLMEngine:
         self._guard_finite(reqs, logits)
         gens = [self._request_generator(r) if r.params.temperature > 0
                 else None for r in reqs]
-        return sample_per_request(logits, gens,
+        tr = self.trace
+        if tr.on:
+            tr.open("wait.sample")
+        toks = sample_per_request(logits, gens,
                                   [r.params.temperature for r in reqs],
                                   [r.params.top_k for r in reqs])
+        if tr.on:
+            tr.close()
+        return toks
 
     def _request_generator(self, req: Request) -> torch.Generator:
         # token i of this request always draws from stream index i; a
