@@ -18,7 +18,10 @@ Phases (any failure exits non-zero and prints no result line):
      widened shapes: glm4-9b's G = 16 (main context and 16K), G = 16 at
      hd = 64, kimi-k2's hd = 112 (G = 8 and 4), qwen3-moe's Hkv = 4 at
      G = 8, G = 16 at hd = 112 with window + sinks + softcap, POS_PAD at
-     G = 16;
+     G = 16 (bf16 at G >= 8 runs the tensor-core design);
+     ``python3 chip_smoke.py --row1`` builds the paged decode library
+     and times row 1 at glm4-9b's shapes on the tensor cores and on the
+     lanes (``row1_glm4``);
   3. paged chunk-prefill kernels vs their plain twin, bf16 and int8 (C=512
      at P=0 and P=1536, C=300 at P=1024, a gemma2-shaped masked case),
      with NaN values (bf16) or NaN scales (int8) in the pool blocks the
@@ -647,10 +650,8 @@ def decode_case(torch, pda, timer, *, B, Hkv, G, hd, bs, lens, seed,
     def kernel():
         return pda.paged_decode_attention(q, *pools, tables, cache_len, **kw)
     kernel_ms = timer.ms(kernel)
-    timing = {}
-    if library:
-        timing = dict(ms_held=timer.ms(kernel, hold=True),
-                      host_us=timer.host_us(kernel))
+    timing = dict(ms_held=timer.ms(kernel, hold=True),
+                  host_us=timer.host_us(kernel))
     plain_ms = timer.ms(lambda: pda.paged_decode_attention_plain(
         q, *pools, tables, cache_len, **kw), iters=5)
     library_ms = None
@@ -681,7 +682,8 @@ def decode_case(torch, pda, timer, *, B, Hkv, G, hd, bs, lens, seed,
                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                rows=rows, **timing,
                launch=pda.launch_geometry(B, Hkv, nb,
-                                          _cuda.sm_count(q.device), G))
+                                          _cuda.sm_count(q.device), G,
+                                          int8))
     return out
 
 
@@ -5210,6 +5212,139 @@ def phase22(torch, np, registry, transformer):
     return out, totals
 
 
+# ---------------------------------------------------------------------------
+# row 1 at glm4-9b's shapes, both designs (``--row1``)
+# ---------------------------------------------------------------------------
+# the paged decode library's kernels in nvcc's ptxas log: the CUDA-core
+# lanes (int8 pools; bf16 below G = 8) and the tensor-core design
+ROW1_MARKERS = [("paged_decode_kernelI", ("hd", "G")),
+                ("paged_decode_kernel_tcI", ("hd", "G"))]
+# one decode step of glm4-9b.lamina-decode: 128 sequences of kimi-conv
+# contexts handed over (~5K tokens: up to the 7,168-token prompt cap plus
+# up to 1,024 outputs); glm4-9b.chat-azure's: 64 of azure-conv's ~1.2K
+ROW1_LAMINA_LENS = (2048, 8192)
+ROW1_CHAT_LENS = (200, 2400)
+
+
+def lanes_variant(pda, _cuda):
+    """The bf16 entry of a copy of the paged decode source whose
+    tensor-core threshold lies above every G (every launch on the CUDA-core
+    lanes, as before the tensor-core design), built into ``build/`` and
+    loaded; and nvcc's ptxas log of the copy."""
+    import ctypes
+    src = (_cuda.CSRC / "paged_decode_attention.cu").read_text()
+    old = "constexpr int kTcMinG = 8;"
+    if old not in src:
+        raise AssertionError(f"{old!r} not in the paged decode source")
+    out_dir = _cuda.BUILD_DIR / "lanes_variant"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = out_dir / "paged_decode_attention_lanes.cu"
+    cu.write_text(src.replace(old, "constexpr int kTcMinG = 32;"))
+    so = out_dir / "paged_decode_attention_lanes.so"
+    res = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I",
+                          str(_cuda.CSRC), "-o", str(so), str(cu)],
+                         capture_output=True, text=True, timeout=900)
+    if res.returncode:
+        raise RuntimeError(f"lanes variant: nvcc exit {res.returncode}\n"
+                           f"{res.stdout}{res.stderr}")
+    fn = ctypes.CDLL(str(so)).paged_decode_attention_bf16
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + \
+        [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn, res.stdout + res.stderr
+
+
+def row1_glm4(torch, np, pda, _cuda, timer):
+    """Row 1 at glm4-9b's decode shapes (G = 16) and at G = 8, each timed
+    on the tensor-core design and on the lanes (``lanes_variant``), every
+    call checked against the plain twin with NaN in every row no mask
+    keeps: one head-partition worker of the lamina cell (B = 128, Hkv =
+    1), one block-partition shard's launch (B = 128, Hkv = 2, POS_PAD on
+    half the slots), the chat cell's homogeneous launch (B = 64, Hkv = 2),
+    phase 2's small glm4-9b and qwen3-moe shapes; then the tensor-core
+    design at the lamina shape with the plan aimed at 2, 4 and 8 CTAs an
+    SM. Returns {case: {design: decode_case's numbers}}."""
+    lanes_fn, lanes_log = lanes_variant(pda, _cuda)
+    for marker, names in ROW1_MARKERS:
+        for row in ptxas_summary(lanes_log, marker, names):
+            log(f"  ptxas lanes variant {marker[:-1]}: {row}")
+    rng = np.random.default_rng(32)
+    lamina = rng.integers(*ROW1_LAMINA_LENS, size=128).tolist()
+    lamina[0] = ROW1_LAMINA_LENS[1]
+    chat = rng.integers(*ROW1_CHAT_LENS, size=64).tolist()
+    lens2k = rng.integers(1, 2049, size=8).tolist()
+    lens2k[0] = 2048
+    cases = [
+        ("glm4-9b lamina head x2 B=128 Hkv=1 G=16", dict(
+            B=128, Hkv=1, G=16, lens=lamina)),
+        ("glm4-9b block x4 shard B=128 Hkv=2 G=16 POS_PAD", dict(
+            B=128, Hkv=2, G=16, lens=lamina, pos_pad=True, library=False)),
+        ("glm4-9b chat B=64 Hkv=2 G=16", dict(B=64, Hkv=2, G=16,
+                                              lens=chat)),
+        ("G=8 lamina-sized B=128 Hkv=2", dict(B=128, Hkv=2, G=8,
+                                              lens=lamina)),
+        ("glm4-9b B=8 Hkv=2 G=16", dict(B=8, Hkv=2, G=16, lens=lens2k)),
+        ("qwen3-moe B=8 Hkv=4 G=8", dict(B=8, Hkv=4, G=8, lens=lens2k))]
+    base_fn = pda._kernel_fn
+    out = {}
+    for name, kw in cases:
+        row = out[name] = {}
+        for design in ("tensor cores", "lanes", "tensor cores again"):
+            lanes = design == "lanes"
+            pda._kernel_fn = (lambda entry: lanes_fn) if lanes else base_fn
+            n_tc = pda.paged_decode_attention.tc_launches
+            try:
+                r = decode_case(torch, pda, timer, hd=128, bs=16, seed=7,
+                                **{"library": not lanes, **kw})
+            finally:
+                pda._kernel_fn = base_fn
+            if not lanes:
+                gate(pda.paged_decode_attention.tc_launches > n_tc,
+                     f"row 1 {name}: no tensor-core launch counted")
+            r.pop("launch")
+            row[design] = r
+            log(f"row 1 {name} [{design}]: {json.dumps(r)}")
+        torch.cuda.empty_cache()
+    name = cases[0][0]
+    sweep = out[name]["plan sweep (CTAs an SM: [held ms, splits])"] = {}
+    planned = pda.CTAS_PER_SM
+    try:
+        for per_sm in (2, 4, 8):
+            pda.CTAS_PER_SM = per_sm
+            r = decode_case(torch, pda, timer, hd=128, bs=16, seed=7,
+                            library=False, **cases[0][1])
+            sweep[per_sm] = [r["ms_held"], r["launch"]["splits"]]
+    finally:
+        pda.CTAS_PER_SM = planned
+    log(f"row 1 {name} plan sweep (CTAs an SM: [held ms, splits]): "
+        f"{json.dumps(sweep)}")
+    out["tensor-core HMMA"] = sass_count(pda._LIB_NAME, "HMMA",
+                                         "paged_decode_kernel_tc")
+    return out
+
+
+def row1_main() -> int:
+    """``chip_smoke.py --row1``: phase 1's build of the paged decode
+    library (ptxas lines of every instantiation), then ``row1_glm4`` (no
+    result line)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import paged_decode_attention as pda
+    log(card_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    _cuda.build([pda._LIB_NAME])
+    for marker, names in ROW1_MARKERS:
+        for row in ptxas_summary(_cuda.BUILD_LOG.get(pda._LIB_NAME, ""),
+                                 marker, names):
+            log(f"  ptxas {pda._LIB_NAME} {marker[:-1]}: {row}")
+    out = row1_glm4(torch, np, pda, _cuda, Timer(torch))
+    log(json.dumps({"row1": out}))
+    if FAILED:
+        raise AssertionError(f"{len(FAILED)} gate(s) failed: {FAILED}")
+    return 0
+
+
 def phase22_main() -> int:
     """``chip_smoke.py --phase22``: phase 1's build of the paged and dense
     decode libraries, then phase 22 alone (no result line)."""
@@ -6287,7 +6422,7 @@ def main() -> int:
                          ssm._LIB_NAME, rwkv._LIB_NAME])
     log(f"kernels built in {time.perf_counter() - t0:.1f} s wall "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})")
-    per_instance = {pda._LIB_NAME: [("paged_decode_kernelI", ("hd", "G"))],
+    per_instance = {pda._LIB_NAME: ROW1_MARKERS,
                     da._LIB_NAME: DENSE_MARKERS,
                     ssm._LIB_NAME: [("ssm_scan_kernelI", ("N", "W"))],
                     rwkv._LIB_NAME: [("rwkv6_scan_kernelI", ("P", "W"))]}
@@ -6685,6 +6820,8 @@ if __name__ == "__main__":
             sys.exit(phase23_main())
         if len(sys.argv) == 2 and sys.argv[1] == "--phase24":
             sys.exit(phase24_main())
+        if len(sys.argv) == 2 and sys.argv[1] == "--row1":
+            sys.exit(row1_main())
         sys.exit(main())
     except Exception:                       # report, no result line
         traceback.print_exc()

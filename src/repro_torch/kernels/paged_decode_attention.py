@@ -13,12 +13,17 @@ The kernel splits each sequence's table over S CTAs (:func:`plan_splits`,
 from shapes and the SM count only, so a call never waits for the card) and
 merges the splits' partials in the same launch: the wrapper hands it a
 workspace from the caching allocator and the stream's merge tickets (a
-captured CUDA graph's own, ``_cuda.private_tickets``).
+captured CUDA graph's own, ``_cuda.private_tickets``). Over a bf16 pool at
+G >= TENSOR_CORE_MIN_G the G query heads of a kv head run on the tensor
+cores (mma.sync, ``paged_decode_kernel_tc``), below it and over an int8
+pool on the CUDA-core lanes (``paged_decode_kernel``): the source picks
+the design from the group size, a shape, with no switch.
 
 :func:`paged_decode_attention` dispatches on the device of ``q``: a CPU
 tensor runs the plain twin, a CUDA tensor launches the kernel or raises.
 There is no other switch and no fallback. Each wrapper counts its own
-kernel's launches (``.launches``).
+kernel's launches (``.launches``); the bf16 wrapper also counts those that
+ran on the tensor cores (``.tc_launches``; the rest ran on the lanes).
 """
 from __future__ import annotations
 
@@ -41,6 +46,9 @@ _LIB_NAME = "paged_decode_attention"
 # CTAS_PER_SM CTAs on every SM, at most MAX_SPLITS splits of one (sequence,
 # kv head) (half as many at G = 16, whose merge keeps twice the (m, l)
 # pairs a split) and at most MAX_SLOTS_PER_SPLIT table slots in one split.
+# The tensor-core design fits 2 CTAs an SM at hd 128, so the same plan
+# gives it two rounds of CTAs, which at glm4-9b's decode shape on an H100
+# timed faster than aiming at 2 or 8.
 CTAS_PER_SM = 4
 MAX_SPLITS = 512
 MAX_SLOTS_PER_SPLIT = 512
@@ -48,6 +56,15 @@ MAX_BLOCK_SIZE = 1024
 # the instantiated shapes: head sizes and query heads per kv head
 HEAD_DIMS = (64, 112, 128)
 GROUPS = (1, 2, 4, 8, 16)
+# the least group size whose query heads run on the tensor cores over a
+# bf16 pool (kTcMinG of the CUDA source)
+TENSOR_CORE_MIN_G = 8
+
+
+def on_tensor_cores(G: int, int8: bool = False) -> bool:
+    """Whether a launch at group size G runs the tensor-core design: bf16
+    pools at G >= TENSOR_CORE_MIN_G (int8 pools always run the lanes)."""
+    return not int8 and G >= TENSOR_CORE_MIN_G
 
 
 def max_splits(G: int = 1) -> int:
@@ -102,13 +119,16 @@ def live_slots(nb: int, block_size: int, cache_len: int,
 
 
 def launch_geometry(B: int, Hkv: int, nb: int, sm_count: int,
-                    G: int = 1) -> dict:
+                    G: int = 1, int8: bool = False) -> dict:
     """The kernel's launch for these shapes: grid (x, y, z) = (S, Hkv, B),
-    splits fastest; CTAs, threads a CTA, splits and the most table slots
-    one split walks."""
+    splits fastest; CTAs, threads a CTA, splits, the most table slots
+    one split walks, and which design runs (tensor cores or CUDA-core
+    lanes)."""
     splits = plan_splits(B, Hkv, nb, sm_count, G)
     return dict(grid=[splits, Hkv, B], ctas=B * Hkv * splits, threads=128,
-                splits=splits, slots_per_split=-(-nb // splits) if nb else 0)
+                splits=splits, slots_per_split=-(-nb // splits) if nb else 0,
+                design="mma.sync m16n8k16" if on_tensor_cores(G, int8)
+                else "cuda-core lanes")
 
 
 def default_block_positions(B: int, nb: int, block_size: int,
@@ -272,6 +292,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
     out = _launch("paged_decode_attention_bf16", q, k_pool, v_pool, None,
                   None, block_tables, cache_len, **kw)
     paged_decode_attention.launches += 1
+    paged_decode_attention.tc_launches += on_tensor_cores(q.shape[2])
     return out
 
 
@@ -308,6 +329,7 @@ def paged_decode_attention_int8(q, k_pool, v_pool, k_scale, v_scale,
 
 
 paged_decode_attention.launches = 0        # bf16 kernel launches
+paged_decode_attention.tc_launches = 0     # ... of them on the tensor cores
 paged_decode_attention_int8.launches = 0   # int8 kernel launches
 
 

@@ -104,6 +104,11 @@ COUNTED = (_pda.paged_decode_attention, _pda.paged_decode_attention_int8,
            _ppa.paged_prefill_chunk_attention,
            _ppa.paged_prefill_chunk_attention_int8, _da.decode_attention,
            _da.decode_attention_int8, _ssm.ssm_scan, _rwkv.rwkv6_scan)
+# every launch counter a replay keeps: each wrapper's ``launches``, and the
+# paged decode wrapper's count of the launches that took its tensor-core
+# path
+COUNTERS = tuple((fn, "launches") for fn in COUNTED) + \
+    ((_pda.paged_decode_attention, "tc_launches"),)
 
 
 def _pow2_at_least(n: int, floor: int) -> int:
@@ -171,28 +176,28 @@ def pad_operands(tables: np.ndarray, extra: Sequence[np.ndarray],
 
 
 class LaunchDeltas:
-    """The launches one captured graph makes per replay, per counted
-    wrapper: recorded from the counters while it is captured (and taken
-    back out of them: a capture launches nothing), added by every
-    replay."""
+    """The launches one captured graph makes per replay, per launch counter
+    (:data:`COUNTERS`): recorded from the counters while it is captured
+    (and taken back out of them: a capture launches nothing), added by
+    every replay."""
 
     def __init__(self):
         self.delta: Dict = {}
 
     @contextlib.contextmanager
     def record(self):
-        before = {fn: fn.launches for fn in COUNTED}
+        before = {(fn, name): getattr(fn, name) for fn, name in COUNTERS}
         try:
             yield
         finally:
-            self.delta = {fn: fn.launches - n for fn, n in before.items()
-                          if fn.launches != n}
-            for fn, n in before.items():
-                fn.launches = n
+            self.delta = {key: getattr(*key) - n
+                          for key, n in before.items() if getattr(*key) != n}
+            for (fn, name), n in before.items():
+                setattr(fn, name, n)
 
     def replay(self) -> None:
-        for fn, n in self.delta.items():
-            fn.launches += n
+        for (fn, name), n in self.delta.items():
+            setattr(fn, name, getattr(fn, name) + n)
 
 
 @dataclasses.dataclass

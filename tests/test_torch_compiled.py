@@ -38,7 +38,8 @@ from repro_torch.models import transformer as ttf
 from repro_torch.serving import (EngineConfig, LLMEngine, PagedKVCache,
                                  Request, SamplingParams, State,
                                  make_placement)
-from repro_torch.serving.compiled import (COUNTED, CompiledDecodeStep,
+from repro_torch.serving.compiled import (COUNTED, COUNTERS,
+                                          CompiledDecodeStep,
                                           LaunchDeltas, pad_operands,
                                           width_bucket)
 from repro_torch.serving.placement import device_operands
@@ -162,26 +163,35 @@ def test_decode_extra_args_host_side_matches_reference(llama, partition,
 def test_replay_launch_accounting_adds_what_an_eager_step_adds():
     fn, fn8 = pda.paged_decode_attention, pda.paged_decode_attention_int8
     assert fn in COUNTED and fn8 in COUNTED and len(set(COUNTED)) == 8
+    assert (fn, "tc_launches") in COUNTERS
 
     def step():        # stands in for a 3-layer step, 2 workers a layer
         fn8.launches += 3 * 2
+        fn.launches += 3            # ... and 3 bf16 launches at G = 16
+        fn.tc_launches += 3
 
-    start = {f: f.launches for f in COUNTED}
+    def counts():
+        return {key: getattr(*key) for key in COUNTERS}
+
+    start = counts()
     step()                                      # the eager first call
-    eager = {f: f.launches - start[f] for f in COUNTED}
+    eager = {k: n - start[k] for k, n in counts().items()}
     deltas = LaunchDeltas()
     with deltas.record():
         step()                                  # the capture
-    assert {f: f.launches - start[f] for f in COUNTED} == eager
+    assert {k: n - start[k] for k, n in counts().items()} == eager
     for _ in range(2):
         deltas.replay()
-    assert {f: f.launches - start[f] for f in COUNTED} == \
-        {f: 3 * n for f, n in eager.items()}
+    assert {k: n - start[k] for k, n in counts().items()} == \
+        {k: 3 * n for k, n in eager.items()}
+    assert fn.tc_launches - start[(fn, "tc_launches")] == 9
     with pytest.raises(RuntimeError):           # a failed capture counts 0
         with LaunchDeltas().record():
             step()
             raise RuntimeError("capture failed")
-    assert fn8.launches - start[fn8] == 18 and fn.launches == start[fn]
+    assert fn8.launches - start[(fn8, "launches")] == 18
+    assert fn.launches - start[(fn, "launches")] == 9
+    assert fn.tc_launches - start[(fn, "tc_launches")] == 9
 
 
 def test_compiled_step_is_never_built_on_the_cpu(llama):

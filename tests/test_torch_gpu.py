@@ -401,6 +401,170 @@ def test_cuda_widened_decode_matches_plain(cuda, int8, G, hd, bs, nb, sw,
                                          sinks, cap, pos_pad, half)
 
 
+# The bf16 entry's tensor-core design (G >= pda.TENSOR_CORE_MIN_G: the G
+# query heads of a kv head are the M rows of mma.sync) at G = 8 and 16, hd
+# 64, 112 and 128: block size 16 (a 16-row chunk is one block) and 1, 12,
+# 24, 32 and 1024, the largest (chunks straddle blocks, or a block holds
+# several), a window with sinks and a softcap, block positions with
+# POS_PAD, the head partition's pool slice; NaN in every row no mask keeps
+# (_split_inputs).
+TC_DECODE_CASES = [  # G, hd, bs, nb, window, sinks, softcap, pos_pad, half
+    (16, 128, 16, 128, 0, 0, 0.0, False, False),
+    (8, 128, 16, 96, 0, 0, 0.0, False, True),
+    (16, 64, 12, 70, 0, 0, 0.0, False, False),
+    (8, 64, 16, 64, 300, 4, 30.0, False, False),
+    (16, 112, 16, 96, 500, 4, 50.0, True, False),
+    (8, 112, 24, 40, 0, 0, 0.0, True, True),
+    (16, 128, 1, 700, 33, 2, 0.0, False, False),
+    (16, 128, 12, 50, 77, 3, 30.0, True, False),
+    (8, 128, 32, 33, 0, 0, 0.0, False, False),
+    (16, 64, 1024, 3, 0, 0, 0.0, False, False),
+    (8, 128, 1024, 4, 1500, 4, 0.0, True, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,hd,bs,nb,sw,sinks,cap,pos_pad,half",
+                         TC_DECODE_CASES)
+def test_cuda_tc_decode_matches_plain(cuda, G, hd, bs, nb, sw, sinks, cap,
+                                      pos_pad, half):
+    """The tensor-core design against the twin at the lanes' tolerance,
+    every call counted as a tensor-core launch."""
+    fn = pda.paged_decode_attention
+    assert pda.on_tensor_cores(G)
+    n, n_tc = fn.launches, fn.tc_launches
+    test_cuda_split_decode_matches_plain(cuda, False, G, hd, bs, nb, sw,
+                                         sinks, cap, pos_pad, half)
+    assert fn.launches - n == 2 and fn.tc_launches - n_tc == 2
+
+
+def _tc_inputs(cuda, seed, B, Hkv, G, hd, bs, nb):
+    """Random bf16 pools and q on the card, a table of distinct blocks a
+    sequence, ragged lengths (the first full); every row past a
+    sequence's cache_len is NaN."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    NB = B * nb + 1
+    kp = torch.randn((Hkv, NB, bs, hd), generator=gen,
+                     device=cuda).bfloat16()
+    vp = torch.randn(kp.shape, generator=gen, device=cuda).bfloat16()
+    lens = torch.randint(1, nb * bs + 1, (B,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    lens[0] = nb * bs
+    table = (torch.randperm(NB - 1, generator=gen, device=cuda)[:B * nb]
+             + 1).reshape(B, nb).int()
+    pos = torch.arange(nb * bs, device=cuda).reshape(nb, bs)
+    stale = torch.zeros((NB, bs), dtype=torch.bool, device=cuda)
+    stale[table.long()] = pos[None] >= lens[:, None, None]
+    kp[:, stale] = float("nan")
+    vp[:, stale] = float("nan")
+    q = torch.randn((B, Hkv, G, hd), generator=gen, device=cuda).bfloat16()
+    return q, kp, vp, table, lens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,Hkv,nb,plan", [(16, 4, 8, "one"),
+                                           (8, 2, 6, "one"),
+                                           (16, 1, 600, "cap"),
+                                           (8, 1, 600, "cap")])
+def test_cuda_tc_decode_one_split_and_the_cap(cuda, G, Hkv, nb, plan):
+    """The tensor-core design with one split (enough (sequence, kv head)
+    pairs to give every SM its CTAs: the CTA writes o itself) and at the
+    split cap (one sequence cut into max_splits(G) splits of 2-3 slots)."""
+    sm = _cuda.sm_count(cuda)
+    B = -(-pda.CTAS_PER_SM * sm // Hkv) if plan == "one" else 1
+    splits = pda.plan_splits(B, Hkv, nb, sm, G)
+    assert splits == (1 if plan == "one" else pda.max_splits(G))
+    q, kp, vp, table, lens = _tc_inputs(cuda, G + nb, B, Hkv, G, 128, 16, nb)
+    fn = pda.paged_decode_attention
+    n_tc = fn.tc_launches
+    got = fn(q, kp, vp, table, lens, return_partials=True)
+    want = pda.paged_decode_attention_plain(q, kp, vp, table, lens,
+                                            return_partials=True)
+    assert fn.tc_launches == n_tc + 1
+    for a, b, tol in zip(got, want, (8e-3, 1e-3, 1e-3)):
+        assert bool(torch.isfinite(a.float()).all())
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,hd,bs", [(16, 128, 16), (8, 112, 12)])
+def test_cuda_tc_decode_graph_replay_equals_eager(cuda, G, hd, bs):
+    """A CUDA graph of the tensor-core design, captured with tickets of its
+    own, replays bit for bit equal to the eager call, twice in a row, and
+    leaves its tickets at 0."""
+    B, Hkv, nb = 4, 2, 90
+    q, kp, vp, table, lens = _tc_inputs(cuda, G + hd, B, Hkv, G, hd, bs, nb)
+    assert pda.plan_splits(B, Hkv, nb, _cuda.sm_count(cuda), G) > 1
+    eager = [t.clone() for t in pda.paged_decode_attention(
+        q, kp, vp, table, lens, return_partials=True)]
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    graph = torch.cuda.CUDAGraph()
+    with _cuda.private_tickets(cuda, side.cuda_stream, B * Hkv) as tickets:
+        with torch.cuda.graph(graph, stream=side):
+            out = pda.paged_decode_attention(q, kp, vp, table, lens,
+                                             return_partials=True)
+    for _ in range(2):
+        for t in out:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, eager):
+            assert torch.equal(a, b)
+    assert int(tickets.abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_cuda_decode_path_counter_names_the_design_that_ran(cuda):
+    """bf16 calls at G <= 4 and int8 calls at any G run the lanes and
+    count no tensor-core launch; an engine at G = 16 (head partition)
+    serving through graphs counts every decode launch as a tensor-core
+    one, replays included, and emits the tokens of its eager steps."""
+    from repro_torch.configs import registry as treg
+    from repro_torch.models import transformer as ttf
+    from repro_torch.serving import (EngineConfig, LLMEngine, Request,
+                                     SamplingParams)
+
+    fn, fn8 = pda.paged_decode_attention, pda.paged_decode_attention_int8
+    q, kp, vp, table, lens = _tc_inputs(cuda, 3, 2, 2, 4, 128, 16, 20)
+    n, n_tc = fn.launches, fn.tc_launches
+    fn(q, kp, vp, table, lens)
+    assert (fn.launches - n, fn.tc_launches - n_tc) == (1, 0)
+    q, kp, vp, table, lens = _tc_inputs(cuda, 4, 2, 2, 16, 128, 16, 20)
+    kpool, ks = _int8_pool(torch.nan_to_num(kp.float()).cpu().numpy(), cuda)
+    vpool, vs = _int8_pool(torch.nan_to_num(vp.float()).cpu().numpy(), cuda)
+    n8 = fn8.launches
+    fn(q, kpool, vpool, table, lens, k_scale=ks, v_scale=vs)
+    assert fn8.launches == n8 + 1 and fn.tc_launches == n_tc
+
+    cfg = treg.get_smoke_config("glm4-9b", num_heads=32, num_kv_heads=2,
+                                dtype=torch.bfloat16)
+    assert cfg.num_heads // cfg.num_kv_heads == 16
+    params = ttf.init_params(0, cfg, device=cuda)
+    econf = EngineConfig(max_batch=4, block_size=16, num_blocks=64,
+                         placement="attention_pool", partition="head",
+                         attention_workers=2, prefill_chunk_tokens=32)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=k).tolist()
+               for k in (40, 21, 9)]
+    outs = {}
+    for compiled in (True, False):
+        eng = LLMEngine(cfg, params, econf, device=cuda)
+        if not compiled:
+            eng.compiled = None           # the eager step, as the reference
+        reqs = [Request(prompt=list(x), params=SamplingParams(
+            max_new_tokens=24)) for x in prompts]
+        n, n_tc = fn.launches, fn.tc_launches
+        eng.submit(reqs)
+        eng.run()
+        torch.cuda.synchronize()
+        outs[compiled] = [r.output for r in reqs]
+        want = cfg.num_layers * 2 * len(eng.stats.batch_sizes)
+        assert fn.launches - n == fn.tc_launches - n_tc == want
+        if compiled:
+            assert eng.compiled.replays > 0
+    assert outs[True] == outs[False]
+
+
 # the chunk kernel at hd = 112 (tiles at 128, TMA zero-fills the last 16
 # columns): every packing up to G = 16, boxes of 1, 2, 4, 8 and 64 rows,
 # masks, the first chunk of a prompt; and G = 16 at hd 64 and 128
